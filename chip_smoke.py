@@ -1,0 +1,456 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (densepose_tpu_torch) on one CUDA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA device and the CUDA
+toolkit. Phases, each of which fails the run:
+
+1. device: the card's name and power limit (torch and nvidia-smi);
+2. build: every CUDA kernel of the port, one nvcc per source in parallel,
+   with the ptxas register / shared-memory report;
+3. kernel checks at the flagship's main-path shapes (a 480x640 frame padded
+   to 800x1088): each kernel against its plain PyTorch version on the card,
+   K1 (NMS) exactly, K2 (ROIAlign) within 1e-5 absolute on unit-scale
+   features; times from CUDA events, and the least time the card could take
+   (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, H100 SXM data
+   sheet at 700 W);
+4. end to end: DensePosePredictor(densepose_rcnn_R_50_FPN_s1x) at full width
+   with random weights from seed 0 answers a warm-up request and then
+   distinct synthetic frames; outputs finite and of the expected shapes, and
+   the kernels' launch counters show the requests went through K1 and K2;
+   then one more request under torch.profiler gives the device time of each
+   stage range the model marks, and the device's idle share;
+5. reference: a narrowed flagship on the card agrees with the same model on
+   the CPU (plain versions; tests/test_torch_*.py hold those against the JAX
+   package).
+
+Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
+line ``{"ok": true, "device": {...}}``. Exits non-zero, before that line,
+when there is no CUDA device or any phase fails.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
+H100_FP32_PER_S = 67e12      # fp32 outside the tensor cores, H100 SXM data sheet
+FLAGSHIP = "densepose_rcnn_R_50_FPN_s1x"
+FRAME_HW = (480, 640)
+TIMED_REQUESTS = 3
+K2_TOL = 1e-5
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def cuda_ms(fn, reps, warmup=2):
+    import torch
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_FP32_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def main_path_shapes(cfg):
+    from densepose_tpu_torch.models.rcnn import compute_resize, pad_to_divisible
+    _, h1, w1 = compute_resize(*FRAME_HW, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    hp, wp = pad_to_divisible(h1, w1)
+    levels = {f"p{s}": (hp // 2 ** s, wp // 2 ** s) for s in (2, 3, 4, 5)}
+    levels["p6"] = (-(-levels["p5"][0] // 2), -(-levels["p5"][1] // 2))
+    return (hp, wp), levels
+
+
+def clustered_boxes(rng, k, hw):
+    """k boxes in clusters of 5 jittered copies, as RPN proposals around an
+    object are: many IoUs near the thresholds."""
+    n = -(-k // 5)
+    ctr = rng.rand(n, 2) * (hw[1], hw[0])
+    wh = np.exp(rng.uniform(np.log(16), np.log(512), size=(n, 2)))
+    jitter = 1 + 0.15 * rng.randn(n, 5, 4)
+    b = np.concatenate([ctr - wh / 2, ctr + wh / 2], 1)[:, None, :] * jitter
+    b = b.reshape(-1, 4)[:k]
+    return np.concatenate([np.minimum(b[:, :2], b[:, 2:]), np.maximum(b[:, :2], b[:, 2:])],
+                          1).astype(np.float32)
+
+
+def nms_work(boxes, valid, keep, thr, classes):
+    """Bytes and operations greedy NMS needs on these inputs: each live box j
+    is tested against every kept pivot before it, up to the one that
+    suppresses it (13 fp32 operations per test)."""
+    import torch
+    from densepose_tpu_torch.ops.boxes import pairwise_iou
+    p, k = valid.shape
+    iou = pairwise_iou(boxes, boxes)                         # (P, i, j)
+    idx = torch.arange(k, device=boxes.device)
+    sup = (iou > thr) & keep[:, :, None] & (idx[:, None] < idx[None, :])
+    if classes is not None:
+        sup &= classes[:, :, None] == classes[:, None, :]
+    first = torch.where(sup.any(1), sup.float().argmax(1), idx.expand(p, k) - 1)
+    pivots = torch.cumsum(keep.int(), 1).gather(1, first.clamp(min=0)) * (first >= 0)
+    tests = int((pivots * valid).sum())
+    nbytes = p * k * (16 + 1 + 1 + (4 if classes is not None else 0))
+    return nbytes, 13 * tests
+
+
+def roi_align_work(feats, boxes, levels, scales, out_hw, ratio, aligned):
+    """Bytes and operations ROIAlign needs on these inputs: every feature
+    pixel some in-bound sample taps, read once, plus boxes, levels and the
+    output; 12 operations per in-bound sample and channel, 1 per output."""
+    import torch
+    from densepose_tpu_torch.ops.roi_align import _axis_samples, _roi_geometry
+    c = feats[0].shape[0]
+    hs = torch.tensor([f.shape[1] for f in feats], device=boxes.device)
+    ws = torch.tensor([f.shape[2] for f in feats], device=boxes.device)
+    offs = torch.cumsum(hs * ws, 0) - hs * ws
+    lv = levels.long()
+    sc = torch.tensor(scales, dtype=torch.float32, device=boxes.device)[lv]
+    sh, bh, sw, bw = _roi_geometry(boxes, sc, out_hw, aligned)
+    ylo, yhi, _, yok = _axis_samples(sh, bh, out_hw[0], ratio, hs[lv].float())
+    xlo, xhi, _, xok = _axis_samples(sw, bw, out_hw[1], ratio, ws[lv].float())
+    ok = (yok[:, :, None] & xok[:, None, :]).reshape(-1)
+    taps = []
+    for y in (ylo, yhi):
+        for x in (xlo, xhi):
+            flat = offs[lv][:, None, None] + y[:, :, None] * ws[lv][:, None, None] + x[:, None, :]
+            taps.append(flat.reshape(-1)[ok])
+    pixels = torch.unique(torch.cat(taps)).numel()
+    m = boxes.shape[0]
+    out = m * out_hw[0] * out_hw[1] * c
+    nbytes = pixels * c * 4 + m * 20 + out * 4
+    return nbytes, 12 * int(ok.sum()) * c + out
+
+
+def kernel_checks(torch, cfg, report, dev):
+    from densepose_tpu_torch.ops import nms, roi_align
+    (hp, wp), levels = main_path_shapes(cfg)
+    rng = np.random.RandomState(0)
+
+    # K1 at its two main-path sites, plus a classed problem
+    rpn_k = cfg.MODEL.RPN.PRE_NMS_TOPK_TEST
+    counts = [min(h * w * 3, rpn_k) for h, w in levels.values()]
+    sites = [
+        ("rpn", len(counts), rpn_k, counts, cfg.MODEL.RPN.NMS_THRESH, False),
+        ("box_stage", 1, cfg.MODEL.RPN.POST_NMS_TOPK_TEST * cfg.MODEL.ROI_HEADS.NUM_CLASSES,
+         None, cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST, False),
+        ("classed", 1, 1000, None, 0.5, True),
+    ]
+    k1 = []
+    for site, p, k, valid_counts, thr, classed in sites:
+        b = torch.from_numpy(np.stack([clustered_boxes(rng, k, (hp, wp)) for _ in range(p)])).to(dev)
+        v = torch.from_numpy(rng.rand(p, k) > 0.05).to(dev)
+        if valid_counts is not None:
+            v &= torch.arange(k, device=dev)[None] < torch.tensor(valid_counts, device=dev)[:, None]
+        c = torch.from_numpy(rng.randint(0, 3, size=(p, k)).astype(np.int32)).to(dev) if classed else None
+        got = nms.nms_keep_cuda(b, v, thr, c)
+        want = nms.nms_keep_plain(b, v, thr, c)
+        torch.cuda.synchronize()
+        mismatches = int((got != want).sum())
+        check(mismatches == 0, f"K1 {site}: {mismatches} keep flags differ from the plain version")
+        check(0 < int(want.sum()) < int(v.sum()), f"K1 {site}: degenerate test (nothing suppressed)")
+        ms = cuda_ms(lambda: nms.nms_keep_cuda(b, v, thr, c), reps=50)
+        plain_ms = cuda_ms(lambda: nms.nms_keep_plain(b, v, thr, c), reps=5, warmup=1)
+        bound_ms, bound_by = bound(*nms_work(b, v, want, thr, c))
+        k1.append({"site": site, "shape": [p, k], "kept": int(want.sum()), "max_abs_err": 0.0,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"K1 nms_keep_cuda {site} P={p} K={k} iou>{thr}: exact ({int(want.sum())} kept); "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+
+    # K2 at its two main-path sites: the 4-level box pooler, the DensePose pooler
+    c = cfg.MODEL.FPN.OUT_CHANNELS
+    pyramid = [torch.randn(c, h, w, device=dev) for f, (h, w) in levels.items() if f != "p6"]
+    scales = [1 / 4, 1 / 8, 1 / 16, 1 / 32]
+    box_m = cfg.MODEL.RPN.POST_NMS_TOPK_TEST
+    boxes = torch.from_numpy(clustered_boxes(rng, box_m, (hp, wp))).to(dev)
+    boxes = torch.stack([boxes[:, 0].clamp(0, wp), boxes[:, 1].clamp(0, hp),
+                         boxes[:, 2].clamp(0, wp), boxes[:, 3].clamp(0, hp)], 1)
+    lv = roi_align.assign_boxes_to_levels(boxes, 2, 5)
+    dp = cfg.MODEL.ROI_DENSEPOSE_HEAD
+    res_b, res_d = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION, dp.POOLER_RESOLUTION
+    det = boxes[:cfg.TEST.DETECTIONS_PER_IMAGE].contiguous()
+    sites = [
+        ("box_pooler", pyramid, boxes, lv, scales, (res_b, res_b),
+         cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO),
+        ("densepose_pooler", pyramid[:1], det,
+         torch.zeros(det.shape[0], dtype=torch.int32, device=dev), scales[:1], (res_d, res_d),
+         dp.POOLER_SAMPLING_RATIO),
+    ]
+    k2 = []
+    for site, feats, b, l, sc, out_hw, ratio in sites:
+        got = roi_align.roi_align_cuda(feats, b, l, sc, out_hw, ratio, False)
+        want = roi_align.roi_align_plain(feats, b, l, sc, out_hw, ratio, False)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= K2_TOL, f"K2 {site}: max abs error {err} > {K2_TOL}")
+        check(float(want.abs().max()) > 0.1, f"K2 {site}: degenerate test (all zero)")
+        ms = cuda_ms(lambda: roi_align.roi_align_cuda(feats, b, l, sc, out_hw, ratio, False),
+                     reps=20)
+        plain_ms = cuda_ms(lambda: roi_align.roi_align_plain(feats, b, l, sc, out_hw, ratio,
+                                                             False), reps=3, warmup=1)
+        bound_ms, bound_by = bound(*roi_align_work(feats, b, l, sc, out_hw, ratio, False))
+        k2.append({"site": site, "shape": [b.shape[0], c, *out_hw], "max_abs_err": err,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"K2 roi_align_cuda {site} M={b.shape[0]} {out_hw} C={c} levels={len(feats)}: "
+              f"max abs err {err:.3e} (tol {K2_TOL}); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.6f} ms ({bound_by})")
+
+    main = {"nms_keep_cuda": k1[:2], "roi_align_cuda": k2}
+    for name, entries, route_src, replaces in [
+        ("nms_keep_cuda", k1, "densepose_tpu_torch/csrc/nms.cu",
+         "densepose_tpu/ops/pallas/nms_kernel.py:30"),
+        ("roi_align_cuda", k2, "densepose_tpu_torch/csrc/roi_align.cu",
+         "densepose_tpu/ops/pallas/roi_align_kernel.py:54"),
+    ]:
+        per_request = main[name]  # one launch per main-path site and request
+        report[name] = {
+            "name": name, "route": "cuda", "source": route_src, "replaces": replaces,
+            "check": "exact" if name == "nms_keep_cuda" else f"max_abs_err<={K2_TOL}",
+            "launches": None,
+            "max_abs_err": max(e["max_abs_err"] for e in entries),
+            "ms": sum(e["ms"] for e in per_request),
+            "plain_ms": sum(e["plain_ms"] for e in per_request),
+            "bound_ms": sum(e["bound_ms"] for e in per_request),
+            "bound_by": max(per_request, key=lambda e: e["bound_ms"])["bound_by"],
+            "library_ms": None,
+            "sites": entries,
+        }
+
+
+def frames(seed, n):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        img = rng.randint(0, 256, size=(*FRAME_HW, 3)).astype(np.uint8)
+        # a smooth blob so the frames are not pure noise
+        yy, xx = np.mgrid[:FRAME_HW[0], :FRAME_HW[1]]
+        cy, cx = rng.rand(2) * FRAME_HW
+        blob = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * 80.0 ** 2))
+        out.append(np.clip(img * 0.3 + blob[..., None] * 180, 0, 255).astype(np.uint8))
+    return out
+
+
+def end_to_end(torch, report, dev):
+    from densepose_tpu_torch.model_zoo import get_config
+    from densepose_tpu_torch.ops.nms import nms_keep_cuda
+    from densepose_tpu_torch.ops.roi_align import roi_align_cuda
+    from densepose_tpu_torch.predictor import DensePosePredictor
+
+    cfg = get_config(FLAGSHIP)
+    t0 = time.perf_counter()
+    pred = DensePosePredictor(cfg, seed=0, device=dev)
+    print(f"e2e: {FLAGSHIP} built with random weights (seed 0) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    warm, *timed = frames(1, 1 + TIMED_REQUESTS)
+    pred(warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    nms_keep_cuda.launches = 0
+    roi_align_cuda.launches = 0
+    outs, lat = [], []
+    for img in timed:
+        t0 = time.perf_counter()
+        out = pred(img)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    launches = {"nms_keep_cuda": nms_keep_cuda.launches, "roi_align_cuda": roi_align_cuda.launches}
+
+    n_req = len(timed)
+    for name, per_request in (("nms_keep_cuda", 2), ("roi_align_cuda", 2)):
+        check(launches[name] == per_request * n_req,
+              f"{name}: {launches[name]} launches for {n_req} requests, "
+              f"expected {per_request} per request")
+        report[name]["launches"] = launches[name]
+    d = cfg.TEST.DETECTIONS_PER_IMAGE
+    dp = cfg.MODEL.ROI_DENSEPOSE_HEAD
+    heat = dp.POOLER_RESOLUTION * 2 * dp.UP_SCALE  # deconv stride 2, then the upsample
+    for i, out in enumerate(outs):
+        res = pred.numpy_outputs(out)
+        n = res["num_instances"]
+        check(n >= 1, f"request {i}: no detections")
+        check(out["pred_boxes"].shape == (d, 4), f"request {i}: pred_boxes {out['pred_boxes'].shape}")
+        for k in ("coarse_segm", "fine_segm", "u", "v"):
+            v = res[f"pred_densepose_{k}"]
+            check(v.shape[0] == n and v.shape[2:] == (heat, heat),
+                  f"request {i}: pred_densepose_{k} shape {v.shape}")
+        check(res["pred_densepose_coarse_segm"].shape[1] == 2, "coarse_segm channels")
+        check(res["pred_densepose_u"].shape[1] == cfg.MODEL.ROI_DENSEPOSE_HEAD.NUM_PATCHES + 1,
+              "u channels")
+        for k, v in res.items():
+            if isinstance(v, np.ndarray) and v.dtype.kind == "f":
+                check(np.isfinite(v).all(), f"request {i}: non-finite {k}")
+        print(f"e2e: request {i}: {lat[i]:.2f} ms, num_instances {n}, "
+              f"SIUV {tuple(res['pred_densepose_u'].shape)}")
+    print(f"e2e: {n_req} requests of {FRAME_HW[0]}x{FRAME_HW[1]} frames: latency ms "
+          f"{', '.join(f'{x:.2f}' for x in lat)} (median {np.median(lat):.2f}); "
+          f"kernel launches {launches}; max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    breakdown(torch, pred, timed[0], float(np.median(lat)))
+
+
+# the profiler ranges GeneralizedRCNN.forward runs its stages in (rcnn.py,
+# roi_heads.py::densepose_stage_forward)
+STAGES = ("preprocess", "backbone", "rpn", "box_stage", "postprocess", "decoder",
+          "densepose_pooler", "densepose_head", "densepose_predictor", "densepose_pad")
+
+
+def breakdown(torch, pred, img, latency_ms):
+    """One more request under torch.profiler: the device time of each stage
+    range, and the device's idle share, both over the profiled request's wall
+    time and over ``latency_ms`` (an unprofiled request's). Prints "not
+    measured" when the profiler sees no device activity.
+
+    A device event belongs to the stage whose range holds the host call that
+    launched it (matched by correlation id): the profiler links kernels only
+    to PyTorch ops, and K1 and K2 are launched through ctypes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("request"):
+            pred(img)
+            torch.cuda.synchronize()
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    wall_ms = next(e for e in host if e.name == "request").time_range.elapsed_us() / 1e3
+    # kernels and copies; the profiler also mirrors each range on the device
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name not in STAGES + ("request",)]
+    if not device:
+        print("breakdown: not measured (the profiler saw no device activity)")
+        return
+    launched_at = {e.id: e.time_range.start for e in host if e.name.startswith("cu")}
+    ranges = [(e.time_range.start, e.time_range.end, e.name) for e in host if e.name in STAGES]
+    stages = dict.fromkeys(STAGES, 0.0)
+    outside = 0.0
+    for e in device:
+        t = launched_at.get(e.id)
+        stage = next((n for s, end, n in ranges if t is not None and s <= t <= end), None)
+        ms = e.time_range.elapsed_us() / 1e3
+        if stage is None:
+            outside += ms
+        else:
+            stages[stage] += ms
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    busy_ms = busy_us / 1e3
+    parts = ", ".join(f"{s} {ms:.3f}" for s, ms in stages.items())
+    print(f"breakdown (device ms per stage, torch.profiler, {len(device)} device events): "
+          f"{parts}; outside the ranges {outside:.3f}; device busy {busy_ms:.3f} of "
+          f"{wall_ms:.3f} ms profiled wall (idle share {1 - busy_ms / wall_ms:.4f}); of an "
+          f"unprofiled request's {latency_ms:.3f} ms: idle share {1 - busy_ms / latency_ms:.4f}")
+
+
+def reference_check(torch, dev):
+    """A narrowed flagship, card against CPU: the same detections (count and
+    classes exact, boxes and scores within 1e-3) and SIUV maps (1e-3)."""
+    from densepose_tpu_torch.config import get_cfg
+    from densepose_tpu_torch.model_zoo import _base_fpn
+    from densepose_tpu_torch.predictor import DensePosePredictor
+
+    cfg = get_cfg()
+    _base_fpn(cfg)
+    for key, value in [
+            ("MODEL.RESNETS.STEM_OUT_CHANNELS", 8), ("MODEL.RESNETS.RES2_OUT_CHANNELS", 16),
+            ("MODEL.RESNETS.WIDTH_PER_GROUP", 4), ("MODEL.FPN.OUT_CHANNELS", 16),
+            ("MODEL.ANCHOR_GENERATOR.SIZES", [[16], [32], [64], [128], [256]]),
+            ("MODEL.RPN.PRE_NMS_TOPK_TEST", 80), ("MODEL.RPN.POST_NMS_TOPK_TEST", 60),
+            ("MODEL.ROI_HEADS.SCORE_THRESH_TEST", 0.3), ("MODEL.ROI_BOX_HEAD.FC_DIM", 32),
+            ("MODEL.ROI_DENSEPOSE_HEAD.POOLER_RESOLUTION", 8),
+            ("MODEL.ROI_DENSEPOSE_HEAD.NUM_STACKED_CONVS", 2),
+            ("MODEL.ROI_DENSEPOSE_HEAD.CONV_HEAD_DIM", 16),
+            ("MODEL.ROI_DENSEPOSE_HEAD.DECODER_NUM_CLASSES", 16),
+            ("MODEL.ROI_DENSEPOSE_HEAD.DECODER_CONV_DIMS", 16),
+            ("INPUT.MIN_SIZE_TEST", 64), ("INPUT.MAX_SIZE_TEST", 96)]:
+        *path, leaf = key.split(".")
+        node = cfg
+        for p in path:
+            node = node[p]
+        node[leaf] = value
+    cfg.freeze()
+    img = (np.random.RandomState(21).rand(64, 64, 3) * 255).astype(np.uint8)
+    gpu = DensePosePredictor(cfg, seed=5, device=dev).predict_numpy(img)
+    cpu = DensePosePredictor(cfg, seed=5, device="cpu").predict_numpy(img)
+    n = cpu["num_instances"]
+    check(gpu["num_instances"] == n >= 1, f"reference: {gpu['num_instances']} vs {n} detections")
+    # near-equal random-weight scores may swap order: match detections by box
+    order = [np.lexsort(r["pred_boxes"].T[::-1]) for r in (gpu, cpu)]
+    err = 0.0
+    for k in ("pred_boxes", "scores", "pred_classes", "pred_densepose_coarse_segm",
+              "pred_densepose_fine_segm", "pred_densepose_u", "pred_densepose_v"):
+        a, b = gpu[k][order[0]], cpu[k][order[1]]
+        e = float(np.abs(a.astype(np.float64) - b).max())
+        check(e <= (0 if k == "pred_classes" else 1e-3), f"reference: {k} differs by {e}")
+        err = max(err, e)
+    print(f"reference: narrowed flagship on the card == on the CPU: {n} detections, "
+          f"max abs difference {err:.3e} (tol 1e-3)")
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        sys.exit("chip_smoke: torch is not installed")
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device")
+    try:
+        from densepose_tpu_torch.model_zoo import get_config
+        from densepose_tpu_torch.ops import cuda_build
+    except ImportError as e:
+        sys.exit(f"chip_smoke: run from the root of a densepose-tpu checkout ({e})")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+          f"{torch.cuda.device_count()} device(s)")
+    print(f"nvidia-smi: {smi_line}")
+
+    t0 = time.perf_counter()
+    built = cuda_build.build()
+    print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s (parallel nvcc)")
+    for name, b in built.items():
+        print(f"build: {name}: {b.seconds:.1f} s -> {b.path.name}")
+        for line in b.log.splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "smem")):
+                print(f"  ptxas {name}: {line.strip()}")
+
+    report = {}
+    cfg = get_config(FLAGSHIP)
+    dev = torch.device("cuda")
+    kernel_checks(torch, cfg, report, dev)
+    end_to_end(torch, report, dev)
+    reference_check(torch, dev)
+
+    print(json.dumps({"kernels": list(report.values())}))
+    print(f"nvidia-smi: {smi_line}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

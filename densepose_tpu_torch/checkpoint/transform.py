@@ -1,0 +1,136 @@
+"""Weight transforms for the PyTorch port (host-side numpy, run once at load).
+
+* ``random_torch_state``: random reference-layout params for tests and runs
+  without a checkpoint; the same numpy stream as the JAX package's
+  ``densepose_tpu/checkpoint/transform.py::random_torch_state`` for the same
+  spec and seed, so both packages build identical weights from one seed.
+* ``fold_frozen_bn``: FrozenBN collapsed into the preceding conv's kernel and
+  bias (the port of ``densepose_tpu/ops/norms.py::fold_frozen_bn`` on OIHW
+  kernels). The port always folds: its backbone convs carry a bias and no
+  norm module.
+* ``fold_state``: reference state dict -> the port's module state dict.
+* ``params_from_jax``: the JAX package's param dict -> the port's module
+  state dict, undoing the layout transforms of
+  ``densepose_tpu/checkpoint/transform.py::torch_state_to_jax``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from .spec import ParamSpec, Spec
+
+StateDict = Dict[str, np.ndarray]
+
+RANDOM_SCALE = 0.03  # std of random conv/linear weights, as in the JAX package
+
+
+def random_torch_state(spec: Spec, seed: int = 0) -> StateDict:
+    """Random torch-layout params (no checkpoint needed).
+
+    Norm statistics must be plausible, not merely random: a running_var drawn
+    from randn is negative half the time and the FrozenBN fold's sqrt then
+    poisons the net with NaNs. A norm weight is any ``.norm.weight`` or any
+    ``.weight`` whose prefix also owns a ``running_var``. The draw order is
+    the spec's order, which keeps the stream identical to the JAX package's."""
+    rng = np.random.RandomState(seed)
+    out: StateDict = {}
+    for name, ps in spec.items():
+        if name.endswith("running_var"):
+            out[name] = (rng.rand(*ps.shape).astype(np.float32) * 0.5 + 0.5)
+        elif name.endswith(".norm.weight") or (
+                name.endswith(".weight")
+                and name[:-len("weight")] + "running_var" in spec):
+            out[name] = (rng.rand(*ps.shape).astype(np.float32) * 0.5 + 0.75)
+        else:
+            out[name] = (rng.randn(*ps.shape) * RANDOM_SCALE).astype(np.float32)
+    return out
+
+
+def fold_frozen_bn(
+    conv_w: np.ndarray,
+    conv_b: Optional[np.ndarray],
+    bn_weight: np.ndarray,
+    bn_bias: np.ndarray,
+    bn_mean: np.ndarray,
+    bn_var: np.ndarray,
+    eps: float = 1e-5,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Fold FrozenBN into a conv whose kernel is OIHW (out = first axis).
+
+    Returns (w', b') with conv(x, w') + b' == BN(conv(x, w) + b), computed in
+    float64 on the host; elementwise the same arithmetic as the JAX package's
+    HWIO fold, so both give bit-identical float32 weights."""
+    scale = bn_weight.astype(np.float64) / np.sqrt(bn_var.astype(np.float64) + eps)
+    shift = bn_bias.astype(np.float64) - bn_mean.astype(np.float64) * scale
+    w = conv_w.astype(np.float64) * scale[:, None, None, None]
+    b = shift if conv_b is None else conv_b.astype(np.float64) * scale + shift
+    return w.astype(np.float32), b.astype(np.float32)
+
+
+def fold_state(state: StateDict, spec: Spec) -> StateDict:
+    """Reference state dict -> the port's module state dict: every conv with a
+    ``.norm.running_mean`` in the spec gets its FrozenBN folded into a weight
+    and a bias. Missing spec entries are zero-filled (norm scales and
+    variances one-filled), as the reference's strict=False load does."""
+
+    def get(name: str, ps: ParamSpec) -> np.ndarray:
+        if name in state:
+            a = np.asarray(state[name], dtype=np.float32)
+            if tuple(a.shape) != tuple(ps.shape):
+                raise ValueError(f"{name}: checkpoint shape {a.shape} != spec {ps.shape}")
+            return a
+        if name.endswith(".norm.running_var") or name.endswith(".norm.weight"):
+            return np.ones(ps.shape, dtype=np.float32)
+        return np.zeros(ps.shape, dtype=np.float32)
+
+    frozen_bn_convs = {name[: -len(".norm.running_mean")]
+                       for name in spec if name.endswith(".norm.running_mean")}
+    out: StateDict = {}
+    handled = set()
+    for name, ps in spec.items():
+        if name in handled:
+            continue
+        base = name[: -len(".weight")] if name.endswith(".weight") else None
+        if base in frozen_bn_convs and ps.kind == "conv":
+            bias_name = f"{base}.bias"
+            b = None
+            if bias_name in spec:
+                b = get(bias_name, spec[bias_name])
+                handled.add(bias_name)
+            norm = {}
+            for sfx in ("weight", "bias", "running_mean", "running_var"):
+                n = f"{base}.norm.{sfx}"
+                norm[sfx] = get(n, spec[n])
+                handled.add(n)
+            out[name], out[bias_name] = fold_frozen_bn(
+                get(name, ps), b, norm["weight"], norm["bias"],
+                norm["running_mean"], norm["running_var"])
+            continue
+        out[name] = get(name, ps)
+    return out
+
+
+def params_from_jax(jax_params: Dict[str, np.ndarray]) -> StateDict:
+    """The JAX package's folded param dict -> the port's module state dict.
+
+    Inverts ``torch_state_to_jax``'s layouts: HWIO -> OIHW for convs, the
+    spatially flipped forward-conv form (kh, kw, Cin, Cout) -> (Cin, Cout, kh,
+    kw) for the chart predictor's ConvTranspose2d kernels (the only 4-D
+    weights under ``densepose_predictor.``), (in, out) -> (out, in) for
+    linears. FrozenBN must already be folded (``TPU.FOLD_FROZEN_BN``)."""
+    out: StateDict = {}
+    for name, a in jax_params.items():
+        if ".norm." in name:
+            raise ValueError(f"{name}: unfolded FrozenBN; the port takes folded params")
+        a = np.asarray(a, dtype=np.float32)
+        if a.ndim == 4 and ".densepose_predictor." in name:
+            a = np.transpose(a, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+        elif a.ndim == 4:
+            a = np.transpose(a, (3, 2, 0, 1))
+        elif a.ndim == 2:
+            a = a.T
+        out[name] = np.ascontiguousarray(a)
+    return out

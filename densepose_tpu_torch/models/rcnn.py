@@ -1,0 +1,217 @@
+"""GeneralizedRCNN for the PyTorch port (port of densepose_tpu/models/rcnn.py).
+
+One ``nn.Module`` whose state_dict keys are the reference's names with
+FrozenBN folded (``backbone.bottom_up.stem.conv1.weight``,
+``proposal_generator.rpn_head.conv.weight``, ``roi_heads.box_head.fc1.weight``
+...). Inference runs eagerly, stage by stage:
+
+1. ``preprocess``: the uint8 resize with torch's scale-factor rule, rounded
+   and clipped (the reference resizes the uint8 tensor), normalized and
+   zero-padded to a multiple of 32 — bit-identical to the JAX package;
+2. the ResNet-FPN backbone;
+3. ``rpn_forward`` (NMS through kernel K1);
+4. ``box_stage_forward`` (ROIAlign through K2, NMS through K1);
+5. the box postprocess (detector_postprocess, postprocessing.py:11-61) and
+   ``pack_detections``;
+6. the DensePose stage on a detection-count bucket picked on the host
+   (one device-to-host sync), zero-padded back to D slots.
+
+Each stage runs inside a ``torch.profiler.record_function`` range of its
+name, so a profile of one request reads the device time of every stage.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+from torch.profiler import record_function
+
+from ..checkpoint.spec import Spec
+from ..ops.boxes import clip_boxes, nonempty_boxes
+from ..ops.resize import resize_image
+from .backbones import backbone_spec, build_backbone
+from .roi_heads import ROIHeads, box_stage_forward, densepose_stage_forward, roi_heads_spec
+from .rpn import RPNHead, rpn_forward, rpn_spec
+
+SIZE_DIVISIBILITY = 32  # FPN max stride (fpn.py:116)
+
+
+def compute_resize(h: int, w: int, min_size: int, max_size: int) -> Tuple[float, int, int]:
+    """DefaultPredictor resize rule (defaults.py:85-89): one scale k, output
+    floor(h*k) x floor(w*k)."""
+    k = min(min_size / min(h, w), max_size / max(h, w))
+    return k, int(h * k), int(w * k)
+
+
+def pad_to_divisible(h: int, w: int) -> Tuple[int, int]:
+    d = SIZE_DIVISIBILITY
+    return (int(math.ceil(h / d) * d), int(math.ceil(w / d) * d))
+
+
+def _check_supported(cfg) -> None:
+    if cfg.MODEL.META_ARCHITECTURE != "GeneralizedRCNN":
+        raise NotImplementedError(cfg.MODEL.META_ARCHITECTURE)
+    t = cfg.TPU
+    if t.COMPUTE_DTYPE != "float32":
+        raise NotImplementedError(f"compute dtype {t.COMPUTE_DTYPE!r} is not ported yet")
+    unported = [k for k in ("BUCKETED_DENSEPOSE", "DEVICE_POSTPROCESS", "EMIT_CONFIDENCES",
+                            "INT8_HEAD", "INT8_BACKBONE", "INT8_RPN", "INT8_PREDICTOR",
+                            "GEOMETRY_BUCKET_QUANT") if t[k]]
+    if unported:
+        raise NotImplementedError(f"TPU.{unported[0]} is not ported yet")
+
+
+class ProposalGenerator(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.rpn_head = RPNHead(cfg)
+
+
+class GeneralizedRCNN(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.register_buffer("pixel_mean", torch.tensor(cfg.MODEL.PIXEL_MEAN,
+                                                        dtype=torch.float32), persistent=False)
+        self.register_buffer("pixel_std", torch.tensor(cfg.MODEL.PIXEL_STD,
+                                                       dtype=torch.float32), persistent=False)
+        self.backbone = build_backbone(cfg)
+        self.proposal_generator = ProposalGenerator(cfg)
+        self.roi_heads = ROIHeads(cfg)
+
+    def spec(self) -> Spec:
+        """Reference-layout (unfolded) parameter spec, in the JAX package's
+        order: checkpoint alignment and random init read it."""
+        spec = backbone_spec(self.cfg)
+        spec.update(rpn_spec(self.cfg))
+        spec.update(roi_heads_spec(self.cfg))
+        return spec
+
+    def preprocess(self, image_u8: torch.Tensor):
+        """image_u8: (H0, W0, 3) uint8 BGR on the model's device. Returns
+        (padded image (1, 3, Hp, Wp) f32, (h1, w1) resized size, (Hp, Wp))."""
+        h0, w0 = image_u8.shape[0], image_u8.shape[1]
+        k, h1, w1 = compute_resize(h0, w0, self.cfg.INPUT.MIN_SIZE_TEST,
+                                   self.cfg.INPUT.MAX_SIZE_TEST)
+        hp, wp = pad_to_divisible(h1, w1)
+        x = image_u8
+        if self.cfg.INPUT.FORMAT == "RGB":  # defaults.py:81-83
+            x = x.flip(-1)
+        y = resize_image(x, (h1, w1), scale=(k, k))
+        # the reference resizes the uint8 tensor: round-to-nearest-even, clip
+        y = torch.round(y).clamp(0, 255)
+        y = (y - self.pixel_mean) / self.pixel_std
+        y = torch.nn.functional.pad(y.permute(2, 0, 1), (0, wp - w1, 0, hp - h1))
+        return y[None].contiguous(), (h1, w1), (hp, wp)
+
+    def forward_stage1(self, image_u8: torch.Tensor):
+        """Preprocess -> backbone -> RPN -> box stage -> box postprocess.
+        Returns (result dict without DensePose, features, boxes_net): the
+        detection boxes in network (resized) coordinates feed the DensePose
+        pooler."""
+        cfg = self.cfg
+        h0, w0 = int(image_u8.shape[0]), int(image_u8.shape[1])
+        with record_function("preprocess"):
+            x, (h1, w1), (hp, wp) = self.preprocess(image_u8)
+        with record_function("backbone"):
+            features = self.backbone(x)
+        with record_function("rpn"):
+            proposals, _, pvalid = rpn_forward(self.proposal_generator.rpn_head, features,
+                                               (hp, wp), cfg)
+        with record_function("box_stage"):
+            boxes_net, scores, classes, dvalid = box_stage_forward(
+                self.roi_heads, features, proposals, pvalid, cfg)
+
+        with record_function("postprocess"):
+            # detector_postprocess: rescale to the original resolution, drop
+            # empty boxes, clip with the correct (H, W) order
+            sx, sy = w0 / w1, h0 / h1
+            boxes = boxes_net * torch.tensor([sx, sy, sx, sy], dtype=torch.float32,
+                                             device=boxes_net.device)
+            valid = dvalid & nonempty_boxes(boxes)
+            boxes = clip_boxes(boxes, (h0, w0))
+            result = {
+                "image_size": torch.tensor([h0, w0], dtype=torch.int32, device=boxes.device),
+                "pred_boxes": boxes,
+                "scores": scores,
+                "pred_classes": classes,
+                "valid": valid,
+                "num_instances": valid.sum().int(),
+            }
+            result["det_packed"] = self.pack_detections(result)
+        return result, features, boxes_net
+
+    @staticmethod
+    def pack_detections(result: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One (D+1, 7) f32 array with every small detection output. Rows
+        0..D-1: [x1, y1, x2, y2, score, class, valid]; the last row:
+        [num_instances, H, W, 0, 0, 0, 0]. Every value is exact in f32."""
+        packed = torch.cat([
+            result["pred_boxes"].float(),
+            result["scores"].float()[:, None],
+            result["pred_classes"].float()[:, None],
+            result["valid"].float()[:, None],
+        ], dim=1)
+        header = torch.cat([result["num_instances"].float()[None],
+                            result["image_size"].float(),
+                            packed.new_zeros((4,))])
+        return torch.cat([packed, header[None]], dim=0)
+
+    def forward_densepose(self, features: Dict[str, torch.Tensor],
+                          boxes_net: torch.Tensor) -> Dict[str, torch.Tensor]:
+        dp = densepose_stage_forward(self.roi_heads, features, boxes_net, self.cfg)
+        return {f"pred_densepose_{k}": v for k, v in dp.items()}
+
+    def forward_densepose_switched(self, features: Dict[str, torch.Tensor],
+                                   boxes_net: torch.Tensor,
+                                   num_valid: int) -> Dict[str, torch.Tensor]:
+        """The DensePose stage on the smallest bucket in {8, 32, D} covering
+        ``num_valid`` (valid detections are a score-sorted prefix), outputs
+        zero-padded to D slots: the JAX package's ``lax.switch`` branches,
+        chosen on the host."""
+        d = boxes_net.shape[0]
+        b = densepose_bucket(num_valid, d)
+        dp = self.forward_densepose(features, boxes_net[:b])
+        if d == b:
+            return dp
+        with record_function("densepose_pad"):
+            return {k: torch.cat([v, v.new_zeros((d - b,) + tuple(v.shape[1:]))])
+                    for k, v in dp.items()}
+
+    def forward(self, image_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Full single-image inference: fixed-size slots + num_instances,
+        DensePose maps NCHW (D, C, HEATMAP, HEATMAP)."""
+        result, features, boxes_net = self.forward_stage1(image_u8)
+        if self.cfg.MODEL.DENSEPOSE_ON:
+            if self.cfg.TPU.SWITCHED_DENSEPOSE:
+                # the one device-to-host sync of the request
+                dp = self.forward_densepose_switched(features, boxes_net,
+                                                     int(result["num_instances"]))
+            else:
+                dp = self.forward_densepose(features, boxes_net)
+            result.update(dp)
+        return result
+
+
+def densepose_bucket(num_valid: int, d: int) -> int:
+    """The smallest of the buckets {8, 32, d} that holds ``num_valid``."""
+    buckets = [b for b in (8, 32) if b < d] + [d]
+    return buckets[sum(int(num_valid > x) for x in buckets[:-1])]
+
+
+def build_model(cfg) -> GeneralizedRCNN:
+    return GeneralizedRCNN(cfg)
+
+
+def image_tensor(image_bgr_u8: np.ndarray, device) -> torch.Tensor:
+    """(H, W, 3) uint8 numpy frame -> a uint8 tensor on ``device``."""
+    image = np.asarray(image_bgr_u8)
+    if image.ndim != 3 or image.shape[2] != 3 or image.dtype != np.uint8:
+        raise ValueError(f"expected an (H, W, 3) uint8 image, got {image.dtype} "
+                         f"{image.shape}")
+    return torch.from_numpy(np.ascontiguousarray(image)).to(device)

@@ -1,0 +1,136 @@
+"""ResNet bottom-up (port of densepose_tpu/models/resnet.py), NCHW.
+
+BasicStem (resnet.py:325-354) and BottleneckBlock (:95-205, R50/101/152)
+with ``stride_in_1x1`` and res5 dilation. FrozenBN is folded into the convs
+at load time (checkpoint/transform.py), so every conv carries a bias and the
+blocks are conv -> ReLU chains on cuDNN. Module names mirror the reference
+state_dict (``stem.conv1``, ``res2.0.conv1``, ...).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..checkpoint.spec import Spec, conv_spec
+
+NUM_BLOCKS_PER_STAGE = {
+    18: [2, 2, 2, 2],
+    34: [3, 4, 6, 3],
+    50: [3, 4, 6, 3],
+    101: [3, 4, 23, 3],
+    152: [3, 8, 36, 3],
+}
+
+
+def _stage_channels(cfg) -> List[Tuple[int, int, int]]:
+    """[(in, bottleneck, out)] per stage (build_resnet_backbone,
+    resnet.py:602-689)."""
+    bottleneck = cfg.MODEL.RESNETS.NUM_GROUPS * cfg.MODEL.RESNETS.WIDTH_PER_GROUP
+    in_ch = cfg.MODEL.RESNETS.STEM_OUT_CHANNELS
+    out_ch = cfg.MODEL.RESNETS.RES2_OUT_CHANNELS
+    chans = []
+    for _ in range(4):
+        chans.append((in_ch, bottleneck, out_ch))
+        in_ch = out_ch
+        out_ch *= 2
+        bottleneck *= 2
+    return chans
+
+
+def _check_supported(cfg) -> None:
+    if cfg.MODEL.RESNETS.DEPTH < 50:
+        raise NotImplementedError("BasicBlock ResNets (R18/R34) are not ported yet")
+    if cfg.MODEL.RESNETS.NORM != "FrozenBN":
+        raise NotImplementedError(f"norm {cfg.MODEL.RESNETS.NORM!r}: the port folds "
+                                  "FrozenBN only")
+    if cfg.MODEL.RESNETS.NUM_GROUPS != 1:
+        raise NotImplementedError("grouped (ResNeXt) bottlenecks are not ported yet")
+    if any(cfg.MODEL.RESNETS.DEFORM_ON_PER_STAGE):
+        raise NotImplementedError("deformable conv blocks are nonfunctional in the "
+                                  "reference (resnet.py:255-259)")
+
+
+def resnet_spec(cfg, prefix: str = "backbone.bottom_up") -> Spec:
+    """Reference-layout parameter spec, in the JAX package's order."""
+    _check_supported(cfg)
+    norm = cfg.MODEL.RESNETS.NORM
+    spec: Spec = {}
+    conv_spec(spec, f"{prefix}.stem.conv1", 3, cfg.MODEL.RESNETS.STEM_OUT_CHANNELS,
+              7, bias=False, norm=norm)
+    blocks = NUM_BLOCKS_PER_STAGE[cfg.MODEL.RESNETS.DEPTH]
+    for stage_idx, ((cin, cb, cout), n) in enumerate(zip(_stage_channels(cfg), blocks)):
+        name = f"{prefix}.res{stage_idx + 2}"
+        for i in range(n):
+            b_in = cin if i == 0 else cout
+            conv_spec(spec, f"{name}.{i}.conv1", b_in, cb, 1, bias=False, norm=norm)
+            conv_spec(spec, f"{name}.{i}.conv2", cb, cb, 3, bias=False, norm=norm)
+            conv_spec(spec, f"{name}.{i}.conv3", cb, cout, 1, bias=False, norm=norm)
+            if b_in != cout:
+                conv_spec(spec, f"{name}.{i}.shortcut", b_in, cout, 1, bias=False,
+                          norm=norm)
+    return spec
+
+
+class BottleneckBlock(nn.Module):
+    def __init__(self, cin: int, cb: int, cout: int, stride: int, stride_in_1x1: bool,
+                 dilation: int):
+        super().__init__()
+        s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        self.conv1 = nn.Conv2d(cin, cb, 1, stride=s1)
+        self.conv2 = nn.Conv2d(cb, cb, 3, stride=s3, padding=dilation, dilation=dilation)
+        self.conv3 = nn.Conv2d(cb, cout, 1)
+        self.shortcut = nn.Conv2d(cin, cout, 1, stride=stride) if cin != cout else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.conv1(x))
+        out = F.relu(self.conv2(out))
+        out = self.conv3(out)
+        shortcut = self.shortcut(x) if self.shortcut is not None else x
+        return F.relu(out + shortcut)
+
+
+class BasicStem(nn.Module):
+    def __init__(self, cout: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, cout, 7, stride=2, padding=3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool2d(F.relu(self.conv1(x)), kernel_size=3, stride=2, padding=1)
+
+
+class ResNet(nn.Module):
+    """x: (N, 3, H, W) normalized input -> {"res2": ..., "res5": ...} NCHW."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        _check_supported(cfg)
+        r = cfg.MODEL.RESNETS
+        self.out_features = tuple(r.OUT_FEATURES)
+        self.stem = BasicStem(r.STEM_OUT_CHANNELS)
+        num_stages = max({"res2": 1, "res3": 2, "res4": 3, "res5": 4}[f]
+                         for f in self.out_features)
+        blocks = NUM_BLOCKS_PER_STAGE[r.DEPTH]
+        self.stage_names = []
+        for stage_idx, (cin, cb, cout) in enumerate(_stage_channels(cfg)[:num_stages]):
+            dilation = r.RES5_DILATION if stage_idx == 3 else 1
+            first_stride = 1 if stage_idx == 0 or (stage_idx == 3 and dilation == 2) else 2
+            stage = nn.Sequential(*[
+                BottleneckBlock(cin if i == 0 else cout, cb, cout,
+                                first_stride if i == 0 else 1, r.STRIDE_IN_1X1, dilation)
+                for i in range(blocks[stage_idx])])
+            name = f"res{stage_idx + 2}"
+            self.add_module(name, stage)
+            self.stage_names.append(name)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = self.stem(x)
+        outputs = {}
+        for name in self.stage_names:
+            x = getattr(self, name)(x)
+            if name in self.out_features:
+                outputs[name] = x
+        return outputs

@@ -1,0 +1,363 @@
+"""ROI heads: the box path and the chart DensePose path, static shapes (port
+of densepose_tpu/models/roi_heads.py), NCHW.
+
+* FastRCNNConvFCHead (2 FC) + FastRCNNOutputLayers + fast_rcnn_inference:
+  7x7 ROIAlign over p2..p5 (kernel K2), the NCHW flatten into fc1, softmax
+  in fp32, the reference's discarded clip, NMS (kernel K1), top-D.
+* The Panoptic-FPN style Decoder in its per-chain form (each chain upsamples
+  on its own, the reference's order).
+* The DensePose pooler: single-level ROIAlign on the decoder map (K2).
+* DensePoseV1ConvXHead and the chart predictor's four separate deconv heads
+  with a 2x bilinear upsample.
+
+Boxes, scores and valid masks keep the JAX package's fixed slots.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from ..checkpoint.spec import Spec, conv_spec, conv_transpose_spec, linear_spec
+from ..ops.boxes import apply_deltas
+from ..ops.nms import batched_nms_mask, nms_mask
+from ..ops.resize import resize_bilinear
+from ..ops.roi_align import assign_boxes_to_levels, roi_align_multilevel, roi_align_single
+from .backbones import feature_strides
+from .rpn import top_k
+
+_NEG = -1e30
+_CHART_HEADS = ("ann_index_lowres", "index_uv_lowres", "u_lowres", "v_lowres")
+
+
+def _check_supported(cfg) -> None:
+    h = cfg.MODEL.ROI_DENSEPOSE_HEAD
+    if cfg.MODEL.ROI_HEADS.NAME == "Res5ROIHeads":
+        raise NotImplementedError("Res5ROIHeads is not ported yet")
+    if cfg.MODEL.ROI_BOX_HEAD.NUM_CONV:
+        raise NotImplementedError("box-head convs are not ported yet")
+    if cfg.MODEL.DENSEPOSE_ON:
+        if h.NAME != "DensePoseV1ConvXHead":
+            raise NotImplementedError(f"DensePose head {h.NAME!r} is not ported yet")
+        if not h.DECODER_ON or h.DECODER_NORM:
+            raise NotImplementedError("only the norm-free decoder DensePose pooler is "
+                                      "ported yet")
+        if h.PREDICTOR_NAME == "DensePoseEmbeddingPredictor":
+            raise NotImplementedError("CSE predictors are not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# specs (the JAX package's order, so random init draws the same stream)
+# ---------------------------------------------------------------------------
+
+def box_head_spec(cfg, prefix: str = "roi_heads") -> Spec:
+    spec: Spec = {}
+    res = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
+    fc_dim = cfg.MODEL.ROI_BOX_HEAD.FC_DIM
+    flat = cfg.MODEL.FPN.OUT_CHANNELS * res * res
+    for k in range(cfg.MODEL.ROI_BOX_HEAD.NUM_FC):
+        linear_spec(spec, f"{prefix}.box_head.fc{k + 1}", flat if k == 0 else fc_dim, fc_dim)
+    num_classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    nreg = 1 if cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG else num_classes
+    linear_spec(spec, f"{prefix}.box_predictor.cls_score", fc_dim, num_classes + 1)
+    linear_spec(spec, f"{prefix}.box_predictor.bbox_pred", fc_dim, nreg * 4)
+    return spec
+
+
+def _decoder_chains(cfg):
+    """(feature, conv indices, upsamples) per decoder chain (roi_head.py:22-79):
+    module indices 0, 2, 4 ... when the chain upsamples, 0 otherwise."""
+    common = cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_COMMON_STRIDE
+    strides = feature_strides(cfg)
+    chains = []
+    for f in cfg.MODEL.ROI_HEADS.IN_FEATURES:
+        length = max(1, int(math.log2(strides[f]) - math.log2(common)))
+        has_up = strides[f] != common
+        chains.append((f, [k * 2 if has_up else k for k in range(length)], has_up))
+    return chains
+
+
+def decoder_spec(cfg, prefix: str = "roi_heads.decoder") -> Spec:
+    spec: Spec = {}
+    dims = cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_CONV_DIMS
+    in_ch = cfg.MODEL.FPN.OUT_CHANNELS
+    for f, idxs, _ in _decoder_chains(cfg):
+        for k, idx in enumerate(idxs):
+            conv_spec(spec, f"{prefix}.{f}.{idx}", in_ch if k == 0 else dims, dims, 3)
+    conv_spec(spec, f"{prefix}.predictor", dims,
+              cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_NUM_CLASSES, 1)
+    return spec
+
+
+def densepose_head_spec(cfg, prefix: str = "roi_heads.densepose_head") -> Spec:
+    h = cfg.MODEL.ROI_DENSEPOSE_HEAD
+    spec: Spec = {}
+    d = h.DECODER_NUM_CLASSES
+    for i in range(h.NUM_STACKED_CONVS):
+        conv_spec(spec, f"{prefix}.body_conv_fcn{i + 1}", d, h.CONV_HEAD_DIM,
+                  h.CONV_HEAD_KERNEL)
+        d = h.CONV_HEAD_DIM
+    return spec
+
+
+def _predictor_heads(cfg) -> List[Tuple[str, int]]:
+    """(name, out channels) of every chart-predictor deconv, in spec order.
+    The WC confidence deconvs are declared so WC checkpoints load; like the
+    reference, the forward computes only the four SIUV heads."""
+    h = cfg.MODEL.ROI_DENSEPOSE_HEAD
+    patches = h.NUM_PATCHES + 1
+    heads = [("ann_index_lowres", h.NUM_COARSE_SEGM_CHANNELS),
+             ("index_uv_lowres", patches), ("u_lowres", patches), ("v_lowres", patches)]
+    if h.PREDICTOR_NAME == "DensePoseChartWithConfidencePredictor":
+        if h.UV_CONFIDENCE.ENABLED:
+            heads.append(("sigma_2_lowres", patches))
+            if h.UV_CONFIDENCE.TYPE == "indep_aniso":
+                heads += [("kappa_u_lowres", patches), ("kappa_v_lowres", patches)]
+        if h.SEGM_CONFIDENCE.ENABLED:
+            heads += [("fine_segm_confidence_lowres", 1),
+                      ("coarse_segm_confidence_lowres", 1)]
+    return heads
+
+
+def densepose_predictor_spec(cfg, prefix: str = "roi_heads.densepose_predictor") -> Spec:
+    h = cfg.MODEL.ROI_DENSEPOSE_HEAD
+    spec: Spec = {}
+    for name, cout in _predictor_heads(cfg):
+        conv_transpose_spec(spec, f"{prefix}.{name}", h.CONV_HEAD_DIM, cout,
+                            h.DECONV_KERNEL)
+    return spec
+
+
+def roi_heads_spec(cfg, prefix: str = "roi_heads") -> Spec:
+    _check_supported(cfg)
+    spec = box_head_spec(cfg, prefix)
+    if cfg.MODEL.DENSEPOSE_ON:
+        spec.update(decoder_spec(cfg, f"{prefix}.decoder"))
+        spec.update(densepose_head_spec(cfg, f"{prefix}.densepose_head"))
+        spec.update(densepose_predictor_spec(cfg, f"{prefix}.densepose_predictor"))
+    return spec
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+class FastRCNNConvFCHead(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        res = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
+        d = cfg.MODEL.FPN.OUT_CHANNELS * res * res
+        fc_dim = cfg.MODEL.ROI_BOX_HEAD.FC_DIM
+        self.num_fc = cfg.MODEL.ROI_BOX_HEAD.NUM_FC
+        for k in range(self.num_fc):
+            self.add_module(f"fc{k + 1}", nn.Linear(d if k == 0 else fc_dim, fc_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for k in range(self.num_fc):
+            x = F.relu(getattr(self, f"fc{k + 1}")(x))
+        return x
+
+
+class FastRCNNOutputLayers(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        fc_dim = cfg.MODEL.ROI_BOX_HEAD.FC_DIM
+        n = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+        nreg = 1 if cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG else n
+        self.cls_score = nn.Linear(fc_dim, n + 1)
+        self.bbox_pred = nn.Linear(fc_dim, nreg * 4)
+
+
+class Decoder(nn.Module):
+    """Sum of per-level conv (+2x bilinear upsample) chains at the common
+    stride, then a 1x1 predictor (densepose roi_head.py:71-79)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        dims = cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_CONV_DIMS
+        in_ch = cfg.MODEL.FPN.OUT_CHANNELS
+        self.chains = _decoder_chains(cfg)
+        for f, idxs, _ in self.chains:
+            self.add_module(f, nn.ModuleDict({
+                str(idx): nn.Conv2d(in_ch if k == 0 else dims, dims, 3, padding=1)
+                for k, idx in enumerate(idxs)}))
+        self.predictor = nn.Conv2d(dims, cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_NUM_CLASSES, 1)
+
+    def forward(self, features: Dict[str, torch.Tensor]) -> torch.Tensor:
+        acc = None
+        for f, idxs, has_up in self.chains:
+            x = features[f]
+            for idx in idxs:
+                x = F.relu(getattr(self, f)[str(idx)](x))
+                if has_up:
+                    x = resize_bilinear(x, (x.shape[-2] * 2, x.shape[-1] * 2),
+                                        scale=(2.0, 2.0))
+            acc = x if acc is None else acc + x
+        return self.predictor(acc)
+
+
+class DensePoseV1ConvXHead(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        h = cfg.MODEL.ROI_DENSEPOSE_HEAD
+        self.n = h.NUM_STACKED_CONVS
+        d = h.DECODER_NUM_CLASSES
+        for i in range(self.n):
+            self.add_module(f"body_conv_fcn{i + 1}",
+                            nn.Conv2d(d, h.CONV_HEAD_DIM, h.CONV_HEAD_KERNEL,
+                                      padding=h.CONV_HEAD_KERNEL // 2))
+            d = h.CONV_HEAD_DIM
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n):
+            x = F.relu(getattr(self, f"body_conv_fcn{i + 1}")(x))
+        return x
+
+
+class DensePoseChartPredictor(nn.Module):
+    """Four ConvTranspose2d heads + a bilinear upsample (chart.py:45-90)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        h = cfg.MODEL.ROI_DENSEPOSE_HEAD
+        k = h.DECONV_KERNEL
+        self.up = float(h.UP_SCALE)
+        for name, cout in _predictor_heads(cfg):
+            self.add_module(name, nn.ConvTranspose2d(h.CONV_HEAD_DIM, cout, k, stride=2,
+                                                     padding=int(k / 2 - 1)))
+
+    def head(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        y = getattr(self, name)(x)
+        out_hw = (int(y.shape[-2] * self.up), int(y.shape[-1] * self.up))
+        return resize_bilinear(y, out_hw, scale=(self.up, self.up))
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        keys = ("coarse_segm", "fine_segm", "u", "v")
+        return {key: self.head(name, x) for key, name in zip(keys, _CHART_HEADS)}
+
+
+class ROIHeads(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        _check_supported(cfg)
+        self.box_head = FastRCNNConvFCHead(cfg)
+        self.box_predictor = FastRCNNOutputLayers(cfg)
+        if cfg.MODEL.DENSEPOSE_ON:
+            self.decoder = Decoder(cfg)
+            self.densepose_head = DensePoseV1ConvXHead(cfg)
+            self.densepose_predictor = DensePoseChartPredictor(cfg)
+
+
+# ---------------------------------------------------------------------------
+# forward functions
+# ---------------------------------------------------------------------------
+
+def box_stage_forward(
+    heads: ROIHeads,
+    features: Dict[str, torch.Tensor],
+    proposals: torch.Tensor,
+    proposal_valid: torch.Tensor,
+    cfg,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Box head + fast_rcnn inference. Returns (boxes (D, 4) f32, scores (D,),
+    classes (D,) int32, valid (D,)), D = TEST.DETECTIONS_PER_IMAGE,
+    score-descending."""
+    in_features: List[str] = list(cfg.MODEL.ROI_HEADS.IN_FEATURES)
+    res = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
+    aligned = cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE == "ROIAlignV2"
+    num_classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    topk = cfg.TEST.DETECTIONS_PER_IMAGE
+
+    strides = feature_strides(cfg)
+    scales = [1.0 / strides[f] for f in in_features]
+    levels = assign_boxes_to_levels(proposals, int(-math.log2(scales[0])),
+                                    int(-math.log2(scales[-1])))
+    # K2 reads each (C, H, W) level of the batch-1 features in place
+    pooled = roi_align_multilevel([features[f][0] for f in in_features], proposals,
+                                  levels, scales, (res, res),
+                                  cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO, aligned)
+    r = pooled.shape[0]
+    # (R, C, res, res) is torch's Flatten order into fc1
+    x = heads.box_head(pooled.reshape(r, -1))
+    scores_logits = heads.box_predictor.cls_score(x)
+    deltas = heads.box_predictor.bbox_pred(x)
+
+    probs = torch.softmax(scores_logits.float(), dim=-1)
+    boxes = apply_deltas(deltas, proposals, tuple(cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS))
+    # fast_rcnn.py:86-141: the reference's clip_boxes result is discarded
+    # there, so detection boxes are NOT clipped at this stage.
+    fg_scores = probs[:, :-1]
+    nreg = 1 if cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG else num_classes
+    boxes = boxes.reshape(r, nreg, 4).expand(r, num_classes, 4)
+
+    finite = torch.isfinite(boxes).all(dim=2).all(dim=1) & torch.isfinite(probs).all(dim=1)
+    valid = proposal_valid & finite
+
+    flat_scores = fg_scores.reshape(-1)
+    flat_boxes = boxes.reshape(-1, 4)
+    flat_cls = torch.arange(num_classes, dtype=torch.int32, device=x.device).repeat(r)
+    flat_valid = (valid.repeat_interleave(num_classes)
+                  & (flat_scores > cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST))
+
+    nms_thresh = cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST
+    if num_classes == 1:
+        keep = nms_mask(flat_boxes, flat_scores, flat_valid, nms_thresh)
+    else:
+        keep = batched_nms_mask(flat_boxes, flat_scores, flat_cls, flat_valid, nms_thresh)
+
+    sel_scores = torch.where(keep & flat_valid, flat_scores, torch.full_like(flat_scores, _NEG))
+    k_out = min(topk, sel_scores.shape[0])
+    out_scores, out_idx = top_k(sel_scores, k_out)
+    out_boxes = flat_boxes[out_idx]
+    out_cls = flat_cls[out_idx]
+    out_valid = out_scores > _NEG / 2
+    if k_out < topk:
+        padn = topk - k_out
+        out_boxes = torch.cat([out_boxes, out_boxes.new_zeros((padn, 4))])
+        out_scores = torch.cat([out_scores, out_scores.new_full((padn,), _NEG)])
+        out_cls = torch.cat([out_cls, out_cls.new_zeros((padn,))])
+        out_valid = torch.cat([out_valid, out_valid.new_zeros((padn,))])
+    out_scores = torch.where(out_valid, out_scores, torch.zeros_like(out_scores))
+    return out_boxes, out_scores, out_cls, out_valid
+
+
+def decoder_forward(heads: ROIHeads, features: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return heads.decoder(features)
+
+
+def _densepose_pooled(sem: torch.Tensor, boxes: torch.Tensor, cfg) -> torch.Tensor:
+    """Single-level ROIAlign (K2) of the (1, C, H, W) decoder map on the given
+    boxes: the head's input, (B, C, res, res)."""
+    h = cfg.MODEL.ROI_DENSEPOSE_HEAD
+    res = h.POOLER_RESOLUTION
+    scale = 1.0 / feature_strides(cfg)[cfg.MODEL.ROI_HEADS.IN_FEATURES[0]]
+    return roi_align_single(sem[0], boxes, scale, (res, res), h.POOLER_SAMPLING_RATIO,
+                            h.POOLER_TYPE == "ROIAlignV2")
+
+
+def _v1convx_forward(heads: ROIHeads, x: torch.Tensor) -> torch.Tensor:
+    return heads.densepose_head(x)
+
+
+def densepose_predictor_forward(heads: ROIHeads, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """SIUV maps, NCHW: (B, C, HEATMAP, HEATMAP) each."""
+    return heads.densepose_predictor(x)
+
+
+def densepose_stage_forward(heads: ROIHeads, features: Dict[str, torch.Tensor],
+                            boxes: torch.Tensor, cfg) -> Dict[str, torch.Tensor]:
+    """Decoder -> ROIAlign -> head -> predictor on the given boxes
+    (densepose roi_head.py:126-158). Each step is a profiler range."""
+    with record_function("decoder"):
+        sem = decoder_forward(heads, features)
+    with record_function("densepose_pooler"):
+        pooled = _densepose_pooled(sem, boxes, cfg)
+    with record_function("densepose_head"):
+        x = _v1convx_forward(heads, pooled)
+    with record_function("densepose_predictor"):
+        return densepose_predictor_forward(heads, x)

@@ -1,0 +1,144 @@
+"""RPN with static shapes (port of densepose_tpu/models/rpn.py).
+
+Per level: top-k (k = min(H*W*A, PRE_NMS_TOPK_TEST)) on objectness, fp32
+decode of those k boxes, the reference's swapped (W, H) clip (rpn.py:320),
+then per-level NMS at RPN.NMS_THRESH as ONE launch of kernel K1 with the
+levels as its problems (levels padded to a common K with invalid slots),
+then the global top POST_NMS_TOPK_TEST -> (K, 4) proposals + valid mask,
+exactly the slots of the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..checkpoint.spec import Spec, conv_spec
+from ..ops.anchors import anchors_for_levels
+from ..ops.boxes import apply_deltas, clip_boxes_wh_swapped, nonempty_boxes
+from ..ops.nms import nms_mask
+from .backbones import feature_strides
+
+_NEG = -1e30
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Largest k along the last axis, ties to the lower index first (the
+    order of ``jax.lax.top_k``, which ``torch.topk`` does not promise)."""
+    s = torch.sort(x, dim=-1, descending=True, stable=True)
+    return s.values[..., :k], s.indices[..., :k]
+
+
+def num_cell_anchors(cfg) -> int:
+    sizes = cfg.MODEL.ANCHOR_GENERATOR.SIZES
+    ars = cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS
+    s0 = sizes[0] if isinstance(sizes[0], (list, tuple)) else sizes
+    a0 = ars[0] if isinstance(ars[0], (list, tuple)) else ars
+    return len(s0) * len(a0)
+
+
+def rpn_spec(cfg, prefix: str = "proposal_generator.rpn_head") -> Spec:
+    c = cfg.MODEL.FPN.OUT_CHANNELS
+    a = num_cell_anchors(cfg)
+    spec: Spec = {}
+    conv_spec(spec, f"{prefix}.conv", c, c, 3, bias=True)
+    conv_spec(spec, f"{prefix}.objectness_logits", c, a, 1, bias=True)
+    conv_spec(spec, f"{prefix}.anchor_deltas", c, a * 4, 1, bias=True)
+    return spec
+
+
+class RPNHead(nn.Module):
+    """StandardRPNHead: shared 3x3 conv + ReLU, then 1x1 objectness and
+    delta convs. Keeps the anchors of the last input geometry on its device."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        c = cfg.MODEL.FPN.OUT_CHANNELS
+        a = num_cell_anchors(cfg)
+        self.conv = nn.Conv2d(c, c, 3, padding=1)
+        self.objectness_logits = nn.Conv2d(c, a, 1)
+        self.anchor_deltas = nn.Conv2d(c, a * 4, 1)
+        self._anchors = (None, None)
+
+    def anchors(self, grid_sizes, strides, cfg, device) -> List[torch.Tensor]:
+        key = (tuple(grid_sizes), device)
+        if self._anchors[0] != key:
+            g = cfg.MODEL.ANCHOR_GENERATOR
+            anchors = anchors_for_levels(grid_sizes, strides, g.SIZES, g.ASPECT_RATIOS,
+                                         g.OFFSET)
+            self._anchors = (key, [torch.from_numpy(a).to(device) for a in anchors])
+        return self._anchors[1]
+
+
+def rpn_forward(
+    head: RPNHead,
+    features: Dict[str, torch.Tensor],
+    image_size_hw: Tuple[int, int],
+    cfg,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """features: NCHW maps (batch 1) for cfg.MODEL.RPN.IN_FEATURES;
+    image_size_hw: (H_pad, W_pad) of the network input. Returns (proposals
+    (K, 4) f32, objectness (K,), valid (K,) bool), K = POST_NMS_TOPK_TEST,
+    sorted by objectness descending."""
+    in_features: List[str] = list(cfg.MODEL.RPN.IN_FEATURES)
+    pre_topk = cfg.MODEL.RPN.PRE_NMS_TOPK_TEST
+    post_topk = cfg.MODEL.RPN.POST_NMS_TOPK_TEST
+    weights = tuple(cfg.MODEL.RPN.BBOX_REG_WEIGHTS)
+    h_pad, w_pad = image_size_hw
+
+    strides_map = feature_strides(cfg)
+    feats = [features[f] for f in in_features]
+    device = feats[0].device
+    anchors = head.anchors([(f.shape[-2], f.shape[-1]) for f in feats],
+                           [strides_map[f] for f in in_features], cfg, device)
+
+    lvl_boxes, lvl_scores, lvl_valid = [], [], []
+    max_k = max(min(a.shape[0], pre_topk) for a in anchors)
+    for feat, anc in zip(feats, anchors):
+        t = F.relu(head.conv(feat))
+        # NCHW -> the JAX package's (y, x, a) order (rpn.py:117-127):
+        # objectness (A, H, W) -> (H*W*A,); deltas channel a*4+d -> (H*W*A, 4)
+        logits = head.objectness_logits(t)[0].permute(1, 2, 0).reshape(-1)
+        deltas = head.anchor_deltas(t)[0].permute(1, 2, 0).reshape(-1, 4)
+        hwa = logits.shape[0]
+        k = min(hwa, pre_topk)
+        top_scores, top_idx = top_k(logits.float(), k)
+        boxes = apply_deltas(deltas[top_idx], anc[top_idx], weights)
+
+        pad = max_k - k
+        if pad:
+            boxes = torch.cat([boxes, boxes.new_zeros((pad, 4))])
+            top_scores = torch.cat([top_scores, top_scores.new_full((pad,), _NEG)])
+        lvl_boxes.append(boxes)
+        lvl_scores.append(top_scores)
+        lvl_valid.append(torch.arange(max_k, device=device) < k)
+
+    boxes = torch.stack(lvl_boxes)     # (L, K, 4)
+    scores = torch.stack(lvl_scores)   # (L, K)
+    valid = torch.stack(lvl_valid)     # (L, K)
+
+    # validity: finite boxes and scores (proposal_utils.py:102-110)
+    valid = valid & torch.isfinite(boxes).all(-1) & torch.isfinite(scores)
+    # the reference's swapped (W, H) clip (rpn.py:320)
+    boxes = clip_boxes_wh_swapped(boxes, (w_pad, h_pad))
+    valid = valid & nonempty_boxes(boxes, float(cfg.MODEL.PROPOSAL_GENERATOR.MIN_SIZE))
+
+    # per-level NMS == the reference's level-offset batched NMS; one K1 launch
+    keep = nms_mask(boxes, scores, valid, cfg.MODEL.RPN.NMS_THRESH)
+
+    flat_boxes = boxes.reshape(-1, 4)
+    flat_scores = torch.where(keep & valid, scores,
+                              torch.full_like(scores, _NEG)).reshape(-1)
+    k_out = min(post_topk, flat_scores.shape[0])
+    out_scores, out_idx = top_k(flat_scores, k_out)
+    out_boxes = flat_boxes[out_idx]
+    out_valid = out_scores > _NEG / 2
+    if k_out < post_topk:
+        padn = post_topk - k_out
+        out_boxes = torch.cat([out_boxes, out_boxes.new_zeros((padn, 4))])
+        out_scores = torch.cat([out_scores, out_scores.new_full((padn,), _NEG)])
+        out_valid = torch.cat([out_valid, out_valid.new_zeros((padn,))])
+    return out_boxes, out_scores, out_valid

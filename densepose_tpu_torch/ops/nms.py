@@ -1,0 +1,140 @@
+"""Fixed-shape non-maximum suppression (port of densepose_tpu/ops/nms.py).
+
+``nms_mask`` and ``batched_nms_mask`` keep the JAX package's contract: boxes
+of any number of independent problems (..., K, 4), a validity mask, and a
+bool keep mask in the original index space. Each sorts by score (stable,
+descending, as ``argsort(-s, stable=True)`` at nms.py:72), runs the keep
+kernel on the sorted boxes and scatters the result back.
+
+The keep step is kernel K1 (``csrc/nms.cu``) for CUDA tensors. For CPU
+tensors it is ``nms_keep_plain``, a PyTorch port of the JAX package's
+fixed-point iteration (nms.py:81-101): keep[i] = valid[i] and no earlier
+kept j has IoU(i, j) > threshold, iterated from keep = valid until it stops
+changing, which is exactly the greedy result. Semantics are torchvision's:
+(x2-x1)*(y2-y1) areas, a strict '>' threshold, fp32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from .boxes import pairwise_iou
+from .cuda_build import library
+
+_NEG = -1e30  # effective -inf for invalid scores (as in the JAX package)
+
+
+def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
+                   classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Greedy NMS over score-sorted boxes (P, K, 4) with valid (P, K) and
+    optional classes (P, K); returns keep (P, K) bool in sorted order."""
+    k = boxes.shape[-2]
+    iou = pairwise_iou(boxes, boxes)
+    idx = torch.arange(k, device=boxes.device)
+    earlier = idx[None, :] < idx[:, None]  # column j precedes row i
+    suppress = (iou > iou_threshold) & earlier & valid[..., None, :] & valid[..., :, None]
+    if classes is not None:
+        suppress &= classes[..., :, None] == classes[..., None, :]
+    keep = valid
+    while True:
+        new_keep = valid & ~(suppress & keep[..., None, :]).any(dim=-1)
+        if torch.equal(new_keep, keep):
+            return keep
+        keep = new_keep
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """K1's library, built on first use, with its C signatures set once."""
+    lib = library("nms")
+    lib.dp_nms_keep.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                                        ctypes.c_float, ctypes.c_void_p]
+    lib.dp_nms_keep.restype = ctypes.c_int
+    lib.dp_nms_smem_per_box.restype = ctypes.c_int
+    return lib
+
+
+_SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
+
+
+def nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
+                  classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel K1 on CUDA tensors: boxes (P, K, 4) f32, valid (P, K) bool,
+    classes (P, K) i32 or None, all contiguous on one device. One CTA per
+    problem. Raises if the inputs do not fit or the launch fails."""
+    if boxes.dim() != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f"boxes must be (P, K, 4), got {tuple(boxes.shape)}")
+    p, k = boxes.shape[0], boxes.shape[1]
+    tensors = [("boxes", boxes, torch.float32), ("valid", valid, torch.bool)]
+    if classes is not None:
+        tensors.append(("classes", classes, torch.int32))
+    for name, t, dtype in tensors:
+        if not t.is_cuda or t.device != boxes.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {boxes.device}")
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype}, got {t.dtype}")
+        if tuple(t.shape[:2]) != (p, k):
+            raise ValueError(f"{name} must lead with {(p, k)}, got {tuple(t.shape)}")
+    lib = _lib()
+    if k * lib.dp_nms_smem_per_box() > _SMEM_LIMIT:
+        raise ValueError(f"{k} boxes per problem exceed one CTA's shared memory")
+    keep = torch.empty((p, k), dtype=torch.bool, device=boxes.device)
+    if p == 0 or k == 0:
+        return keep
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream(boxes.device).cuda_stream
+        err = lib.dp_nms_keep(boxes.data_ptr(), valid.data_ptr(),
+                              classes.data_ptr() if classes is not None else None,
+                              keep.data_ptr(), p, k, float(iou_threshold), stream)
+    if err != 0:
+        raise RuntimeError(f"nms_keep_cuda launch failed: cudaError {err}")
+    nms_keep_cuda.launches += 1
+    return keep
+
+
+nms_keep_cuda.launches = 0
+
+
+def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
+             classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Keep mask of score-sorted (P, K, 4) boxes: K1 for CUDA tensors, the
+    plain version for CPU tensors."""
+    if boxes.is_cuda:
+        return nms_keep_cuda(boxes.contiguous(), valid.contiguous(), iou_threshold,
+                             None if classes is None else classes.int().contiguous())
+    if boxes.device.type != "cpu":
+        raise ValueError(f"no NMS kernel for device {boxes.device}")
+    return nms_keep_plain(boxes, valid, iou_threshold, classes)
+
+
+def _sorted_keep(boxes, scores, valid, iou_threshold, classes=None):
+    """Sort each problem by score, run the keep step, scatter back."""
+    boxes = boxes.float()
+    s = torch.where(valid, scores.float(), torch.full_like(scores, _NEG, dtype=torch.float32))
+    order = torch.sort(-s, dim=-1, stable=True).indices
+    b = torch.take_along_dim(boxes, order[..., None], dim=-2)
+    v = torch.take_along_dim(valid, order, dim=-1)
+    c = None if classes is None else torch.take_along_dim(classes, order, dim=-1)
+    lead = boxes.shape[:-2]
+    k = boxes.shape[-2]
+    keep = nms_keep(b.reshape(-1, k, 4), v.reshape(-1, k), iou_threshold,
+                    None if c is None else c.reshape(-1, k)).reshape(*lead, k)
+    return torch.zeros_like(valid).scatter(-1, order, keep)
+
+
+def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+             iou_threshold: float) -> torch.Tensor:
+    """Greedy NMS of each problem: boxes (..., K, 4), scores and valid
+    (..., K). Returns the keep mask (..., K) bool in the original order."""
+    return _sorted_keep(boxes, scores, valid, iou_threshold)
+
+
+def batched_nms_mask(boxes: torch.Tensor, scores: torch.Tensor, idxs: torch.Tensor,
+                     valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Class-aware NMS (torchvision batched_nms, detectron2/layers/nms.py:9-21):
+    boxes of different ``idxs`` never suppress each other."""
+    return _sorted_keep(boxes, scores, valid, iou_threshold, classes=idxs)

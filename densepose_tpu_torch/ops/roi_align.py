@@ -1,0 +1,240 @@
+"""ROIAlign over FPN levels (port of densepose_tpu/ops/roi_align.py).
+
+Semantics are torchvision ``roi_align`` (the op the reference wraps at
+detectron2/layers/roi_align.py:7-74): ``aligned`` shifts coordinates by
+-0.5, ``aligned=False`` clamps the ROI size to >= 1, samples with
+``y < -1 or y > H`` contribute 0, coordinates clamp to ``[0, H-1]`` with the
+lerp taken from the unclamped fraction, a fixed ratio x ratio sample grid per
+output bin is averaged. Only ``sampling_ratio > 0`` is supported; every
+pooler of the flagship uses 2.
+
+Layouts are the port's NCHW: per-level features (C, H, W), boxes (M, 4)
+XYXY in input-image coordinates, levels (M,) int32, output (M, C, oh, ow).
+(The JAX package takes (H, W, C) levels and returns (M, oh, ow, C); the tests
+permute explicitly.)
+
+For CUDA tensors the pooling is kernel K2 (``csrc/roi_align.cu``): all levels
+in one launch. For CPU tensors it is ``roi_align_plain``, a PyTorch port of
+the JAX package's gather formulation (roi_align.py:106-224), which is also
+what the JAX package runs on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .boxes import true_div
+from .cuda_build import library
+
+
+CANONICAL_BOX_SIZE = 224  # poolers.py:43-51 defaults, used by every pooler
+CANONICAL_LEVEL = 4
+
+
+def assign_boxes_to_levels(boxes: torch.Tensor, min_level: int, max_level: int) -> torch.Tensor:
+    """FPN paper eqn (1); poolers.py:43-51. Returns level - min_level (int32)."""
+    area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    sizes = torch.sqrt(area.float().clamp(min=0.0))
+    lvl = torch.floor(CANONICAL_LEVEL + torch.log2(true_div(sizes, CANONICAL_BOX_SIZE) + 1e-8))
+    lvl = lvl.clamp(min_level, max_level)
+    return lvl.int() - min_level
+
+
+def _axis_samples(start, bin_size, n_bins: int, grid: int, limit):
+    """Sample coordinates along one axis for every (bin, sub-sample):
+    (low, high, lerp, ok), each (M, n_bins*grid), ``[:, i::grid]`` selecting
+    sub-sample i across bins. ``limit``: (M,) float axis sizes."""
+    p = np.arange(n_bins, dtype=np.float32)
+    g = (np.arange(grid, dtype=np.float32) + np.float32(0.5)) / np.float32(grid)
+    frac = torch.from_numpy((p[:, None] + g[None, :]).reshape(-1)).to(start.device)
+    coord = start[:, None] + bin_size[:, None] * frac[None, :]
+    lim = limit[:, None]
+    ok = (coord >= -1.0) & (coord <= lim)
+    c = coord.clamp(min=0.0)
+    low = torch.floor(c)
+    at_edge = low >= lim - 1.0
+    low = torch.where(at_edge, lim - 1.0, low)
+    lerp = torch.where(at_edge, torch.zeros_like(c), c - low)
+    high = torch.where(at_edge, low, low + 1.0)
+    return low.long(), high.long(), lerp, ok
+
+
+def _roi_geometry(boxes, scale_b, output_size, aligned):
+    """Per-box start, bin size (y then x) in level coordinates."""
+    out_h, out_w = output_size
+    offset = 0.5 if aligned else 0.0
+    start_w = boxes[:, 0] * scale_b - offset
+    start_h = boxes[:, 1] * scale_b - offset
+    end_w = boxes[:, 2] * scale_b - offset
+    end_h = boxes[:, 3] * scale_b - offset
+    roi_w = end_w - start_w
+    roi_h = end_h - start_h
+    if not aligned:
+        roi_w = roi_w.clamp(min=1.0)
+        roi_h = roi_h.clamp(min=1.0)
+    return start_h, true_div(roi_h, out_h), start_w, true_div(roi_w, out_w)
+
+
+def roi_align_plain(
+    feats: List[torch.Tensor],
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    scales: Sequence[float],
+    output_size: Tuple[int, int],
+    sampling_ratio: int,
+    aligned: bool,
+) -> torch.Tensor:
+    """The plain PyTorch version of K2: each box gathers its 4 * ratio^2 taps
+    from its level of the flattened (C, H, W) pyramid and sums them in fp32,
+    in the JAX package's order."""
+    out_h, out_w = output_size
+    g = sampling_ratio
+    c = feats[0].shape[0]
+    dev = boxes.device
+    flat = torch.cat([f.reshape(c, -1) for f in feats], dim=1)
+    hs = np.array([f.shape[1] for f in feats], dtype=np.int64)
+    ws = np.array([f.shape[2] for f in feats], dtype=np.int64)
+    offs = np.concatenate([[0], np.cumsum(hs * ws)[:-1]])
+    levels = levels.long()
+    h_b = torch.from_numpy(hs).to(dev)[levels]
+    w_b = torch.from_numpy(ws).to(dev)[levels]
+    off_b = torch.from_numpy(offs).to(dev)[levels]
+    scale_b = torch.tensor(scales, dtype=torch.float32, device=dev)[levels]
+
+    start_h, bin_h, start_w, bin_w = _roi_geometry(boxes.float(), scale_b, output_size,
+                                                   aligned)
+    y_low, y_high, ly, y_ok = _axis_samples(start_h, bin_h, out_h, g, h_b.float())
+    x_low, x_high, lx, x_ok = _axis_samples(start_w, bin_w, out_w, g, w_b.float())
+
+    m = boxes.shape[0]
+    acc = torch.zeros((m, c, out_h, out_w), dtype=torch.float32, device=dev)
+    w_row = w_b[:, None, None]
+    for iy in range(g):
+        yl, yh, fy, oky = y_low[:, iy::g], y_high[:, iy::g], ly[:, iy::g], y_ok[:, iy::g]
+        for ix in range(g):
+            xl, xh, fx, okx = x_low[:, ix::g], x_high[:, ix::g], lx[:, ix::g], x_ok[:, ix::g]
+            ok = (oky[:, :, None] & okx[:, None, :]).float()
+
+            def take(yi, xi):
+                idx = off_b[:, None, None] + yi[:, :, None] * w_row + xi[:, None, :]
+                taps = flat[:, idx.reshape(-1)].reshape(c, m, out_h, out_w)
+                return taps.transpose(0, 1).float()
+
+            w11 = ((1 - fy)[:, :, None] * (1 - fx)[:, None, :] * ok)[:, None]
+            w12 = ((1 - fy)[:, :, None] * fx[:, None, :] * ok)[:, None]
+            w21 = (fy[:, :, None] * (1 - fx)[:, None, :] * ok)[:, None]
+            w22 = (fy[:, :, None] * fx[:, None, :] * ok)[:, None]
+            acc = (acc + take(yl, xl) * w11 + take(yl, xh) * w12
+                   + take(yh, xl) * w21 + take(yh, xh) * w22)
+    return acc / float(g * g)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """K2's library, built on first use, with its C signatures set once."""
+    lib = library("roi_align")
+    lib.dp_roi_align.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.dp_roi_align.restype = ctypes.c_int
+    lib.dp_roi_align_max_levels.restype = ctypes.c_int
+    return lib
+
+
+def roi_align_cuda(
+    feats: List[torch.Tensor],
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    scales: Sequence[float],
+    output_size: Tuple[int, int],
+    sampling_ratio: int,
+    aligned: bool,
+) -> torch.Tensor:
+    """Kernel K2 on CUDA tensors: feats per level (C, H, W) f32 contiguous,
+    boxes (M, 4) f32, levels (M,) i32, all on one device. Returns
+    (M, C, oh, ow) f32. Raises if the inputs do not fit or the launch fails."""
+    n = len(feats)
+    if n < 1 or len(scales) != n:
+        raise ValueError(f"need one scale per level, got {n} levels and "
+                         f"{len(scales)} scales")
+    if sampling_ratio <= 0:
+        raise ValueError("K2 takes a fixed sampling_ratio > 0")
+    dev = boxes.device
+    c = feats[0].shape[0]
+    for i, f in enumerate(feats):
+        if (not f.is_cuda or f.device != dev or f.dtype != torch.float32
+                or f.dim() != 3 or f.shape[0] != c or not f.is_contiguous()):
+            raise ValueError(f"level {i} must be a contiguous ({c}, H, W) float32 "
+                             f"CUDA tensor on {dev}, got {f.dtype} {tuple(f.shape)}")
+    if (not boxes.is_cuda or boxes.dtype != torch.float32 or boxes.dim() != 2
+            or boxes.shape[1] != 4 or not boxes.is_contiguous()):
+        raise ValueError(f"boxes must be contiguous (M, 4) float32 on CUDA, got "
+                         f"{boxes.dtype} {tuple(boxes.shape)}")
+    m = boxes.shape[0]
+    if (levels.device != dev or levels.dtype != torch.int32
+            or tuple(levels.shape) != (m,) or not levels.is_contiguous()):
+        raise ValueError(f"levels must be contiguous ({m},) int32 on {dev}")
+    lib = _lib()
+    if n > lib.dp_roi_align_max_levels():
+        raise ValueError(f"K2 takes at most {lib.dp_roi_align_max_levels()} levels")
+    oh, ow = output_size
+    out = torch.empty((m, c, oh, ow), dtype=torch.float32, device=dev)
+    ptrs = (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats])
+    hs = (ctypes.c_int * n)(*[f.shape[1] for f in feats])
+    ws = (ctypes.c_int * n)(*[f.shape[2] for f in feats])
+    sc = (ctypes.c_float * n)(*[float(s) for s in scales])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dp_roi_align(ptrs, hs, ws, sc, n, boxes.data_ptr(), levels.data_ptr(),
+                               out.data_ptr(), m, c, oh, ow, int(sampling_ratio),
+                               int(bool(aligned)), stream)
+    if err != 0:
+        raise RuntimeError(f"roi_align_cuda launch failed: cudaError {err}")
+    roi_align_cuda.launches += 1
+    return out
+
+
+roi_align_cuda.launches = 0
+
+
+def roi_align_multilevel(
+    feats: List[torch.Tensor],
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    scales: Sequence[float],
+    output_size: Tuple[int, int],
+    sampling_ratio: int,
+    aligned: bool,
+) -> torch.Tensor:
+    """Pool each box from its assigned level: K2 for CUDA tensors, the plain
+    version for CPU tensors. Returns (M, C, oh, ow) float32."""
+    if sampling_ratio <= 0:
+        raise NotImplementedError("adaptive sampling (ratio 0) is not ported yet")
+    if boxes.is_cuda:
+        return roi_align_cuda([f.contiguous() for f in feats], boxes.float().contiguous(),
+                              levels.int().contiguous(), scales, output_size,
+                              sampling_ratio, aligned)
+    if boxes.device.type != "cpu":
+        raise ValueError(f"no ROIAlign kernel for device {boxes.device}")
+    return roi_align_plain(feats, boxes, levels, scales, output_size, sampling_ratio,
+                           aligned)
+
+
+def roi_align_single(
+    feat: torch.Tensor,
+    boxes: torch.Tensor,
+    scale: float,
+    output_size: Tuple[int, int],
+    sampling_ratio: int,
+    aligned: bool,
+) -> torch.Tensor:
+    """Single-level ROIAlign (the decoder-path DensePose pooler) of one
+    (C, H, W) map."""
+    levels = torch.zeros((boxes.shape[0],), dtype=torch.int32, device=boxes.device)
+    return roi_align_multilevel([feat], boxes, levels, [scale], output_size,
+                                sampling_ratio, aligned)

@@ -1,0 +1,73 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``gpu`` and skips where no CUDA device is present.
+This file imports only torch and numpy, so it runs on a machine without JAX:
+
+    python -m pytest --noconftest -q tests/test_torch_gpu.py
+
+K1 (NMS) must match exactly; K2 (ROIAlign) within 1e-5 absolute on
+unit-scale features (the kernel performs the plain version's roundings; the
+margin covers the order of its fp32 sums).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from densepose_tpu_torch.ops import nms, roi_align
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def boxes_np(rng, k, span, size):
+    ctr = rng.rand(k, 2).astype(np.float32) * span
+    wh = rng.rand(k, 2).astype(np.float32) * size + 1
+    return np.concatenate([ctr - wh / 2, ctr + wh / 2], 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("classed", [False, True])
+def test_k1_matches_plain(cuda, classed):
+    rng = np.random.RandomState(11)
+    b = torch.from_numpy(np.stack([boxes_np(rng, 1000, 800, 200) for _ in range(5)]))
+    v = torch.from_numpy(rng.rand(5, 1000) > 0.1)
+    c = torch.from_numpy(rng.randint(0, 3, size=(5, 1000)).astype(np.int32)) if classed else None
+    want = nms.nms_keep_plain(b, v, 0.7, c)
+    before = nms.nms_keep_cuda.launches
+    got = nms.nms_keep(b.to(cuda), v.to(cuda), 0.7, None if c is None else c.to(cuda))
+    torch.cuda.synchronize()
+    assert nms.nms_keep_cuda.launches == before + 1
+    assert 0 < int(want.sum()) < int(v.sum())
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [False, True])
+def test_k2_matches_plain(cuda, aligned):
+    rng = np.random.RandomState(12)
+    feats = [torch.randn(64, 64 // 2 ** i, 96 // 2 ** i, generator=torch.Generator().manual_seed(i))
+             .to(cuda) for i in range(4)]
+    b = torch.from_numpy(boxes_np(rng, 300, 380, 120)).to(cuda)
+    lv = roi_align.assign_boxes_to_levels(b, 2, 5)
+    scales = [1 / 4, 1 / 8, 1 / 16, 1 / 32]
+    want = roi_align.roi_align_plain(feats, b, lv, scales, (7, 7), 2, aligned)
+    before = roi_align.roi_align_cuda.launches
+    got = roi_align.roi_align_multilevel(feats, b, lv, scales, (7, 7), 2, aligned)
+    torch.cuda.synchronize()
+    assert roi_align.roi_align_cuda.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_k1_refuses_too_many_boxes(cuda):
+    k = 10000  # more than one CTA's shared memory holds
+    with pytest.raises(ValueError, match="shared memory"):
+        nms.nms_keep_cuda(torch.zeros(1, k, 4, device=cuda),
+                          torch.ones(1, k, dtype=torch.bool, device=cuda), 0.5)
