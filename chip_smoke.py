@@ -9,21 +9,31 @@ toolkit. Phases, each of which fails the run:
 1. device: the card's name and power limit (torch and nvidia-smi);
 2. build: every CUDA kernel of the port, one nvcc per source in parallel,
    with the ptxas register / shared-memory report;
-3. kernel checks at the flagship's main-path shapes (a 480x640 frame padded
-   to 800x1088): each kernel against its plain PyTorch version on the card,
+3. kernel checks at the main paths' shapes (a 480x640 frame padded to
+   800x1088): each kernel against its plain PyTorch version on the card,
    K1 (NMS) exactly, K2 (ROIAlign) within 1e-5 absolute on unit-scale
-   features; times from CUDA events, and the least time the card could take
-   (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, H100 SXM data
-   sheet at 700 W);
-4. end to end: DensePosePredictor(densepose_rcnn_R_50_FPN_s1x) at full width
-   with random weights from seed 0 answers a warm-up request and then
-   distinct synthetic frames; outputs finite and of the expected shapes, and
-   the kernels' launch counters show the requests went through K1 and K2;
-   then one more request under torch.profiler gives the device time of each
-   stage range the model marks, and the device's idle share;
-5. reference: a narrowed flagship on the card agrees with the same model on
-   the CPU (plain versions; tests/test_torch_*.py hold those against the JAX
-   package).
+   features, K3 (the skip-flag ROIAlign) within 1e-5 of its plain version and
+   2e-5 of K2 on the same inputs, with its flag table equal to the plain
+   schedule's and two runs bit-identical, at the box pooler and at the legacy
+   DensePose pooler; times from CUDA events, and the least time the card
+   could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, H100
+   SXM data sheet at 700 W);
+4. three paths, each at full width with random weights from seed 0: a
+   DensePosePredictor answers a warm-up request and then distinct synthetic
+   frames; outputs finite and of the expected shapes; the kernels' launch
+   counters, set to 0 just before the timed requests and read just after,
+   show the requests went through the path's kernels; then one more request
+   under torch.profiler gives the device time of each stage range the model
+   marks, and the device's idle share. The paths:
+   - the flagship densepose_rcnn_R_50_FPN_s1x: 2 K1 and 2 K2 per request;
+   - densepose_rcnn_R_101_FPN_s1x_legacy with DENSEPOSE_TPU_SPARSE_POOLER
+     set: the box pooler and the multi-level DensePose pooler on K3, so 2 K1,
+     0 K2 and 2 K3 per request;
+   - densepose_rcnn_R_50_FPN_DL_s1x (DeepLab head) with
+     TPU.DEVICE_POSTPROCESS: 2 K1 and 2 K2 per request, labels and UV out;
+5. reference: a narrowed flagship, and a narrowed R101 legacy model with the
+   sparse pooler, on the card agree with the same models on the CPU (plain
+   versions; tests/test_torch_*.py hold those against the JAX package).
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, before that line,
@@ -31,6 +41,7 @@ when there is no CUDA device or any phase fails.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -40,9 +51,15 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_PER_S = 67e12      # fp32 outside the tensor cores, H100 SXM data sheet
 FLAGSHIP = "densepose_rcnn_R_50_FPN_s1x"
+LEGACY = "densepose_rcnn_R_101_FPN_s1x_legacy"
+DEEPLAB = "densepose_rcnn_R_50_FPN_DL_s1x"
+SPARSE_POOLER = "DENSEPOSE_TPU_SPARSE_POOLER"
 FRAME_HW = (480, 640)
 TIMED_REQUESTS = 3
 K2_TOL = 1e-5
+K3_TOL = 1e-5
+K3_K2_TOL = 2e-5  # K3 sums the taps in another order (tests/test_ops.py:625)
+KERNELS = ("nms_keep_cuda", "roi_align_cuda", "roi_align_sparse_cuda")
 
 
 def check(cond, msg):
@@ -138,7 +155,8 @@ def roi_align_work(feats, boxes, levels, scales, out_hw, ratio, aligned):
 
 
 def kernel_checks(torch, cfg, report, dev):
-    from densepose_tpu_torch.ops import nms, roi_align
+    from densepose_tpu_torch.model_zoo import get_config
+    from densepose_tpu_torch.ops import nms, roi_align, roi_align_sparse
     (hp, wp), levels = main_path_shapes(cfg)
     rng = np.random.RandomState(0)
 
@@ -210,18 +228,68 @@ def kernel_checks(torch, cfg, report, dev):
               f"max abs err {err:.3e} (tol {K2_TOL}); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.6f} ms ({bound_by})")
 
-    main = {"nms_keep_cuda": k1[:2], "roi_align_cuda": k2}
-    for name, entries, route_src, replaces in [
+    # K3 at its two sites on the legacy path: the box pooler (K2's inputs
+    # above) and the multi-level DensePose pooler, 100 detections at 14x14
+    legacy_dp = get_config(LEGACY).MODEL.ROI_DENSEPOSE_HEAD
+    k3 = []
+    for site, b, out_hw, ratio in [
+            ("box_pooler", boxes, (res_b, res_b), cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO),
+            ("legacy_densepose_pooler", det,
+             (legacy_dp.POOLER_RESOLUTION, legacy_dp.POOLER_RESOLUTION),
+             legacy_dp.POOLER_SAMPLING_RATIO)]:
+        l = roi_align.assign_boxes_to_levels(b, 2, 5)
+        args = (pyramid, b, l, scales, out_hw, ratio, False)
+        got = roi_align_sparse.roi_align_sparse_cuda(*args)
+        again = roi_align_sparse.roi_align_sparse_cuda(*args)
+        want = roi_align_sparse.roi_align_sparse_plain(*args)
+        gather = roi_align.roi_align_cuda(*args)
+        sched = roi_align_sparse.sparse_schedule(*args)
+        _, _, _, flags = roi_align_sparse.sparse_schedule_cuda(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        err_k2 = float((got - gather).abs().max())
+        check(err <= K3_TOL, f"K3 {site}: max abs error {err} > {K3_TOL}")
+        check(err_k2 <= K3_K2_TOL, f"K3 {site}: differs from K2 by {err_k2} > {K3_K2_TOL}")
+        check(torch.equal(got, again), f"K3 {site}: two runs differ")
+        check(float(want.abs().max()) > 0.1, f"K3 {site}: degenerate test (all zero)")
+        for li, f in enumerate(sched.flags):
+            check(torch.equal(flags[li, :, :f.shape[1]], f) and not flags[li, :, f.shape[1]:].any(),
+                  f"K3 {site}: level {li} flags differ from the plain schedule's")
+        active, pairs = sum(int(f.sum()) for f in sched.flags), sum(f.numel() for f in sched.flags)
+        ms = cuda_ms(lambda: roi_align_sparse.roi_align_sparse_cuda(*args), reps=20)
+        # the sort, gathers and flags launch that come before the pooling launch
+        schedule_ms = cuda_ms(lambda: roi_align_sparse.sparse_schedule_cuda(*args), reps=20)
+        k2_ms = cuda_ms(lambda: roi_align.roi_align_cuda(*args), reps=20)
+        plain_ms = cuda_ms(lambda: roi_align_sparse.roi_align_sparse_plain(*args), reps=3,
+                           warmup=1)
+        bound_ms, bound_by = bound(*roi_align_work(*args))
+        k3.append({"site": site, "shape": [b.shape[0], c, *out_hw], "levels": len(pyramid),
+                   "active_pairs": active, "pairs": pairs, "max_abs_err": err,
+                   "max_abs_err_vs_k2": err_k2, "ms": ms, "schedule_ms": schedule_ms,
+                   "k2_ms": k2_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"K3 roi_align_sparse_cuda {site} M={b.shape[0]} {out_hw} C={c} "
+              f"levels={len(pyramid)}: {active}/{pairs} (chunk, tile) pairs active; max abs "
+              f"err {err:.3e} (tol {K3_TOL}), vs K2 {err_k2:.3e} (tol {K3_K2_TOL}); "
+              f"{ms:.4f} ms (schedule {schedule_ms:.4f}), K2 on the same inputs {k2_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+
+    main = {"nms_keep_cuda": k1[:2], "roi_align_cuda": k2, "roi_align_sparse_cuda": k3}
+    for name, entries, route_src, replaces, tol in [
         ("nms_keep_cuda", k1, "densepose_tpu_torch/csrc/nms.cu",
-         "densepose_tpu/ops/pallas/nms_kernel.py:30"),
+         "densepose_tpu/ops/pallas/nms_kernel.py:30", "exact"),
         ("roi_align_cuda", k2, "densepose_tpu_torch/csrc/roi_align.cu",
-         "densepose_tpu/ops/pallas/roi_align_kernel.py:54"),
+         "densepose_tpu/ops/pallas/roi_align_kernel.py:54", f"max_abs_err<={K2_TOL}"),
+        ("roi_align_sparse_cuda", k3, "densepose_tpu_torch/csrc/roi_align_sparse.cu",
+         "densepose_tpu/ops/pallas/roi_align_kernel.py:159",
+         f"max_abs_err<={K3_TOL}, vs K2 <={K3_K2_TOL}"),
     ]:
         per_request = main[name]  # one launch per main-path site and request
         report[name] = {
             "name": name, "route": "cuda", "source": route_src, "replaces": replaces,
-            "check": "exact" if name == "nms_keep_cuda" else f"max_abs_err<={K2_TOL}",
-            "launches": None,
+            "check": tol,
+            "launches": 0,
+            "launches_per_path": {},
             "max_abs_err": max(e["max_abs_err"] for e in entries),
             "ms": sum(e["ms"] for e in per_request),
             "plain_ms": sum(e["plain_ms"] for e in per_request),
@@ -245,70 +313,123 @@ def frames(seed, n):
     return out
 
 
-def end_to_end(torch, report, dev):
+def path_config(name, extra=()):
     from densepose_tpu_torch.model_zoo import get_config
-    from densepose_tpu_torch.ops.nms import nms_keep_cuda
-    from densepose_tpu_torch.ops.roi_align import roi_align_cuda
-    from densepose_tpu_torch.predictor import DensePosePredictor
+    cfg = get_config(name).clone()
+    cfg.defrost()
+    for key, value in extra:
+        *path, leaf = key.split(".")
+        node = cfg
+        for p in path:
+            node = node[p]
+        node[leaf] = value
+    cfg.freeze()
+    return cfg
 
-    cfg = get_config(FLAGSHIP)
+
+# (zoo name, config changes, DENSEPOSE_TPU_SPARSE_POOLER set, launches per request)
+PATHS = [
+    (FLAGSHIP, (), False, {"nms_keep_cuda": 2, "roi_align_cuda": 2, "roi_align_sparse_cuda": 0}),
+    (LEGACY, (), True, {"nms_keep_cuda": 2, "roi_align_cuda": 0, "roi_align_sparse_cuda": 2}),
+    (DEEPLAB, (("TPU.DEVICE_POSTPROCESS", True),), False,
+     {"nms_keep_cuda": 2, "roi_align_cuda": 2, "roi_align_sparse_cuda": 0}),
+]
+
+
+def drive_path(torch, report, dev, name, extra, sparse, per_request):
+    """One path at full width: a warm-up request, timed requests with the
+    launch counters set to 0 just before and read just after, output checks,
+    then one profiled request."""
+    from densepose_tpu_torch.ops import nms, roi_align, roi_align_sparse
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    counters = {"nms_keep_cuda": nms.nms_keep_cuda, "roi_align_cuda": roi_align.roi_align_cuda,
+                "roi_align_sparse_cuda": roi_align_sparse.roi_align_sparse_cuda}
+
+    cfg = path_config(name, extra)
+    tag = name + (f" with {SPARSE_POOLER}=1" if sparse else "") + "".join(
+        f", {k}={v}" for k, v in extra)
     t0 = time.perf_counter()
     pred = DensePosePredictor(cfg, seed=0, device=dev)
-    print(f"e2e: {FLAGSHIP} built with random weights (seed 0) in "
+    print(f"path {tag}: built with random weights (seed 0) in "
           f"{time.perf_counter() - t0:.1f} s")
     warm, *timed = frames(1, 1 + TIMED_REQUESTS)
-    pred(warm)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    nms_keep_cuda.launches = 0
-    roi_align_cuda.launches = 0
-    outs, lat = [], []
-    for img in timed:
-        t0 = time.perf_counter()
-        out = pred(img)
+    if sparse:
+        os.environ[SPARSE_POOLER] = "1"
+    try:
+        pred(warm)
         torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t0) * 1e3)
-        outs.append(out)
-    launches = {"nms_keep_cuda": nms_keep_cuda.launches, "roi_align_cuda": roi_align_cuda.launches}
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        outs, lat = [], []
+        for img in timed:
+            t0 = time.perf_counter()
+            out = pred(img)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        breakdown(torch, pred, timed[0], float(np.median(lat)))
+    finally:
+        os.environ.pop(SPARSE_POOLER, None)
 
     n_req = len(timed)
-    for name, per_request in (("nms_keep_cuda", 2), ("roi_align_cuda", 2)):
-        check(launches[name] == per_request * n_req,
-              f"{name}: {launches[name]} launches for {n_req} requests, "
-              f"expected {per_request} per request")
-        report[name]["launches"] = launches[name]
+    for k, n in per_request.items():
+        check(launches[k] == n * n_req, f"{name}: {launches[k]} {k} launches for {n_req} "
+              f"requests, expected {n} per request")
+        report[k]["launches"] += launches[k]
+        report[k]["launches_per_path"][tag] = launches[k]
     d = cfg.TEST.DETECTIONS_PER_IMAGE
     dp = cfg.MODEL.ROI_DENSEPOSE_HEAD
     heat = dp.POOLER_RESOLUTION * 2 * dp.UP_SCALE  # deconv stride 2, then the upsample
+    channels = {"coarse_segm": dp.NUM_COARSE_SEGM_CHANNELS, "fine_segm": dp.NUM_PATCHES + 1,
+                "u": dp.NUM_PATCHES + 1, "v": dp.NUM_PATCHES + 1}
     for i, out in enumerate(outs):
         res = pred.numpy_outputs(out)
         n = res["num_instances"]
-        check(n >= 1, f"request {i}: no detections")
+        check(n >= 1, f"{name} request {i}: no detections")
         check(out["pred_boxes"].shape == (d, 4), f"request {i}: pred_boxes {out['pred_boxes'].shape}")
-        for k in ("coarse_segm", "fine_segm", "u", "v"):
-            v = res[f"pred_densepose_{k}"]
-            check(v.shape[0] == n and v.shape[2:] == (heat, heat),
-                  f"request {i}: pred_densepose_{k} shape {v.shape}")
-        check(res["pred_densepose_coarse_segm"].shape[1] == 2, "coarse_segm channels")
-        check(res["pred_densepose_u"].shape[1] == cfg.MODEL.ROI_DENSEPOSE_HEAD.NUM_PATCHES + 1,
-              "u channels")
+        if cfg.TPU.DEVICE_POSTPROCESS:
+            check(out["pred_densepose_labels"].dtype == torch.uint8
+                  and out["pred_densepose_labels"].shape == (d, heat, heat),
+                  f"{name} request {i}: labels {out['pred_densepose_labels'].dtype} "
+                  f"{tuple(out['pred_densepose_labels'].shape)}")
+            check(out["pred_densepose_uv"].dtype == torch.float16
+                  and out["pred_densepose_uv"].shape == (d, heat, heat, 2),
+                  f"{name} request {i}: uv {out['pred_densepose_uv'].dtype} "
+                  f"{tuple(out['pred_densepose_uv'].shape)}")
+            check(res["pred_densepose_labels"].shape == (n, heat, heat)
+                  and res["pred_densepose_uv"].shape == (n, 2, heat, heat),
+                  f"{name} request {i}: trimmed labels / uv shapes")
+            check(int(res["pred_densepose_labels"].max()) <= dp.NUM_PATCHES,
+                  f"{name} request {i}: label beyond {dp.NUM_PATCHES}")
+            check(not any(f"pred_densepose_{k}" in res for k in channels),
+                  f"{name} request {i}: SIUV maps left beside labels and uv")
+            shape = tuple(res["pred_densepose_uv"].shape)
+        else:
+            for k, ch in channels.items():
+                v = res[f"pred_densepose_{k}"]
+                check(v.shape == (n, ch, heat, heat), f"{name} request {i}: "
+                      f"pred_densepose_{k} shape {v.shape}, expected {(n, ch, heat, heat)}")
+            shape = tuple(res["pred_densepose_u"].shape)
         for k, v in res.items():
             if isinstance(v, np.ndarray) and v.dtype.kind == "f":
-                check(np.isfinite(v).all(), f"request {i}: non-finite {k}")
-        print(f"e2e: request {i}: {lat[i]:.2f} ms, num_instances {n}, "
-              f"SIUV {tuple(res['pred_densepose_u'].shape)}")
-    print(f"e2e: {n_req} requests of {FRAME_HW[0]}x{FRAME_HW[1]} frames: latency ms "
+                check(np.isfinite(v).all(), f"{name} request {i}: non-finite {k}")
+        print(f"path {name}: request {i}: {lat[i]:.2f} ms, num_instances {n}, "
+              f"{'uv' if cfg.TPU.DEVICE_POSTPROCESS else 'SIUV'} {shape}")
+    print(f"path {tag}: {n_req} requests of {FRAME_HW[0]}x{FRAME_HW[1]} frames: latency ms "
           f"{', '.join(f'{x:.2f}' for x in lat)} (median {np.median(lat):.2f}); "
-          f"kernel launches {launches}; max memory allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    breakdown(torch, pred, timed[0], float(np.median(lat)))
+          f"kernel launches {launches}; max memory allocated {peak_mib:.1f} MiB")
+    del pred, outs
+    torch.cuda.empty_cache()
 
 
 # the profiler ranges GeneralizedRCNN.forward runs its stages in (rcnn.py,
 # roi_heads.py::densepose_stage_forward)
 STAGES = ("preprocess", "backbone", "rpn", "box_stage", "postprocess", "decoder",
-          "densepose_pooler", "densepose_head", "densepose_predictor", "densepose_pad")
+          "densepose_pooler", "densepose_head", "densepose_predictor", "densepose_pad",
+          "densepose_postprocess")
 
 
 def breakdown(torch, pred, img, latency_ms):
@@ -319,7 +440,8 @@ def breakdown(torch, pred, img, latency_ms):
 
     A device event belongs to the stage whose range holds the host call that
     launched it (matched by correlation id): the profiler links kernels only
-    to PyTorch ops, and K1 and K2 are launched through ctypes."""
+    to PyTorch ops, and the port's kernels are launched through ctypes. The
+    host wall time of each stage range is printed beside its device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -338,6 +460,9 @@ def breakdown(torch, pred, img, latency_ms):
     launched_at = {e.id: e.time_range.start for e in host if e.name.startswith("cu")}
     ranges = [(e.time_range.start, e.time_range.end, e.name) for e in host if e.name in STAGES]
     stages = dict.fromkeys(STAGES, 0.0)
+    host_ms = dict.fromkeys(STAGES, 0.0)
+    for s, end, n in ranges:
+        host_ms[n] += (end - s) / 1e3
     outside = 0.0
     for e in device:
         t = launched_at.get(e.id)
@@ -355,44 +480,45 @@ def breakdown(torch, pred, img, latency_ms):
             end = e
     busy_ms = busy_us / 1e3
     parts = ", ".join(f"{s} {ms:.3f}" for s, ms in stages.items())
+    walls = ", ".join(f"{s} {ms:.3f}" for s, ms in host_ms.items())
     print(f"breakdown (device ms per stage, torch.profiler, {len(device)} device events): "
-          f"{parts}; outside the ranges {outside:.3f}; device busy {busy_ms:.3f} of "
-          f"{wall_ms:.3f} ms profiled wall (idle share {1 - busy_ms / wall_ms:.4f}); of an "
+          f"{parts}; host wall ms per stage range: {walls}; outside the ranges "
+          f"{outside:.3f}; device busy {busy_ms:.3f} of {wall_ms:.3f} ms profiled wall (idle share {1 - busy_ms / wall_ms:.4f}); of an "
           f"unprofiled request's {latency_ms:.3f} ms: idle share {1 - busy_ms / latency_ms:.4f}")
 
 
-def reference_check(torch, dev):
-    """A narrowed flagship, card against CPU: the same detections (count and
+# the flagship narrowed to toy widths (tests/test_torch_pipeline.py's)
+NARROW = [
+    ("MODEL.RESNETS.STEM_OUT_CHANNELS", 8), ("MODEL.RESNETS.RES2_OUT_CHANNELS", 16),
+    ("MODEL.RESNETS.WIDTH_PER_GROUP", 4), ("MODEL.FPN.OUT_CHANNELS", 16),
+    ("MODEL.ANCHOR_GENERATOR.SIZES", [[16], [32], [64], [128], [256]]),
+    ("MODEL.RPN.PRE_NMS_TOPK_TEST", 80), ("MODEL.RPN.POST_NMS_TOPK_TEST", 60),
+    ("MODEL.ROI_HEADS.SCORE_THRESH_TEST", 0.3), ("MODEL.ROI_BOX_HEAD.FC_DIM", 32),
+    ("MODEL.ROI_DENSEPOSE_HEAD.POOLER_RESOLUTION", 8),
+    ("MODEL.ROI_DENSEPOSE_HEAD.NUM_STACKED_CONVS", 2),
+    ("MODEL.ROI_DENSEPOSE_HEAD.CONV_HEAD_DIM", 16),
+    ("MODEL.ROI_DENSEPOSE_HEAD.DECODER_NUM_CLASSES", 16),
+    ("MODEL.ROI_DENSEPOSE_HEAD.DECODER_CONV_DIMS", 16),
+    ("INPUT.MIN_SIZE_TEST", 64), ("INPUT.MAX_SIZE_TEST", 96)]
+
+
+def reference_check(torch, dev, name, sparse):
+    """A narrowed zoo model, card against CPU: the same detections (count and
     classes exact, boxes and scores within 1e-3) and SIUV maps (1e-3)."""
-    from densepose_tpu_torch.config import get_cfg
-    from densepose_tpu_torch.model_zoo import _base_fpn
     from densepose_tpu_torch.predictor import DensePosePredictor
 
-    cfg = get_cfg()
-    _base_fpn(cfg)
-    for key, value in [
-            ("MODEL.RESNETS.STEM_OUT_CHANNELS", 8), ("MODEL.RESNETS.RES2_OUT_CHANNELS", 16),
-            ("MODEL.RESNETS.WIDTH_PER_GROUP", 4), ("MODEL.FPN.OUT_CHANNELS", 16),
-            ("MODEL.ANCHOR_GENERATOR.SIZES", [[16], [32], [64], [128], [256]]),
-            ("MODEL.RPN.PRE_NMS_TOPK_TEST", 80), ("MODEL.RPN.POST_NMS_TOPK_TEST", 60),
-            ("MODEL.ROI_HEADS.SCORE_THRESH_TEST", 0.3), ("MODEL.ROI_BOX_HEAD.FC_DIM", 32),
-            ("MODEL.ROI_DENSEPOSE_HEAD.POOLER_RESOLUTION", 8),
-            ("MODEL.ROI_DENSEPOSE_HEAD.NUM_STACKED_CONVS", 2),
-            ("MODEL.ROI_DENSEPOSE_HEAD.CONV_HEAD_DIM", 16),
-            ("MODEL.ROI_DENSEPOSE_HEAD.DECODER_NUM_CLASSES", 16),
-            ("MODEL.ROI_DENSEPOSE_HEAD.DECODER_CONV_DIMS", 16),
-            ("INPUT.MIN_SIZE_TEST", 64), ("INPUT.MAX_SIZE_TEST", 96)]:
-        *path, leaf = key.split(".")
-        node = cfg
-        for p in path:
-            node = node[p]
-        node[leaf] = value
-    cfg.freeze()
+    cfg = path_config(name, NARROW)
     img = (np.random.RandomState(21).rand(64, 64, 3) * 255).astype(np.uint8)
-    gpu = DensePosePredictor(cfg, seed=5, device=dev).predict_numpy(img)
-    cpu = DensePosePredictor(cfg, seed=5, device="cpu").predict_numpy(img)
+    if sparse:
+        os.environ[SPARSE_POOLER] = "1"
+    try:
+        gpu = DensePosePredictor(cfg, seed=5, device=dev).predict_numpy(img)
+        cpu = DensePosePredictor(cfg, seed=5, device="cpu").predict_numpy(img)
+    finally:
+        os.environ.pop(SPARSE_POOLER, None)
     n = cpu["num_instances"]
-    check(gpu["num_instances"] == n >= 1, f"reference: {gpu['num_instances']} vs {n} detections")
+    check(gpu["num_instances"] == n >= 1, f"reference {name}: {gpu['num_instances']} vs {n} "
+          "detections")
     # near-equal random-weight scores may swap order: match detections by box
     order = [np.lexsort(r["pred_boxes"].T[::-1]) for r in (gpu, cpu)]
     err = 0.0
@@ -400,10 +526,10 @@ def reference_check(torch, dev):
               "pred_densepose_fine_segm", "pred_densepose_u", "pred_densepose_v"):
         a, b = gpu[k][order[0]], cpu[k][order[1]]
         e = float(np.abs(a.astype(np.float64) - b).max())
-        check(e <= (0 if k == "pred_classes" else 1e-3), f"reference: {k} differs by {e}")
+        check(e <= (0 if k == "pred_classes" else 1e-3), f"reference {name}: {k} differs by {e}")
         err = max(err, e)
-    print(f"reference: narrowed flagship on the card == on the CPU: {n} detections, "
-          f"max abs difference {err:.3e} (tol 1e-3)")
+    print(f"reference: narrowed {name}{f' with {SPARSE_POOLER}=1' if sparse else ''} on the "
+          f"card == on the CPU: {n} detections, max abs difference {err:.3e} (tol 1e-3)")
 
 
 def main():
@@ -443,8 +569,10 @@ def main():
     cfg = get_config(FLAGSHIP)
     dev = torch.device("cuda")
     kernel_checks(torch, cfg, report, dev)
-    end_to_end(torch, report, dev)
-    reference_check(torch, dev)
+    for name, extra, sparse, per_request in PATHS:
+        drive_path(torch, report, dev, name, extra, sparse, per_request)
+    reference_check(torch, dev, FLAGSHIP, False)
+    reference_check(torch, dev, LEGACY, True)
 
     print(json.dumps({"kernels": list(report.values())}))
     print(f"nvidia-smi: {smi_line}")

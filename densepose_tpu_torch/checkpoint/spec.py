@@ -37,14 +37,15 @@ Spec = Dict[str, ParamSpec]
 def conv_spec(spec: Spec, name: str, cin: int, cout: int, k: int,
               bias: bool = True, norm: str = "") -> None:
     """Conv2d with the reference's optional fused norm
-    (layers/wrappers.py:82-112). norm in {"", "FrozenBN"}: the port's
-    flagship path has no GroupNorm."""
+    (layers/wrappers.py:82-112). norm in {"", "FrozenBN", "GN"}."""
     spec[f"{name}.weight"] = ParamSpec((cout, cin, k, k), "conv")
     if bias:
         spec[f"{name}.bias"] = ParamSpec((cout,), "vec")
     if norm == "FrozenBN":
         for suffix in ("weight", "bias", "running_mean", "running_var"):
             spec[f"{name}.norm.{suffix}"] = ParamSpec((cout,), "vec")
+    elif norm == "GN":
+        gn_spec(spec, f"{name}.norm", cout)
     elif norm:
         raise ValueError(f"unsupported norm {norm!r}")
 
@@ -57,3 +58,10 @@ def conv_transpose_spec(spec: Spec, name: str, cin: int, cout: int, k: int) -> N
 def linear_spec(spec: Spec, name: str, din: int, dout: int) -> None:
     spec[f"{name}.weight"] = ParamSpec((dout, din), "linear")
     spec[f"{name}.bias"] = ParamSpec((dout,), "vec")
+
+
+def gn_spec(spec: Spec, name: str, c: int) -> None:
+    """A GroupNorm module's affine parameters (the ASPP sequentials, and a
+    conv's fused ``.norm``)."""
+    spec[f"{name}.weight"] = ParamSpec((c,), "vec")
+    spec[f"{name}.bias"] = ParamSpec((c,), "vec")

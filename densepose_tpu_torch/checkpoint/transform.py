@@ -120,10 +120,11 @@ def params_from_jax(jax_params: Dict[str, np.ndarray]) -> StateDict:
     spatially flipped forward-conv form (kh, kw, Cin, Cout) -> (Cin, Cout, kh,
     kw) for the chart predictor's ConvTranspose2d kernels (the only 4-D
     weights under ``densepose_predictor.``), (in, out) -> (out, in) for
-    linears. FrozenBN must already be folded (``TPU.FOLD_FROZEN_BN``)."""
+    linears. FrozenBN must already be folded (``TPU.FOLD_FROZEN_BN``); a
+    GroupNorm's ``.norm.weight``/``.norm.bias`` pass through as they are."""
     out: StateDict = {}
     for name, a in jax_params.items():
-        if ".norm." in name:
+        if ".norm.running_" in name:
             raise ValueError(f"{name}: unfolded FrozenBN; the port takes folded params")
         a = np.asarray(a, dtype=np.float32)
         if a.ndim == 4 and ".densepose_predictor." in name:

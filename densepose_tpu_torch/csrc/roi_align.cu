@@ -28,43 +28,13 @@
 // Numerics: built with --fmad=false and written with the _rn intrinsics, so
 // it performs the same roundings as the plain PyTorch version.
 
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "roi_align_common.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 8;
-constexpr int kThreads = 256;
-
-struct LevelTable {
-  const float* feat[kMaxLevels];
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  float scale[kMaxLevels];
-  int n;
-};
-
-// One sample coordinate along one axis: bin p, sub-sample i of g.
-__device__ __forceinline__ void axis_sample(float start, float bin, int p, int i,
-                                            int g, float limit, int& lo, int& hi,
-                                            float& lerp, bool& ok) {
-  const float frac = __fadd_rn(static_cast<float>(p),
-                               __fdiv_rn(__fadd_rn(static_cast<float>(i), 0.5f),
-                                         static_cast<float>(g)));
-  const float coord = __fadd_rn(start, __fmul_rn(bin, frac));
-  ok = coord >= -1.f && coord <= limit;
-  const float c = fmaxf(coord, 0.f);
-  float low = floorf(c);
-  if (low >= __fsub_rn(limit, 1.f)) {
-    low = __fsub_rn(limit, 1.f);
-    lerp = 0.f;
-    hi = static_cast<int>(low);
-  } else {
-    lerp = __fsub_rn(c, low);
-    hi = static_cast<int>(low) + 1;
-  }
-  lo = static_cast<int>(low);
-}
+using namespace roi_align_common;
 
 __global__ void __launch_bounds__(kThreads) roi_align_kernel(
     LevelTable lv, const float* __restrict__ boxes,
@@ -88,20 +58,9 @@ __global__ void __launch_bounds__(kThreads) roi_align_kernel(
     }
     const int h = lv.h[l], w = lv.w[l];
     const float* f = lv.feat[l] + static_cast<size_t>(ch) * h * w;
-    const float scale = lv.scale[l];
-    const float* box = boxes + 4 * static_cast<long long>(b);
-    const float start_w = __fsub_rn(__fmul_rn(box[0], scale), offset);
-    const float start_h = __fsub_rn(__fmul_rn(box[1], scale), offset);
-    const float end_w = __fsub_rn(__fmul_rn(box[2], scale), offset);
-    const float end_h = __fsub_rn(__fmul_rn(box[3], scale), offset);
-    float roi_w = __fsub_rn(end_w, start_w);
-    float roi_h = __fsub_rn(end_h, start_h);
-    if (!aligned) {
-      roi_w = fmaxf(roi_w, 1.f);
-      roi_h = fmaxf(roi_h, 1.f);
-    }
-    const float bin_h = __fdiv_rn(roi_h, static_cast<float>(oh));
-    const float bin_w = __fdiv_rn(roi_w, static_cast<float>(ow));
+    float start_h, bin_h, start_w, bin_w;
+    box_geometry(boxes + 4 * static_cast<long long>(b), lv.scale[l], offset, aligned, oh, ow,
+                 start_h, bin_h, start_w, bin_w);
 
     float acc = 0.f;
     for (int iy = 0; iy < g; ++iy) {
@@ -146,20 +105,11 @@ int dp_roi_align(const void* const* feats, const int* hs, const int* ws,
                  const void* levels, void* out, int m, int c, int oh, int ow,
                  int ratio, int aligned, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || ratio <= 0) return cudaErrorInvalidValue;
-  LevelTable t{};
-  for (int l = 0; l < n_levels; ++l) {
-    t.feat[l] = static_cast<const float*>(feats[l]);
-    t.h[l] = hs[l];
-    t.w[l] = ws[l];
-    t.scale[l] = scales[l];
-  }
-  t.n = n_levels;
   const long long total = static_cast<long long>(m) * oh * ow * c;
   if (total == 0) return cudaSuccess;
-  const long long want = (total + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < (1LL << 30) ? want : (1LL << 30));
-  roi_align_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      t, static_cast<const float*>(boxes), static_cast<const int32_t*>(levels),
+  roi_align_kernel<<<blocks_for(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      make_table(feats, hs, ws, scales, n_levels), static_cast<const float*>(boxes),
+      static_cast<const int32_t*>(levels),
       static_cast<float*>(out), m, c, oh, ow, ratio, aligned ? 0.5f : 0.f, aligned);
   return cudaGetLastError();
 }

@@ -1,0 +1,89 @@
+// What the two ROIAlign kernels share: K2 (roi_align.cu) and K3
+// (roi_align_sparse.cu) compute the same function, so they share its
+// sampling arithmetic, which must round exactly as the plain PyTorch versions
+// (ops/roi_align.py::_axis_samples, _roi_geometry) do. Every source builds
+// with --fmad=false, and these helpers use the _rn intrinsics.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace roi_align_common {
+
+constexpr int kMaxLevels = 8;
+constexpr int kThreads = 256;
+
+// Per-level base pointers of contiguous (C, H, W) f32 maps, their sizes and
+// scales: every level in one launch.
+struct LevelTable {
+  const float* feat[kMaxLevels];
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  float scale[kMaxLevels];
+  int n;
+};
+
+inline LevelTable make_table(const void* const* feats, const int* hs, const int* ws,
+                             const float* scales, int n_levels) {
+  LevelTable t{};
+  for (int l = 0; l < n_levels; ++l) {
+    t.feat[l] = static_cast<const float*>(feats[l]);
+    t.h[l] = hs[l];
+    t.w[l] = ws[l];
+    t.scale[l] = scales[l];
+  }
+  t.n = n_levels;
+  return t;
+}
+
+// Blocks of kThreads for a grid-stride loop over `total` elements.
+inline int blocks_for(long long total) {
+  const long long want = (total + kThreads - 1) / kThreads;
+  return static_cast<int>(want < (1LL << 30) ? want : (1LL << 30));
+}
+
+// Start and bin size of a box on its level, along y and x: the box scaled to
+// the level, shifted by `offset` (0.5 when aligned), its size clamped to >= 1
+// when not aligned, divided into oh x ow bins.
+__device__ __forceinline__ void box_geometry(const float* box, float scale, float offset,
+                                             int aligned, int oh, int ow, float& start_h,
+                                             float& bin_h, float& start_w, float& bin_w) {
+  start_w = __fsub_rn(__fmul_rn(box[0], scale), offset);
+  start_h = __fsub_rn(__fmul_rn(box[1], scale), offset);
+  const float end_w = __fsub_rn(__fmul_rn(box[2], scale), offset);
+  const float end_h = __fsub_rn(__fmul_rn(box[3], scale), offset);
+  float roi_w = __fsub_rn(end_w, start_w);
+  float roi_h = __fsub_rn(end_h, start_h);
+  if (!aligned) {
+    roi_w = fmaxf(roi_w, 1.f);
+    roi_h = fmaxf(roi_h, 1.f);
+  }
+  bin_h = __fdiv_rn(roi_h, static_cast<float>(oh));
+  bin_w = __fdiv_rn(roi_w, static_cast<float>(ow));
+}
+
+// One sample coordinate along one axis: bin p, sub-sample i of g. `ok` is
+// torchvision's border rule (-1 <= coord <= limit); the taps are `lo` and
+// `hi` with weights 1 - lerp and lerp, both clamped to limit - 1 at the edge.
+__device__ __forceinline__ void axis_sample(float start, float bin, int p, int i,
+                                            int g, float limit, int& lo, int& hi,
+                                            float& lerp, bool& ok) {
+  const float frac = __fadd_rn(static_cast<float>(p),
+                               __fdiv_rn(__fadd_rn(static_cast<float>(i), 0.5f),
+                                         static_cast<float>(g)));
+  const float coord = __fadd_rn(start, __fmul_rn(bin, frac));
+  ok = coord >= -1.f && coord <= limit;
+  const float c = fmaxf(coord, 0.f);
+  float low = floorf(c);
+  if (low >= __fsub_rn(limit, 1.f)) {
+    low = __fsub_rn(limit, 1.f);
+    lerp = 0.f;
+    hi = static_cast<int>(low);
+  } else {
+    lerp = __fsub_rn(c, low);
+    hi = static_cast<int>(low) + 1;
+  }
+  lo = static_cast<int>(low);
+}
+
+}  // namespace roi_align_common

@@ -14,7 +14,9 @@ FrozenBN folded (``backbone.bottom_up.stem.conv1.weight``,
 5. the box postprocess (detector_postprocess, postprocessing.py:11-61) and
    ``pack_detections``;
 6. the DensePose stage on a detection-count bucket picked on the host
-   (one device-to-host sync), zero-padded back to D slots.
+   (one device-to-host sync), zero-padded back to D slots;
+7. with ``TPU.DEVICE_POSTPROCESS``, ``device_postprocess``: the SIUV maps
+   collapse into a label map and a UV map on the device.
 
 Each stage runs inside a ``torch.profiler.record_function`` range of its
 name, so a profile of one request reads the device time of every stage.
@@ -58,8 +60,7 @@ def _check_supported(cfg) -> None:
     t = cfg.TPU
     if t.COMPUTE_DTYPE != "float32":
         raise NotImplementedError(f"compute dtype {t.COMPUTE_DTYPE!r} is not ported yet")
-    unported = [k for k in ("BUCKETED_DENSEPOSE", "DEVICE_POSTPROCESS", "EMIT_CONFIDENCES",
-                            "INT8_HEAD", "INT8_BACKBONE", "INT8_RPN", "INT8_PREDICTOR",
+    unported = [k for k in ("BUCKETED_DENSEPOSE", "INT8_HEAD", "INT8_BACKBONE", "INT8_RPN", "INT8_PREDICTOR",
                             "GEOMETRY_BUCKET_QUANT") if t[k]]
     if unported:
         raise NotImplementedError(f"TPU.{unported[0]} is not ported yet")
@@ -194,8 +195,40 @@ class GeneralizedRCNN(nn.Module):
                                                      int(result["num_instances"]))
             else:
                 dp = self.forward_densepose(features, boxes_net)
+            if self.cfg.TPU.DEVICE_POSTPROCESS and "pred_densepose_u" in dp:
+                with record_function("densepose_postprocess"):
+                    dp = device_postprocess(dp)
             result.update(dp)
         return result
+
+
+_SIUV = ("pred_densepose_coarse_segm", "pred_densepose_fine_segm", "pred_densepose_u",
+         "pred_densepose_v")
+
+
+def device_postprocess(dp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The SIUV maps (D, C, H, W) collapsed on the device (port of JAX
+    rcnn.py:410-445): ``pred_densepose_labels`` (D, H, W) uint8, the fine-segm
+    argmax where the coarse argmax is foreground, else 0, and
+    ``pred_densepose_uv`` (D, H, W, 2) float16, U and V at that label (0 on
+    background). Other maps (``TPU.EMIT_CONFIDENCES``) pass through.
+
+    As in the JAX package, the argmax is taken at the heatmap grid; the
+    reference takes it after resizing the logits to the box
+    (visualizer.py:10-17), so boundaries may move by about a pixel at box
+    scale."""
+    coarse = dp["pred_densepose_coarse_segm"].float()
+    fine = dp["pred_densepose_fine_segm"].float()
+    fg = coarse.argmax(dim=1) > 0
+    labels = fine.argmax(dim=1).int() * fg
+    lab = labels[:, None].long()
+    zero = torch.zeros((), dtype=dp["pred_densepose_u"].dtype, device=fg.device)
+    uv = torch.stack([torch.where(fg, dp[k].gather(1, lab)[:, 0], zero)
+                      for k in ("pred_densepose_u", "pred_densepose_v")], dim=-1)
+    out = {"pred_densepose_labels": labels.to(torch.uint8),
+           "pred_densepose_uv": uv.half()}
+    out.update({k: v for k, v in dp.items() if k not in _SIUV})
+    return out
 
 
 def densepose_bucket(num_valid: int, d: int) -> int:

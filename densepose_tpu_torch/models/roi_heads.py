@@ -6,9 +6,13 @@ of densepose_tpu/models/roi_heads.py), NCHW.
   in fp32, the reference's discarded clip, NMS (kernel K1), top-D.
 * The Panoptic-FPN style Decoder in its per-chain form (each chain upsamples
   on its own, the reference's order).
-* The DensePose pooler: single-level ROIAlign on the decoder map (K2).
-* DensePoseV1ConvXHead and the chart predictor's four separate deconv heads
-  with a 2x bilinear upsample.
+* The DensePose pooler: single-level ROIAlign on the decoder map (K2), or,
+  for the legacy configs (``DECODER_ON=False``), multi-level ROIAlign over
+  the FPN levels (K2, or K3 with ``DENSEPOSE_TPU_SPARSE_POOLER``).
+* DensePoseV1ConvXHead or DensePoseDeepLabHead (ASPP with GroupNorm, then
+  GN convs), and the chart predictor's four separate deconv heads with a 2x
+  bilinear upsample; with ``TPU.EMIT_CONFIDENCES`` the WC predictors'
+  confidence heads too.
 
 Boxes, scores and valid masks keep the JAX package's fixed slots.
 """
@@ -23,9 +27,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from ..checkpoint.spec import Spec, conv_spec, conv_transpose_spec, linear_spec
+from ..checkpoint.spec import Spec, conv_spec, conv_transpose_spec, gn_spec, linear_spec
 from ..ops.boxes import apply_deltas
 from ..ops.nms import batched_nms_mask, nms_mask
+from ..ops.norms import GroupNorm32
 from ..ops.resize import resize_bilinear
 from ..ops.roi_align import assign_boxes_to_levels, roi_align_multilevel, roi_align_single
 from .backbones import feature_strides
@@ -42,11 +47,14 @@ def _check_supported(cfg) -> None:
     if cfg.MODEL.ROI_BOX_HEAD.NUM_CONV:
         raise NotImplementedError("box-head convs are not ported yet")
     if cfg.MODEL.DENSEPOSE_ON:
-        if h.NAME != "DensePoseV1ConvXHead":
+        if h.NAME not in ("DensePoseV1ConvXHead", "DensePoseDeepLabHead"):
             raise NotImplementedError(f"DensePose head {h.NAME!r} is not ported yet")
-        if not h.DECODER_ON or h.DECODER_NORM:
-            raise NotImplementedError("only the norm-free decoder DensePose pooler is "
-                                      "ported yet")
+        if h.NAME == "DensePoseDeepLabHead" and (h.DEEPLAB.NONLOCAL_ON
+                                                 or h.DEEPLAB.NORM != "GN"):
+            raise NotImplementedError("the DeepLab head is ported as every shipped config "
+                                      "sets it: GroupNorm, no NonLocal block")
+        if h.DECODER_ON and h.DECODER_NORM:
+            raise NotImplementedError("a normed decoder is not ported yet")
         if h.PREDICTOR_NAME == "DensePoseEmbeddingPredictor":
             raise NotImplementedError("CSE predictors are not ported yet")
 
@@ -94,13 +102,34 @@ def decoder_spec(cfg, prefix: str = "roi_heads.decoder") -> Spec:
     return spec
 
 
+def _head_in_channels(cfg) -> int:
+    """The DensePose head's input width: the decoder's classes, or the FPN
+    levels' width for the legacy multi-level pooler (JAX roi_heads.py:120-122)."""
+    h = cfg.MODEL.ROI_DENSEPOSE_HEAD
+    return h.DECODER_NUM_CLASSES if h.DECODER_ON else cfg.MODEL.FPN.OUT_CHANNELS
+
+
 def densepose_head_spec(cfg, prefix: str = "roi_heads.densepose_head") -> Spec:
     h = cfg.MODEL.ROI_DENSEPOSE_HEAD
     spec: Spec = {}
-    d = h.DECODER_NUM_CLASSES
+    d = _head_in_channels(cfg)
+    norm = ""
+    if h.NAME == "DensePoseDeepLabHead":
+        # ASPP (deeplab.py:33): out width = in width; branches 0-3 conv + GN,
+        # branch 4 pool (index 0) + conv + GN, then the 1x1 projection
+        norm = "GN"
+        a = f"{prefix}.ASPP"
+        conv_spec(spec, f"{a}.convs.0.0", d, d, 1, bias=False)
+        gn_spec(spec, f"{a}.convs.0.1", d)
+        for i in range(1, 4):
+            conv_spec(spec, f"{a}.convs.{i}.0", d, d, 3, bias=False)
+            gn_spec(spec, f"{a}.convs.{i}.1", d)
+        conv_spec(spec, f"{a}.convs.4.1", d, d, 1, bias=False)
+        gn_spec(spec, f"{a}.convs.4.2", d)
+        conv_spec(spec, f"{a}.project.0", 5 * d, d, 1, bias=False)
     for i in range(h.NUM_STACKED_CONVS):
         conv_spec(spec, f"{prefix}.body_conv_fcn{i + 1}", d, h.CONV_HEAD_DIM,
-                  h.CONV_HEAD_KERNEL)
+                  h.CONV_HEAD_KERNEL, bias=not norm, norm=norm)
         d = h.CONV_HEAD_DIM
     return spec
 
@@ -108,7 +137,8 @@ def densepose_head_spec(cfg, prefix: str = "roi_heads.densepose_head") -> Spec:
 def _predictor_heads(cfg) -> List[Tuple[str, int]]:
     """(name, out channels) of every chart-predictor deconv, in spec order.
     The WC confidence deconvs are declared so WC checkpoints load; like the
-    reference, the forward computes only the four SIUV heads."""
+    reference, the forward computes only the four SIUV heads unless
+    ``TPU.EMIT_CONFIDENCES`` asks for them."""
     h = cfg.MODEL.ROI_DENSEPOSE_HEAD
     patches = h.NUM_PATCHES + 1
     heads = [("ann_index_lowres", h.NUM_COARSE_SEGM_CHANNELS),
@@ -137,7 +167,8 @@ def roi_heads_spec(cfg, prefix: str = "roi_heads") -> Spec:
     _check_supported(cfg)
     spec = box_head_spec(cfg, prefix)
     if cfg.MODEL.DENSEPOSE_ON:
-        spec.update(decoder_spec(cfg, f"{prefix}.decoder"))
+        if cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_ON:
+            spec.update(decoder_spec(cfg, f"{prefix}.decoder"))
         spec.update(densepose_head_spec(cfg, f"{prefix}.densepose_head"))
         spec.update(densepose_predictor_spec(cfg, f"{prefix}.densepose_predictor"))
     return spec
@@ -206,7 +237,7 @@ class DensePoseV1ConvXHead(nn.Module):
         super().__init__()
         h = cfg.MODEL.ROI_DENSEPOSE_HEAD
         self.n = h.NUM_STACKED_CONVS
-        d = h.DECODER_NUM_CLASSES
+        d = _head_in_channels(cfg)
         for i in range(self.n):
             self.add_module(f"body_conv_fcn{i + 1}",
                             nn.Conv2d(d, h.CONV_HEAD_DIM, h.CONV_HEAD_KERNEL,
@@ -219,17 +250,104 @@ class DensePoseV1ConvXHead(nn.Module):
         return x
 
 
+class Conv2dNorm(nn.Conv2d):
+    """detectron2's Conv2d with a fused norm (layers/wrappers.py:82-112): the
+    convolution, then ``self.norm``."""
+
+    def __init__(self, *args, norm: nn.Module, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.norm = norm
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(super().forward(x))
+
+
+def _gn_branch(*convs: nn.Module) -> nn.Sequential:
+    c = convs[-1].out_channels
+    return nn.Sequential(*convs, GroupNorm32(c), nn.ReLU())
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling with GroupNorm (deeplab.py:33-60; JAX
+    roi_heads.py:421-458): a 1x1 branch, 3x3 branches at rates 6, 12 and 56,
+    a global-pool branch, and a 1x1 projection of the five."""
+
+    RATES = (6, 12, 56)
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            [_gn_branch(nn.Conv2d(c, c, 1, bias=False))]
+            + [_gn_branch(nn.Conv2d(c, c, 3, padding=r, dilation=r, bias=False))
+               for r in self.RATES]
+            + [_gn_branch(nn.AdaptiveAvgPool2d(1), nn.Conv2d(c, c, 1, bias=False))])
+        self.project = nn.Sequential(nn.Conv2d(5 * c, c, 1, bias=False), nn.ReLU())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[-2:]
+        branches = []
+        for conv, gn, relu in self.convs[:4]:
+            d = conv.dilation[0]
+            if d > 1 and d >= h and d >= w:
+                # the JAX package's static rule (roi_heads.py:424-434): a 3x3
+                # conv whose dilation is at least both ROI dims samples only
+                # its center tap in bounds, so it is that tap's 1x1 conv
+                y = F.conv2d(x, conv.weight[:, :, 1:2, 1:2])
+            else:
+                y = conv(x)
+            branches.append(relu(gn(y)))
+        _, conv, gn, relu = self.convs[4]
+        g = relu(gn(conv(x.mean(dim=(-2, -1), keepdim=True))))
+        branches.append(g.expand_as(branches[0]))  # bilinear resize of 1x1 == broadcast
+        return self.project(torch.cat(branches, dim=1))
+
+
+class DensePoseDeepLabHead(nn.Module):
+    """ASPP, then the stacked convs with GroupNorm (deeplab.py:16-86; JAX
+    roi_heads.py:461-481)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        h = cfg.MODEL.ROI_DENSEPOSE_HEAD
+        k = h.CONV_HEAD_KERNEL
+        self.n = h.NUM_STACKED_CONVS
+        d = _head_in_channels(cfg)
+        self.ASPP = ASPP(d)
+        for i in range(self.n):
+            self.add_module(f"body_conv_fcn{i + 1}",
+                            Conv2dNorm(d, h.CONV_HEAD_DIM, k, padding=k // 2, bias=False,
+                                       norm=GroupNorm32(h.CONV_HEAD_DIM)))
+            d = h.CONV_HEAD_DIM
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.ASPP(x)
+        for i in range(self.n):
+            x = F.relu(getattr(self, f"body_conv_fcn{i + 1}")(x))
+        return x
+
+
+_HEADS = {"DensePoseV1ConvXHead": DensePoseV1ConvXHead,
+          "DensePoseDeepLabHead": DensePoseDeepLabHead}
+
+
 class DensePoseChartPredictor(nn.Module):
-    """Four ConvTranspose2d heads + a bilinear upsample (chart.py:45-90)."""
+    """Four ConvTranspose2d heads + a bilinear upsample (chart.py:45-90). With
+    ``TPU.EMIT_CONFIDENCES`` a WC predictor also runs its confidence heads
+    and emits their upsampled maps under the JAX package's names
+    (roi_heads.py:604-614)."""
 
     def __init__(self, cfg):
         super().__init__()
         h = cfg.MODEL.ROI_DENSEPOSE_HEAD
         k = h.DECONV_KERNEL
         self.up = float(h.UP_SCALE)
-        for name, cout in _predictor_heads(cfg):
+        heads = _predictor_heads(cfg)
+        for name, cout in heads:
             self.add_module(name, nn.ConvTranspose2d(h.CONV_HEAD_DIM, cout, k, stride=2,
                                                      padding=int(k / 2 - 1)))
+        self.outputs = list(zip(("coarse_segm", "fine_segm", "u", "v"), _CHART_HEADS))
+        if cfg.TPU.EMIT_CONFIDENCES:
+            self.outputs += [(name[:-len("_lowres")], name) for name, _ in heads[4:]]
 
     def head(self, name: str, x: torch.Tensor) -> torch.Tensor:
         y = getattr(self, name)(x)
@@ -237,8 +355,7 @@ class DensePoseChartPredictor(nn.Module):
         return resize_bilinear(y, out_hw, scale=(self.up, self.up))
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        keys = ("coarse_segm", "fine_segm", "u", "v")
-        return {key: self.head(name, x) for key, name in zip(keys, _CHART_HEADS)}
+        return {key: self.head(name, x) for key, name in self.outputs}
 
 
 class ROIHeads(nn.Module):
@@ -248,8 +365,9 @@ class ROIHeads(nn.Module):
         self.box_head = FastRCNNConvFCHead(cfg)
         self.box_predictor = FastRCNNOutputLayers(cfg)
         if cfg.MODEL.DENSEPOSE_ON:
-            self.decoder = Decoder(cfg)
-            self.densepose_head = DensePoseV1ConvXHead(cfg)
+            if cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_ON:
+                self.decoder = Decoder(cfg)
+            self.densepose_head = _HEADS[cfg.MODEL.ROI_DENSEPOSE_HEAD.NAME](cfg)
             self.densepose_predictor = DensePoseChartPredictor(cfg)
 
 
@@ -273,10 +391,8 @@ def box_stage_forward(
     num_classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
     topk = cfg.TEST.DETECTIONS_PER_IMAGE
 
-    strides = feature_strides(cfg)
-    scales = [1.0 / strides[f] for f in in_features]
-    levels = assign_boxes_to_levels(proposals, int(-math.log2(scales[0])),
-                                    int(-math.log2(scales[-1])))
+    scales, min_lvl, max_lvl = _fpn_pooling(cfg, in_features)
+    levels = assign_boxes_to_levels(proposals, min_lvl, max_lvl)
     # K2 reads each (C, H, W) level of the batch-1 features in place
     pooled = roi_align_multilevel([features[f][0] for f in in_features], proposals,
                                   levels, scales, (res, res),
@@ -326,38 +442,42 @@ def box_stage_forward(
     return out_boxes, out_scores, out_cls, out_valid
 
 
-def decoder_forward(heads: ROIHeads, features: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return heads.decoder(features)
+def _fpn_pooling(cfg, in_features: List[str]):
+    """Per-level scales and the min / max FPN level of ``in_features``."""
+    strides = feature_strides(cfg)
+    scales = [1.0 / strides[f] for f in in_features]
+    return scales, int(-math.log2(scales[0])), int(-math.log2(scales[-1]))
 
 
-def _densepose_pooled(sem: torch.Tensor, boxes: torch.Tensor, cfg) -> torch.Tensor:
-    """Single-level ROIAlign (K2) of the (1, C, H, W) decoder map on the given
-    boxes: the head's input, (B, C, res, res)."""
+def _densepose_pooled(heads: ROIHeads, features: Dict[str, torch.Tensor],
+                      boxes: torch.Tensor, cfg) -> torch.Tensor:
+    """The DensePose head's input, (B, C, res, res): single-level ROIAlign (K2)
+    of the (1, C, H, W) decoder map, or for the legacy configs multi-level
+    ROIAlign over the FPN levels (JAX roi_heads.py:633-643)."""
     h = cfg.MODEL.ROI_DENSEPOSE_HEAD
     res = h.POOLER_RESOLUTION
-    scale = 1.0 / feature_strides(cfg)[cfg.MODEL.ROI_HEADS.IN_FEATURES[0]]
-    return roi_align_single(sem[0], boxes, scale, (res, res), h.POOLER_SAMPLING_RATIO,
-                            h.POOLER_TYPE == "ROIAlignV2")
-
-
-def _v1convx_forward(heads: ROIHeads, x: torch.Tensor) -> torch.Tensor:
-    return heads.densepose_head(x)
-
-
-def densepose_predictor_forward(heads: ROIHeads, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """SIUV maps, NCHW: (B, C, HEATMAP, HEATMAP) each."""
-    return heads.densepose_predictor(x)
+    aligned = h.POOLER_TYPE == "ROIAlignV2"
+    in_features: List[str] = list(cfg.MODEL.ROI_HEADS.IN_FEATURES)
+    scales, min_lvl, max_lvl = _fpn_pooling(cfg, in_features)
+    if h.DECODER_ON:
+        with record_function("decoder"):
+            sem = heads.decoder(features)
+        with record_function("densepose_pooler"):
+            return roi_align_single(sem[0], boxes, scales[0], (res, res),
+                                    h.POOLER_SAMPLING_RATIO, aligned)
+    with record_function("densepose_pooler"):
+        levels = assign_boxes_to_levels(boxes, min_lvl, max_lvl)
+        return roi_align_multilevel([features[f][0] for f in in_features], boxes, levels,
+                                    scales, (res, res), h.POOLER_SAMPLING_RATIO, aligned)
 
 
 def densepose_stage_forward(heads: ROIHeads, features: Dict[str, torch.Tensor],
                             boxes: torch.Tensor, cfg) -> Dict[str, torch.Tensor]:
-    """Decoder -> ROIAlign -> head -> predictor on the given boxes
-    (densepose roi_head.py:126-158). Each step is a profiler range."""
-    with record_function("decoder"):
-        sem = decoder_forward(heads, features)
-    with record_function("densepose_pooler"):
-        pooled = _densepose_pooled(sem, boxes, cfg)
+    """(Decoder ->) ROIAlign -> head -> predictor on the given boxes
+    (densepose roi_head.py:126-158). SIUV maps NCHW, (B, C, HEATMAP, HEATMAP)
+    each. Each step is a profiler range."""
+    pooled = _densepose_pooled(heads, features, boxes, cfg)
     with record_function("densepose_head"):
-        x = _v1convx_forward(heads, pooled)
+        x = heads.densepose_head(pooled)
     with record_function("densepose_predictor"):
-        return densepose_predictor_forward(heads, x)
+        return heads.densepose_predictor(x)

@@ -28,7 +28,8 @@ from typing import Dict, Iterable, NamedTuple
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = {"nms": "nms.cu", "roi_align": "roi_align.cu"}
+SOURCES = {"nms": "nms.cu", "roi_align": "roi_align.cu",
+           "roi_align_sparse": "roi_align_sparse.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,29 @@
+"""Normalisation ops (port of densepose_tpu/ops/norms.py).
+
+FrozenBN is folded into the convs at load time (checkpoint/transform.py), so
+GroupNorm, used by the DeepLab head, is the one norm that runs.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """torch ``nn.GroupNorm`` over NCHW x, statistics in fp32 (port of
+    densepose_tpu/ops/norms.py:103-125, which computes the same on NHWC)."""
+    return F.group_norm(x.float(), num_groups, weight.float(), bias.float(), eps).to(x.dtype)
+
+
+class GroupNorm32(nn.GroupNorm):
+    """The reference's ``nn.GroupNorm(32, C)`` (deeplab.py), through
+    ``group_norm``; its parameters are the state_dict's ``weight``/``bias``."""
+
+    def __init__(self, channels: int):
+        super().__init__(32, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps)

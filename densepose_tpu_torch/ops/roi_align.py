@@ -17,12 +17,19 @@ For CUDA tensors the pooling is kernel K2 (``csrc/roi_align.cu``): all levels
 in one launch. For CPU tensors it is ``roi_align_plain``, a PyTorch port of
 the JAX package's gather formulation (roi_align.py:106-224), which is also
 what the JAX package runs on the CPU.
+
+With ``DENSEPOSE_TPU_SPARSE_POOLER`` set (read on every call), the
+multi-level pooler takes the skip-flag schedule instead: kernel K3 for CUDA
+tensors, its plain version for CPU tensors (``ops/roi_align_sparse.py``). The
+single-level pooler stays on K2 whatever the variable says, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -146,24 +153,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def roi_align_cuda(
-    feats: List[torch.Tensor],
-    boxes: torch.Tensor,
-    levels: torch.Tensor,
-    scales: Sequence[float],
-    output_size: Tuple[int, int],
-    sampling_ratio: int,
-    aligned: bool,
-) -> torch.Tensor:
-    """Kernel K2 on CUDA tensors: feats per level (C, H, W) f32 contiguous,
-    boxes (M, 4) f32, levels (M,) i32, all on one device. Returns
-    (M, C, oh, ow) f32. Raises if the inputs do not fit or the launch fails."""
+def check_cuda_inputs(feats, boxes, levels, scales) -> None:
+    """What the ROIAlign kernels (K2, K3) take: per level a contiguous
+    (C, H, W) float32 CUDA tensor and a scale, boxes (M, 4) float32 and
+    levels (M,) int32, contiguous, all on one device. Raises ValueError."""
     n = len(feats)
     if n < 1 or len(scales) != n:
         raise ValueError(f"need one scale per level, got {n} levels and "
                          f"{len(scales)} scales")
-    if sampling_ratio <= 0:
-        raise ValueError("K2 takes a fixed sampling_ratio > 0")
     dev = boxes.device
     c = feats[0].shape[0]
     for i, f in enumerate(feats):
@@ -179,20 +176,45 @@ def roi_align_cuda(
     if (levels.device != dev or levels.dtype != torch.int32
             or tuple(levels.shape) != (m,) or not levels.is_contiguous()):
         raise ValueError(f"levels must be contiguous ({m},) int32 on {dev}")
+
+
+def level_args(feats, scales):
+    """The kernels' per-level table arguments: host arrays of the levels'
+    device pointers, heights, widths and scales, and the level count."""
+    n = len(feats)
+    return ((ctypes.c_void_p * n)(*[f.data_ptr() for f in feats]),
+            (ctypes.c_int * n)(*[f.shape[1] for f in feats]),
+            (ctypes.c_int * n)(*[f.shape[2] for f in feats]),
+            (ctypes.c_float * n)(*[float(s) for s in scales]), n)
+
+
+def roi_align_cuda(
+    feats: List[torch.Tensor],
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    scales: Sequence[float],
+    output_size: Tuple[int, int],
+    sampling_ratio: int,
+    aligned: bool,
+) -> torch.Tensor:
+    """Kernel K2 on CUDA tensors: feats per level (C, H, W) f32 contiguous,
+    boxes (M, 4) f32, levels (M,) i32, all on one device. Returns
+    (M, C, oh, ow) f32. Raises if the inputs do not fit or the launch fails."""
+    check_cuda_inputs(feats, boxes, levels, scales)
+    if sampling_ratio <= 0:
+        raise ValueError("K2 takes a fixed sampling_ratio > 0")
+    n, m, c = len(feats), boxes.shape[0], feats[0].shape[0]
+    dev = boxes.device
     lib = _lib()
     if n > lib.dp_roi_align_max_levels():
         raise ValueError(f"K2 takes at most {lib.dp_roi_align_max_levels()} levels")
     oh, ow = output_size
     out = torch.empty((m, c, oh, ow), dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats])
-    hs = (ctypes.c_int * n)(*[f.shape[1] for f in feats])
-    ws = (ctypes.c_int * n)(*[f.shape[2] for f in feats])
-    sc = (ctypes.c_float * n)(*[float(s) for s in scales])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dp_roi_align(ptrs, hs, ws, sc, n, boxes.data_ptr(), levels.data_ptr(),
-                               out.data_ptr(), m, c, oh, ow, int(sampling_ratio),
-                               int(bool(aligned)), stream)
+        err = lib.dp_roi_align(*level_args(feats, scales), boxes.data_ptr(),
+                               levels.data_ptr(), out.data_ptr(), m, c, oh, ow,
+                               int(sampling_ratio), int(bool(aligned)), stream)
     if err != 0:
         raise RuntimeError(f"roi_align_cuda launch failed: cudaError {err}")
     roi_align_cuda.launches += 1
@@ -211,8 +233,21 @@ def roi_align_multilevel(
     sampling_ratio: int,
     aligned: bool,
 ) -> torch.Tensor:
-    """Pool each box from its assigned level: K2 for CUDA tensors, the plain
-    version for CPU tensors. Returns (M, C, oh, ow) float32."""
+    """Pool each box from its assigned level. Returns (M, C, oh, ow) float32.
+
+    K2 for CUDA tensors and the plain version for CPU tensors; with
+    ``DENSEPOSE_TPU_SPARSE_POOLER`` set, the skip-flag pooler (K3 or its
+    plain version) as the JAX package routes it (roi_align.py:121-129)."""
+    if os.environ.get("DENSEPOSE_TPU_SPARSE_POOLER"):
+        from .roi_align_sparse import roi_align_sparse
+        return roi_align_sparse(feats, boxes, levels, scales, output_size, sampling_ratio,
+                                aligned)
+    return _roi_align_gather(feats, boxes, levels, scales, output_size, sampling_ratio,
+                             aligned)
+
+
+def _roi_align_gather(feats, boxes, levels, scales, output_size, sampling_ratio, aligned):
+    """K2 for CUDA tensors, its plain version for CPU tensors."""
     if sampling_ratio <= 0:
         raise NotImplementedError("adaptive sampling (ratio 0) is not ported yet")
     if boxes.is_cuda:
@@ -234,7 +269,8 @@ def roi_align_single(
     aligned: bool,
 ) -> torch.Tensor:
     """Single-level ROIAlign (the decoder-path DensePose pooler) of one
-    (C, H, W) map."""
+    (C, H, W) map: always K2 (or its plain version), as the JAX package's
+    ``roi_align_single`` never reads the sparse-pooler switch."""
     levels = torch.zeros((boxes.shape[0],), dtype=torch.int32, device=boxes.device)
-    return roi_align_multilevel([feat], boxes, levels, [scale], output_size,
-                                sampling_ratio, aligned)
+    return _roi_align_gather([feat], boxes, levels, [scale], output_size, sampling_ratio,
+                             aligned)

@@ -1,0 +1,266 @@
+"""Skip-flag multi-level ROIAlign (kernel K3; port of
+densepose_tpu/ops/pallas/roi_align_kernel.py::roi_align_multilevel_sparse).
+
+The same function as K2 (``ops/roi_align.py``), computed through the
+separable weights of ``_axis_weights``: for box b at level l,
+
+    out[b, c] = Wy[b] @ feat_l[c] @ Wx[b]^T
+
+with Wy (oh, H_l) and Wx (ow, W_l) rows that sum each bin's ratio bilinear
+taps per axis and divide by the ratio. The schedule is the JAX package's:
+
+* boxes are sorted by the fp32 key ``level * 1e7 + clip(x1, 0, 1e6)``
+  (stable), so each chunk of ``CHUNK`` sorted boxes clusters on one level and
+  a narrow column range;
+* per level, the Wx rows of boxes assigned elsewhere are zero;
+* the level's columns fall into tiles of ``TILE``; a (chunk, tile) pair is
+  active when some Wx entry of the chunk's boxes in that tile is nonzero;
+* per box, the output is the sum over the active tiles of its chunk, in
+  ascending order, of Wx_tile . (Wy . feat_tile); inactive pairs do no work;
+* results return in the caller's box order.
+
+Layouts are the port's: (C, H, W) levels, boxes (M, 4) XYXY in input-image
+coordinates, levels (M,) int, output (M, C, oh, ow) float32.
+
+For CUDA tensors the pooling is kernel K3 (``csrc/roi_align_sparse.cu``); for
+CPU tensors it is ``roi_align_sparse_plain``, which builds the dense weight
+rows and runs the per-(chunk, tile) contraction in PyTorch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, NamedTuple, Sequence, Tuple
+
+import torch
+
+from .boxes import true_div
+from .cuda_build import library
+from .roi_align import _axis_samples, _roi_geometry, check_cuda_inputs, level_args
+
+CHUNK = 128  # boxes per chunk (roi_align_kernel.py:155, CHUNK_S)
+TILE = 8     # feature columns per tile (roi_align_kernel.py:156, TW_S)
+SORT_LEVEL_STRIDE = 1e7
+SORT_X_MAX = 1e6
+
+
+def _axis_weights(start, bin_size, n_bins: int, g: int, limit: int) -> torch.Tensor:
+    """Per-box separable ROIAlign weights along one axis: (M, n_bins, limit)
+    rows that sum the g sub-samples' bilinear taps and divide by g (port of
+    densepose_tpu/ops/roi_align.py:227-242): the gather's taps, border rule
+    and edge clamp included, as dense rows."""
+    m = start.shape[0]
+    lim = torch.full((m,), float(limit), dtype=torch.float32, device=start.device)
+    low, high, lerp, ok = _axis_samples(start, bin_size, n_bins, g, lim)
+    okf = ok.float()
+    w_low = (1.0 - lerp) * okf
+    w_high = lerp * okf
+    idx = torch.arange(limit, device=start.device)
+    one_low = (low[:, :, None] == idx).float()
+    one_high = (high[:, :, None] == idx).float()
+    w = w_low[:, :, None] * one_low + w_high[:, :, None] * one_high
+    return true_div(w.reshape(m, n_bins, g, limit).sum(dim=2), g)
+
+
+def sort_order(boxes: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+    """The schedule's box order: a stable argsort of the fp32 key
+    ``level * 1e7 + clip(x1, 0, 1e6)`` (roi_align_kernel.py:265-266)."""
+    key = levels.float() * SORT_LEVEL_STRIDE + boxes[:, 0].float().clamp(0.0, SORT_X_MAX)
+    return torch.argsort(key, stable=True)
+
+
+class SparseSchedule(NamedTuple):
+    order: torch.Tensor        # (M,) sorted position -> caller index
+    inv: torch.Tensor          # (M,) caller index -> sorted position
+    wy: List[torch.Tensor]     # per level (Mp, oh, H) f32, sorted boxes
+    wx: List[torch.Tensor]     # per level (Mp, ow, W) f32, other levels' rows zero
+    flags: List[torch.Tensor]  # per level (Mp / CHUNK, ceil(W / TILE)) int32
+
+
+def sparse_schedule(
+    feats: List[torch.Tensor],
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    scales: Sequence[float],
+    output_size: Tuple[int, int],
+    sampling_ratio: int,
+    aligned: bool,
+) -> SparseSchedule:
+    """The JAX package's host-side schedule (roi_align_kernel.py:256-301):
+    order and inverse, per-level weight rows padded to whole chunks, and the
+    activity flags from ``Wx != 0`` over each (chunk, tile)."""
+    out_h, out_w = output_size
+    m = boxes.shape[0]
+    mp = -(-m // CHUNK) * CHUNK
+    dev = boxes.device
+    order = sort_order(boxes, levels)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(m, device=dev)
+    b_s = boxes.float()[order]
+    lv_s = levels.long()[order]
+    wys, wxs, flags = [], [], []
+    for li, (feat, scale) in enumerate(zip(feats, scales)):
+        h, w = feat.shape[1], feat.shape[2]
+        scale_b = torch.full((m,), float(scale), dtype=torch.float32, device=dev)
+        start_h, bin_h, start_w, bin_w = _roi_geometry(b_s, scale_b, output_size, aligned)
+        wy = _axis_weights(start_h, bin_h, out_h, sampling_ratio, h)
+        wx = _axis_weights(start_w, bin_w, out_w, sampling_ratio, w)
+        wx = wx * (lv_s == li).float()[:, None, None]
+        wy = torch.cat([wy, wy.new_zeros((mp - m, out_h, h))])
+        wx = torch.cat([wx, wx.new_zeros((mp - m, out_w, w))])
+        tiles = -(-w // TILE)
+        nz = torch.nn.functional.pad(wx != 0, (0, tiles * TILE - w))
+        flags.append(nz.reshape(mp // CHUNK, CHUNK, out_w, tiles, TILE)
+                     .any(dim=4).any(dim=2).any(dim=1).int())
+        wys.append(wy)
+        wxs.append(wx)
+    return SparseSchedule(order, inv, wys, wxs, flags)
+
+
+def roi_align_sparse_plain(
+    feats: List[torch.Tensor],
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    scales: Sequence[float],
+    output_size: Tuple[int, int],
+    sampling_ratio: int,
+    aligned: bool,
+) -> torch.Tensor:
+    """The plain PyTorch version of K3: per level and active (chunk, tile)
+    pair, rows = Wy . feat_tile, then out += Wx_tile . rows; inactive pairs are
+    skipped. Returns (M, C, oh, ow) float32 in the caller's order."""
+    out_h, out_w = output_size
+    m = boxes.shape[0]
+    c = feats[0].shape[0]
+    sched = sparse_schedule(feats, boxes, levels, scales, output_size, sampling_ratio,
+                            aligned)
+    mp = -(-m // CHUNK) * CHUNK
+    out = torch.zeros((mp, c, out_h, out_w), dtype=torch.float32, device=boxes.device)
+    for feat, wy, wx, flags in zip(feats, sched.wy, sched.wx, sched.flags):
+        f = feat.float()
+        for k, t in flags.nonzero().tolist():
+            rows = slice(k * CHUNK, (k + 1) * CHUNK)
+            cols = slice(t * TILE, (t + 1) * TILE)
+            tile_rows = torch.einsum("byh,chw->bcyw", wy[rows], f[:, :, cols])
+            out[rows] += torch.einsum("bcyw,bxw->bcyx", tile_rows, wx[rows, :, cols])
+    return out[:m][sched.inv]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """K3's library, built on first use, with its C signatures set once."""
+    lib = library("roi_align_sparse")
+    levels = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    lib.dp_roi_align_sparse_flags.argtypes = (
+        levels + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.dp_roi_align_sparse_pool.argtypes = (
+        levels + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    for fn in (lib.dp_roi_align_sparse_flags, lib.dp_roi_align_sparse_pool,
+               lib.dp_roi_align_sparse_max_levels, lib.dp_roi_align_sparse_max_ratio):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda_inputs(feats, boxes, levels, scales, sampling_ratio):
+    check_cuda_inputs(feats, boxes, levels, scales)
+    lib = _lib()
+    if len(feats) > lib.dp_roi_align_sparse_max_levels():
+        raise ValueError(f"K3 takes at most {lib.dp_roi_align_sparse_max_levels()} levels")
+    if not 0 < sampling_ratio <= lib.dp_roi_align_sparse_max_ratio():
+        raise ValueError(f"K3 takes a fixed sampling_ratio in 1.."
+                         f"{lib.dp_roi_align_sparse_max_ratio()}, got {sampling_ratio}")
+    return lib
+
+
+def sparse_schedule_cuda(
+    feats: List[torch.Tensor],
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    scales: Sequence[float],
+    output_size: Tuple[int, int],
+    sampling_ratio: int,
+    aligned: bool,
+):
+    """K3's schedule on the card: the sort order (PyTorch), the sorted boxes
+    and levels, and the flag table (L, Mp / CHUNK, max tiles) int32 that
+    K3's flags kernel marks from the boxes' nonzero Wx taps. Level l's table
+    is ``flags[l, :, :ceil(W_l / TILE)]``; it equals ``sparse_schedule``'s."""
+    lib = _check_cuda_inputs(feats, boxes, levels, scales, sampling_ratio)
+    order = sort_order(boxes, levels)
+    b_s = boxes[order].contiguous()
+    lv_s = levels[order].contiguous()
+    m = boxes.shape[0]
+    n_chunks = -(-m // CHUNK)
+    max_tiles = max(-(-f.shape[2] // TILE) for f in feats)
+    flags = torch.zeros((len(feats), n_chunks, max_tiles), dtype=torch.int32,
+                        device=boxes.device)
+    if m == 0:
+        return order, b_s, lv_s, flags
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream(boxes.device).cuda_stream
+        err = lib.dp_roi_align_sparse_flags(*level_args(feats, scales), b_s.data_ptr(),
+                                            lv_s.data_ptr(), flags.data_ptr(), m,
+                                            output_size[1], int(sampling_ratio),
+                                            int(bool(aligned)), max_tiles, stream)
+    if err != 0:
+        raise RuntimeError(f"K3 flags launch failed: cudaError {err}")
+    return order, b_s, lv_s, flags
+
+
+def roi_align_sparse_cuda(
+    feats: List[torch.Tensor],
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    scales: Sequence[float],
+    output_size: Tuple[int, int],
+    sampling_ratio: int,
+    aligned: bool,
+) -> torch.Tensor:
+    """Kernel K3 on CUDA tensors: feats per level (C, H, W) f32 contiguous,
+    boxes (M, 4) f32, levels (M,) i32, all on one device. Returns
+    (M, C, oh, ow) f32 in the caller's order. Raises if the inputs do not fit
+    or a launch fails."""
+    order, b_s, lv_s, flags = sparse_schedule_cuda(feats, boxes, levels, scales,
+                                                   output_size, sampling_ratio, aligned)
+    m, c = boxes.shape[0], feats[0].shape[0]
+    oh, ow = output_size
+    out = torch.empty((m, c, oh, ow), dtype=torch.float32, device=boxes.device)
+    if m == 0:
+        return out
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream(boxes.device).cuda_stream
+        err = _lib().dp_roi_align_sparse_pool(
+            *level_args(feats, scales), b_s.data_ptr(), lv_s.data_ptr(),
+            order.data_ptr(), flags.data_ptr(), out.data_ptr(), m, c, oh, ow,
+            int(sampling_ratio), int(bool(aligned)), flags.shape[2], stream)
+    if err != 0:
+        raise RuntimeError(f"roi_align_sparse_cuda launch failed: cudaError {err}")
+    roi_align_sparse_cuda.launches += 1
+    return out
+
+
+roi_align_sparse_cuda.launches = 0
+
+
+def roi_align_sparse(
+    feats: List[torch.Tensor],
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    scales: Sequence[float],
+    output_size: Tuple[int, int],
+    sampling_ratio: int,
+    aligned: bool,
+) -> torch.Tensor:
+    """The skip-flag pooler: K3 for CUDA tensors, its plain version for CPU
+    tensors. Returns (M, C, oh, ow) float32."""
+    if sampling_ratio <= 0:
+        raise NotImplementedError("adaptive sampling (ratio 0) is not ported yet")
+    if boxes.is_cuda:
+        return roi_align_sparse_cuda([f.contiguous() for f in feats],
+                                     boxes.float().contiguous(), levels.int().contiguous(),
+                                     scales, output_size, sampling_ratio, aligned)
+    if boxes.device.type != "cpu":
+        raise ValueError(f"no ROIAlign kernel for device {boxes.device}")
+    return roi_align_sparse_plain(feats, boxes, levels, scales, output_size,
+                                  sampling_ratio, aligned)

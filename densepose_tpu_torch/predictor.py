@@ -76,7 +76,9 @@ class DensePosePredictor:
     @staticmethod
     def numpy_outputs(outputs: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         """Trim padded slots to the valid detections (postprocessing.py:52-61
-        key set); DensePose maps are already NCHW."""
+        key set). DensePose maps are already NCHW; the device postprocess's
+        UV map (D, H, W, 2) goes to (n, 2, H, W), as the JAX package's
+        ``numpy_outputs`` returns it."""
         out = {k: v.cpu().numpy() for k, v in outputs.items()}
         idx = np.nonzero(out.pop("valid"))[0]
         result = {"image_size": out["image_size"],
@@ -85,5 +87,6 @@ class DensePosePredictor:
             result[k] = out[k][idx]
         for k, v in out.items():
             if k.startswith("pred_densepose_"):
-                result[k] = v[idx[idx < len(v)]]
+                sel = v[idx[idx < len(v)]]
+                result[k] = sel.transpose(0, 3, 1, 2) if k == "pred_densepose_uv" else sel
         return result

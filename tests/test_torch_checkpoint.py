@@ -72,20 +72,24 @@ def test_random_state_and_fold_match_jax():
 
 def test_params_from_jax_layouts():
     """Conv HWIO -> OIHW, flipped deconv -> (Cin, Cout, kh, kw), linear
-    (in, out) -> (out, in), vectors as they are; unfolded norms refused."""
+    (in, out) -> (out, in), vectors (GroupNorm's included) as they are;
+    unfolded FrozenBN refused."""
     from densepose_tpu.checkpoint.transform import torch_state_to_jax
     from densepose_tpu.checkpoint.spec import ParamSpec
     rng = np.random.RandomState(0)
     spec = {"a.conv.weight": ParamSpec((5, 3, 3, 2), "conv"),
             "roi_heads.densepose_predictor.u_lowres.weight": ParamSpec((4, 6, 4, 4), "convT"),
             "box.fc1.weight": ParamSpec((7, 9), "linear"),
-            "box.fc1.bias": ParamSpec((7,), "vec")}
+            "box.fc1.bias": ParamSpec((7,), "vec"),
+            "head.body_conv_fcn1.norm.weight": ParamSpec((5,), "vec"),
+            "head.body_conv_fcn1.norm.bias": ParamSpec((5,), "vec")}
     state = {k: rng.randn(*p.shape).astype(np.float32) for k, p in spec.items()}
     back = params_from_jax(torch_state_to_jax(state, spec, fold_bn=False))
     for k in state:
         np.testing.assert_array_equal(back[k], state[k], err_msg=k)
     with pytest.raises(ValueError):
-        params_from_jax({"x.norm.weight": np.ones(3, np.float32)})
+        params_from_jax({"x.norm.weight": np.ones(3, np.float32),
+                         "x.norm.running_mean": np.ones(3, np.float32)})
 
 
 def test_c2_renames_match_jax():

@@ -7,14 +7,16 @@ This file imports only torch and numpy, so it runs on a machine without JAX:
 
 K1 (NMS) must match exactly; K2 (ROIAlign) within 1e-5 absolute on
 unit-scale features (the kernel performs the plain version's roundings; the
-margin covers the order of its fp32 sums).
+margin covers the order of its fp32 sums). K3 (the skip-flag ROIAlign) within
+1e-5 of its plain version, which contracts the same weights in another order;
+its flag table must equal the plain schedule's, and two runs the same bits.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from densepose_tpu_torch.ops import nms, roi_align
+from densepose_tpu_torch.ops import nms, roi_align, roi_align_sparse
 
 torch.set_num_threads(2)
 
@@ -71,3 +73,43 @@ def test_k1_refuses_too_many_boxes(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         nms.nms_keep_cuda(torch.zeros(1, k, 4, device=cuda),
                           torch.ones(1, k, dtype=torch.bool, device=cuda), 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [False, True])
+def test_k3_matches_plain(cuda, aligned, monkeypatch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(13)
+    feats = [torch.randn(64, 64 // 2 ** i, 256 // 2 ** i,
+                         generator=torch.Generator().manual_seed(i)).to(cuda)
+             for i in range(4)]
+    b = torch.from_numpy(boxes_np(rng, 300, 900, 200)).to(cuda)
+    lv = roi_align.assign_boxes_to_levels(b, 2, 5)
+    scales = [1 / 4, 1 / 8, 1 / 16, 1 / 32]
+    args = (feats, b, lv, scales, (7, 7), 2, aligned)
+    want = roi_align_sparse.roi_align_sparse_plain(*args)
+    monkeypatch.setenv("DENSEPOSE_TPU_SPARSE_POOLER", "1")
+    before = roi_align_sparse.roi_align_sparse_cuda.launches
+    got = roi_align.roi_align_multilevel(*args)
+    again = roi_align.roi_align_multilevel(*args)
+    torch.cuda.synchronize()
+    assert roi_align_sparse.roi_align_sparse_cuda.launches == before + 2
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
+    sched = roi_align_sparse.sparse_schedule(*args)
+    order, _, _, flags = roi_align_sparse.sparse_schedule_cuda(*args)
+    assert torch.equal(order, sched.order)
+    for li, f in enumerate(sched.flags):
+        assert torch.equal(flags[li, :, :f.shape[1]], f), li
+        assert not flags[li, :, f.shape[1]:].any()
+    active = sum(int(f.sum()) for f in sched.flags)
+    assert 0 < active < sum(f.numel() for f in sched.flags)
+
+
+@pytest.mark.gpu
+def test_k3_refuses_cpu_tensors(cuda):
+    feats = [torch.zeros(8, 16, 16)]
+    with pytest.raises(ValueError, match="CUDA"):
+        roi_align_sparse.roi_align_sparse_cuda(feats, torch.zeros(3, 4),
+                                               torch.zeros(3, dtype=torch.int32), [0.25],
+                                               (7, 7), 2, False)
