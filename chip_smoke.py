@@ -11,21 +11,29 @@ toolkit. Phases, each of which fails the run:
    with the ptxas register / shared-memory report;
 3. kernel checks at the main paths' shapes (a 480x640 frame padded to
    800x1088): each kernel against its plain PyTorch version on the card,
-   K1 (NMS) exactly, K2 (ROIAlign) within 1e-5 absolute on unit-scale
-   features, K3 (the skip-flag ROIAlign) within 1e-5 of its plain version and
-   2e-5 of K2 on the same inputs, with its flag table equal to the plain
-   schedule's and two runs bit-identical, at the box pooler and at the legacy
-   DensePose pooler; times from CUDA events, and the least time the card
-   could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, H100
-   SXM data sheet at 700 W);
+   K1 (NMS) exactly at the RPN, box-stage and classed sites and at its edge
+   cases (word edges, all invalid, all identical, zero area, a sweep across
+   the threshold, three classes); K2 (ROIAlign) bit-identical at the box and
+   DensePose poolers and within 1e-5 absolute at ratio 0 (adaptive) on the
+   box pooler's inputs; K3 (the skip-flag ROIAlign) within 1e-5 of its plain
+   version and 2e-5 of K2 on the same inputs, with its flag table equal to
+   the plain schedule's and two runs bit-identical, at the box pooler and at
+   the legacy DensePose pooler (K1's edge cases come from
+   tests/torch_cases.py, which imports only numpy); times per call from CUDA
+   events around back-to-back calls (K1's mask and scan launches also
+   apart), printed beside the earlier design's times, and the least time the
+   card could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s,
+   H100 SXM data sheet at 700 W);
 4. three paths, each at full width with random weights from seed 0: a
    DensePosePredictor answers a warm-up request and then distinct synthetic
    frames; outputs finite and of the expected shapes; the kernels' launch
    counters, set to 0 just before the timed requests and read just after,
    show the requests went through the path's kernels; then one more request
    under torch.profiler gives the device time of each stage range the model
-   marks, and the device's idle share. The paths:
-   - the flagship densepose_rcnn_R_50_FPN_s1x: 2 K1 and 2 K2 per request;
+   marks, the three device kernels that take the most time in the RPN and
+   box-stage ranges, and the device's idle share. The paths:
+   - the flagship densepose_rcnn_R_50_FPN_s1x: 2 K1 and 2 K2 per request
+     (a K1 call is two kernel launches, mask and scan, counted once);
    - densepose_rcnn_R_101_FPN_s1x_legacy with DENSEPOSE_TPU_SPARSE_POOLER
      set: the box pooler and the multi-level DensePose pooler on K3, so 2 K1,
      0 K2 and 2 K3 per request;
@@ -40,8 +48,10 @@ line ``{"ok": true, "device": {...}}``. Exits non-zero, before that line,
 when there is no CUDA device or any phase fails.
 """
 
+import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -59,7 +69,16 @@ TIMED_REQUESTS = 3
 K2_TOL = 1e-5
 K3_TOL = 1e-5
 K3_K2_TOL = 2e-5  # K3 sums the taps in another order (tests/test_ops.py:625)
-KERNELS = ("nms_keep_cuda", "roi_align_cuda", "roi_align_sparse_cuda")
+SOURCES = {"nms_keep_cuda": "nms", "roi_align_cuda": "roi_align",
+           "roi_align_sparse_cuda": "roi_align_sparse"}
+# per-site times of K1 and K2 before their redesign for Hopper (one CTA per
+# NMS problem; one thread per ROIAlign output), as PERF.md section 6 records
+# them, timed by cuda_ms as the kernels are here, and the card they were
+# measured on; printed beside the new times and kept out of the kernels line
+EARLIER_CARD = "the earlier design, NVIDIA H100 80GB HBM3, 700.00 W"
+EARLIER_MS = {("nms_keep_cuda", "rpn"): 0.7687, ("nms_keep_cuda", "box_stage"): 0.6472,
+              ("roi_align_cuda", "box_pooler"): 0.2772,
+              ("roi_align_cuda", "densepose_pooler"): 0.4051}
 
 
 def check(cond, msg):
@@ -107,6 +126,43 @@ def clustered_boxes(rng, k, hw):
                           1).astype(np.float32)
 
 
+def k1_edge_cases():
+    """K1's edge cases from tests/torch_cases.py (numpy only), loaded by its
+    path: an installed package named ``tests`` can shadow the repo's."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_cases.py")
+    spec = importlib.util.spec_from_file_location("torch_cases", path)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    return cases.k1_edge_cases()
+
+
+def ptxas_report(log):
+    """Per kernel of a build log: registers, static shared memory, stack
+    frame and spills, from ptxas -v. A kernel is named by the ``*_kernel``
+    part of its mangled name."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = re.search(r"\d([a-z_]+_kernel)", m.group(1))
+            cur = {"kernel": name.group(1) if name else m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
 def nms_work(boxes, valid, keep, thr, classes):
     """Bytes and operations greedy NMS needs on these inputs: each live box j
     is tested against every kept pivot before it, up to the one that
@@ -129,18 +185,18 @@ def nms_work(boxes, valid, keep, thr, classes):
 def roi_align_work(feats, boxes, levels, scales, out_hw, ratio, aligned):
     """Bytes and operations ROIAlign needs on these inputs: every feature
     pixel some in-bound sample taps, read once, plus boxes, levels and the
-    output; 12 operations per in-bound sample and channel, 1 per output."""
+    output; 12 operations per in-bound sample and channel, 1 per output. At
+    ratio 0 the samples are each box's adaptive ones."""
     import torch
-    from densepose_tpu_torch.ops.roi_align import _axis_samples, _roi_geometry
+    from densepose_tpu_torch.ops.roi_align import box_samples
     c = feats[0].shape[0]
     hs = torch.tensor([f.shape[1] for f in feats], device=boxes.device)
     ws = torch.tensor([f.shape[2] for f in feats], device=boxes.device)
     offs = torch.cumsum(hs * ws, 0) - hs * ws
     lv = levels.long()
     sc = torch.tensor(scales, dtype=torch.float32, device=boxes.device)[lv]
-    sh, bh, sw, bw = _roi_geometry(boxes, sc, out_hw, aligned)
-    ylo, yhi, _, yok = _axis_samples(sh, bh, out_hw[0], ratio, hs[lv].float())
-    xlo, xhi, _, xok = _axis_samples(sw, bw, out_hw[1], ratio, ws[lv].float())
+    (ylo, yhi, _, yok), (xlo, xhi, _, xok), _, _ = box_samples(
+        boxes, sc, hs[lv].float(), ws[lv].float(), out_hw, ratio, aligned)
     ok = (yok[:, :, None] & xok[:, None, :]).reshape(-1)
     taps = []
     for y in (ylo, yhi):
@@ -183,14 +239,37 @@ def kernel_checks(torch, cfg, report, dev):
         check(mismatches == 0, f"K1 {site}: {mismatches} keep flags differ from the plain version")
         check(0 < int(want.sum()) < int(v.sum()), f"K1 {site}: degenerate test (nothing suppressed)")
         ms = cuda_ms(lambda: nms.nms_keep_cuda(b, v, thr, c), reps=50)
+        # the two launches apart, on scratch the timed calls reuse
+        mask = torch.empty((p, k, nms.mask_words(k)), dtype=torch.int64, device=dev)
+        keep = torch.empty((p, k), dtype=torch.bool, device=dev)
+        mask_ms = cuda_ms(lambda: nms.nms_mask_launch(b, v, thr, c, mask), reps=50)
+        scan_ms = cuda_ms(lambda: nms.nms_scan_launch(mask, v, keep), reps=50)
+        check(torch.equal(keep, want), f"K1 {site}: the scan alone differs from the plain version")
         plain_ms = cuda_ms(lambda: nms.nms_keep_plain(b, v, thr, c), reps=5, warmup=1)
         bound_ms, bound_by = bound(*nms_work(b, v, want, thr, c))
+        was = EARLIER_MS.get(("nms_keep_cuda", site))
         k1.append({"site": site, "shape": [p, k], "kept": int(want.sum()), "max_abs_err": 0.0,
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+                   "ms": ms, "mask_ms": mask_ms, "scan_ms": scan_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by})
         print(f"K1 nms_keep_cuda {site} P={p} K={k} iou>{thr}: exact ({int(want.sum())} kept); "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+              f"{ms:.4f} ms (mask launch {mask_ms:.4f}, scan launch {scan_ms:.4f})"
+              + (f", was {was:.4f} ms ({EARLIER_CARD})" if was else "")
+              + f"; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    edge = k1_edge_cases()
+    for name, eb, ev, ec, thr in edge:
+        b = torch.from_numpy(eb)[None].to(dev)
+        v = torch.from_numpy(ev)[None].to(dev)
+        c = None if ec is None else torch.from_numpy(ec)[None].to(dev)
+        got = nms.nms_keep_cuda(b, v, thr, c)
+        want = nms.nms_keep_plain(b, v, thr, c)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K1 edge case {name}: {int((got != want).sum())} keep "
+              "flags differ from the plain version")
+    print(f"K1 nms_keep_cuda edge cases: {len(edge)} exact "
+          f"({', '.join(name for name, *_ in edge)})")
 
-    # K2 at its two main-path sites: the 4-level box pooler, the DensePose pooler
+    # K2 at its two main-path sites, the 4-level box pooler and the DensePose
+    # pooler, bit-identical; and at ratio 0 on the box pooler's inputs
     c = cfg.MODEL.FPN.OUT_CHANNELS
     pyramid = [torch.randn(c, h, w, device=dev) for f, (h, w) in levels.items() if f != "p6"]
     scales = [1 / 4, 1 / 8, 1 / 16, 1 / 32]
@@ -204,29 +283,37 @@ def kernel_checks(torch, cfg, report, dev):
     det = boxes[:cfg.TEST.DETECTIONS_PER_IMAGE].contiguous()
     sites = [
         ("box_pooler", pyramid, boxes, lv, scales, (res_b, res_b),
-         cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO),
+         cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO, 0.0),
         ("densepose_pooler", pyramid[:1], det,
          torch.zeros(det.shape[0], dtype=torch.int32, device=dev), scales[:1], (res_d, res_d),
-         dp.POOLER_SAMPLING_RATIO),
+         dp.POOLER_SAMPLING_RATIO, 0.0),
+        ("box_pooler_ratio0", pyramid, boxes, lv, scales, (res_b, res_b), 0, K2_TOL),
     ]
     k2 = []
-    for site, feats, b, l, sc, out_hw, ratio in sites:
+    for site, feats, b, l, sc, out_hw, ratio, tol in sites:
         got = roi_align.roi_align_cuda(feats, b, l, sc, out_hw, ratio, False)
         want = roi_align.roi_align_plain(feats, b, l, sc, out_hw, ratio, False)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        check(err <= K2_TOL, f"K2 {site}: max abs error {err} > {K2_TOL}")
+        if tol == 0.0:
+            check(torch.equal(got, want), f"K2 {site}: not bit-identical to the plain version "
+                  f"(max abs error {err})")
+        check(err <= tol, f"K2 {site}: max abs error {err} > {tol}")
         check(float(want.abs().max()) > 0.1, f"K2 {site}: degenerate test (all zero)")
         ms = cuda_ms(lambda: roi_align.roi_align_cuda(feats, b, l, sc, out_hw, ratio, False),
                      reps=20)
         plain_ms = cuda_ms(lambda: roi_align.roi_align_plain(feats, b, l, sc, out_hw, ratio,
                                                              False), reps=3, warmup=1)
         bound_ms, bound_by = bound(*roi_align_work(feats, b, l, sc, out_hw, ratio, False))
-        k2.append({"site": site, "shape": [b.shape[0], c, *out_hw], "max_abs_err": err,
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
-        print(f"K2 roi_align_cuda {site} M={b.shape[0]} {out_hw} C={c} levels={len(feats)}: "
-              f"max abs err {err:.3e} (tol {K2_TOL}); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.6f} ms ({bound_by})")
+        was = EARLIER_MS.get(("roi_align_cuda", site))
+        k2.append({"site": site, "shape": [b.shape[0], c, *out_hw], "ratio": ratio,
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by})
+        print(f"K2 roi_align_cuda {site} M={b.shape[0]} {out_hw} C={c} levels={len(feats)} "
+              f"ratio={ratio}: " + ("bit-identical" if tol == 0.0 else
+                                    f"max abs err {err:.3e} (tol {tol})")
+              + f"; {ms:.4f} ms" + (f", was {was:.4f} ms ({EARLIER_CARD})" if was else "")
+              + f"; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
 
     # K3 at its two sites on the legacy path: the box pooler (K2's inputs
     # above) and the multi-level DensePose pooler, 100 detections at 14x14
@@ -271,15 +358,16 @@ def kernel_checks(torch, cfg, report, dev):
         print(f"K3 roi_align_sparse_cuda {site} M={b.shape[0]} {out_hw} C={c} "
               f"levels={len(pyramid)}: {active}/{pairs} (chunk, tile) pairs active; max abs "
               f"err {err:.3e} (tol {K3_TOL}), vs K2 {err_k2:.3e} (tol {K3_K2_TOL}); "
-              f"{ms:.4f} ms (schedule {schedule_ms:.4f}), K2 on the same inputs {k2_ms:.4f} ms, "
+              f"{ms:.4f} ms (schedule {schedule_ms:.4f}); K2 on the same inputs {k2_ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
 
-    main = {"nms_keep_cuda": k1[:2], "roi_align_cuda": k2, "roi_align_sparse_cuda": k3}
+    main = {"nms_keep_cuda": k1[:2], "roi_align_cuda": k2[:2], "roi_align_sparse_cuda": k3}
     for name, entries, route_src, replaces, tol in [
         ("nms_keep_cuda", k1, "densepose_tpu_torch/csrc/nms.cu",
-         "densepose_tpu/ops/pallas/nms_kernel.py:30", "exact"),
+         "densepose_tpu/ops/pallas/nms_kernel.py:30", f"exact, and at {len(edge)} edge cases"),
         ("roi_align_cuda", k2, "densepose_tpu_torch/csrc/roi_align.cu",
-         "densepose_tpu/ops/pallas/roi_align_kernel.py:54", f"max_abs_err<={K2_TOL}"),
+         "densepose_tpu/ops/pallas/roi_align_kernel.py:54",
+         f"bit-identical; ratio 0 max_abs_err<={K2_TOL}"),
         ("roi_align_sparse_cuda", k3, "densepose_tpu_torch/csrc/roi_align_sparse.cu",
          "densepose_tpu/ops/pallas/roi_align_kernel.py:159",
          f"max_abs_err<={K3_TOL}, vs K2 <={K3_K2_TOL}"),
@@ -432,11 +520,27 @@ STAGES = ("preprocess", "backbone", "rpn", "box_stage", "postprocess", "decoder"
           "densepose_postprocess")
 
 
+TOP_KERNEL_STAGES = ("rpn", "box_stage")
+
+
+def short_kernel_name(name):
+    """A device kernel's name without its argument list and namespaces."""
+    name = name.replace("(anonymous namespace)::", "")
+    depth = 0
+    for i, ch in enumerate(name):  # cut at the argument list, outside template brackets
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            name = name[:i]
+            break
+    return name.removeprefix("void ")[:100]
+
+
 def breakdown(torch, pred, img, latency_ms):
     """One more request under torch.profiler: the device time of each stage
     range, and the device's idle share, both over the profiled request's wall
-    time and over ``latency_ms`` (an unprofiled request's). Prints "not
-    measured" when the profiler sees no device activity.
+    time and over ``latency_ms`` (an unprofiled request's); for the RPN and
+    box-stage ranges also the three device kernels that take the most time.
+    Prints "not measured" when the profiler sees no device activity.
 
     A device event belongs to the stage whose range holds the host call that
     launched it (matched by correlation id): the profiler links kernels only
@@ -461,6 +565,7 @@ def breakdown(torch, pred, img, latency_ms):
     ranges = [(e.time_range.start, e.time_range.end, e.name) for e in host if e.name in STAGES]
     stages = dict.fromkeys(STAGES, 0.0)
     host_ms = dict.fromkeys(STAGES, 0.0)
+    by_kernel = {s: {} for s in TOP_KERNEL_STAGES}
     for s, end, n in ranges:
         host_ms[n] += (end - s) / 1e3
     outside = 0.0
@@ -472,6 +577,9 @@ def breakdown(torch, pred, img, latency_ms):
             outside += ms
         else:
             stages[stage] += ms
+        if stage in by_kernel:
+            name = short_kernel_name(e.name)
+            by_kernel[stage][name] = by_kernel[stage].get(name, 0.0) + ms
     spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     busy_us, end = 0.0, float("-inf")
     for s, e in spans:
@@ -485,6 +593,10 @@ def breakdown(torch, pred, img, latency_ms):
           f"{parts}; host wall ms per stage range: {walls}; outside the ranges "
           f"{outside:.3f}; device busy {busy_ms:.3f} of {wall_ms:.3f} ms profiled wall (idle share {1 - busy_ms / wall_ms:.4f}); of an "
           f"unprofiled request's {latency_ms:.3f} ms: idle share {1 - busy_ms / latency_ms:.4f}")
+    for stage, kernels in by_kernel.items():
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
+        print(f"breakdown {stage}: top device kernels (ms of {stages[stage]:.3f}): "
+              + "; ".join(f"{name} {ms:.3f}" for name, ms in top))
 
 
 # the flagship narrowed to toy widths (tests/test_torch_pipeline.py's)
@@ -559,16 +671,22 @@ def main():
     t0 = time.perf_counter()
     built = cuda_build.build()
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s (parallel nvcc)")
+    ptxas = {}
     for name, b in built.items():
         print(f"build: {name}: {b.seconds:.1f} s -> {b.path.name}")
-        for line in b.log.splitlines():
-            if any(w in line for w in ("registers", "spill", "Compiling entry", "smem")):
-                print(f"  ptxas {name}: {line.strip()}")
+        ptxas[name] = ptxas_report(b.log)
+        check(ptxas[name], f"build: no ptxas report for {name}")
+        for k in ptxas[name]:
+            print(f"  ptxas {name}: {k['kernel']}: {k.get('registers')} registers, "
+                  f"{k.get('smem')} bytes static smem, {k.get('stack')} bytes stack, "
+                  f"{k.get('spill_stores')}/{k.get('spill_loads')} bytes spill stores/loads")
 
     report = {}
     cfg = get_config(FLAGSHIP)
     dev = torch.device("cuda")
     kernel_checks(torch, cfg, report, dev)
+    for name, src in SOURCES.items():
+        report[name]["ptxas"] = ptxas[src]
     for name, extra, sparse, per_request in PATHS:
         drive_path(torch, report, dev, name, extra, sparse, per_request)
     reference_check(torch, dev, FLAGSHIP, False)

@@ -62,7 +62,8 @@ __device__ __forceinline__ void box_geometry(const float* box, float scale, floa
   bin_w = __fdiv_rn(roi_w, static_cast<float>(ow));
 }
 
-// One sample coordinate along one axis: bin p, sub-sample i of g. `ok` is
+// One sample coordinate along one axis: bin p, sub-sample i of g (at ratio 0
+// g is the box's adaptive count, so the offsets are (i + 0.5) / g). `ok` is
 // torchvision's border rule (-1 <= coord <= limit); the taps are `lo` and
 // `hi` with weights 1 - lerp and lerp, both clamped to limit - 1 at the edge.
 __device__ __forceinline__ void axis_sample(float start, float bin, int p, int i,
@@ -84,6 +85,40 @@ __device__ __forceinline__ void axis_sample(float start, float bin, int p, int i
     hi = static_cast<int>(low) + 1;
   }
   lo = static_cast<int>(low);
+}
+
+// Samples per bin at ratio 0 (adaptive), at most: the JAX package's
+// _ADAPTIVE_CAP (densepose_tpu/ops/roi_align.py:64).
+constexpr int kAdaptiveCap = 8;
+
+// Samples per bin along one axis: `ratio`, or at ratio 0 the adaptive count
+// min(ceil(bin), kAdaptiveCap), which is <= 0 (no sample) for an empty box.
+__device__ __forceinline__ float samples_per_bin(float bin, int ratio) {
+  return ratio > 0 ? static_cast<float>(ratio)
+                   : fminf(ceilf(bin), static_cast<float>(kAdaptiveCap));
+}
+
+// One sample of one axis, as a table entry: axis_sample's taps and weights.
+struct AxisTap {
+  int lo, hi;
+  float lerp, rlerp;  // weights of hi and lo: lerp and 1 - lerp
+  int ok;             // the border rule
+};
+
+// table[p * g + i] for bins p < n_bins and sub-samples i < g, with
+// axis_sample's roundings; the threads of the CTA share the entries. Nothing
+// is written for g <= 0.
+__device__ __forceinline__ void fill_axis_table(AxisTap* table, float start, float bin,
+                                                int n_bins, int g, float limit) {
+  for (int e = threadIdx.x; e < n_bins * g; e += blockDim.x) {
+    const int p = e / g, i = e - p * g;
+    AxisTap t;
+    bool ok;
+    axis_sample(start, bin, p, i, g, limit, t.lo, t.hi, t.lerp, ok);
+    t.rlerp = __fsub_rn(1.f, t.lerp);
+    t.ok = ok;
+    table[e] = t;
+  }
 }
 
 }  // namespace roi_align_common

@@ -6,7 +6,8 @@ bool keep mask in the original index space. Each sorts by score (stable,
 descending, as ``argsort(-s, stable=True)`` at nms.py:72), runs the keep
 kernel on the sorted boxes and scatters the result back.
 
-The keep step is kernel K1 (``csrc/nms.cu``) for CUDA tensors. For CPU
+The keep step is kernel K1 (``csrc/nms.cu``: an IoU bit-matrix launch, then
+a one-warp scan launch) for CUDA tensors. For CPU
 tensors it is ``nms_keep_plain``, a PyTorch port of the JAX package's
 fixed-point iteration (nms.py:81-101): keep[i] = valid[i] and no earlier
 kept j has IoU(i, j) > threshold, iterated from keep = valid until it stops
@@ -51,21 +52,59 @@ def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: floa
 def _lib() -> ctypes.CDLL:
     """K1's library, built on first use, with its C signatures set once."""
     lib = library("nms")
-    lib.dp_nms_keep.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+    lib.dp_nms_mask.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                                         ctypes.c_float, ctypes.c_void_p]
-    lib.dp_nms_keep.restype = ctypes.c_int
-    lib.dp_nms_smem_per_box.restype = ctypes.c_int
+    lib.dp_nms_scan.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                                        ctypes.c_void_p]
+    for fn in (lib.dp_nms_mask, lib.dp_nms_scan, lib.dp_nms_max_boxes, lib.dp_nms_max_problems,
+               lib.dp_nms_mask_stride):
+        fn.restype = ctypes.c_int
     return lib
 
 
-_SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
+def mask_words(k: int) -> int:
+    """64-bit words per row of K1's IoU bit-matrix in memory: ceil(K / 64),
+    rounded up to even so that the scan's bulk copies are 16-byte aligned."""
+    return _lib().dp_nms_mask_stride(k)
+
+
+def nms_mask_launch(boxes, valid, iou_threshold, classes, mask) -> None:
+    """K1's first launch: the IoU bit-matrix of checked inputs into ``mask``
+    (P, K, mask_words(K)) int64. Counts no launch."""
+    p, k = valid.shape
+    with torch.cuda.device(boxes.device):
+        _raise_on(_lib().dp_nms_mask(boxes.data_ptr(), valid.data_ptr(),
+                                     classes.data_ptr() if classes is not None else None,
+                                     mask.data_ptr(), p, k, float(iou_threshold),
+                                     _stream(boxes.device)), "K1 mask")
+
+
+def nms_scan_launch(mask, valid, keep) -> None:
+    """K1's second launch: the one-warp scan of ``mask`` into ``keep``.
+    Counts no launch."""
+    p, k = valid.shape
+    with torch.cuda.device(valid.device):
+        _raise_on(_lib().dp_nms_scan(mask.data_ptr(), valid.data_ptr(), keep.data_ptr(), p,
+                                     k, _stream(valid.device)), "K1 scan")
 
 
 def nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
                   classes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel K1 on CUDA tensors: boxes (P, K, 4) f32, valid (P, K) bool,
-    classes (P, K) i32 or None, all contiguous on one device. One CTA per
-    problem. Raises if the inputs do not fit or the launch fails."""
+    classes (P, K) i32 or None, all contiguous on one device. Two kernel
+    launches (the IoU bit-matrix into a (P, K, mask_words(K)) int64 scratch, then
+    the one-warp scan), counted as ONE in ``nms_keep_cuda.launches``: the
+    count is of calls. K is at most ``dp_nms_max_boxes()`` (16384). Raises if
+    the inputs do not fit or a launch fails."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (P, K, 4), got {tuple(boxes.shape)}")
     p, k = boxes.shape[0], boxes.shape[1]
@@ -80,18 +119,15 @@ def nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
         if tuple(t.shape[:2]) != (p, k):
             raise ValueError(f"{name} must lead with {(p, k)}, got {tuple(t.shape)}")
     lib = _lib()
-    if k * lib.dp_nms_smem_per_box() > _SMEM_LIMIT:
-        raise ValueError(f"{k} boxes per problem exceed one CTA's shared memory")
+    if k > lib.dp_nms_max_boxes() or p > lib.dp_nms_max_problems():
+        raise ValueError(f"K1 takes at most {lib.dp_nms_max_boxes()} boxes per problem and "
+                         f"{lib.dp_nms_max_problems()} problems, got {(p, k)}")
     keep = torch.empty((p, k), dtype=torch.bool, device=boxes.device)
     if p == 0 or k == 0:
         return keep
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = lib.dp_nms_keep(boxes.data_ptr(), valid.data_ptr(),
-                              classes.data_ptr() if classes is not None else None,
-                              keep.data_ptr(), p, k, float(iou_threshold), stream)
-    if err != 0:
-        raise RuntimeError(f"nms_keep_cuda launch failed: cudaError {err}")
+    mask = torch.empty((p, k, mask_words(k)), dtype=torch.int64, device=boxes.device)
+    nms_mask_launch(boxes, valid, iou_threshold, classes, mask)
+    nms_scan_launch(mask, valid, keep)
     nms_keep_cuda.launches += 1
     return keep
 

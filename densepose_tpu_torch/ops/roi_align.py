@@ -4,9 +4,11 @@ Semantics are torchvision ``roi_align`` (the op the reference wraps at
 detectron2/layers/roi_align.py:7-74): ``aligned`` shifts coordinates by
 -0.5, ``aligned=False`` clamps the ROI size to >= 1, samples with
 ``y < -1 or y > H`` contribute 0, coordinates clamp to ``[0, H-1]`` with the
-lerp taken from the unclamped fraction, a fixed ratio x ratio sample grid per
-output bin is averaged. Only ``sampling_ratio > 0`` is supported; every
-pooler of the flagship uses 2.
+lerp taken from the unclamped fraction, a ratio x ratio sample grid per
+output bin is averaged. ``sampling_ratio == 0`` is the adaptive grid: per box
+and axis min(ceil(bin), ADAPTIVE_CAP) samples, as the JAX gather computes it
+(roi_align.py:64-103, 178-186, 219-221). Every zoo pooler uses 2; the default
+config's box pooler uses 0.
 
 Layouts are the port's NCHW: per-level features (C, H, W), boxes (M, 4)
 XYXY in input-image coordinates, levels (M,) int32, output (M, C, oh, ow).
@@ -14,7 +16,8 @@ XYXY in input-image coordinates, levels (M,) int32, output (M, C, oh, ow).
 permute explicitly.)
 
 For CUDA tensors the pooling is kernel K2 (``csrc/roi_align.cu``): all levels
-in one launch. For CPU tensors it is ``roi_align_plain``, a PyTorch port of
+in one launch, one CTA per (box, slab of channels) with per-box tap tables in
+shared memory. For CPU tensors it is ``roi_align_plain``, a PyTorch port of
 the JAX package's gather formulation (roi_align.py:106-224), which is also
 what the JAX package runs on the CPU.
 
@@ -52,16 +55,30 @@ def assign_boxes_to_levels(boxes: torch.Tensor, min_level: int, max_level: int) 
     return lvl.int() - min_level
 
 
-def _axis_samples(start, bin_size, n_bins: int, grid: int, limit):
+ADAPTIVE_CAP = 8  # samples per bin and axis at ratio 0, at most (JAX _ADAPTIVE_CAP)
+
+
+def _axis_samples(start, bin_size, n_bins: int, grid: int, limit, k=None):
     """Sample coordinates along one axis for every (bin, sub-sample):
     (low, high, lerp, ok), each (M, n_bins*grid), ``[:, i::grid]`` selecting
-    sub-sample i across bins. ``limit``: (M,) float axis sizes."""
+    sub-sample i across bins. ``limit``: (M,) float axis sizes. ``k``
+    (adaptive mode): (M,) float samples per bin; sub-sample i of a box sits at
+    (i + 0.5) / max(k, 1) of the bin and is masked when i >= k."""
     p = np.arange(n_bins, dtype=np.float32)
-    g = (np.arange(grid, dtype=np.float32) + np.float32(0.5)) / np.float32(grid)
-    frac = torch.from_numpy((p[:, None] + g[None, :]).reshape(-1)).to(start.device)
-    coord = start[:, None] + bin_size[:, None] * frac[None, :]
+    if k is None:
+        g = (np.arange(grid, dtype=np.float32) + np.float32(0.5)) / np.float32(grid)
+        frac = torch.from_numpy((p[:, None] + g[None, :]).reshape(-1)).to(start.device)
+        coord = start[:, None] + bin_size[:, None] * frac[None, :]
+    else:
+        i = torch.arange(grid, dtype=torch.float32, device=start.device)
+        sub = (i[None, :] + 0.5) / k.clamp(min=1.0)[:, None]            # (M, grid)
+        frac = torch.from_numpy(p).to(start.device)[None, :, None] + sub[:, None, :]
+        coord = (start[:, None, None] + bin_size[:, None, None] * frac).reshape(
+            start.shape[0], -1)
     lim = limit[:, None]
     ok = (coord >= -1.0) & (coord <= lim)
+    if k is not None:
+        ok &= (i[None, :] < k[:, None]).repeat(1, n_bins)
     c = coord.clamp(min=0.0)
     low = torch.floor(c)
     at_edge = low >= lim - 1.0
@@ -87,6 +104,26 @@ def _roi_geometry(boxes, scale_b, output_size, aligned):
     return start_h, true_div(roi_h, out_h), start_w, true_div(roi_w, out_w)
 
 
+def box_samples(boxes, scale_b, h_b, w_b, output_size, sampling_ratio, aligned):
+    """Each box's samples on its level: the ``_axis_samples`` tuples along y
+    and x, the grid ``g`` (the ratio, or ``ADAPTIVE_CAP`` at ratio 0) and the
+    per-box divisor (M,): g^2, or max(k_h * k_w, 1) with the adaptive
+    k = min(ceil(bin), ADAPTIVE_CAP) (roi_align.py:178-186, 219-221)."""
+    out_h, out_w = output_size
+    start_h, bin_h, start_w, bin_w = _roi_geometry(boxes, scale_b, output_size, aligned)
+    if sampling_ratio > 0:
+        g, k_h, k_w = sampling_ratio, None, None
+        count = torch.full_like(bin_h, float(g * g))
+    else:
+        g = ADAPTIVE_CAP
+        k_h = torch.ceil(bin_h).clamp(max=float(g))
+        k_w = torch.ceil(bin_w).clamp(max=float(g))
+        count = (k_h * k_w).clamp(min=1.0)
+    ys = _axis_samples(start_h, bin_h, out_h, g, h_b, k_h)
+    xs = _axis_samples(start_w, bin_w, out_w, g, w_b, k_w)
+    return ys, xs, g, count
+
+
 def roi_align_plain(
     feats: List[torch.Tensor],
     boxes: torch.Tensor,
@@ -96,11 +133,10 @@ def roi_align_plain(
     sampling_ratio: int,
     aligned: bool,
 ) -> torch.Tensor:
-    """The plain PyTorch version of K2: each box gathers its 4 * ratio^2 taps
-    from its level of the flattened (C, H, W) pyramid and sums them in fp32,
-    in the JAX package's order."""
+    """The plain PyTorch version of K2: each box gathers its taps from its
+    level of the flattened (C, H, W) pyramid and sums them in fp32, in the
+    JAX package's order, then divides by its sample count."""
     out_h, out_w = output_size
-    g = sampling_ratio
     c = feats[0].shape[0]
     dev = boxes.device
     flat = torch.cat([f.reshape(c, -1) for f in feats], dim=1)
@@ -113,10 +149,10 @@ def roi_align_plain(
     off_b = torch.from_numpy(offs).to(dev)[levels]
     scale_b = torch.tensor(scales, dtype=torch.float32, device=dev)[levels]
 
-    start_h, bin_h, start_w, bin_w = _roi_geometry(boxes.float(), scale_b, output_size,
-                                                   aligned)
-    y_low, y_high, ly, y_ok = _axis_samples(start_h, bin_h, out_h, g, h_b.float())
-    x_low, x_high, lx, x_ok = _axis_samples(start_w, bin_w, out_w, g, w_b.float())
+    ys, xs, g, count = box_samples(boxes.float(), scale_b, h_b.float(), w_b.float(),
+                                   output_size, sampling_ratio, aligned)
+    y_low, y_high, ly, y_ok = ys
+    x_low, x_high, lx, x_ok = xs
 
     m = boxes.shape[0]
     acc = torch.zeros((m, c, out_h, out_w), dtype=torch.float32, device=dev)
@@ -138,7 +174,7 @@ def roi_align_plain(
             w22 = (fy[:, :, None] * fx[:, None, :] * ok)[:, None]
             acc = (acc + take(yl, xl) * w11 + take(yl, xh) * w12
                    + take(yh, xl) * w21 + take(yh, xh) * w22)
-    return acc / float(g * g)
+    return acc / count[:, None, None, None]
 
 
 @functools.lru_cache(maxsize=None)
@@ -148,8 +184,9 @@ def _lib() -> ctypes.CDLL:
     lib.dp_roi_align.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    lib.dp_roi_align.restype = ctypes.c_int
-    lib.dp_roi_align_max_levels.restype = ctypes.c_int
+    for fn in (lib.dp_roi_align, lib.dp_roi_align_max_levels,
+               lib.dp_roi_align_max_table_entries):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -198,17 +235,22 @@ def roi_align_cuda(
     aligned: bool,
 ) -> torch.Tensor:
     """Kernel K2 on CUDA tensors: feats per level (C, H, W) f32 contiguous,
-    boxes (M, 4) f32, levels (M,) i32, all on one device. Returns
-    (M, C, oh, ow) f32. Raises if the inputs do not fit or the launch fails."""
+    boxes (M, 4) f32, levels (M,) i32, all on one device; sampling_ratio 0
+    is the adaptive count. Returns (M, C, oh, ow) f32. Raises if the inputs
+    do not fit or the launch fails."""
     check_cuda_inputs(feats, boxes, levels, scales)
-    if sampling_ratio <= 0:
-        raise ValueError("K2 takes a fixed sampling_ratio > 0")
+    if sampling_ratio < 0:
+        raise ValueError(f"K2 takes a sampling_ratio >= 0, got {sampling_ratio}")
     n, m, c = len(feats), boxes.shape[0], feats[0].shape[0]
     dev = boxes.device
     lib = _lib()
     if n > lib.dp_roi_align_max_levels():
         raise ValueError(f"K2 takes at most {lib.dp_roi_align_max_levels()} levels")
     oh, ow = output_size
+    entries = (oh + ow) * (sampling_ratio or ADAPTIVE_CAP)
+    if entries > lib.dp_roi_align_max_table_entries():
+        raise ValueError(f"K2's tap tables ({entries} entries for {output_size} at ratio "
+                         f"{sampling_ratio}) exceed {lib.dp_roi_align_max_table_entries()}")
     out = torch.empty((m, c, oh, ow), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -236,9 +278,10 @@ def roi_align_multilevel(
     """Pool each box from its assigned level. Returns (M, C, oh, ow) float32.
 
     K2 for CUDA tensors and the plain version for CPU tensors; with
-    ``DENSEPOSE_TPU_SPARSE_POOLER`` set, the skip-flag pooler (K3 or its
-    plain version) as the JAX package routes it (roi_align.py:121-129)."""
-    if os.environ.get("DENSEPOSE_TPU_SPARSE_POOLER"):
+    ``DENSEPOSE_TPU_SPARSE_POOLER`` set and a fixed ratio, the skip-flag
+    pooler (K3 or its plain version) as the JAX package routes it
+    (roi_align.py:121-129); ratio 0 always takes the gather, as there."""
+    if sampling_ratio > 0 and os.environ.get("DENSEPOSE_TPU_SPARSE_POOLER"):
         from .roi_align_sparse import roi_align_sparse
         return roi_align_sparse(feats, boxes, levels, scales, output_size, sampling_ratio,
                                 aligned)
@@ -248,8 +291,6 @@ def roi_align_multilevel(
 
 def _roi_align_gather(feats, boxes, levels, scales, output_size, sampling_ratio, aligned):
     """K2 for CUDA tensors, its plain version for CPU tensors."""
-    if sampling_ratio <= 0:
-        raise NotImplementedError("adaptive sampling (ratio 0) is not ported yet")
     if boxes.is_cuda:
         return roi_align_cuda([f.contiguous() for f in feats], boxes.float().contiguous(),
                               levels.int().contiguous(), scales, output_size,

@@ -255,7 +255,8 @@ def roi_align_sparse(
     """The skip-flag pooler: K3 for CUDA tensors, its plain version for CPU
     tensors. Returns (M, C, oh, ow) float32."""
     if sampling_ratio <= 0:
-        raise NotImplementedError("adaptive sampling (ratio 0) is not ported yet")
+        raise ValueError("the skip-flag pooler takes a fixed sampling_ratio > 0, as the JAX "
+                         "package's does; ratio 0 takes the gather (roi_align_multilevel)")
     if boxes.is_cuda:
         return roi_align_sparse_cuda([f.contiguous() for f in feats],
                                      boxes.float().contiguous(), levels.int().contiguous(),

@@ -5,11 +5,13 @@ This file imports only torch and numpy, so it runs on a machine without JAX:
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
-K1 (NMS) must match exactly; K2 (ROIAlign) within 1e-5 absolute on
-unit-scale features (the kernel performs the plain version's roundings; the
-margin covers the order of its fp32 sums). K3 (the skip-flag ROIAlign) within
-1e-5 of its plain version, which contracts the same weights in another order;
-its flag table must equal the plain schedule's, and two runs the same bits.
+K1 (NMS) must match exactly, also at its edge cases
+(``tests/torch_cases.py::k1_edge_cases``); K2 (ROIAlign) bit for bit at a fixed
+ratio (the kernel performs the plain version's roundings in its order) and
+within 1e-5 absolute at ratio 0 on unit-scale features. K3 (the skip-flag
+ROIAlign) within 1e-5 of its plain version, which contracts the same weights
+in another order; its flag table must equal the plain schedule's, and two
+runs the same bits.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from densepose_tpu_torch.ops import nms, roi_align, roi_align_sparse
+from torch_cases import k1_edge_cases  # tests/ is on the path (pytest's rootdir insertion)
 
 torch.set_num_threads(2)
 
@@ -56,7 +59,10 @@ def test_k2_matches_plain(cuda, aligned):
     rng = np.random.RandomState(12)
     feats = [torch.randn(64, 64 // 2 ** i, 96 // 2 ** i, generator=torch.Generator().manual_seed(i))
              .to(cuda) for i in range(4)]
-    b = torch.from_numpy(boxes_np(rng, 300, 380, 120)).to(cuda)
+    b = boxes_np(rng, 300, 380, 120)
+    # no sample in border along one axis or both: nothing to stage
+    b[:3] = [[10, 300, 60, 300], [500, 20, 520, 90], [-90, -80, -40, -30]]
+    b = torch.from_numpy(b).to(cuda)
     lv = roi_align.assign_boxes_to_levels(b, 2, 5)
     scales = [1 / 4, 1 / 8, 1 / 16, 1 / 32]
     want = roi_align.roi_align_plain(feats, b, lv, scales, (7, 7), 2, aligned)
@@ -64,13 +70,56 @@ def test_k2_matches_plain(cuda, aligned):
     got = roi_align.roi_align_multilevel(feats, b, lv, scales, (7, 7), 2, aligned)
     torch.cuda.synchronize()
     assert roi_align.roi_align_cuda.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned,out", [(False, 7), (True, 28)])
+def test_k2_adaptive_ratio_matches_plain(cuda, aligned, out):
+    rng = np.random.RandomState(15)
+    feats = [torch.randn(32, 64 // 2 ** i, 96 // 2 ** i, generator=torch.Generator().manual_seed(i))
+             .to(cuda) for i in range(4)]
+    b = torch.from_numpy(boxes_np(rng, 200, 380, 300)).to(cuda)
+    lv = torch.from_numpy(rng.randint(0, 4, size=200).astype(np.int32)).to(cuda)
+    scales = [1 / 4, 1 / 8, 1 / 16, 1 / 32]
+    want = roi_align.roi_align_plain(feats, b, lv, scales, (out, out), 0, aligned)
+    got = roi_align.roi_align_multilevel(feats, b, lv, scales, (out, out), 0, aligned)
+    torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", k1_edge_cases(), ids=lambda case: case[0])
+def test_k1_edge_cases_match_plain(cuda, case):
+    _, b, v, c, thr = case
+    args = [torch.from_numpy(b)[None], torch.from_numpy(v)[None], thr,
+            None if c is None else torch.from_numpy(c)[None]]
+    want = nms.nms_keep_plain(*args)
+    before = nms.nms_keep_cuda.launches
+    got = nms.nms_keep(*[a.to(cuda) if torch.is_tensor(a) else a for a in args])
+    torch.cuda.synchronize()
+    assert nms.nms_keep_cuda.launches == before + 1  # two kernels, one counted call
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [3100, 16384])
+def test_k1_many_boxes_match_plain(cuda, k):
+    """Scan stages of 32 and of 8 rows (the two buffers stay within 48 KB)."""
+    rng = np.random.RandomState(16)
+    b = torch.from_numpy(boxes_np(rng, k, 2000, 150))[None].to(cuda)
+    v = torch.from_numpy(rng.rand(1, k) > 0.1).to(cuda)
+    want = nms.nms_keep_plain(b, v, 0.5)
+    got = nms.nms_keep_cuda(b, v, 0.5)
+    torch.cuda.synchronize()
+    assert 0 < int(want.sum()) < int(v.sum())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
 def test_k1_refuses_too_many_boxes(cuda):
-    k = 10000  # more than one CTA's shared memory holds
-    with pytest.raises(ValueError, match="shared memory"):
+    k = 16385  # past the scan's 256 register words of 64 boxes
+    with pytest.raises(ValueError, match="at most 16384 boxes"):
         nms.nms_keep_cuda(torch.zeros(1, k, 4, device=cuda),
                           torch.ones(1, k, dtype=torch.bool, device=cuda), 0.5)
 

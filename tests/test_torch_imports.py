@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no file of ``densepose_tpu_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or anything of ``densepose_tpu``, and
+"""The PyTorch port stands alone: no file of ``densepose_tpu_torch/``, not
+``chip_smoke.py`` and not the test inputs it shares (``tests/torch_cases.py``)
+imports ``jax`` or anything of ``densepose_tpu``, and
 ``yaml``/``cv2`` (absent on the GPU machine) are imported only inside
 functions, off the flagship path."""
 
@@ -9,7 +10,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "densepose_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "densepose_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_cases.py"]  # chip_smoke.py imports the latter
 
 
 def _imports(tree):

@@ -41,6 +41,7 @@ from densepose_tpu.ops.pallas import roi_align_kernel as jax_rk
 from densepose_tpu.ops.pallas.nms_kernel import _nms_kernel
 from densepose_tpu_torch.ops import anchors, boxes, cuda_build, nms, resize, roi_align
 from tests.reference_ops import nms_np, roi_align_np
+from torch_cases import k1_edge_cases  # tests/ is on the path, as for test_torch_gpu.py
 
 torch.set_num_threads(2)
 
@@ -157,6 +158,27 @@ def test_nms_plain_matches_k1_body(kind, k, thr, classed):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("case", k1_edge_cases(), ids=lambda case: case[0])
+def test_nms_plain_edge_cases_match_k1_body_and_numpy(case):
+    """K1's edge cases (tests/torch_cases.py::k1_edge_cases, which the card
+    holds the kernel to): word edges, all invalid, all identical, zero area, the sweep
+    across the threshold, three classes."""
+    name, b, v, c, thr = case
+    want = k1_body_interpret(b, v, thr, c)
+    got = nms.nms_keep(t(b)[None], t(v)[None], thr, None if c is None else t(c)[None])[0]
+    np.testing.assert_array_equal(got.numpy(), want)
+    s = np.linspace(1, 0, len(b), dtype=np.float32)  # the problems are score-sorted
+    for cls in (range(3) if c is not None else [None]):
+        idx = np.nonzero(v & (True if cls is None else c == cls))[0]
+        kept = set(idx[nms_np(b[idx], s[idx], thr)].tolist()) if len(idx) else set()
+        sel = got.numpy() & (True if cls is None else c == cls)
+        assert set(np.nonzero(sel)[0].tolist()) == kept
+    if name.startswith("near"):  # the sweep really straddles the threshold
+        assert got[1::2].any() and not got[1::2].all()
+    if name == "identical":
+        assert got.sum() == 1
+
+
 def pyramid(rng, hw=(32, 48), c=16, levels=4):
     return [rng.randn(hw[0] // 2 ** i, hw[1] // 2 ** i, c).astype(np.float32)
             for i in range(levels)]
@@ -238,10 +260,44 @@ def test_roi_align_single_is_level_zero():
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 
-def test_roi_align_adaptive_ratio_not_ported():
-    f = torch.zeros(2, 4, 4)
-    with pytest.raises(NotImplementedError):
-        roi_align.roi_align_single(f, torch.zeros(1, 4), 1.0, (2, 2), 0, False)
+def adaptive_boxes(rng, m):
+    """Boxes whose bins need one sample (tiny), some (medium) and more than
+    the cap of 8 (large) on level 0 at scale 1/4."""
+    sizes = np.repeat(np.float32([[2, 3], [30, 50], [300, 260]]), -(-m // 3), 0)[:m]
+    xy = rng.rand(m, 2).astype(np.float32) * np.float32([150, 100]) - 20
+    wh = sizes * (0.8 + 0.4 * rng.rand(m, 2).astype(np.float32))
+    return np.concatenate([xy, xy + wh], 1)
+
+
+@pytest.mark.parametrize("single,aligned,out", [(False, False, 7), (False, True, 5),
+                                                (True, False, 4), (True, True, 3)])
+def test_roi_align_adaptive_ratio_matches_jax(monkeypatch, single, aligned, out):
+    """Ratio 0: per box and axis min(ceil(bin), 8) samples, as the JAX gather
+    computes them; the multi-level pooler takes the gather at ratio 0 even
+    with the sparse-pooler variable set, as the JAX package does."""
+    rng = np.random.RandomState(14 + out)
+    feats = pyramid(rng, c=8)
+    b = adaptive_boxes(rng, 30)
+    bins = np.asarray(roi_align._roi_geometry(t(b), torch.full((30,), 0.25), (out, out),
+                                              aligned)[1::2])
+    need = np.ceil(bins)
+    assert (need <= 1).any() and ((need > 1) & (need <= 8)).any() and (need > 8).any()
+    if single:
+        want = np.asarray(jax_ra.roi_align_single(jnp.asarray(feats[0]), jnp.asarray(b),
+                                                  0.25, (out, out), 0, aligned))
+        got = hwc(roi_align.roi_align_single(chw(feats[0]), t(b), 0.25, (out, out), 0,
+                                             aligned))
+    else:
+        monkeypatch.setenv("DENSEPOSE_TPU_SPARSE_POOLER", "1")
+        lv = rng.randint(0, 4, size=30).astype(np.int32)
+        lv[::3] = 0  # the large boxes exceed the cap on level 0
+        want = np.asarray(jax_ra.roi_align_multilevel(
+            [jnp.asarray(f) for f in feats], jnp.asarray(b), jnp.asarray(lv), SCALES,
+            (out, out), 0, aligned))
+        got = hwc(roi_align.roi_align_multilevel([chw(f) for f in feats], t(b), t(lv),
+                                                 SCALES, (out, out), 0, aligned))
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
