@@ -15,15 +15,18 @@ toolkit. Phases, each of which fails the run:
    cases (word edges, all invalid, all identical, zero area, a sweep across
    the threshold, three classes); K2 (ROIAlign) bit-identical at the box and
    DensePose poolers and within 1e-5 absolute at ratio 0 (adaptive) on the
-   box pooler's inputs; K3 (the skip-flag ROIAlign) within 1e-5 of its plain
-   version and 2e-5 of K2 on the same inputs, with its flag table equal to
-   the plain schedule's and two runs bit-identical, at the box pooler and at
-   the legacy DensePose pooler (K1's edge cases come from
-   tests/torch_cases.py, which imports only numpy); times per call from CUDA
-   events around back-to-back calls (K1's mask and scan launches also
-   apart), printed beside the earlier design's times, and the least time the
-   card could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s,
-   H100 SXM data sheet at 700 W);
+   box pooler's inputs; K3 (the skip-flag ROIAlign, one launch a call)
+   within 1e-5 of its plain version and 2e-5 of K2 on the same inputs, two
+   runs bit-identical, at the box pooler and at the legacy DensePose pooler,
+   and on its edge cases at 7x7 and 14x14 (K1's and K3's edge cases come
+   from tests/torch_cases.py, which imports only numpy), with no stack frame
+   or spills in ptxas; times per call from CUDA events around back-to-back
+   calls (K1's mask and scan launches also apart; K2 on K3's inputs, and the
+   ratio K3 / K2), printed beside the earlier design's times, each kernel's
+   device time per call from torch.profiler (the same calls without the
+   host's time between launches), and the least time the card could take
+   (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, H100 SXM data
+   sheet at 700 W);
 4. three paths, each at full width with random weights from seed 0: a
    DensePosePredictor answers a warm-up request and then distinct synthetic
    frames; outputs finite and of the expected shapes; the kernels' launch
@@ -51,7 +54,6 @@ when there is no CUDA device or any phase fails.
 import importlib.util
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -71,14 +73,17 @@ K3_TOL = 1e-5
 K3_K2_TOL = 2e-5  # K3 sums the taps in another order (tests/test_ops.py:625)
 SOURCES = {"nms_keep_cuda": "nms", "roi_align_cuda": "roi_align",
            "roi_align_sparse_cuda": "roi_align_sparse"}
-# per-site times of K1 and K2 before their redesign for Hopper (one CTA per
-# NMS problem; one thread per ROIAlign output), as PERF.md section 6 records
-# them, timed by cuda_ms as the kernels are here, and the card they were
-# measured on; printed beside the new times and kept out of the kernels line
+# per-site times of each kernel before its redesign for Hopper (K1: one CTA
+# per NMS problem; K2: one thread per ROIAlign output; K3: a sort, a flags
+# launch and one thread per output), as PERF.md section 6 records them with
+# their runs, timed by cuda_ms as the kernels are here; printed beside the
+# new times and kept out of the kernels line
 EARLIER_CARD = "the earlier design, NVIDIA H100 80GB HBM3, 700.00 W"
 EARLIER_MS = {("nms_keep_cuda", "rpn"): 0.7687, ("nms_keep_cuda", "box_stage"): 0.6472,
               ("roi_align_cuda", "box_pooler"): 0.2772,
-              ("roi_align_cuda", "densepose_pooler"): 0.4051}
+              ("roi_align_cuda", "densepose_pooler"): 0.4051,
+              ("roi_align_sparse_cuda", "box_pooler"): 0.7407,
+              ("roi_align_sparse_cuda", "legacy_densepose_pooler"): 0.2710}
 
 
 def check(cond, msg):
@@ -97,6 +102,23 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps=20):
+    """Device time per call of ``fn``: the device events torch.profiler
+    records over ``reps`` back-to-back calls, summed, over ``reps``. Unlike
+    cuda_ms it leaves out the host's time between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps
 
 
 def bound(nbytes, ops):
@@ -126,41 +148,14 @@ def clustered_boxes(rng, k, hw):
                           1).astype(np.float32)
 
 
-def k1_edge_cases():
-    """K1's edge cases from tests/torch_cases.py (numpy only), loaded by its
-    path: an installed package named ``tests`` can shadow the repo's."""
+def torch_cases():
+    """tests/torch_cases.py (numpy only: K1's and K3's edge cases), loaded by
+    its path: an installed package named ``tests`` can shadow the repo's."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_cases.py")
     spec = importlib.util.spec_from_file_location("torch_cases", path)
     cases = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cases)
-    return cases.k1_edge_cases()
-
-
-def ptxas_report(log):
-    """Per kernel of a build log: registers, static shared memory, stack
-    frame and spills, from ptxas -v. A kernel is named by the ``*_kernel``
-    part of its mangled name."""
-    out, cur = [], None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name = re.search(r"\d([a-z_]+_kernel)", m.group(1))
-            cur = {"kernel": name.group(1) if name else m.group(1)}
-            out.append(cur)
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                       spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur["registers"] = int(m.group(1))
-            smem = re.search(r"(\d+) bytes smem", line)
-            cur["smem"] = int(smem.group(1)) if smem else 0
-    return out
+    return cases
 
 
 def nms_work(boxes, valid, keep, thr, classes):
@@ -210,6 +205,25 @@ def roi_align_work(feats, boxes, levels, scales, out_hw, ratio, aligned):
     return nbytes, 12 * int(ok.sum()) * c + out
 
 
+def check_k3(torch, args, what, nondegenerate=True):
+    """K3 on ``args`` against its plain version (K3_TOL) and K2 (K3_K2_TOL),
+    two calls bit-identical. Returns both max abs errors."""
+    from densepose_tpu_torch.ops import roi_align, roi_align_sparse
+    got = roi_align_sparse.roi_align_sparse_cuda(*args)
+    again = roi_align_sparse.roi_align_sparse_cuda(*args)
+    want = roi_align_sparse.roi_align_sparse_plain(*args)
+    gather = roi_align.roi_align_cuda(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    err_k2 = float((got - gather).abs().max())
+    check(err <= K3_TOL, f"{what}: max abs error {err} > {K3_TOL}")
+    check(err_k2 <= K3_K2_TOL, f"{what}: differs from K2 by {err_k2} > {K3_K2_TOL}")
+    check(torch.equal(got, again), f"{what}: two runs differ")
+    check(not nondegenerate or float(want.abs().max()) > 0.1,
+          f"{what}: degenerate test (all zero)")
+    return err, err_k2
+
+
 def kernel_checks(torch, cfg, report, dev):
     from densepose_tpu_torch.model_zoo import get_config
     from densepose_tpu_torch.ops import nms, roi_align, roi_align_sparse
@@ -239,6 +253,7 @@ def kernel_checks(torch, cfg, report, dev):
         check(mismatches == 0, f"K1 {site}: {mismatches} keep flags differ from the plain version")
         check(0 < int(want.sum()) < int(v.sum()), f"K1 {site}: degenerate test (nothing suppressed)")
         ms = cuda_ms(lambda: nms.nms_keep_cuda(b, v, thr, c), reps=50)
+        dev_ms = device_ms(torch, lambda: nms.nms_keep_cuda(b, v, thr, c))
         # the two launches apart, on scratch the timed calls reuse
         mask = torch.empty((p, k, nms.mask_words(k)), dtype=torch.int64, device=dev)
         keep = torch.empty((p, k), dtype=torch.bool, device=dev)
@@ -249,13 +264,15 @@ def kernel_checks(torch, cfg, report, dev):
         bound_ms, bound_by = bound(*nms_work(b, v, want, thr, c))
         was = EARLIER_MS.get(("nms_keep_cuda", site))
         k1.append({"site": site, "shape": [p, k], "kept": int(want.sum()), "max_abs_err": 0.0,
-                   "ms": ms, "mask_ms": mask_ms, "scan_ms": scan_ms, "plain_ms": plain_ms,
+                   "ms": ms, "device_ms": dev_ms, "mask_ms": mask_ms, "scan_ms": scan_ms,
+                   "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by})
         print(f"K1 nms_keep_cuda {site} P={p} K={k} iou>{thr}: exact ({int(want.sum())} kept); "
-              f"{ms:.4f} ms (mask launch {mask_ms:.4f}, scan launch {scan_ms:.4f})"
+              f"{ms:.4f} ms (mask launch {mask_ms:.4f}, scan launch {scan_ms:.4f}; device "
+              f"{dev_ms:.4f})"
               + (f", was {was:.4f} ms ({EARLIER_CARD})" if was else "")
               + f"; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
-    edge = k1_edge_cases()
+    edge = torch_cases().k1_edge_cases()
     for name, eb, ev, ec, thr in edge:
         b = torch.from_numpy(eb)[None].to(dev)
         v = torch.from_numpy(ev)[None].to(dev)
@@ -302,17 +319,21 @@ def kernel_checks(torch, cfg, report, dev):
         check(float(want.abs().max()) > 0.1, f"K2 {site}: degenerate test (all zero)")
         ms = cuda_ms(lambda: roi_align.roi_align_cuda(feats, b, l, sc, out_hw, ratio, False),
                      reps=20)
+        dev_ms = device_ms(torch, lambda: roi_align.roi_align_cuda(feats, b, l, sc, out_hw,
+                                                                   ratio, False))
         plain_ms = cuda_ms(lambda: roi_align.roi_align_plain(feats, b, l, sc, out_hw, ratio,
                                                              False), reps=3, warmup=1)
         bound_ms, bound_by = bound(*roi_align_work(feats, b, l, sc, out_hw, ratio, False))
         was = EARLIER_MS.get(("roi_align_cuda", site))
         k2.append({"site": site, "shape": [b.shape[0], c, *out_hw], "ratio": ratio,
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms,
                    "bound_by": bound_by})
         print(f"K2 roi_align_cuda {site} M={b.shape[0]} {out_hw} C={c} levels={len(feats)} "
               f"ratio={ratio}: " + ("bit-identical" if tol == 0.0 else
                                     f"max abs err {err:.3e} (tol {tol})")
-              + f"; {ms:.4f} ms" + (f", was {was:.4f} ms ({EARLIER_CARD})" if was else "")
+              + f"; {ms:.4f} ms (device {dev_ms:.4f})"
+              + (f", was {was:.4f} ms ({EARLIER_CARD})" if was else "")
               + f"; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
 
     # K3 at its two sites on the legacy path: the box pooler (K2's inputs
@@ -326,40 +347,39 @@ def kernel_checks(torch, cfg, report, dev):
              legacy_dp.POOLER_SAMPLING_RATIO)]:
         l = roi_align.assign_boxes_to_levels(b, 2, 5)
         args = (pyramid, b, l, scales, out_hw, ratio, False)
-        got = roi_align_sparse.roi_align_sparse_cuda(*args)
-        again = roi_align_sparse.roi_align_sparse_cuda(*args)
-        want = roi_align_sparse.roi_align_sparse_plain(*args)
-        gather = roi_align.roi_align_cuda(*args)
-        sched = roi_align_sparse.sparse_schedule(*args)
-        _, _, _, flags = roi_align_sparse.sparse_schedule_cuda(*args)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        err_k2 = float((got - gather).abs().max())
-        check(err <= K3_TOL, f"K3 {site}: max abs error {err} > {K3_TOL}")
-        check(err_k2 <= K3_K2_TOL, f"K3 {site}: differs from K2 by {err_k2} > {K3_K2_TOL}")
-        check(torch.equal(got, again), f"K3 {site}: two runs differ")
-        check(float(want.abs().max()) > 0.1, f"K3 {site}: degenerate test (all zero)")
-        for li, f in enumerate(sched.flags):
-            check(torch.equal(flags[li, :, :f.shape[1]], f) and not flags[li, :, f.shape[1]:].any(),
-                  f"K3 {site}: level {li} flags differ from the plain schedule's")
-        active, pairs = sum(int(f.sum()) for f in sched.flags), sum(f.numel() for f in sched.flags)
+        err, err_k2 = check_k3(torch, args, f"K3 {site}")
         ms = cuda_ms(lambda: roi_align_sparse.roi_align_sparse_cuda(*args), reps=20)
-        # the sort, gathers and flags launch that come before the pooling launch
-        schedule_ms = cuda_ms(lambda: roi_align_sparse.sparse_schedule_cuda(*args), reps=20)
         k2_ms = cuda_ms(lambda: roi_align.roi_align_cuda(*args), reps=20)
+        dev_ms = device_ms(torch, lambda: roi_align_sparse.roi_align_sparse_cuda(*args))
+        k2_dev_ms = device_ms(torch, lambda: roi_align.roi_align_cuda(*args))
         plain_ms = cuda_ms(lambda: roi_align_sparse.roi_align_sparse_plain(*args), reps=3,
                            warmup=1)
         bound_ms, bound_by = bound(*roi_align_work(*args))
+        was = EARLIER_MS[("roi_align_sparse_cuda", site)]
         k3.append({"site": site, "shape": [b.shape[0], c, *out_hw], "levels": len(pyramid),
-                   "active_pairs": active, "pairs": pairs, "max_abs_err": err,
-                   "max_abs_err_vs_k2": err_k2, "ms": ms, "schedule_ms": schedule_ms,
-                   "k2_ms": k2_ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by})
+                   "max_abs_err": err, "max_abs_err_vs_k2": err_k2, "ms": ms, "k2_ms": k2_ms,
+                   "k3_over_k2": ms / k2_ms, "device_ms": dev_ms, "k2_device_ms": k2_dev_ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by})
         print(f"K3 roi_align_sparse_cuda {site} M={b.shape[0]} {out_hw} C={c} "
-              f"levels={len(pyramid)}: {active}/{pairs} (chunk, tile) pairs active; max abs "
-              f"err {err:.3e} (tol {K3_TOL}), vs K2 {err_k2:.3e} (tol {K3_K2_TOL}); "
-              f"{ms:.4f} ms (schedule {schedule_ms:.4f}); K2 on the same inputs {k2_ms:.4f} ms, "
+              f"levels={len(pyramid)}: max abs err {err:.3e} (tol {K3_TOL}), vs K2 "
+              f"{err_k2:.3e} (tol {K3_K2_TOL}); {ms:.4f} ms, was {was:.4f} ms ({EARLIER_CARD}); "
+              f"K2 on the same inputs {k2_ms:.4f} ms, K3 / K2 {ms / k2_ms:.3f}; device "
+              f"{dev_ms:.4f} ms, K2 {k2_dev_ms:.4f}, K3 / K2 {dev_ms / k2_dev_ms:.3f}; "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    # K3's edge cases on the same pyramid, at both sites' output sizes
+    edge3 = torch_cases().k3_edge_cases((hp, wp))
+    worst = 0.0
+    for name, eb, elv in edge3:
+        for out_hw, aligned in [((res_b, res_b), False),
+                                ((legacy_dp.POOLER_RESOLUTION,) * 2, True)]:
+            args = (pyramid, torch.from_numpy(eb).to(dev), torch.from_numpy(elv).to(dev), scales,
+                    out_hw, 2, aligned)
+            worst = max(worst, *check_k3(torch, args, f"K3 edge case {name} {out_hw}",
+                                         nondegenerate=False))
+    print(f"K3 roi_align_sparse_cuda edge cases: {len(edge3)} at {res_b}x{res_b} and "
+          f"{legacy_dp.POOLER_RESOLUTION}x{legacy_dp.POOLER_RESOLUTION}, max abs err {worst:.3e} "
+          f"({', '.join(name for name, *_ in edge3)})")
 
     main = {"nms_keep_cuda": k1[:2], "roi_align_cuda": k2[:2], "roi_align_sparse_cuda": k3}
     for name, entries, route_src, replaces, tol in [
@@ -370,7 +390,8 @@ def kernel_checks(torch, cfg, report, dev):
          f"bit-identical; ratio 0 max_abs_err<={K2_TOL}"),
         ("roi_align_sparse_cuda", k3, "densepose_tpu_torch/csrc/roi_align_sparse.cu",
          "densepose_tpu/ops/pallas/roi_align_kernel.py:159",
-         f"max_abs_err<={K3_TOL}, vs K2 <={K3_K2_TOL}"),
+         f"max_abs_err<={K3_TOL}, vs K2 <={K3_K2_TOL}, two runs equal, and at "
+         f"{len(edge3)} edge cases"),
     ]:
         per_request = main[name]  # one launch per main-path site and request
         report[name] = {
@@ -380,6 +401,7 @@ def kernel_checks(torch, cfg, report, dev):
             "launches_per_path": {},
             "max_abs_err": max(e["max_abs_err"] for e in entries),
             "ms": sum(e["ms"] for e in per_request),
+            "device_ms": sum(e["device_ms"] for e in per_request),
             "plain_ms": sum(e["plain_ms"] for e in per_request),
             "bound_ms": sum(e["bound_ms"] for e in per_request),
             "bound_by": max(per_request, key=lambda e: e["bound_ms"])["bound_by"],
@@ -674,12 +696,15 @@ def main():
     ptxas = {}
     for name, b in built.items():
         print(f"build: {name}: {b.seconds:.1f} s -> {b.path.name}")
-        ptxas[name] = ptxas_report(b.log)
+        ptxas[name] = cuda_build.ptxas_report(b.log)
         check(ptxas[name], f"build: no ptxas report for {name}")
         for k in ptxas[name]:
             print(f"  ptxas {name}: {k['kernel']}: {k.get('registers')} registers, "
                   f"{k.get('smem')} bytes static smem, {k.get('stack')} bytes stack, "
                   f"{k.get('spill_stores')}/{k.get('spill_loads')} bytes spill stores/loads")
+    for k in ptxas["roi_align_sparse"]:
+        check((k.get("stack"), k.get("spill_stores"), k.get("spill_loads")) == (0, 0, 0),
+              f"build: K3's {k['kernel']} has a stack frame or spills")
 
     report = {}
     cfg = get_config(FLAGSHIP)

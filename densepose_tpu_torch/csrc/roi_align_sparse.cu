@@ -1,4 +1,5 @@
-// K3: skip-flag multi-level ROIAlign (torchvision semantics), in two launches.
+// K3: skip-flag multi-level ROIAlign (torchvision semantics), in one launch,
+// as a two-stage separable contraction through shared memory.
 //
 // Replaces the TPU kernel
 // densepose_tpu/ops/pallas/roi_align_kernel.py::_kernel_sparse (reached
@@ -10,33 +11,61 @@
 //
 // where row y of Wy (and row x of Wx) holds, per column, the sum over the
 // bin's `ratio` sub-samples of their bilinear tap weights, divided by ratio.
-// The schedule is the TPU kernel's: boxes sorted by (level, x1) (done by the
-// wrapper), chunks of kChunk sorted boxes, tiles of kTile columns, a flag per
-// (level, chunk, tile) that is set when a box of the chunk at that level has
-// a nonzero Wx entry in the tile. Per box, the output is the sum over the
-// active tiles of its chunk, in ascending order, of that tile's part; the
-// result is written in the caller's box order.
 //
-// Launches: (1) flags_kernel marks the flag table from each box's x taps;
-// (2) pool_kernel computes the outputs. What bounds it on the card: bytes,
-// as for K2 (about 8 * ratio^2 operations per output on 4 * ratio^2 tap
-// reads). Design of the pool kernel: one thread per output element
-// (sorted box, c, oy, ox), ox innermost, as K2. The TPU kernel multiplied
-// whole dense Wy and Wx tiles on its matrix unit; here each thread builds only
-// the nonzero entries of its Wy and Wx rows (at most 2 * ratio each: a
-// short span of columns) and contracts those, so no zero weight is ever
-// multiplied. It walks its x columns in ascending order tile by tile, reads
-// the tile's flag, and does no work for an inactive (chunk, tile) pair; the
-// tiles its box does not touch it never visits. There are no atomics, so
-// two runs give the same bits. The levels are read in place as contiguous
-// (C, H, W) maps through a per-level table; no level is padded. Tensor
-// cores, tap reuse in shared memory and TMA are later work.
+// What bounds it on the card: bytes, as for K2. Each feature pixel a box
+// taps is read once and each output written once; an output costs about
+// 2 * 2g * (|U| / ow + 1) operations (under 40 at ratio 2) for the 4 bytes
+// it writes alone, below fp32's 20 operations a byte (67 TFLOP/s over
+// 3.35 TB/s).
+//
+// The sort and the flags are gone on the card. The TPU kernel sorted the
+// boxes by (level, x1) and flagged the (chunk of 128 boxes, tile of 8
+// columns) pairs that some box's Wx touches, so that its matrix unit could
+// skip all-zero blocks of a dense Wy @ feat @ Wx^T. Here each box contracts
+// only the nonzero entries of its own rows, so no zero block is ever visited
+// and every flag such a box would read is set: the flags skipped nothing, and
+// a box's output does not depend on its place in the sort. The kernel takes
+// the boxes in the caller's order and writes each output at its caller's
+// index. The plain version (ops/roi_align_sparse.py) keeps the JAX schedule
+// and is held against the Pallas kernel.
+//
+// Design: one CTA per (box, slab of channels), as K2. The CTA computes the
+// box geometry once and builds its tables in shared memory: each output
+// row's distinct Y rows and weights, each output column's distinct X columns,
+// weights and index into U, the box's sorted union of distinct X columns
+// (at most min(2g * ow, W_l)). Then two stages, a barrier between them:
+//
+//   stage 1  R[c][oy][u] = sum_k Wy[oy][k] * feat[c][ycol[oy][k]][U[u]]
+//   stage 2  out[c][oy][ox] = sum_j Wx[ox][j] * R[c][oy][xidx[ox][j]]
+//
+// A thread takes kCh channels of one (oy, u) in stage 1 and of one (oy, ox)
+// in stage 2: it reads its table entries once for the kCh channels, and its
+// kCh x (Y taps <= 2g) feature loads are in flight together. Consecutive
+// threads take consecutive u (stage 1) and ox (stage 2), so a warp reads
+// neighbouring columns of one feature row and writes neighbouring outputs.
+// Per (channel, output row) stage 1 makes |U| * (Y taps) loads, where the
+// one-stage form (K2, and this kernel's earlier design) made ow * (2g)^2:
+// equal when the bins are 2 or more pixels wide at their level (no two bins
+// share a column), fewer for narrower bins, down to about a half when
+// neighbouring bins share their edge columns. Operations per output row
+// fall the same way, from 2 * ow * (2g)^2 to 2 * |U| * (Y taps) in stage 1
+// plus 2 * ow * (X taps) in stage 2. The Y contraction a column needs is
+// done once for the output row and shared by the bins that use the column;
+// stage 2 reads R from shared memory. The slab is sized from the
+// bound on |U| so R stays under kSlabBytes (32 channels at 7x7, 8 at 14x14,
+// ratio 2). Index arithmetic is 32-bit and stepped with carries, as in K2:
+// no division per output. The only atomics are the integer ORs of U's
+// bitmap, so two runs give the same bits.
 //
 // Numerics: built with --fmad=false and written with the _rn intrinsics.
-// The weights are exactly those of the plain version's _axis_weights; the
-// contraction sums in its own order, within fp32 rounding of the plain
-// version's matrix products.
+// The weights are exactly the plain version's _axis_weights (each a sum over
+// the sub-samples, in order, of 1 - lerp and lerp where the column matches,
+// divided by g). Each R sums its Y taps in ascending row order; each output
+// sums its X taps in ascending column order into one partial per tile of
+// kTile columns and adds the tiles in ascending order, as the plain version
+// does per (chunk, tile) pair: within fp32 rounding of its matrix products.
 
+#include <climits>
 #include <stdint.h>
 
 #include "roi_align_common.cuh"
@@ -46,132 +75,237 @@ namespace {
 using namespace roi_align_common;
 
 constexpr int kMaxRatio = 8;
-constexpr int kMaxTaps = 2 * kMaxRatio;  // nonzero entries of one weight row, at most
-constexpr int kChunk = 128;              // ops/roi_align_sparse.py::CHUNK
-constexpr int kTile = 8;                 // ops/roi_align_sparse.py::TILE
+constexpr int kTile = 8;                  // ops/roi_align_sparse.py::TILE
+constexpr int kCh = 4;                    // channels a thread takes in each stage
+constexpr int kSlabBytes = 25 * 1024;     // R of one CTA's slab of channels, at most
+constexpr int kStaticSmem = 48 * 1024;    // dynamic shared memory without an opt-in
+constexpr int kMaxSmem = 227 * 1024;      // a block's shared memory on sm_90
 
-__device__ __forceinline__ void insert_sorted(int* col, int& n, int c) {
-  for (int j = 0; j < n; ++j)
-    if (col[j] == c) return;
-  int j = n++;
-  for (; j > 0 && col[j - 1] > c; --j) col[j] = col[j - 1];
-  col[j] = c;
+// Shared-memory words of the tables for an oh x ow output at ratio g and
+// levels at most max_w wide: counts (oh + ow), Y rows (col, weight), X rows
+// (col, weight, index into U) and U at 2g entries a row, and the bitmap of U.
+inline size_t table_words(int oh, int ow, int g, int max_w) {
+  return static_cast<size_t>(oh + ow) + 2 * static_cast<size_t>(oh) * 2 * g +
+         4 * static_cast<size_t>(ow) * 2 * g + (max_w + 31) / 32;
 }
 
-// The nonzero entries of row p of one axis's weights: distinct columns in
-// ascending order, each weighing (sum over sub-samples i, in order, of
-// (1 - lerp_i) where low_i is the column plus lerp_i where high_i is, for
-// in-border samples) / g, the plain version's _axis_weights to the bit.
-__device__ int axis_row(float start, float bin, int p, int g, float limit, int* col,
-                        float* wt) {
-  int lo[kMaxRatio], hi[kMaxRatio];
-  float wl[kMaxRatio], wh[kMaxRatio];
+// One output row (or column) of one axis from its g staged samples: the
+// distinct columns with a nonzero weight, in ascending order (each round
+// takes the least column above the last), each weighing (the sum over
+// sub-samples i, in order, of 1 - lerp_i where lo_i is the column plus
+// lerp_i where hi_i is, for in-border samples) / g: the plain version's
+// _axis_weights to the bit. Entries past the count get column -1.
+template <int G>
+__device__ __forceinline__ int axis_row(const AxisTap* t, int ratio, int* col, float* wt) {
+  const int g = G > 0 ? G : ratio;
   int n = 0;
-  for (int i = 0; i < g; ++i) {
-    float lerp;
-    bool ok;
-    axis_sample(start, bin, p, i, g, limit, lo[i], hi[i], lerp, ok);
-    wl[i] = ok ? __fsub_rn(1.f, lerp) : 0.f;
-    wh[i] = ok ? lerp : 0.f;
-    if (wl[i] != 0.f) insert_sorted(col, n, lo[i]);
-    if (wh[i] != 0.f) insert_sorted(col, n, hi[i]);
-  }
-  for (int j = 0; j < n; ++j) {
-    float s = 0.f;
+  for (int prev = -1;;) {
+    int next = INT_MAX;
+#pragma unroll
     for (int i = 0; i < g; ++i) {
-      float term = lo[i] == col[j] ? wl[i] : 0.f;
-      if (hi[i] == col[j]) term = __fadd_rn(term, wh[i]);
-      s = __fadd_rn(s, term);
+      const AxisTap s = t[i];
+      if (!s.ok) continue;
+      if (s.lo > prev) next = min(next, s.lo);
+      if (s.lerp != 0.f && s.hi > prev) next = min(next, s.hi);
     }
-    wt[j] = __fdiv_rn(s, static_cast<float>(g));
+    if (next == INT_MAX) break;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < g; ++i) {
+      const AxisTap s = t[i];
+      float term = s.ok && s.lo == next ? s.rlerp : 0.f;
+      if (s.ok && s.hi == next) term = __fadd_rn(term, s.lerp);
+      sum = __fadd_rn(sum, term);
+    }
+    col[n] = next;
+    wt[n] = __fdiv_rn(sum, static_cast<float>(g));
+    ++n;
+    prev = next;
   }
+  for (int j = n; j < 2 * g; ++j) col[j] = -1;
   return n;
 }
 
-__global__ void __launch_bounds__(kThreads) flags_kernel(
+// G > 0: ratio G at compile time; G == 0: `ratio` at run time (1..kMaxRatio).
+template <int G>
+__global__ void __launch_bounds__(kThreads) roi_align_sparse_kernel(
     LevelTable lv, const float* __restrict__ boxes, const int32_t* __restrict__ levels,
-    int32_t* __restrict__ flags, int m, int ow, int g, float offset, int aligned,
-    int max_tiles) {
-  const int n_chunks = (m + kChunk - 1) / kChunk;
-  const long long total = static_cast<long long>(m) * ow * g;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       idx < total; idx += stride) {
-    const int i = static_cast<int>(idx % g);
-    const long long t = idx / g;
-    const int p = static_cast<int>(t % ow);
-    const int s = static_cast<int>(t / ow);
-    const int l = levels[s];
-    if (l < 0 || l >= lv.n) continue;
-    float start_h, bin_h, start_w, bin_w;
-    box_geometry(boxes + 4 * static_cast<long long>(s), lv.scale[l], offset, aligned, 1, ow,
-                 start_h, bin_h, start_w, bin_w);
-    int lo, hi;
-    float lerp;
-    bool ok;
-    axis_sample(start_w, bin_w, p, i, g, static_cast<float>(lv.w[l]), lo, hi, lerp, ok);
-    if (!ok) continue;
-    // Every thread that marks a pair stores the same 1: the table is the same
-    // whichever store lands last.
-    int32_t* row = flags + (static_cast<long long>(l) * n_chunks + s / kChunk) * max_tiles;
-    row[lo / kTile] = 1;  // weight 1 - lerp > 0
-    if (lerp != 0.f) row[hi / kTile] = 1;
+    float* __restrict__ out, int c, int oh, int ow, int ratio, int slab, int max_w,
+    float offset, int aligned) {
+  extern __shared__ int smem[];
+  const int g = G > 0 ? G : ratio;
+  const int g2 = 2 * g;
+  const int b = blockIdx.x;
+  const int c0 = blockIdx.y * slab;
+  const int hw = oh * ow;
+  const int n_ch = min(slab, c - c0);
+  float* o = out + (static_cast<size_t>(b) * c + c0) * hw;
+  const int l = levels[b];
+  if (l < 0 || l >= lv.n) {
+    for (int e = threadIdx.x; e < n_ch * hw; e += blockDim.x) o[e] = 0.f;
+    return;
   }
-}
+  const int h = lv.h[l], w = lv.w[l];
 
-__global__ void __launch_bounds__(kThreads) pool_kernel(
-    LevelTable lv, const float* __restrict__ boxes, const int32_t* __restrict__ levels,
-    const int64_t* __restrict__ order, const int32_t* __restrict__ flags,
-    float* __restrict__ out, int m, int c, int oh, int ow, int g, float offset,
-    int aligned, int max_tiles) {
-  const int n_chunks = (m + kChunk - 1) / kChunk;
-  const long long per_box = static_cast<long long>(c) * oh * ow;
-  const long long total = per_box * m;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       idx < total; idx += stride) {
-    const int ox = static_cast<int>(idx % ow);
-    long long t = idx / ow;
-    const int oy = static_cast<int>(t % oh);
-    t /= oh;
-    const int ch = static_cast<int>(t % c);
-    const int s = static_cast<int>(t / c);
-    const long long dst = order[s] * per_box + (static_cast<long long>(ch) * oh + oy) * ow + ox;
+  int* ny = smem;                                          // oh
+  int* nx = ny + oh;                                       // ow
+  int* ycol = nx + ow;                                     // oh x 2g
+  float* ywt = reinterpret_cast<float*>(ycol + oh * g2);   // oh x 2g
+  int* xcol = reinterpret_cast<int*>(ywt + oh * g2);       // ow x 2g
+  float* xwt = reinterpret_cast<float*>(xcol + ow * g2);   // ow x 2g
+  int* xidx = reinterpret_cast<int*>(xwt + ow * g2);       // ow x 2g
+  int* ucol = xidx + ow * g2;                              // U, at most ow x 2g
+  unsigned* bits = reinterpret_cast<unsigned*>(ucol + ow * g2);  // U as a bitmap
+  // R in stage 1; before it, the samples staged for the rows
+  float* rbuf = reinterpret_cast<float*>(bits + (max_w + 31) / 32);
 
-    const int l = levels[s];
-    float acc = 0.f;
-    if (l >= 0 && l < lv.n) {
-      const int h = lv.h[l], w = lv.w[l];
-      float start_h, bin_h, start_w, bin_w;
-      box_geometry(boxes + 4 * static_cast<long long>(s), lv.scale[l], offset, aligned, oh,
-                   ow, start_h, bin_h, start_w, bin_w);
-      int ycol[kMaxTaps], xcol[kMaxTaps];
-      float ywt[kMaxTaps], xwt[kMaxTaps];
-      const int ny = axis_row(start_h, bin_h, oy, g, static_cast<float>(h), ycol, ywt);
-      const int nx = axis_row(start_w, bin_w, ox, g, static_cast<float>(w), xcol, xwt);
-      const float* f = lv.feat[l] + static_cast<size_t>(ch) * h * w;
-      const int32_t* active =
-          flags + (static_cast<long long>(l) * n_chunks + s / kChunk) * max_tiles;
-      int tile = -1;
-      bool on = false;
-      float part = 0.f;
-      for (int j = 0; j < nx; ++j) {
-        const int tj = xcol[j] / kTile;
-        if (tj != tile) {  // the next tile, ascending: close the previous one
-          if (tile >= 0) acc = __fadd_rn(acc, part);
-          tile = tj;
-          on = active[tj] != 0;
-          part = 0.f;
-        }
-        if (!on) continue;
-        float r = 0.f;  // (Wy . feat_tile)[oy, xcol[j]]
-        for (int k = 0; k < ny; ++k)
-          r = __fadd_rn(r, __fmul_rn(ywt[k], f[static_cast<size_t>(ycol[k]) * w + xcol[j]]));
-        part = __fadd_rn(part, __fmul_rn(xwt[j], r));
+  // The samples, with axis_sample's roundings, then one thread per row.
+  float start_h, bin_h, start_w, bin_w;
+  box_geometry(boxes + 4 * static_cast<size_t>(b), lv.scale[l], offset, aligned, oh, ow,
+               start_h, bin_h, start_w, bin_w);
+  AxisTap* ty = reinterpret_cast<AxisTap*>(rbuf);
+  AxisTap* tx = ty + oh * g;
+  fill_axis_table(ty, start_h, bin_h, oh, g, static_cast<float>(h));
+  fill_axis_table(tx, start_w, bin_w, ow, g, static_cast<float>(w));
+  __syncthreads();
+  for (int p = threadIdx.x; p < oh + ow; p += blockDim.x) {
+    if (p < oh)
+      ny[p] = axis_row<G>(ty + p * g, ratio, ycol + p * g2, ywt + p * g2);
+    else
+      nx[p - oh] = axis_row<G>(tx + (p - oh) * g, ratio, xcol + (p - oh) * g2, xwt + (p - oh) * g2);
+  }
+  __syncthreads();
+
+  const int slots = ow * g2;
+  // U from a bitmap of the level's columns: each X entry sets its column's
+  // bit (an integer OR: the same bits whatever the order), and its index
+  // into U is the number of bits below it.
+  const int words = (w + 31) / 32;
+  for (int i = threadIdx.x; i < words; i += blockDim.x) bits[i] = 0u;
+  __syncthreads();
+  for (int e = threadIdx.x; e < slots; e += blockDim.x) {
+    const int col = xcol[e];
+    if (col >= 0) atomicOr(bits + (col >> 5), 1u << (col & 31));
+  }
+  __syncthreads();
+  int nu = 0;
+  for (int i = 0; i < words; ++i) nu += __popc(bits[i]);
+  for (int e = threadIdx.x; e < slots; e += blockDim.x) {
+    const int col = xcol[e];
+    if (col < 0) continue;
+    int rank = __popc(bits[col >> 5] & ((1u << (col & 31)) - 1u));
+    for (int i = 0; i < (col >> 5); ++i) rank += __popc(bits[i]);
+    xidx[e] = rank;
+    ucol[rank] = col;
+  }
+  __syncthreads();
+
+  // Stage 1 over (channel group, oy, u), u innermost: kCh channels a thread,
+  // so its loads (kCh per Y tap) are in flight together.
+  const int step = blockDim.x;
+  const size_t plane = static_cast<size_t>(h) * w;
+  const float* f0 = lv.feat[l] + static_cast<size_t>(c0) * plane;
+  const int groups = (n_ch + kCh - 1) / kCh;
+  const int n1 = groups * oh * nu;
+  if (n1 > 0) {
+    const int q = step / nu, du = step - q * nu, doy = q % oh, dgrp = q / oh;
+    int e = threadIdx.x;
+    const int r0 = e / nu;
+    int u = e - r0 * nu, oy = r0 % oh, grp = r0 / oh;
+    for (; e < n1; e += step) {
+      const int k_n = ny[oy];
+      const int* yc = ycol + oy * g2;
+      const float* yw = ywt + oy * g2;
+      const int cb = grp * kCh;
+      const float* fc = f0 + cb * plane + ucol[u];
+      float r[kCh];
+#pragma unroll
+      for (int j = 0; j < kCh; ++j) r[j] = 0.f;
+#pragma unroll
+      for (int k = 0; k < (G > 0 ? 2 * G : 2 * kMaxRatio); ++k) {
+        if (k >= k_n) break;
+        const float wk = yw[k];
+        const float* row = fc + yc[k] * w;
+#pragma unroll
+        for (int j = 0; j < kCh; ++j)
+          if (cb + j < n_ch) r[j] = __fadd_rn(r[j], __fmul_rn(wk, __ldg(row + j * plane)));
       }
-      if (tile >= 0) acc = __fadd_rn(acc, part);
+      float* rr = rbuf + (cb * oh + oy) * nu + u;
+#pragma unroll
+      for (int j = 0; j < kCh; ++j)
+        if (cb + j < n_ch) rr[j * oh * nu] = r[j];
+      u += du;
+      oy += doy;
+      grp += dgrp;
+      if (u >= nu) {
+        u -= nu;
+        ++oy;
+      }
+      if (oy >= oh) {
+        oy -= oh;
+        ++grp;
+      }
     }
-    out[dst] = acc;
+  }
+  __syncthreads();
+
+  // Stage 2 over (channel group, oy, ox), ox innermost: kCh outputs a thread.
+  {
+    const int n2 = groups * hw;
+    const int dgrp = step / hw, dbin = step - dgrp * hw, doy = dbin / ow, dox = dbin - doy * ow;
+    int e = threadIdx.x;
+    int grp = e / hw, oy = (e - grp * hw) / ow;
+    int ox = e - grp * hw - oy * ow;
+    for (; e < n2; e += step) {
+      const int cb = grp * kCh;
+      const float* rrow = rbuf + (cb * oh + oy) * nu;
+      const int j_n = nx[ox];
+      const int* xc = xcol + ox * g2;
+      const float* xw = xwt + ox * g2;
+      const int* xi = xidx + ox * g2;
+      float acc[kCh], part[kCh];
+#pragma unroll
+      for (int c = 0; c < kCh; ++c) acc[c] = part[c] = 0.f;
+      int tile = -1;
+#pragma unroll
+      for (int j = 0; j < (G > 0 ? 2 * G : 2 * kMaxRatio); ++j) {
+        if (j >= j_n) break;
+        const int tj = xc[j] / kTile;
+        if (tj != tile) {  // the next tile, ascending: close the previous one
+          if (tile >= 0) {
+#pragma unroll
+            for (int c = 0; c < kCh; ++c) acc[c] = __fadd_rn(acc[c], part[c]);
+          }
+          tile = tj;
+#pragma unroll
+          for (int c = 0; c < kCh; ++c) part[c] = 0.f;
+        }
+        const float wj = xw[j];
+        const int ij = xi[j];
+#pragma unroll
+        for (int c = 0; c < kCh; ++c)
+          if (cb + c < n_ch) part[c] = __fadd_rn(part[c], __fmul_rn(wj, rrow[c * oh * nu + ij]));
+      }
+      if (tile >= 0) {
+#pragma unroll
+        for (int c = 0; c < kCh; ++c) acc[c] = __fadd_rn(acc[c], part[c]);
+      }
+      float* oo = o + cb * hw + oy * ow + ox;
+#pragma unroll
+      for (int c = 0; c < kCh; ++c)
+        if (cb + c < n_ch) oo[c * hw] = acc[c];
+      ox += dox;
+      oy += doy;
+      grp += dgrp;
+      if (ox >= ow) {
+        ox -= ow;
+        ++oy;
+      }
+      if (oy >= oh) {
+        oy -= oh;
+        ++grp;
+      }
+    }
   }
 }
 
@@ -182,45 +316,42 @@ extern "C" {
 int dp_roi_align_sparse_max_levels() { return kMaxLevels; }
 int dp_roi_align_sparse_max_ratio() { return kMaxRatio; }
 
-// Launch (1). feats: host array of n_levels device pointers to contiguous
-// (C, H, W) f32 levels; hs, ws, scales: host arrays per level. boxes (m, 4) f32
-// and levels (m,) i32 in sorted order; flags (n_levels, ceil(m / kChunk),
-// max_tiles) i32, zeroed by the caller, marked here. Returns the cudaError_t
-// of the launch.
-int dp_roi_align_sparse_flags(const void* const* feats, const int* hs, const int* ws,
-                              const float* scales, int n_levels, const void* boxes,
-                              const void* levels, void* flags, int m, int ow, int ratio,
-                              int aligned, int max_tiles, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || ratio <= 0 || ratio > kMaxRatio)
+// feats: host array of n_levels device pointers to contiguous (C, H, W) f32
+// levels; hs, ws, scales: host arrays per level. boxes (m, 4) f32 and levels
+// (m,) i32 in the caller's order; out (m, c, oh, ow) f32, written (zeros for
+// a box whose level is not in [0, n_levels)). Returns the cudaError_t of the
+// launch, or cudaErrorInvalidValue for inputs the kernel does not take.
+int dp_roi_align_sparse(const void* const* feats, const int* hs, const int* ws,
+                        const float* scales, int n_levels, const void* boxes,
+                        const void* levels, void* out, int m, int c, int oh, int ow,
+                        int ratio, int aligned, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || ratio <= 0 || ratio > kMaxRatio || oh <= 0 ||
+      ow <= 0)
     return cudaErrorInvalidValue;
-  for (int l = 0; l < n_levels; ++l)
-    if ((ws[l] + kTile - 1) / kTile > max_tiles) return cudaErrorInvalidValue;
-  const long long total = static_cast<long long>(m) * ow * ratio;
-  if (total == 0) return cudaSuccess;
-  flags_kernel<<<blocks_for(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (static_cast<long long>(m) * c == 0) return cudaSuccess;
+  int max_w = 1;
+  for (int l = 0; l < n_levels; ++l) max_w = ws[l] > max_w ? ws[l] : max_w;
+  const int max_u = 2 * ratio * ow < max_w ? 2 * ratio * ow : max_w;
+  const size_t per_ch = static_cast<size_t>(oh) * max_u * sizeof(float);
+  const int fit = static_cast<int>(kSlabBytes / per_ch);
+  const int want = fit < 1 ? 1 : (fit < c ? fit : c);
+  const int n_slabs = (c + want - 1) / want;
+  const int slab = (c + n_slabs - 1) / n_slabs;
+  const size_t staged = static_cast<size_t>(oh + ow) * ratio * sizeof(AxisTap);
+  const size_t rbytes = slab * per_ch > staged ? slab * per_ch : staged;
+  const size_t smem = table_words(oh, ow, ratio, max_w) * sizeof(int) + rbytes;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = ratio == 2 ? roi_align_sparse_kernel<2> : roi_align_sparse_kernel<0>;
+  if (smem > kStaticSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(m, n_slabs);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       make_table(feats, hs, ws, scales, n_levels), static_cast<const float*>(boxes),
-      static_cast<const int32_t*>(levels), static_cast<int32_t*>(flags), m, ow, ratio,
-      aligned ? 0.5f : 0.f, aligned, max_tiles);
-  return cudaGetLastError();
-}
-
-// Launch (2). boxes, levels and flags as above; order (m,) i64: the caller's
-// index of each sorted box. out (m, c, oh, ow) f32 in the caller's order,
-// written. Returns the cudaError_t of the launch.
-int dp_roi_align_sparse_pool(const void* const* feats, const int* hs, const int* ws,
-                             const float* scales, int n_levels, const void* boxes,
-                             const void* levels, const void* order, const void* flags,
-                             void* out, int m, int c, int oh, int ow, int ratio,
-                             int aligned, int max_tiles, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || ratio <= 0 || ratio > kMaxRatio)
-    return cudaErrorInvalidValue;
-  const long long total = static_cast<long long>(m) * c * oh * ow;
-  if (total == 0) return cudaSuccess;
-  pool_kernel<<<blocks_for(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      make_table(feats, hs, ws, scales, n_levels), static_cast<const float*>(boxes),
-      static_cast<const int32_t*>(levels), static_cast<const int64_t*>(order),
-      static_cast<const int32_t*>(flags), static_cast<float*>(out), m, c, oh, ow, ratio,
-      aligned ? 0.5f : 0.f, aligned, max_tiles);
+      static_cast<const int32_t*>(levels), static_cast<float*>(out), c, oh, ow, ratio, slab,
+      max_w, aligned ? 0.5f : 0.f, aligned);
   return cudaGetLastError();
 }
 

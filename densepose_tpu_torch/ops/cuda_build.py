@@ -19,11 +19,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, NamedTuple
+from typing import Dict, Iterable, List, NamedTuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -84,6 +85,35 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Built]:
         os.replace(tmp, lib)
         built[name] = Built(lib, text, seconds)
     return built
+
+
+def ptxas_report(log: str) -> List[dict]:
+    """Per kernel of a build log: registers, static shared memory, stack
+    frame and spills, from ptxas -v. A kernel is named by the ``*_kernel``
+    part of its mangled name and its integer template argument, if any
+    (``roi_align_kernel<2>``)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = re.search(r"\d([a-z_]+_kernel)(?:ILi(\d+)E)?", m.group(1))
+            cur = {"kernel": m.group(1) if not name else
+                   name.group(1) + (f"<{name.group(2)}>" if name.group(2) else "")}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

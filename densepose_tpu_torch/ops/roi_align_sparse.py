@@ -22,9 +22,12 @@ taps per axis and divide by the ratio. The schedule is the JAX package's:
 Layouts are the port's: (C, H, W) levels, boxes (M, 4) XYXY in input-image
 coordinates, levels (M,) int, output (M, C, oh, ow) float32.
 
-For CUDA tensors the pooling is kernel K3 (``csrc/roi_align_sparse.cu``); for
-CPU tensors it is ``roi_align_sparse_plain``, which builds the dense weight
-rows and runs the per-(chunk, tile) contraction in PyTorch.
+For CUDA tensors the pooling is kernel K3 (``csrc/roi_align_sparse.cu``), one
+launch per call: each box contracts only the nonzero entries of its own rows
+(``sparse_axis_rows``), so on the card the sort and the flags would skip
+nothing, and the kernel has neither. For CPU tensors it is
+``roi_align_sparse_plain``, which keeps the JAX schedule: it builds the dense
+weight rows and runs the per-(chunk, tile) contraction in PyTorch.
 """
 
 from __future__ import annotations
@@ -49,7 +52,9 @@ def _axis_weights(start, bin_size, n_bins: int, g: int, limit: int) -> torch.Ten
     """Per-box separable ROIAlign weights along one axis: (M, n_bins, limit)
     rows that sum the g sub-samples' bilinear taps and divide by g (port of
     densepose_tpu/ops/roi_align.py:227-242): the gather's taps, border rule
-    and edge clamp included, as dense rows."""
+    and edge clamp included, as dense rows. The sub-samples are added in
+    order, as the JAX package's sum does; torch's CPU ``sum`` over a
+    sub-sample axis of 8 adds in another order."""
     m = start.shape[0]
     lim = torch.full((m,), float(limit), dtype=torch.float32, device=start.device)
     low, high, lerp, ok = _axis_samples(start, bin_size, n_bins, g, lim)
@@ -59,8 +64,41 @@ def _axis_weights(start, bin_size, n_bins: int, g: int, limit: int) -> torch.Ten
     idx = torch.arange(limit, device=start.device)
     one_low = (low[:, :, None] == idx).float()
     one_high = (high[:, :, None] == idx).float()
-    w = w_low[:, :, None] * one_low + w_high[:, :, None] * one_high
-    return true_div(w.reshape(m, n_bins, g, limit).sum(dim=2), g)
+    w = (w_low[:, :, None] * one_low + w_high[:, :, None] * one_high).reshape(m, n_bins, g, limit)
+    total = w[:, :, 0]
+    for i in range(1, g):
+        total = total + w[:, :, i]
+    return true_div(total, g)
+
+
+def sparse_axis_rows(start, bin_size, n_bins: int, g: int, limit: int):
+    """The nonzero entries of ``_axis_weights``'s rows, as K3 builds its
+    tables: per box and bin, the distinct columns with a nonzero weight in
+    ascending order, each weighing (the sum over sub-samples i, in order, of
+    1 - lerp_i where low_i is the column plus lerp_i where high_i is, for
+    in-border samples) / g. Returns columns (M, n_bins, 2g) int64, -1 past
+    the count; weights (M, n_bins, 2g) float32, 0 past the count; and the
+    counts (M, n_bins). Scattered into dense rows, the weights equal
+    ``_axis_weights`` bit for bit."""
+    m = start.shape[0]
+    lim = torch.full((m,), float(limit), dtype=torch.float32, device=start.device)
+    low, high, lerp, ok = (t.reshape(m, n_bins, g)
+                           for t in _axis_samples(start, bin_size, n_bins, g, lim))
+    # a lower tap always weighs 1 - lerp > 0; an upper one only if lerp > 0
+    cand = torch.cat([torch.where(ok, low, limit),
+                      torch.where(ok & (lerp != 0), high, limit)], dim=2).sort(dim=2).values
+    dup = torch.zeros_like(cand, dtype=torch.bool)
+    dup[..., 1:] = cand[..., 1:] == cand[..., :-1]
+    cols = torch.where(dup, limit, cand).sort(dim=2).values
+    valid = cols < limit
+    total = torch.zeros(cols.shape, dtype=torch.float32, device=start.device)
+    for i in range(g):
+        lo_i, hi_i, lerp_i, ok_i = (t[..., i:i + 1] for t in (low, high, lerp, ok))
+        term = torch.where(ok_i & (lo_i == cols), 1.0 - lerp_i, 0.0)
+        term = torch.where(ok_i & (hi_i == cols), term + lerp_i, term)
+        total = total + term
+    weights = torch.where(valid, true_div(total, g), 0.0)
+    return torch.where(valid, cols, -1), weights, valid.sum(dim=2)
 
 
 def sort_order(boxes: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
@@ -149,63 +187,15 @@ def roi_align_sparse_plain(
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """K3's library, built on first use, with its C signatures set once."""
+    """K3's library, built on first use, with its C signature set once."""
     lib = library("roi_align_sparse")
-    levels = [ctypes.c_void_p] * 4 + [ctypes.c_int]
-    lib.dp_roi_align_sparse_flags.argtypes = (
-        levels + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.dp_roi_align_sparse_pool.argtypes = (
-        levels + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    for fn in (lib.dp_roi_align_sparse_flags, lib.dp_roi_align_sparse_pool,
-               lib.dp_roi_align_sparse_max_levels, lib.dp_roi_align_sparse_max_ratio):
+    lib.dp_roi_align_sparse.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    for fn in (lib.dp_roi_align_sparse, lib.dp_roi_align_sparse_max_levels,
+               lib.dp_roi_align_sparse_max_ratio):
         fn.restype = ctypes.c_int
     return lib
-
-
-def _check_cuda_inputs(feats, boxes, levels, scales, sampling_ratio):
-    check_cuda_inputs(feats, boxes, levels, scales)
-    lib = _lib()
-    if len(feats) > lib.dp_roi_align_sparse_max_levels():
-        raise ValueError(f"K3 takes at most {lib.dp_roi_align_sparse_max_levels()} levels")
-    if not 0 < sampling_ratio <= lib.dp_roi_align_sparse_max_ratio():
-        raise ValueError(f"K3 takes a fixed sampling_ratio in 1.."
-                         f"{lib.dp_roi_align_sparse_max_ratio()}, got {sampling_ratio}")
-    return lib
-
-
-def sparse_schedule_cuda(
-    feats: List[torch.Tensor],
-    boxes: torch.Tensor,
-    levels: torch.Tensor,
-    scales: Sequence[float],
-    output_size: Tuple[int, int],
-    sampling_ratio: int,
-    aligned: bool,
-):
-    """K3's schedule on the card: the sort order (PyTorch), the sorted boxes
-    and levels, and the flag table (L, Mp / CHUNK, max tiles) int32 that
-    K3's flags kernel marks from the boxes' nonzero Wx taps. Level l's table
-    is ``flags[l, :, :ceil(W_l / TILE)]``; it equals ``sparse_schedule``'s."""
-    lib = _check_cuda_inputs(feats, boxes, levels, scales, sampling_ratio)
-    order = sort_order(boxes, levels)
-    b_s = boxes[order].contiguous()
-    lv_s = levels[order].contiguous()
-    m = boxes.shape[0]
-    n_chunks = -(-m // CHUNK)
-    max_tiles = max(-(-f.shape[2] // TILE) for f in feats)
-    flags = torch.zeros((len(feats), n_chunks, max_tiles), dtype=torch.int32,
-                        device=boxes.device)
-    if m == 0:
-        return order, b_s, lv_s, flags
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = lib.dp_roi_align_sparse_flags(*level_args(feats, scales), b_s.data_ptr(),
-                                            lv_s.data_ptr(), flags.data_ptr(), m,
-                                            output_size[1], int(sampling_ratio),
-                                            int(bool(aligned)), max_tiles, stream)
-    if err != 0:
-        raise RuntimeError(f"K3 flags launch failed: cudaError {err}")
-    return order, b_s, lv_s, flags
 
 
 def roi_align_sparse_cuda(
@@ -217,23 +207,29 @@ def roi_align_sparse_cuda(
     sampling_ratio: int,
     aligned: bool,
 ) -> torch.Tensor:
-    """Kernel K3 on CUDA tensors: feats per level (C, H, W) f32 contiguous,
-    boxes (M, 4) f32, levels (M,) i32, all on one device. Returns
-    (M, C, oh, ow) f32 in the caller's order. Raises if the inputs do not fit
-    or a launch fails."""
-    order, b_s, lv_s, flags = sparse_schedule_cuda(feats, boxes, levels, scales,
-                                                   output_size, sampling_ratio, aligned)
+    """Kernel K3 on CUDA tensors, in one launch: feats per level (C, H, W)
+    f32 contiguous, boxes (M, 4) f32, levels (M,) i32, all on one device.
+    Returns (M, C, oh, ow) f32 in the caller's order; a box whose level is
+    not in [0, len(feats)) gets zeros. No sort and no flag table: on the card
+    the flags skip nothing (``csrc/roi_align_sparse.cu``). Raises if the
+    inputs do not fit or the launch fails."""
+    check_cuda_inputs(feats, boxes, levels, scales)
+    lib = _lib()
+    if len(feats) > lib.dp_roi_align_sparse_max_levels():
+        raise ValueError(f"K3 takes at most {lib.dp_roi_align_sparse_max_levels()} levels")
+    if not 0 < sampling_ratio <= lib.dp_roi_align_sparse_max_ratio():
+        raise ValueError(f"K3 takes a fixed sampling_ratio in 1.."
+                         f"{lib.dp_roi_align_sparse_max_ratio()}, got {sampling_ratio}")
     m, c = boxes.shape[0], feats[0].shape[0]
     oh, ow = output_size
     out = torch.empty((m, c, oh, ow), dtype=torch.float32, device=boxes.device)
-    if m == 0:
+    if out.numel() == 0:
         return out
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = _lib().dp_roi_align_sparse_pool(
-            *level_args(feats, scales), b_s.data_ptr(), lv_s.data_ptr(),
-            order.data_ptr(), flags.data_ptr(), out.data_ptr(), m, c, oh, ow,
-            int(sampling_ratio), int(bool(aligned)), flags.shape[2], stream)
+        err = lib.dp_roi_align_sparse(*level_args(feats, scales), boxes.data_ptr(),
+                                      levels.data_ptr(), out.data_ptr(), m, c, oh, ow,
+                                      int(sampling_ratio), int(bool(aligned)), stream)
     if err != 0:
         raise RuntimeError(f"roi_align_sparse_cuda launch failed: cudaError {err}")
     roi_align_sparse_cuda.launches += 1

@@ -10,18 +10,27 @@ K1 (NMS) must match exactly, also at its edge cases
 ratio (the kernel performs the plain version's roundings in its order) and
 within 1e-5 absolute at ratio 0 on unit-scale features. K3 (the skip-flag
 ROIAlign) within 1e-5 of its plain version, which contracts the same weights
-in another order; its flag table must equal the plain schedule's, and two
-runs the same bits.
+in another order, and 2e-5 of K2, at ratios 1, 2 and 8, M = 0, 1 and 3000,
+and on the edge cases of ``tests/torch_cases.py::k3_edge_cases``; two runs
+the same bits, one launch a call, and no stack frame or spills in ptxas.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from densepose_tpu_torch.ops import nms, roi_align, roi_align_sparse
-from torch_cases import k1_edge_cases  # tests/ is on the path (pytest's rootdir insertion)
+from densepose_tpu_torch.ops import cuda_build, nms, roi_align, roi_align_sparse
+from torch_cases import k1_edge_cases, k3_edge_cases  # tests/ is on the path (rootdir insertion)
 
 torch.set_num_threads(2)
+
+K3_IMAGE_HW = (256, 1024)  # input size of K3's pyramid: p2 64x256 .. p5 8x32
+K3_SCALES = [1 / 4, 1 / 8, 1 / 16, 1 / 32]
+
+
+def k3_pyramid(c, device):
+    return [torch.randn(c, K3_IMAGE_HW[0] // 4 // 2 ** i, K3_IMAGE_HW[1] // 4 // 2 ** i,
+                        generator=torch.Generator().manual_seed(i)).to(device) for i in range(4)]
 
 
 @pytest.fixture
@@ -129,13 +138,10 @@ def test_k1_refuses_too_many_boxes(cuda):
 def test_k3_matches_plain(cuda, aligned, monkeypatch):
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(13)
-    feats = [torch.randn(64, 64 // 2 ** i, 256 // 2 ** i,
-                         generator=torch.Generator().manual_seed(i)).to(cuda)
-             for i in range(4)]
+    feats = k3_pyramid(64, cuda)
     b = torch.from_numpy(boxes_np(rng, 300, 900, 200)).to(cuda)
     lv = roi_align.assign_boxes_to_levels(b, 2, 5)
-    scales = [1 / 4, 1 / 8, 1 / 16, 1 / 32]
-    args = (feats, b, lv, scales, (7, 7), 2, aligned)
+    args = (feats, b, lv, K3_SCALES, (7, 7), 2, aligned)
     want = roi_align_sparse.roi_align_sparse_plain(*args)
     monkeypatch.setenv("DENSEPOSE_TPU_SPARSE_POOLER", "1")
     before = roi_align_sparse.roi_align_sparse_cuda.launches
@@ -145,14 +151,64 @@ def test_k3_matches_plain(cuda, aligned, monkeypatch):
     assert roi_align_sparse.roi_align_sparse_cuda.launches == before + 2
     assert torch.equal(got, again)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
-    sched = roi_align_sparse.sparse_schedule(*args)
-    order, _, _, flags = roi_align_sparse.sparse_schedule_cuda(*args)
-    assert torch.equal(order, sched.order)
-    for li, f in enumerate(sched.flags):
-        assert torch.equal(flags[li, :, :f.shape[1]], f), li
-        assert not flags[li, :, f.shape[1]:].any()
-    active = sum(int(f.sum()) for f in sched.flags)
-    assert 0 < active < sum(f.numel() for f in sched.flags)
+
+
+def check_k3(feats, b, lv, out_hw, ratio, aligned):
+    """K3 against its plain version (1e-5) and, on the boxes with a level,
+    against K2 (2e-5), one launch a call, two calls the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = (feats, b, lv, K3_SCALES, out_hw, ratio, aligned)
+    before = roi_align_sparse.roi_align_sparse_cuda.launches
+    got = roi_align_sparse.roi_align_sparse_cuda(*args)
+    again = roi_align_sparse.roi_align_sparse_cuda(*args)
+    torch.cuda.synchronize()
+    assert roi_align_sparse.roi_align_sparse_cuda.launches == before + 2 * (b.shape[0] > 0)
+    assert got.shape == (b.shape[0], feats[0].shape[0], *out_hw)
+    assert torch.equal(got, again)
+    want = roi_align_sparse.roi_align_sparse_plain(*args)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
+    ok = (lv >= 0) & (lv < len(feats))
+    gather = roi_align.roi_align_cuda(feats, b[ok].contiguous(), lv[ok].contiguous(), K3_SCALES,
+                                      out_hw, ratio, aligned)
+    np.testing.assert_allclose(got[ok].cpu().numpy(), gather.cpu().numpy(), atol=2e-5, rtol=0)
+    assert torch.equal(got[~ok], torch.zeros_like(got[~ok]))
+    return want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ratio", [1, 2, 8])
+@pytest.mark.parametrize("m", [0, 1, 3000])
+def test_k3_sizes_and_ratios(cuda, m, ratio):
+    """M = 0 (no launch), 1 and 3000 boxes, ratios 1, 2 (the compiled grid)
+    and 8 (the most K3 takes), a channel count that no slab divides, two
+    boxes with no level."""
+    rng = np.random.RandomState(17)
+    feats = k3_pyramid(37, cuda)
+    b = torch.from_numpy(boxes_np(rng, m, np.float32(K3_IMAGE_HW[::-1]), 200)).to(cuda)
+    lv = roi_align.assign_boxes_to_levels(b, 2, 5)
+    if m > 2:
+        lv[:2] = torch.tensor([-1, 4], dtype=torch.int32)
+    want = check_k3(feats, b, lv, (7, 7), ratio, False)
+    assert m == 0 or float(want.abs().max()) > 0.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned,out", [(False, 7), (True, 14)])
+@pytest.mark.parametrize("case", k3_edge_cases(K3_IMAGE_HW), ids=lambda case: case[0])
+def test_k3_edge_cases_match_plain(cuda, case, aligned, out):
+    _, b, lv = case
+    check_k3(k3_pyramid(24, cuda), torch.from_numpy(b).to(cuda), torch.from_numpy(lv).to(cuda),
+             (out, out), 2, aligned)
+
+
+@pytest.mark.gpu
+def test_k3_no_stack_frame(cuda):
+    """ptxas keeps K3's tables in shared memory and its sums in registers."""
+    report = cuda_build.ptxas_report(cuda_build.build(["roi_align_sparse"])["roi_align_sparse"].log)
+    kernels = [k for k in report if k["kernel"].startswith("roi_align_sparse_kernel")]
+    assert len(kernels) == 2, report  # ratio 2, and any ratio
+    for k in kernels:
+        assert (k["stack"], k["spill_stores"], k["spill_loads"]) == (0, 0, 0), k
 
 
 @pytest.mark.gpu

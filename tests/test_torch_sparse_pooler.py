@@ -8,7 +8,10 @@ weight rows and contract them in another order, and K2's gather sums the
 taps in yet another, so outputs agree to fp32 reassociation: 2e-5 absolute
 and relative on unit-scale features, the JAX package's own tolerance for
 this pooler (tests/test_ops.py:625). The sort order and the flag table are
-integers and must be equal.
+integers and must be equal. K3's table rows (``sparse_axis_rows``), scattered
+into dense rows, must equal the port's and the JAX package's
+``_axis_weights`` bit for bit on the edge cases of
+``tests/torch_cases.py::k3_edge_cases``.
 
 The kernel itself is held against the plain version on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
@@ -21,7 +24,9 @@ import torch
 import jax.numpy as jnp
 
 from densepose_tpu.ops.pallas import roi_align_kernel as jax_rk
+from densepose_tpu.ops.roi_align import _axis_weights as jax_axis_weights
 from densepose_tpu_torch.ops import roi_align, roi_align_sparse
+from torch_cases import k3_edge_cases  # tests/ is on the path (pytest's rootdir insertion)
 
 torch.set_num_threads(2)
 
@@ -106,7 +111,6 @@ def test_schedule_matches_jax(aligned, monkeypatch):
 
 
 def test_axis_weights_match_jax():
-    from densepose_tpu.ops.roi_align import _axis_weights as jax_axis_weights
     rng = np.random.RandomState(3)
     start = (rng.rand(40).astype(np.float32) * 70 - 10)
     bin_size = rng.rand(40).astype(np.float32) * 5 + 0.1
@@ -153,3 +157,32 @@ def test_routing(monkeypatch):
     gather = roi_align.roi_align_multilevel(chw, b, lv, SCALES, (7, 7), 2, False)
     assert calls == ["roi_align_plain"]
     np.testing.assert_allclose(sparse.numpy(), gather.numpy(), atol=TOL, rtol=TOL)
+
+
+EDGE_HW = (96, 160)  # the edge cases' input size: levels 24x40, 12x20, 6x10, 3x5
+
+
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("name", [case[0] for case in k3_edge_cases(EDGE_HW)])
+def test_sparse_axis_rows_match_axis_weights(name, aligned, g):
+    """K3's table rows at every level, along both axes: distinct ascending
+    columns, and as dense rows the port's and the JAX package's weights to
+    the bit."""
+    boxes = torch.from_numpy(dict((c[0], c[1]) for c in k3_edge_cases(EDGE_HW))[name])
+    m = boxes.shape[0]
+    for li, scale in enumerate(SCALES):
+        size = (EDGE_HW[0] // 4 // 2 ** li, EDGE_HW[1] // 4 // 2 ** li)
+        start_h, bin_h, start_w, bin_w = roi_align._roi_geometry(
+            boxes, torch.full((m,), scale), (7, 7), aligned)
+        for start, bin_size, limit in ((start_h, bin_h, size[0]), (start_w, bin_w, size[1])):
+            cols, weights, count = roi_align_sparse.sparse_axis_rows(start, bin_size, 7, g, limit)
+            assert cols.shape == weights.shape == (m, 7, 2 * g)
+            dense = torch.zeros(m, 7, limit + 1).scatter_(
+                2, torch.where(cols < 0, limit, cols), weights)[..., :limit]
+            want = roi_align_sparse._axis_weights(start, bin_size, 7, g, limit)
+            assert torch.equal(dense, want), (li, limit)
+            np.testing.assert_array_equal(dense.numpy(), np.asarray(jax_axis_weights(
+                jnp.asarray(start.numpy()), jnp.asarray(bin_size.numpy()), 7, g, limit)))
+            assert torch.equal(count, (want != 0).sum(dim=2))
+            assert bool(((cols[..., 1:] > cols[..., :-1]) | (cols[..., 1:] < 0)).all())

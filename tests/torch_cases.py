@@ -39,3 +39,51 @@ def k1_edge_cases(seed=0):
     cases.append(("three_classes", boxes(100), rng.rand(100) > 0.1,
                   rng.randint(0, 3, size=100).astype(np.int32), 0.5))
     return cases
+
+
+def k3_edge_cases(image_hw, seed=0):
+    """K3's edge cases for a pyramid p2-p5 (scales 1/4 .. 1/32) of an
+    ``image_hw`` input, as (name, boxes (M, 4) f32 XYXY in image coordinates,
+    levels (M,) int32 in 0..3): boxes across and wholly past the borders, far
+    edges at the last row and column (the edge clamp), bins under a pixel,
+    zero width or height (an empty box when aligned), inverted boxes (bins
+    below 0 when aligned), boxes as wide as the image (at p5 the box's
+    distinct columns reach the level's width), and random ones.
+    tests/test_torch_sparse_pooler.py holds K3's table rows against the
+    JAX package's weights on them; tests/test_torch_gpu.py and chip_smoke.py
+    hold the kernel against its plain version and K2."""
+    h, w = (float(v) for v in image_hw)
+    rng = np.random.RandomState(seed)
+
+    def levels(k):
+        return rng.randint(0, 4, size=k).astype(np.int32)
+
+    def xyxy(x1, y1, bw, bh):
+        return np.stack([x1, y1, x1 + bw, y1 + bh], 1).astype(np.float32)
+
+    k = 48
+    cases = [("border", xyxy(rng.uniform(-0.4 * w, 1.1 * w, k), rng.uniform(-0.4 * h, 1.1 * h, k),
+                             rng.uniform(4, 0.6 * w, k), rng.uniform(4, 0.6 * h, k)), levels(k))]
+    bw, bh = rng.uniform(2, 0.3 * w, k), rng.uniform(2, 0.3 * h, k)
+    end_x = w + rng.choice([-2.0, -0.5, 0.0, 0.25, 3.0], k)
+    end_y = h + rng.choice([-2.0, -0.5, 0.0, 0.25, 3.0], k)
+    cases.append(("edge_clamp", xyxy(end_x - bw, end_y - bh, bw, bh), levels(k)))
+    cases.append(("sub_pixel", xyxy(rng.uniform(0, w, k), rng.uniform(0, h, k),
+                                    rng.uniform(0.05, 3.0, k), rng.uniform(0.05, 3.0, k)),
+                  levels(k)))
+    zero = xyxy(rng.uniform(0, w, k), rng.uniform(0, h, k), rng.uniform(1, 80, k),
+                rng.uniform(1, 80, k))
+    zero[0::3, 2] = zero[0::3, 0]   # zero width
+    zero[1::3, 3] = zero[1::3, 1]   # zero height
+    zero[2::3, 2:] = zero[2::3, :2]  # a point
+    cases.append(("zero_size", zero, levels(k)))
+    cases.append(("inverted", xyxy(rng.uniform(0, w, k), rng.uniform(0, h, k),
+                                   -rng.uniform(0.5, 60, k), rng.uniform(-60, 60, k)),
+                  levels(k)))
+    wide = xyxy(rng.uniform(-8, 8, k), rng.uniform(0, 0.5 * h, k), w + rng.uniform(-16, 16, k),
+                rng.uniform(8, 0.5 * h, k))
+    cases.append(("wide", wide, np.where(np.arange(k) % 2 == 0, 3, levels(k)).astype(np.int32)))
+    cases.append(("random", xyxy(rng.uniform(0, 0.9 * w, k), rng.uniform(0, 0.9 * h, k),
+                                 rng.uniform(1, 0.4 * w, k), rng.uniform(1, 0.4 * h, k)),
+                  levels(k)))
+    return cases
