@@ -42,7 +42,23 @@ toolkit. Phases, each of which fails the run:
      0 K2 and 2 K3 per request;
    - densepose_rcnn_R_50_FPN_DL_s1x (DeepLab head) with
      TPU.DEVICE_POSTPROCESS: 2 K1 and 2 K2 per request, labels and UV out;
-5. reference: a narrowed flagship, and a narrowed R101 legacy model with the
+5. consumer, right after the flagship's and DL's path phase (raw SIUV maps;
+   a label map), each through the predictor its path built, on 8 distinct
+   frames: the streaming loop of parallel/pipeline.py, frame by frame (frames
+   staged through pinned memory, the overlay's maps fetched with
+   start_fetch one frame behind) into the port's visualizer (the extractor
+   and the native blends of native/fastvis.c, built with cc; the colormap
+   table is built here, the machine has no cv2); each streamed frame's
+   outputs bit-exact to numpy_outputs of blocking copies of the same outputs,
+   2 K1 + 2 K2 launches per streamed frame, the overlays uint8 of the
+   frame's shape; the frame served again, alone (a serial predict_numpy +
+   visualize loop) and in pairs (predict_batch, batch 2), equal to the
+   streamed one within SERVED_AGAIN_TOL (detections exact; labels and
+   overlay pixels may differ at argmax near-ties, in at most TIE_SHARE of
+   them); it prints ms per frame of both loops, host ms per frame of
+   extraction + blend, bytes fetched per frame with the overlay's
+   fetch_keys and without, and the differences of the frames served again;
+6. reference: a narrowed flagship, and a narrowed R101 legacy model with the
    sparse pooler, on the card agree with the same models on the CPU (plain
    versions; tests/test_torch_*.py hold those against the JAX package).
 
@@ -449,7 +465,7 @@ PATHS = [
 def drive_path(torch, report, dev, name, extra, sparse, per_request):
     """One path at full width: a warm-up request, timed requests with the
     launch counters set to 0 just before and read just after, output checks,
-    then one profiled request."""
+    then one profiled request. Returns the predictor."""
     from densepose_tpu_torch.ops import nms, roi_align, roi_align_sparse
     from densepose_tpu_torch.predictor import DensePosePredictor
     counters = {"nms_keep_cuda": nms.nms_keep_cuda, "roi_align_cuda": roi_align.roi_align_cuda,
@@ -531,8 +547,9 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request):
     print(f"path {tag}: {n_req} requests of {FRAME_HW[0]}x{FRAME_HW[1]} frames: latency ms "
           f"{', '.join(f'{x:.2f}' for x in lat)} (median {np.median(lat):.2f}); "
           f"kernel launches {launches}; max memory allocated {peak_mib:.1f} MiB")
-    del pred, outs
+    del outs
     torch.cuda.empty_cache()
+    return pred
 
 
 # the profiler ranges GeneralizedRCNN.forward runs its stages in (rcnn.py,
@@ -619,6 +636,208 @@ def breakdown(torch, pred, img, latency_ms):
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
         print(f"breakdown {stage}: top device kernels (ms of {stages[stage]:.3f}): "
               + "; ".join(f"{name} {ms:.3f}" for name, ms in top))
+
+
+# the consumer phase: the paths it streams, each right after its path phase
+# with the predictor drive_path built, and the frames per run
+CONSUMER_PATHS = (FLAGSHIP, DEEPLAB)
+CONSUMER_FRAMES = 8
+
+
+def chip_colormap():
+    """A (256, 3) uint8 BGR colormap table, built here: the GPU machine has no
+    cv2 to expand a cv2 colormap id."""
+    i = np.arange(256)
+    return np.stack([255 - i, (i * 3) % 256, i], 1).astype(np.uint8)
+
+
+class RecordingVisualizer:
+    """Wraps a visualizer: keeps each frame's host outputs and the host time
+    of each ``visualize`` (extraction + blend), and asks for its fetch keys."""
+
+    def __init__(self, visualizer):
+        self.visualizer = visualizer
+        self.outs, self.ms = [], []
+
+    def fetch_keys(self):
+        return self.visualizer.fetch_keys()
+
+    def visualize(self, frame, outputs):
+        self.outs.append(outputs)
+        t0 = time.perf_counter()
+        out = self.visualizer.visualize(frame, outputs)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+class KeepOutputs:
+    """Wraps a predictor for the streaming loop and keeps every output dict
+    its ``__call__`` serves; everything else goes to the predictor."""
+
+    def __init__(self, pred):
+        self.pred, self.outs = pred, []
+
+    def __call__(self, image):
+        out = self.pred(image)
+        self.outs.append(out)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.pred, name)
+
+
+def same_outputs(a, b):
+    return sorted(a) == sorted(b) and all(
+        np.asarray(a[k]).dtype == np.asarray(b[k]).dtype and np.array_equal(a[k], b[k])
+        for k in a)
+
+
+# A frame served again may differ in the last bits of its maps: cuDNN's
+# transposed convolutions (the DensePose predictor) add with atomics. The maps
+# are held to the bound reference_check holds the card to against the CPU, the
+# fp16 UV map to that plus one fp16 rounding; the detections come before those
+# convolutions and stay exact. A label map, and an overlay, may differ where an
+# argmax is near a tie, in at most TIE_SHARE of its pixels (the share
+# tests/test_torch_cli.py allows against the JAX package).
+SERVED_AGAIN_TOL = 1e-3
+TIE_SHARE = 1e-3
+
+
+def served_again(a, b, what):
+    """Checks two host outputs of one frame, served apart, against each other
+    (see SERVED_AGAIN_TOL); returns (max abs difference of the float maps,
+    share of label pixels that differ)."""
+    check(sorted(a) == sorted(b), f"{what}: keys {sorted(a)} vs {sorted(b)}")
+    err = share = 0.0
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        check(x.dtype == y.dtype and x.shape == y.shape,
+              f"{what}: {k} {x.dtype} {x.shape} vs {y.dtype} {y.shape}")
+        if not k.startswith("pred_densepose_"):
+            check(np.array_equal(x, y), f"{what}: {k} differs")
+        elif k == "pred_densepose_labels":
+            share = float((x != y).mean()) if x.size else 0.0
+            check(share <= TIE_SHARE, f"{what}: {share:.2e} of the label pixels differ")
+        else:
+            tie_free = np.ones(x.shape, bool)
+            if k == "pred_densepose_uv":  # (n, 2, H, W), gathered at the labels
+                tie_free = np.broadcast_to(
+                    (np.asarray(a["pred_densepose_labels"]) ==
+                     np.asarray(b["pred_densepose_labels"]))[:, None], x.shape)
+            x, y = x[tie_free].astype(np.float64), y[tie_free].astype(np.float64)
+            e = float(np.abs(x - y).max()) if x.size else 0.0
+            rtol = 2.0 ** -10 if k == "pred_densepose_uv" else 0.0
+            check(np.allclose(x, y, rtol=rtol, atol=SERVED_AGAIN_TOL),
+                  f"{what}: {k} differs by {e:.3e}")
+            err = max(err, e)
+    return err, share
+
+
+def consumer(torch, report, pred, name, per_request):
+    """The host consumer of one path on the card: the streaming loop
+    (parallel/pipeline.py::stream), with stage_input / start_fetch and the
+    visualizer (the port's extractor and native blends, keep_bg off as in
+    the CLI, with chip_colormap), on distinct frames from memory. Checks:
+    each streamed frame's outputs bit-exact to numpy_outputs of blocking
+    copies of the same outputs; the launch counters (0 just before the loop,
+    read just after) at the path's per-request count per frame; the native
+    library built; the overlays uint8 of the frame's shape; the frames served
+    again, alone (a serial predict_numpy + visualize loop) and in pairs
+    (predict_batch), equal to the streamed ones within served_again's
+    bounds, and the serial overlays to the streamed ones in all but
+    TIE_SHARE of their pixels. Prints ms per frame of both loops, host ms
+    per frame of extraction + blend, bytes fetched per frame with fetch_keys
+    and without, and the differences of the frames served again."""
+    from densepose_tpu_torch import native
+    from densepose_tpu_torch.ops import nms, roi_align, roi_align_sparse
+    from densepose_tpu_torch.parallel.pipeline import stream
+    from densepose_tpu_torch.predictor import fetch_subset
+    from densepose_tpu_torch.visualizer import End2EndVisualizer
+    counters = {"nms_keep_cuda": nms.nms_keep_cuda, "roi_align_cuda": roi_align.roi_align_cuda,
+                "roi_align_sparse_cuda": roi_align_sparse.roi_align_sparse_cuda}
+
+    check(native.get_lib() is not None, f"consumer {name}: the native library did not build")
+    imgs = frames(7, CONSUMER_FRAMES)
+    vis = End2EndVisualizer(alpha=0.7, keep_bg=False, cmap=chip_colormap())
+    fetch = vis.fetch_keys()
+    pred(imgs[0])  # warm-up of this process's pinned-memory pool and host threads
+    torch.cuda.synchronize()
+
+    # rec keeps the views stream hands the overlay: pinned buffers, held
+    # until this phase ends
+    rec, overlays, kept = RecordingVisualizer(vis), [], KeepOutputs(pred)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    t_frames, steady_s = stream(kept, rec, [f.copy() for f in imgs], overlays.append)
+    torch.cuda.synchronize()
+    stream_ms = (time.perf_counter() - t0) * 1e3 / len(imgs)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k, n in per_request.items():
+        check(launches[k] == n * len(imgs), f"consumer {name}: {launches[k]} {k} launches for "
+              f"{len(imgs)} streamed frames, expected {n} per frame")
+        report[k]["launches"] += launches[k]
+        report[k]["launches_per_path"][f"{name} consumer"] = launches[k]
+    check(len(overlays) == len(rec.outs) == len(imgs), f"consumer {name}: {len(overlays)} "
+          f"overlays for {len(imgs)} frames")
+
+    check(len(kept.outs) == len(imgs), f"consumer {name}: {len(kept.outs)} requests served")
+    fetched = full = 0
+    for i, img in enumerate(imgs):
+        out = kept.outs[i]
+        # the same outputs copied by blocking .cpu() calls, apart from start_fetch
+        blocking = {k: v.cpu() for k, v in fetch_subset(out, fetch).items()}
+        check(same_outputs(rec.outs[i], pred.numpy_outputs(blocking, keys=fetch)),
+              f"consumer {name} frame {i}: the streamed fetch differs from a synchronous "
+              "numpy_outputs of the same outputs")
+        check(rec.outs[i]["num_instances"] >= 1, f"consumer {name} frame {i}: no detections")
+        check(overlays[i].dtype == np.uint8 and overlays[i].shape == img.shape,
+              f"consumer {name} frame {i}: overlay {overlays[i].dtype} {overlays[i].shape}")
+        fetched += sum(v.numel() * v.element_size() for v in fetch_subset(out, fetch).values())
+        full += sum(v.numel() * v.element_size() for v in out.values())
+    del kept
+
+    serial = []
+    t0 = time.perf_counter()
+    for img in imgs:
+        serial.append(vis.visualize(img.copy(), pred.predict_numpy(img)))
+    serial_ms = (time.perf_counter() - t0) * 1e3 / len(imgs)
+    pixel_share = 0.0
+    for i, (a, b) in enumerate(zip(overlays, serial)):
+        share = float((a != b).any(-1).mean())
+        check(share <= TIE_SHARE, f"consumer {name} frame {i}: {share:.2e} of the serial "
+              "loop's overlay pixels differ from the streamed overlay's")
+        pixel_share = max(pixel_share, share)
+
+    # served again alone, with the overlay's keys
+    again_err = again_share = 0.0
+    for i, img in enumerate(imgs):
+        e, sh = served_again(rec.outs[i], pred.numpy_outputs(pred(img), keys=fetch),
+                             f"consumer {name} frame {i} served again")
+        again_err, again_share = max(again_err, e), max(again_share, sh)
+    # batch 2: predict_batch over pairs of the frames
+    for i in range(0, len(imgs), 2):
+        out = pred.predict_batch(np.stack(imgs[i:i + 2]))
+        for j in range(len(imgs[i:i + 2])):
+            e, sh = served_again(rec.outs[i + j],
+                                 pred.numpy_outputs({k: v[j] for k, v in out.items()},
+                                                    keys=fetch),
+                                 f"consumer {name} frame {i + j} in a batch of 2")
+            again_err, again_share = max(again_err, e), max(again_share, sh)
+    n, rec_ms = [o["num_instances"] for o in rec.outs], rec.ms
+    del rec
+    print(f"consumer {name}: {len(imgs)} streamed {FRAME_HW[0]}x{FRAME_HW[1]} frames bit-exact "
+          f"to a synchronous fetch of the same outputs; served again alone and in batches of "
+          f"2 within {SERVED_AGAIN_TOL} (max abs difference of the maps {again_err:.3e}, label "
+          f"pixels differing {again_share:.2e}, serial overlay pixels differing "
+          f"{pixel_share:.2e}, limit {TIE_SHARE}); num_instances {n}; kernel launches "
+          f"{launches}")
+    print(f"consumer {name}: streaming loop {stream_ms:.2f} ms per frame (steady state "
+          f"{steady_s * 1e3 / max(t_frames, 1):.2f} over {t_frames} frames) vs serial "
+          f"predict_numpy + visualize {serial_ms:.2f} ms per frame; host extraction + blend "
+          f"{np.mean(rec_ms):.2f} ms per frame (median {np.median(rec_ms):.2f}); bytes fetched "
+          f"per frame {fetched / len(imgs):.0f} with fetch_keys, {full / len(imgs):.0f} "
+          f"without")
 
 
 # the flagship narrowed to toy widths (tests/test_torch_pipeline.py's)
@@ -713,7 +932,11 @@ def main():
     for name, src in SOURCES.items():
         report[name]["ptxas"] = ptxas[src]
     for name, extra, sparse, per_request in PATHS:
-        drive_path(torch, report, dev, name, extra, sparse, per_request)
+        pred = drive_path(torch, report, dev, name, extra, sparse, per_request)
+        if name in CONSUMER_PATHS:  # before the next path measures its peak memory
+            consumer(torch, report, pred, name, per_request)
+        del pred
+        torch.cuda.empty_cache()
     reference_check(torch, dev, FLAGSHIP, False)
     reference_check(torch, dev, LEGACY, True)
 

@@ -241,10 +241,22 @@ def build_model(cfg) -> GeneralizedRCNN:
     return GeneralizedRCNN(cfg)
 
 
-def image_tensor(image_bgr_u8: np.ndarray, device) -> torch.Tensor:
-    """(H, W, 3) uint8 numpy frame -> a uint8 tensor on ``device``."""
+def check_image(image_bgr_u8: np.ndarray) -> np.ndarray:
+    """The frame as a C-contiguous (H, W, 3) uint8 array, or ValueError."""
     image = np.asarray(image_bgr_u8)
     if image.ndim != 3 or image.shape[2] != 3 or image.dtype != np.uint8:
         raise ValueError(f"expected an (H, W, 3) uint8 image, got {image.dtype} "
                          f"{image.shape}")
-    return torch.from_numpy(np.ascontiguousarray(image)).to(device)
+    return np.ascontiguousarray(image)
+
+
+def image_tensor(image_bgr_u8, device) -> torch.Tensor:
+    """(H, W, 3) uint8 frame, numpy or an already uploaded tensor (the
+    predictor's ``stage_input``) -> a uint8 tensor on ``device``."""
+    if isinstance(image_bgr_u8, torch.Tensor):
+        if image_bgr_u8.dim() != 3 or image_bgr_u8.shape[2] != 3 \
+                or image_bgr_u8.dtype != torch.uint8:
+            raise ValueError(f"expected an (H, W, 3) uint8 image, got {image_bgr_u8.dtype} "
+                             f"{tuple(image_bgr_u8.shape)}")
+        return image_bgr_u8.to(device)
+    return torch.from_numpy(check_image(image_bgr_u8)).to(device)

@@ -7,8 +7,20 @@ with the kernels' plain versions (the tests do). A requested CUDA device that
 is absent raises. Outputs are fixed-size slots + ``num_instances``;
 ``numpy_outputs`` trims them to the valid detections.
 
+The fetch API of a streaming consumer (``parallel/pipeline.py``):
+``stage_input`` uploads a frame from pinned memory without blocking (from a
+reader thread), ``start_fetch`` starts the device-to-host copies of the maps a
+consumer reads, into pinned memory, right after a frame is dispatched, and
+``numpy_outputs(outputs, keys)`` waits for those copies and reads only the
+requested maps, with the small detection outputs in the one ``det_packed``
+array. What it returns is the caller's own: copies of the valid rows, not
+views of the pinned buffers (only the streaming loop, which draws each frame
+at once and drops it, reads views with ``copy=False``).
+
 fp32 parity: TF32 is turned off for cuDNN convolutions and matmuls, which
-otherwise run float32 convolutions at about three decimal digits.
+otherwise run float32 convolutions at about three decimal digits. A frame
+served twice may differ in the last bits of its maps: cuDNN's transposed
+convolutions add with atomics.
 """
 
 from __future__ import annotations
@@ -21,7 +33,7 @@ import torch
 
 from .checkpoint.pkl_loader import align_state_dicts, load_checkpoint_file
 from .checkpoint.transform import fold_state, random_torch_state
-from .models.rcnn import GeneralizedRCNN, build_model, image_tensor
+from .models.rcnn import GeneralizedRCNN, build_model, check_image, image_tensor
 
 logger = logging.getLogger(__name__)
 
@@ -64,29 +76,142 @@ class DensePosePredictor:
                                     params.items()})
         self.model.to(self.device).eval()
 
+    def stage_input(self, image_bgr_u8: np.ndarray):
+        """Upload a frame to the device ahead of ``__call__`` (e.g. from a
+        video reader thread, so the copy overlaps the previous frame's fetch
+        and overlay). The frame goes through pinned host memory, since a
+        non-blocking copy from pageable memory blocks. On a CPU predictor the
+        frame is returned unchanged. ``__call__`` accepts either."""
+        if self.device.type != "cuda":
+            return image_bgr_u8
+        host = torch.from_numpy(check_image(image_bgr_u8)).pin_memory()
+        return host.to(self.device, non_blocking=True)
+
     @torch.inference_mode()
-    def __call__(self, image_bgr_u8: np.ndarray) -> Dict[str, torch.Tensor]:
-        """image: (H, W, 3) uint8 BGR (the run.py contract). Returns tensors
-        on the device: fixed-size slots + num_instances."""
+    def __call__(self, image_bgr_u8) -> Dict[str, torch.Tensor]:
+        """image: (H, W, 3) uint8 BGR (the run.py contract), numpy or a
+        ``stage_input`` tensor. Returns tensors on the device: fixed-size
+        slots + num_instances."""
         return self.model(image_tensor(image_bgr_u8, self.device))
 
     def predict_numpy(self, image_bgr_u8: np.ndarray) -> Dict[str, np.ndarray]:
         return self.numpy_outputs(self(image_bgr_u8))
 
+    def predict_batch(self, images_bgr_u8: np.ndarray) -> Dict[str, torch.Tensor]:
+        """Same-shaped frames (B, H, W, 3) -> outputs stacked to (B, ...). The
+        model serves one frame at a time, so this runs the frames in turn; the
+        stack holds because every output has a fixed size (the DensePose maps
+        are padded to D slots whatever bucket a frame takes)."""
+        images = np.asarray(images_bgr_u8)
+        if images.ndim != 4 or images.shape[-1] != 3:
+            raise ValueError(f"expected (B, H, W, 3) frames, got {images.shape}")
+        outs = [self(image) for image in images]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
     @staticmethod
-    def numpy_outputs(outputs: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    def start_fetch(outputs: Dict[str, torch.Tensor], keys=None) -> None:
+        """Start the device-to-host copies that ``numpy_outputs(outputs,
+        keys)`` will read, without blocking: each CUDA tensor is copied into
+        pinned host memory on a side stream, which first waits for the work
+        queued so far (the outputs' own), so the copies overlap the next
+        request's compute. An event recorded after the copies marks when they
+        have landed; ``numpy_outputs`` waits on it before it reads. CPU
+        tensors need no copy."""
+        pending = [v for v in fetch_subset(outputs, keys).values()
+                   if isinstance(v, torch.Tensor) and v.is_cuda and not hasattr(v, _HOST_COPY)]
+        if not pending:
+            return
+        device = pending[0].device
+        side = torch.cuda.Stream(device=device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        done = torch.cuda.Event()
+        with torch.cuda.stream(side):
+            for v in pending:
+                host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                host.copy_(v, non_blocking=True)
+                v.record_stream(side)  # its memory is not reused before the copy ends
+                setattr(v, _HOST_COPY, (host, done))
+            done.record(side)
+
+    @staticmethod
+    def numpy_outputs(outputs: Dict[str, torch.Tensor], keys=None,
+                      copy: bool = True) -> Dict[str, np.ndarray]:
         """Trim padded slots to the valid detections (postprocessing.py:52-61
         key set). DensePose maps are already NCHW; the device postprocess's
         UV map (D, H, W, 2) goes to (n, 2, H, W), as the JAX package's
-        ``numpy_outputs`` returns it."""
-        out = {k: v.cpu().numpy() for k, v in outputs.items()}
-        idx = np.nonzero(out.pop("valid"))[0]
-        result = {"image_size": out["image_size"],
-                  "num_instances": int(out.pop("num_instances"))}
-        for k in ("pred_boxes", "scores", "pred_classes"):
-            result[k] = out[k][idx]
-        for k, v in out.items():
+        ``numpy_outputs`` returns it. Values may be tensors (a copy started
+        by ``start_fetch`` is waited for, others are copied now) or numpy
+        arrays.
+
+        ``keys``: which ``pred_densepose_*`` maps to fetch; the detections
+        always come. When the outputs hold ``det_packed`` (one (D+1, 7)
+        array, ``GeneralizedRCNN.pack_detections``) the detections are read
+        from it alone, bit-exactly. CUDA tensors cross through
+        ``start_fetch``'s pinned copies, which are several times faster than
+        a copy into pageable memory.
+
+        ``copy``: return arrays of their own, holding only the valid rows
+        (the default). ``copy=False`` returns views where the valid slots are
+        a prefix: no host copy, but each map then keeps the whole padded
+        (pinned) buffer alive for as long as it is held."""
+        DensePosePredictor.start_fetch(outputs, keys)  # where no earlier call started it
+        host = {k: _to_numpy(v) for k, v in fetch_subset(outputs, keys).items()}
+        if keys is not None and "det_packed" in host:
+            packed = host.pop("det_packed")
+            header, body = packed[-1], packed[:-1]
+            idx = np.nonzero(body[:, 6] > 0.5)[0]
+            rows = take_rows(body, idx, copy)
+            result = {"image_size": header[1:3].astype(np.int32),
+                      "num_instances": int(header[0]),
+                      "pred_boxes": rows[:, :4],
+                      "scores": rows[:, 4],
+                      "pred_classes": rows[:, 5].astype(np.int32)}
+        else:
+            idx = np.nonzero(host.pop("valid"))[0]
+            result = {"image_size": np.array(host["image_size"]),
+                      "num_instances": int(host.pop("num_instances"))}
+            for k in ("pred_boxes", "scores", "pred_classes"):
+                result[k] = take_rows(host[k], idx, copy)
+        for k, v in host.items():
             if k.startswith("pred_densepose_"):
-                sel = v[idx[idx < len(v)]]
+                sel = take_rows(v, idx[idx < len(v)], copy)
                 result[k] = sel.transpose(0, 3, 1, 2) if k == "pred_densepose_uv" else sel
         return result
+
+
+_HOST_COPY = "_densepose_host_copy"  # tensor attribute: (pinned host copy, CUDA event)
+_DETECTION_KEYS = ("num_instances", "valid", "image_size", "pred_boxes", "scores",
+                   "pred_classes")
+
+
+def fetch_subset(outputs: Dict, keys=None) -> Dict:
+    """The entries ``numpy_outputs(outputs, keys)`` reads: every one without
+    ``keys``; else the requested maps and ``det_packed``, or the six
+    detection outputs where there is no ``det_packed``."""
+    if keys is None:
+        return dict(outputs)
+    keep = set(keys) | ({"det_packed"} if "det_packed" in outputs else set(_DETECTION_KEYS))
+    return {k: v for k, v in outputs.items() if k in keep}
+
+
+def take_rows(v: np.ndarray, idx: np.ndarray, copy: bool = True) -> np.ndarray:
+    """``v[idx]`` for ascending ``idx``, as an array of its own; with
+    ``copy=False`` a view when ``idx`` is a prefix, as the valid detections
+    mostly are (a frame's maps are then not copied again on the host)."""
+    if copy:
+        return np.take(v, idx, axis=0)
+    return v[:len(idx)] if len(idx) == 0 or idx[-1] == len(idx) - 1 else v[idx]
+
+
+def _to_numpy(v) -> np.ndarray:
+    """A tensor or array as numpy: a copy ``start_fetch`` started is waited
+    for and taken (once); any other tensor is copied now."""
+    if not isinstance(v, torch.Tensor):
+        return np.asarray(v)
+    started = getattr(v, _HOST_COPY, None)
+    if started is None:
+        return v.cpu().numpy()
+    delattr(v, _HOST_COPY)
+    host, done = started
+    done.synchronize()
+    return host.numpy()

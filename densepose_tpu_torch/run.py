@@ -1,0 +1,157 @@
+"""Run CLI of the PyTorch port, with the contract of the JAX package's run.py
+(the reference's run.py): ``<input>`` becomes ``<input>_pred.<ext>``.
+
+    python -m densepose_tpu_torch.run <zoo-name|config.yaml> <image|dir|video> [--cpu]
+
+``<model>`` is a model-zoo name (``densepose_rcnn_R_50_FPN_s1x``; its
+published checkpoint is used when it is cached, else random weights with a
+warning) or a YAML config (``--weights`` for a detectron2 ``.pkl``; random
+weights otherwise). It runs on the CUDA device, and on the CPU with
+``--cpu``; without ``--cpu`` and without a card it raises. A directory is
+walked image by image, skipping its own ``*_pred`` outputs; a video goes
+through the streaming pipeline (``parallel/pipeline.py``) and is written as
+``<input>_pred.mp4``.
+
+Not ported yet, and refused with the ROADMAP.md item that lifts it: an
+exported ``.npz`` bundle (queue 1, item 9) and test-time augmentation,
+``TEST.AUG.ENABLED`` (item 8). Geometry bucketing (item 4) is not ported
+either: every input size runs exactly, as the JAX CLI's ``--no-bucket``. Nor
+are batched video frames (item 10): ``--batch`` is accepted and a video runs
+frame by frame.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from typing import List, Optional
+
+IMAGE_EXTS = [".jpg", ".png", ".jpeg", ".bmp", ".tif", ".tiff"]
+
+
+def load_predictor(model_path: str, weights: str, opts: List[str], device: str):
+    from .config import get_cfg
+    from .predictor import DensePosePredictor
+
+    if model_path.endswith(".npz"):
+        raise NotImplementedError(
+            f"{model_path}: exported .npz bundles are not ported yet (ROADMAP.md queue 1, "
+            "item 9: export and evaluation); pass a zoo name or a YAML config")
+    if not os.path.exists(model_path) and not model_path.endswith((".yaml", ".yml")):
+        from . import model_zoo
+        from .utils.file_io import get_local_path
+        cfg = model_zoo.get_config(model_path).clone()
+        cfg.defrost()
+        if not weights:
+            try:
+                weights = get_local_path(model_zoo.get_checkpoint_url(model_path))
+            except (KeyError, IOError) as e:
+                print(f"warning: {e}; using random weights", file=sys.stderr)
+    else:
+        cfg = get_cfg()
+        cfg.merge_from_file(model_path)
+    if opts:
+        cfg.merge_from_list(opts)
+    cfg.freeze()
+    if cfg.TEST.AUG.ENABLED:
+        raise NotImplementedError("TEST.AUG.ENABLED: test-time augmentation is not ported yet "
+                                  "(ROADMAP.md queue 1, item 8)")
+    return DensePosePredictor(cfg, weights_path=weights or None, device=device)
+
+
+def image_names(dirpath: str) -> List[str]:
+    """The images of a directory, sorted, without the ``*_pred`` outputs."""
+    return sorted(f for f in os.listdir(dirpath)
+                  if os.path.splitext(f)[1].lower() in IMAGE_EXTS
+                  and not os.path.splitext(f)[0].endswith("_pred"))
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description="Run DensePose inference on image/video")
+    parser.add_argument("model", type=str, help="Model-zoo name or config YAML")
+    parser.add_argument("input", type=str, help="Input image, directory of images, or video")
+    parser.add_argument("--weights", type=str, default="",
+                        help="Checkpoint .pkl (default: the zoo name's, if cached)")
+    parser.add_argument("--cpu", action="store_true", help="Run on the CPU")
+    parser.add_argument("--fp32", action="store_true",
+                        help="Float32 compute (the only mode the port has; accepted for "
+                             "the JAX CLI's contract)")
+    parser.add_argument("--batch", type=int, default=0,
+                        help="Video frames per batch (accepted for the JAX CLI's contract; "
+                             "the port runs frame by frame on one device)")
+    parser.add_argument("--opts", nargs="*", default=[],
+                        help="Extra dotted-key config overrides")
+    parser.add_argument("--profile", metavar="DIR", default="",
+                        help="Write a torch.profiler trace of the run to DIR/trace.json")
+    parser.add_argument("--vis", default="fine_segm", choices=["fine_segm", "u", "v", "bbox"],
+                        help="Overlay: fine-segm labels (the reference's), U/V channels, "
+                             "or scored boxes")
+    parser.add_argument("--no-bucket", action="store_true",
+                        help="Run every input size exactly (the only mode the port has)")
+    return parser.parse_args(argv)
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
+    from .visualizer import End2EndVisualizer
+
+    visualizer = End2EndVisualizer(alpha=0.7, keep_bg=False, mode=args.vis)
+    predictor = load_predictor(args.model, args.weights, args.opts,
+                               device="cpu" if args.cpu else "cuda")
+    if args.profile:
+        from .utils.timing import TRACE_FILE, trace_device
+        with trace_device(args.profile):
+            _dispatch(args, predictor, visualizer)
+        print(f"trace written to {os.path.join(args.profile, TRACE_FILE)}", file=sys.stderr)
+    else:
+        _dispatch(args, predictor, visualizer)
+
+
+def _dispatch(args, predictor, visualizer) -> None:
+    import cv2
+
+    fetch = visualizer.fetch_keys()  # only the maps the overlay reads cross to the host
+
+    if os.path.isdir(args.input):
+        names = image_names(args.input)
+        if not names:
+            sys.exit(f"error: no images in {args.input!r}")
+        sizes = set()
+        for i, name in enumerate(names):
+            path = os.path.join(args.input, name)
+            img = cv2.imread(path)
+            if img is None:
+                print(f"warning: skipping unreadable {path}", file=sys.stderr)
+                continue
+            sizes.add(img.shape[:2])
+            if len(sizes) == 2 and not args.no_bucket:
+                print("note: mixed-size directory: every size runs exactly; geometry "
+                      "bucketing is not ported yet (ROADMAP.md queue 1, item 4)",
+                      file=sys.stderr)
+            outputs = predictor.numpy_outputs(predictor(img), keys=fetch)
+            out_path = "_pred".join(os.path.splitext(path))
+            cv2.imwrite(out_path, visualizer.visualize(img, outputs))
+            print(f"Image {i + 1}/{len(names)} saved to {out_path}")
+        return
+
+    save_path = "_pred".join(os.path.splitext(args.input))
+    if os.path.splitext(args.input)[1].lower() in IMAGE_EXTS:
+        img = cv2.imread(args.input)
+        if img is None:
+            sys.exit(f"error: could not read image {args.input!r}")
+        outputs = predictor.numpy_outputs(predictor(img), keys=fetch)
+        cv2.imwrite(save_path, visualizer.visualize(img, outputs))
+        print(f"Image saved to {save_path}")
+        return
+
+    from .parallel.pipeline import run_video
+    save_path = os.path.splitext(save_path)[0] + ".mp4"
+    if args.batch > 1:
+        print(f"note: --batch {args.batch}: the port runs frame by frame on one device; "
+              "batched video is not ported yet (ROADMAP.md queue 1, item 10)", file=sys.stderr)
+    run_video(predictor, visualizer, args.input, save_path)
+
+
+if __name__ == "__main__":
+    main()

@@ -15,14 +15,33 @@ FILES = sorted((ROOT / "densepose_tpu_torch").rglob("*.py")) + [
 
 
 def _imports(tree):
-    """(module name, is_module_level) of every absolute import."""
-    top = set(map(id, tree.body))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for alias in node.names:
-                yield alias.name, id(node) in top
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module, id(node) in top
+    """(module name, is_module_level) of every absolute import. An import
+    runs when the module is imported unless a function body holds it, so one
+    under a module-level ``try``, ``if``, ``with`` or class body counts as
+    module level (the JAX visualizer's ``try: import cv2`` would)."""
+    def walk(node, in_function):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                for alias in child.names:
+                    yield alias.name, not in_function
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module, not in_function
+            yield from walk(child, in_function or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)))
+    yield from walk(tree, False)
+
+
+def test_nested_module_level_imports_count():
+    """A guarded import at module level is a module-level import; one in a
+    function body is not."""
+    src = ("try:\n    import cv2\nexcept ImportError:\n    cv2 = None\n"
+           "if True:\n    import yaml\n"
+           "class C:\n    import cv2 as c2\n"
+           "def f():\n    try:\n        import yaml\n    except ImportError:\n        pass\n")
+    assert list(_imports(ast.parse(src))) == [("cv2", True), ("yaml", True), ("cv2", True),
+                                              ("yaml", False)]
+    jax_visualizer = ast.parse((ROOT / "densepose_tpu" / "visualizer.py").read_text())
+    assert ("cv2", True) in set(_imports(jax_visualizer))
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
