@@ -26,7 +26,16 @@ toolkit. Phases, each of which fails the run:
    device time per call from torch.profiler (the same calls without the
    host's time between launches), and the least time the card could take
    (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, H100 SXM data
-   sheet at 700 W);
+   sheet at 700 W); then K2 and K3 at float16 and bfloat16 on the same
+   inputs, the levels rounded to the dtype: K2<T> bit-identical to K2<float>
+   on the widened levels rounded to T and to its plain version at T (ratio 0:
+   within one unit in the last place of T), K3<T> within one unit in the last
+   place of T at the output's magnitude of its plain version at T, two runs
+   the same bits, and at its edge cases; each timed as above (the bound at 2
+   bytes an element) beside the upcast route it replaces (every level
+   widened to float, the float kernel, the output rounded to T); and all six
+   instantiations of K3 (and of K2) in ptxas, K3's with no stack frame or
+   spills;
 4. three paths, each at full width with random weights from seed 0: a
    DensePosePredictor answers a warm-up request and then distinct synthetic
    frames; outputs finite and of the expected shapes; the kernels' launch
@@ -42,8 +51,18 @@ toolkit. Phases, each of which fails the run:
      0 K2 and 2 K3 per request;
    - densepose_rcnn_R_50_FPN_DL_s1x (DeepLab head) with
      TPU.DEVICE_POSTPROCESS: 2 K1 and 2 K2 per request, labels and UV out;
-5. consumer, right after the flagship's and DL's path phase (raw SIUV maps;
-   a label map), each through the predictor its path built, on 8 distinct
+   - at half precision (TPU.COMPUTE_DTYPE), the flagship at float16 and the
+     R101 legacy path at bfloat16, and, so that K2 and K3 run at both half
+     types, DL at bfloat16 and R101 legacy at float16: detections and
+     det_packed in fp32, the DensePose maps in the dtype.
+   After the fp32 flagship's requests, one more with forward hooks prints
+   the largest |output| of each stage (float16 ends at 65504). After the
+   float16 flagship's, the DensePose stage at float16 on an fp32 request's
+   features (cast) and boxes drifts under 0.5 std of the fp32 u-logits, and
+   the whole request at float16 is printed against the fp32 one;
+5. consumer, right after the flagship's, DL's and the float16 flagship's
+   path phase (raw SIUV maps; a label map; float16 maps), each through the
+   predictor its path built, on 8 distinct
    frames: the streaming loop of parallel/pipeline.py, frame by frame (frames
    staged through pinned memory, the overlay's maps fetched with
    start_fetch one frame behind) into the port's visualizer (the extractor
@@ -60,11 +79,14 @@ toolkit. Phases, each of which fails the run:
    fetch_keys and without, and the differences of the frames served again;
 6. reference: a narrowed flagship, and a narrowed R101 legacy model with the
    sparse pooler, on the card agree with the same models on the CPU (plain
-   versions; tests/test_torch_*.py hold those against the JAX package).
+   versions; tests/test_torch_*.py hold those against the JAX package); and
+   the same at float16 (flagship) and bfloat16 (legacy), within the half
+   tolerances of reference_check.
 
-Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
-line ``{"ok": true, "device": {...}}``. Exits non-zero, before that line,
-when there is no CUDA device or any phase fails.
+Prints a ``{"kernels": [...]}`` line with one entry per kernel and compute
+dtype (K1 takes fp32 boxes at every dtype: one entry), the nvidia-smi line,
+and as the last line ``{"ok": true, "device": {...}}``. Exits non-zero,
+before that line, when there is no CUDA device or any phase fails.
 """
 
 import importlib.util
@@ -89,6 +111,9 @@ K3_TOL = 1e-5
 K3_K2_TOL = 2e-5  # K3 sums the taps in another order (tests/test_ops.py:625)
 SOURCES = {"nms_keep_cuda": "nms", "roi_align_cuda": "roi_align",
            "roi_align_sparse_cuda": "roi_align_sparse"}
+HALF = ("float16", "bfloat16")  # TPU.COMPUTE_DTYPE's half types
+EPS = {"float16": 2.0 ** -10, "bfloat16": 2.0 ** -7}  # a unit in the last place at 1
+FP16_MAX = 65504.0
 # per-site times of each kernel before its redesign for Hopper (K1: one CTA
 # per NMS problem; K2: one thread per ROIAlign output; K3: a sort, a flags
 # launch and one thread per output), as PERF.md section 6 records them with
@@ -135,6 +160,24 @@ def device_ms(torch, fn, reps=20):
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA)
     return us / 1e3 / reps
+
+
+def ulp(dtype, t):
+    """One unit in the last place of ``dtype`` at the largest magnitude of
+    tensor ``t`` (float32: 0)."""
+    if dtype not in EPS or t.numel() == 0:
+        return 0.0
+    return EPS[dtype] * 2.0 ** np.floor(np.log2(max(float(t.abs().max()), 2.0 ** -14)))
+
+
+def entry_name(kernel, dtype):
+    """The kernels line's entry of a kernel at a compute dtype: K1 takes fp32
+    boxes at every dtype (one entry); K2 and K3 one entry a dtype."""
+    return kernel if dtype == "float32" or kernel == "nms_keep_cuda" else f"{kernel}[{dtype}]"
+
+
+def path_dtype(extra):
+    return dict(extra).get("TPU.COMPUTE_DTYPE", "float32")
 
 
 def bound(nbytes, ops):
@@ -196,8 +239,9 @@ def nms_work(boxes, valid, keep, thr, classes):
 def roi_align_work(feats, boxes, levels, scales, out_hw, ratio, aligned):
     """Bytes and operations ROIAlign needs on these inputs: every feature
     pixel some in-bound sample taps, read once, plus boxes, levels and the
-    output; 12 operations per in-bound sample and channel, 1 per output. At
-    ratio 0 the samples are each box's adaptive ones."""
+    output, at the levels' element size; 12 operations per in-bound sample
+    and channel, 1 per output. At ratio 0 the samples are each box's adaptive
+    ones."""
     import torch
     from densepose_tpu_torch.ops.roi_align import box_samples
     c = feats[0].shape[0]
@@ -217,7 +261,8 @@ def roi_align_work(feats, boxes, levels, scales, out_hw, ratio, aligned):
     pixels = torch.unique(torch.cat(taps)).numel()
     m = boxes.shape[0]
     out = m * out_hw[0] * out_hw[1] * c
-    nbytes = pixels * c * 4 + m * 20 + out * 4
+    esize = feats[0].element_size()
+    nbytes = pixels * c * esize + m * 20 + out * esize
     return nbytes, 12 * int(ok.sum()) * c + out
 
 
@@ -356,11 +401,12 @@ def kernel_checks(torch, cfg, report, dev):
     # above) and the multi-level DensePose pooler, 100 detections at 14x14
     legacy_dp = get_config(LEGACY).MODEL.ROI_DENSEPOSE_HEAD
     k3 = []
-    for site, b, out_hw, ratio in [
-            ("box_pooler", boxes, (res_b, res_b), cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO),
-            ("legacy_densepose_pooler", det,
-             (legacy_dp.POOLER_RESOLUTION, legacy_dp.POOLER_RESOLUTION),
-             legacy_dp.POOLER_SAMPLING_RATIO)]:
+    k3_sites = [
+        ("box_pooler", boxes, (res_b, res_b), cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO),
+        ("legacy_densepose_pooler", det,
+         (legacy_dp.POOLER_RESOLUTION, legacy_dp.POOLER_RESOLUTION),
+         legacy_dp.POOLER_SAMPLING_RATIO)]
+    for site, b, out_hw, ratio in k3_sites:
         l = roi_align.assign_boxes_to_levels(b, 2, 5)
         args = (pyramid, b, l, scales, out_hw, ratio, False)
         err, err_k2 = check_k3(torch, args, f"K3 {site}")
@@ -397,6 +443,10 @@ def kernel_checks(torch, cfg, report, dev):
           f"{legacy_dp.POOLER_RESOLUTION}x{legacy_dp.POOLER_RESOLUTION}, max abs err {worst:.3e} "
           f"({', '.join(name for name, *_ in edge3)})")
 
+    half = {dtype: kernel_checks_half(torch, dtype, sites, k3_sites, edge3, pyramid, scales,
+                                      (res_b, legacy_dp.POOLER_RESOLUTION))
+            for dtype in HALF}
+
     main = {"nms_keep_cuda": k1[:2], "roi_align_cuda": k2[:2], "roi_align_sparse_cuda": k3}
     for name, entries, route_src, replaces, tol in [
         ("nms_keep_cuda", k1, "densepose_tpu_torch/csrc/nms.cu",
@@ -422,8 +472,143 @@ def kernel_checks(torch, cfg, report, dev):
             "bound_ms": sum(e["bound_ms"] for e in per_request),
             "bound_by": max(per_request, key=lambda e: e["bound_ms"])["bound_by"],
             "library_ms": None,
+            "dtype": "float32",
             "sites": entries,
         }
+    for dtype, (k2h, k3h) in half.items():
+        for name, entries, route_src, replaces, tol in [
+            ("roi_align_cuda", k2h, "densepose_tpu_torch/csrc/roi_align.cu",
+             "densepose_tpu/ops/pallas/roi_align_kernel.py:54",
+             f"bit-identical to K2<float> on the widened levels rounded to {dtype}, and to "
+             "the plain version (ratio 0: within 1 ulp)"),
+            ("roi_align_sparse_cuda", k3h, "densepose_tpu_torch/csrc/roi_align_sparse.cu",
+             "densepose_tpu/ops/pallas/roi_align_kernel.py:159",
+             f"within 1 ulp of {dtype} at the output's magnitude of the plain version, two "
+             f"runs equal, and at {len(edge3)} edge cases"),
+        ]:
+            per_request = entries[:2]
+            report[entry_name(name, dtype)] = {
+                "name": entry_name(name, dtype), "route": "cuda", "source": route_src,
+                "replaces": replaces, "check": tol, "launches": 0, "launches_per_path": {},
+                "max_abs_err": max(e["max_abs_err"] for e in entries),
+                "ms": sum(e["ms"] for e in per_request),
+                "device_ms": sum(e["device_ms"] for e in per_request),
+                "plain_ms": sum(e["plain_ms"] for e in per_request),
+                "bound_ms": sum(e["bound_ms"] for e in per_request),
+                "bound_by": max(per_request, key=lambda e: e["bound_ms"])["bound_by"],
+                "library_ms": None,
+                "dtype": dtype,
+                "upcast_ms": sum(e["upcast_ms"] for e in per_request),
+                "upcast_device_ms": sum(e["upcast_device_ms"] for e in per_request),
+                "sites": entries,
+            }
+
+
+def kernel_checks_half(torch, dtype, k2_sites, k3_sites, edge3, pyramid, scales, res):
+    """K2 and K3 at a half dtype on the fp32 sites' inputs, the levels
+    rounded to ``dtype``: K2<T> bit-identical to K2<float> on the widened
+    levels rounded to T, and to its plain version at T (ratio 0: within one
+    ulp of T); K3<T> within one ulp of T at the output's magnitude of its
+    plain version, two runs the same bits, and on the edge cases. Times each
+    as the fp32 sites are timed, with the bound at the dtype's 2 bytes an
+    element, and the alternative to the half load: every level widened to
+    float, the float kernel, the output rounded to T (``upcast_ms``)."""
+    from densepose_tpu_torch.ops import roi_align, roi_align_sparse
+    t = getattr(torch, dtype)
+    levels_t = [f.to(t) for f in pyramid]
+    k2h, k3h = [], []
+    for site, feats, b, l, sc, out_hw, ratio, _ in k2_sites:
+        feats = levels_t[:len(feats)]
+        args = (b, l, sc, out_hw, ratio, False)
+        got = roi_align.roi_align_cuda(feats, *args)
+        upcast = roi_align.roi_align_cuda([f.float() for f in feats], *args).to(t)
+        want = roi_align.roi_align_plain(feats, *args)
+        torch.cuda.synchronize()
+        check(got.dtype == t, f"K2 {site} {dtype}: output {got.dtype}")
+        gap = float((got.float() - upcast.float()).abs().max())
+        check(torch.equal(got, upcast), f"K2 {site} {dtype}: not bit-identical to K2<float> on "
+              f"the widened levels, rounded (max abs {gap})")
+        err = float((got.float() - want.float()).abs().max())
+        if ratio:
+            check(torch.equal(got, want), f"K2 {site} {dtype}: not bit-identical to the plain "
+                  f"version (max abs error {err})")
+        check(err <= ulp(dtype, want), f"K2 {site} {dtype}: max abs error {err} > 1 ulp")
+        ms = cuda_ms(lambda: roi_align.roi_align_cuda(feats, *args), reps=20)
+        dev_ms = device_ms(torch, lambda: roi_align.roi_align_cuda(feats, *args))
+
+        def upcast_route():
+            return roi_align.roi_align_cuda([f.float() for f in feats], *args).to(t)
+
+        up_ms = cuda_ms(upcast_route, reps=20)
+        up_dev_ms = device_ms(torch, upcast_route)
+        plain_ms = cuda_ms(lambda: roi_align.roi_align_plain(feats, *args), reps=3, warmup=1)
+        bound_ms, bound_by = bound(*roi_align_work(feats, *args))
+        k2h.append({"site": site, "shape": [b.shape[0], feats[0].shape[0], *out_hw],
+                    "ratio": ratio, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                    "upcast_ms": up_ms, "upcast_device_ms": up_dev_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"K2 roi_align_cuda<{dtype}> {site} M={b.shape[0]} {out_hw} ratio={ratio}: "
+              f"bit-identical to K2<float> on the widened levels, rounded; vs plain max abs err "
+              f"{err:.3e}; {ms:.4f} ms (device {dev_ms:.4f}); upcast route (levels to float, "
+              f"K2<float>, output to {dtype}) {up_ms:.4f} ms (device {up_dev_ms:.4f}); plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    for site, b, out_hw, ratio in k3_sites:
+        l = roi_align.assign_boxes_to_levels(b, 2, 5)
+        args = (levels_t, b, l, scales, out_hw, ratio, False)
+        err, err_k2 = check_k3_half(torch, dtype, args, f"K3 {site} {dtype}")
+        ms = cuda_ms(lambda: roi_align_sparse.roi_align_sparse_cuda(*args), reps=20)
+        dev_ms = device_ms(torch, lambda: roi_align_sparse.roi_align_sparse_cuda(*args))
+
+        def upcast_route():
+            return roi_align_sparse.roi_align_sparse_cuda(
+                [f.float() for f in levels_t], *args[1:]).to(t)
+
+        up_ms = cuda_ms(upcast_route, reps=20)
+        up_dev_ms = device_ms(torch, upcast_route)
+        k2_ms = cuda_ms(lambda: roi_align.roi_align_cuda(*args), reps=20)
+        plain_ms = cuda_ms(lambda: roi_align_sparse.roi_align_sparse_plain(*args), reps=3,
+                           warmup=1)
+        bound_ms, bound_by = bound(*roi_align_work(*args))
+        k3h.append({"site": site, "shape": [b.shape[0], levels_t[0].shape[0], *out_hw],
+                    "levels": len(levels_t), "max_abs_err": err, "max_abs_err_vs_k2": err_k2,
+                    "ms": ms, "device_ms": dev_ms, "upcast_ms": up_ms,
+                    "upcast_device_ms": up_dev_ms, "k2_ms": k2_ms, "k3_over_k2": ms / k2_ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"K3 roi_align_sparse_cuda<{dtype}> {site} M={b.shape[0]} {out_hw}: max abs err "
+              f"{err:.3e} (tol 1 ulp), vs K2<{dtype}> {err_k2:.3e}; {ms:.4f} ms (device "
+              f"{dev_ms:.4f}); upcast route {up_ms:.4f} ms (device {up_dev_ms:.4f}); K2 on the "
+              f"same inputs {k2_ms:.4f} ms, K3 / K2 {ms / k2_ms:.3f}; plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.6f} ms ({bound_by})")
+    worst = 0.0
+    for name, eb, elv in edge3:
+        for out_hw, aligned in [((res[0],) * 2, False), ((res[1],) * 2, True)]:
+            dev = levels_t[0].device
+            args = (levels_t, torch.from_numpy(eb).to(dev), torch.from_numpy(elv).to(dev), scales,
+                    out_hw, 2, aligned)
+            worst = max(worst, check_k3_half(torch, dtype, args,
+                                             f"K3 edge case {name} {out_hw} {dtype}")[0])
+    print(f"K3 roi_align_sparse_cuda<{dtype}> edge cases: {len(edge3)} at {res[0]}x{res[0]} and "
+          f"{res[1]}x{res[1]}, max abs err {worst:.3e} (tol 1 ulp)")
+    return k2h, k3h
+
+
+def check_k3_half(torch, dtype, args, what):
+    """K3<T> on ``args`` (levels of dtype T) against its plain version at T
+    (within one ulp of T at its output's magnitude), two calls bit-identical.
+    Returns the max abs errors against the plain version and K2<T>."""
+    from densepose_tpu_torch.ops import roi_align, roi_align_sparse
+    got = roi_align_sparse.roi_align_sparse_cuda(*args)
+    again = roi_align_sparse.roi_align_sparse_cuda(*args)
+    want = roi_align_sparse.roi_align_sparse_plain(*args)
+    gather = roi_align.roi_align_cuda(*args)
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype == getattr(torch, dtype), f"{what}: output {got.dtype}")
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    err_k2 = float((got.float() - gather.float()).abs().max()) if got.numel() else 0.0
+    check(err <= ulp(dtype, want), f"{what}: max abs error {err} > 1 ulp "
+          f"({ulp(dtype, want)})")
+    check(torch.equal(got, again), f"{what}: two runs differ")
+    return err, err_k2
 
 
 def frames(seed, n):
@@ -454,11 +639,20 @@ def path_config(name, extra=()):
 
 
 # (zoo name, config changes, DENSEPOSE_TPU_SPARSE_POOLER set, launches per request)
+ON_K2 = {"nms_keep_cuda": 2, "roi_align_cuda": 2, "roi_align_sparse_cuda": 0}
+ON_K3 = {"nms_keep_cuda": 2, "roi_align_cuda": 0, "roi_align_sparse_cuda": 2}
+FP16 = (("TPU.COMPUTE_DTYPE", "float16"),)
+BF16 = (("TPU.COMPUTE_DTYPE", "bfloat16"),)
 PATHS = [
-    (FLAGSHIP, (), False, {"nms_keep_cuda": 2, "roi_align_cuda": 2, "roi_align_sparse_cuda": 0}),
-    (LEGACY, (), True, {"nms_keep_cuda": 2, "roi_align_cuda": 0, "roi_align_sparse_cuda": 2}),
-    (DEEPLAB, (("TPU.DEVICE_POSTPROCESS", True),), False,
-     {"nms_keep_cuda": 2, "roi_align_cuda": 2, "roi_align_sparse_cuda": 0}),
+    (FLAGSHIP, (), False, ON_K2),
+    (LEGACY, (), True, ON_K3),
+    (DEEPLAB, (("TPU.DEVICE_POSTPROCESS", True),), False, ON_K2),
+    # the half paths: the flagship at float16, R101 legacy at bfloat16; and the
+    # other two (kernel, dtype) pairs, so that every one is driven
+    (FLAGSHIP, FP16, False, ON_K2),
+    (LEGACY, BF16, True, ON_K3),
+    (DEEPLAB, (("TPU.DEVICE_POSTPROCESS", True),) + BF16, False, ON_K2),
+    (LEGACY, FP16, True, ON_K3),
 ]
 
 
@@ -501,21 +695,29 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request):
         os.environ.pop(SPARSE_POOLER, None)
 
     n_req = len(timed)
+    dtype = path_dtype(extra)
     for k, n in per_request.items():
         check(launches[k] == n * n_req, f"{name}: {launches[k]} {k} launches for {n_req} "
               f"requests, expected {n} per request")
-        report[k]["launches"] += launches[k]
-        report[k]["launches_per_path"][tag] = launches[k]
+        report[entry_name(k, dtype)]["launches"] += launches[k]
+        report[entry_name(k, dtype)]["launches_per_path"][tag] = launches[k]
     d = cfg.TEST.DETECTIONS_PER_IMAGE
     dp = cfg.MODEL.ROI_DENSEPOSE_HEAD
     heat = dp.POOLER_RESOLUTION * 2 * dp.UP_SCALE  # deconv stride 2, then the upsample
     channels = {"coarse_segm": dp.NUM_COARSE_SEGM_CHANNELS, "fine_segm": dp.NUM_PATCHES + 1,
                 "u": dp.NUM_PATCHES + 1, "v": dp.NUM_PATCHES + 1}
+    half = getattr(torch, dtype)
     for i, out in enumerate(outs):
         res = pred.numpy_outputs(out)
         n = res["num_instances"]
         check(n >= 1, f"{name} request {i}: no detections")
         check(out["pred_boxes"].shape == (d, 4), f"request {i}: pred_boxes {out['pred_boxes'].shape}")
+        for k in ("pred_boxes", "scores", "det_packed"):
+            check(out[k].dtype == torch.float32, f"{tag} request {i}: {k} {out[k].dtype}")
+        for k, v in out.items():
+            if k.startswith("pred_densepose_") and k not in ("pred_densepose_labels",
+                                                             "pred_densepose_uv"):
+                check(v.dtype == half, f"{tag} request {i}: {k} {v.dtype}, not {dtype}")
         if cfg.TPU.DEVICE_POSTPROCESS:
             check(out["pred_densepose_labels"].dtype == torch.uint8
                   and out["pred_densepose_labels"].shape == (d, heat, heat),
@@ -542,7 +744,7 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request):
         for k, v in res.items():
             if isinstance(v, np.ndarray) and v.dtype.kind == "f":
                 check(np.isfinite(v).all(), f"{name} request {i}: non-finite {k}")
-        print(f"path {name}: request {i}: {lat[i]:.2f} ms, num_instances {n}, "
+        print(f"path {tag}: request {i}: {lat[i]:.2f} ms, num_instances {n}, "
               f"{'uv' if cfg.TPU.DEVICE_POSTPROCESS else 'SIUV'} {shape}")
     print(f"path {tag}: {n_req} requests of {FRAME_HW[0]}x{FRAME_HW[1]} frames: latency ms "
           f"{', '.join(f'{x:.2f}' for x in lat)} (median {np.median(lat):.2f}); "
@@ -640,7 +842,7 @@ def breakdown(torch, pred, img, latency_ms):
 
 # the consumer phase: the paths it streams, each right after its path phase
 # with the predictor drive_path built, and the frames per run
-CONSUMER_PATHS = (FLAGSHIP, DEEPLAB)
+CONSUMER_PATHS = ((FLAGSHIP, "float32"), (DEEPLAB, "float32"), (FLAGSHIP, "float16"))
 CONSUMER_FRAMES = 8
 
 
@@ -694,8 +896,9 @@ def same_outputs(a, b):
 
 # A frame served again may differ in the last bits of its maps: cuDNN's
 # transposed convolutions (the DensePose predictor) add with atomics. The maps
-# are held to the bound reference_check holds the card to against the CPU, the
-# fp16 UV map to that plus one fp16 rounding; the detections come before those
+# are held to the bound reference_check holds the card to against the fp32 CPU
+# run, a float16 map (the UV map; every map at TPU.COMPUTE_DTYPE float16) to
+# that plus one float16 rounding; the detections come before those
 # convolutions and stay exact. A label map, and an overlay, may differ where an
 # argmax is near a tie, in at most TIE_SHARE of its pixels (the share
 # tests/test_torch_cli.py allows against the JAX package).
@@ -724,16 +927,18 @@ def served_again(a, b, what):
                 tie_free = np.broadcast_to(
                     (np.asarray(a["pred_densepose_labels"]) ==
                      np.asarray(b["pred_densepose_labels"]))[:, None], x.shape)
+            # a float16 map rounds each value: an atomics-order difference may
+            # move it by one unit in its last place
+            rtol = 2.0 ** -10 if k == "pred_densepose_uv" or x.dtype == np.float16 else 0.0
             x, y = x[tie_free].astype(np.float64), y[tie_free].astype(np.float64)
             e = float(np.abs(x - y).max()) if x.size else 0.0
-            rtol = 2.0 ** -10 if k == "pred_densepose_uv" else 0.0
             check(np.allclose(x, y, rtol=rtol, atol=SERVED_AGAIN_TOL),
                   f"{what}: {k} differs by {e:.3e}")
             err = max(err, e)
     return err, share
 
 
-def consumer(torch, report, pred, name, per_request):
+def consumer(torch, report, pred, name, per_request, dtype="float32"):
     """The host consumer of one path on the card: the streaming loop
     (parallel/pipeline.py::stream), with stage_input / start_fetch and the
     visualizer (the port's extractor and native blends, keep_bg off as in
@@ -776,8 +981,8 @@ def consumer(torch, report, pred, name, per_request):
     for k, n in per_request.items():
         check(launches[k] == n * len(imgs), f"consumer {name}: {launches[k]} {k} launches for "
               f"{len(imgs)} streamed frames, expected {n} per frame")
-        report[k]["launches"] += launches[k]
-        report[k]["launches_per_path"][f"{name} consumer"] = launches[k]
+        report[entry_name(k, dtype)]["launches"] += launches[k]
+        report[entry_name(k, dtype)]["launches_per_path"][f"{name} {dtype} consumer"] = launches[k]
     check(len(overlays) == len(rec.outs) == len(imgs), f"consumer {name}: {len(overlays)} "
           f"overlays for {len(imgs)} frames")
 
@@ -855,12 +1060,28 @@ NARROW = [
     ("INPUT.MIN_SIZE_TEST", 64), ("INPUT.MAX_SIZE_TEST", 96)]
 
 
-def reference_check(torch, dev, name, sparse):
-    """A narrowed zoo model, card against CPU: the same detections (count and
-    classes exact, boxes and scores within 1e-3) and SIUV maps (1e-3)."""
+# card against CPU at a half dtype (reference_check): the ranked scores, and
+# the paired detections' maps in units in the last place at their magnitude
+REF_SCORE_TOL = {"float16": 2e-3, "bfloat16": 1e-2}
+REF_MAP_ULPS = 8
+
+
+def reference_check(torch, dev, name, sparse, dtype="float32"):
+    """A narrowed zoo model, card against CPU: in fp32 the same detections
+    (count and classes exact, boxes and scores within 1e-3) and SIUV maps
+    (1e-3). At a half dtype, with the three detection slots of
+    tests/test_e2e.py::TINY, as tests/test_torch_dtype.py::test_end_to_end
+    holds the CPU against the JAX package (random weights give near-tied
+    detections that roundings may swap): counts and classes exact, the ranked
+    scores within REF_SCORE_TOL, and each card detection whose box is within
+    test_fp16_mode_runs' envelope (atol 2, rtol 0.1) of a CPU one has that
+    one's maps within REF_MAP_ULPS units in the last place; at least one
+    pairs up."""
     from densepose_tpu_torch.predictor import DensePosePredictor
 
-    cfg = path_config(name, NARROW)
+    extra = NARROW if dtype == "float32" else NARROW + [
+        ("TPU.COMPUTE_DTYPE", dtype), ("TEST.DETECTIONS_PER_IMAGE", 3)]
+    cfg = path_config(name, extra)
     img = (np.random.RandomState(21).rand(64, 64, 3) * 255).astype(np.uint8)
     if sparse:
         os.environ[SPARSE_POOLER] = "1"
@@ -872,6 +1093,9 @@ def reference_check(torch, dev, name, sparse):
     n = cpu["num_instances"]
     check(gpu["num_instances"] == n >= 1, f"reference {name}: {gpu['num_instances']} vs {n} "
           "detections")
+    if dtype != "float32":
+        reference_check_half(gpu, cpu, name, sparse, dtype)
+        return
     # near-equal random-weight scores may swap order: match detections by box
     order = [np.lexsort(r["pred_boxes"].T[::-1]) for r in (gpu, cpu)]
     err = 0.0
@@ -883,6 +1107,109 @@ def reference_check(torch, dev, name, sparse):
         err = max(err, e)
     print(f"reference: narrowed {name}{f' with {SPARSE_POOLER}=1' if sparse else ''} on the "
           f"card == on the CPU: {n} detections, max abs difference {err:.3e} (tol 1e-3)")
+
+
+def reference_check_half(gpu, cpu, name, sparse, dtype):
+    what = f"reference {name} {dtype}"
+    check(np.array_equal(gpu["pred_classes"], cpu["pred_classes"]), f"{what}: classes differ")
+    score_err = float(np.abs(np.sort(gpu["scores"]) - np.sort(cpu["scores"])).max())
+    check(score_err <= REF_SCORE_TOL[dtype], f"{what}: ranked scores differ by {score_err}")
+    maps = [k for k in cpu if k.startswith("pred_densepose_")]
+    pairs, map_err, box_err = 0, 0.0, 0.0
+    for i, box in enumerate(gpu["pred_boxes"]):
+        cb = cpu["pred_boxes"]
+        close = (np.abs(cb - box) <= 2.0 + 0.1 * np.abs(cb)).all(1)
+        for j in np.nonzero(close)[0][:1]:
+            pairs += 1
+            box_err = max(box_err, float(np.abs(cb[j] - box).max()))
+            for k in maps:
+                a, b = gpu[k][i].astype(np.float64), cpu[k][j].astype(np.float64)
+                tol = REF_MAP_ULPS * EPS[dtype] * 2.0 ** np.floor(np.log2(np.abs(b).max()))
+                e = float(np.abs(a - b).max())
+                check(e <= tol, f"{what}: {k} of a paired detection differs by {e} > {tol}")
+                map_err = max(map_err, e)
+    check(pairs >= 1, f"{what}: no card detection pairs with a CPU one")
+    print(f"reference: narrowed {name}{f' with {SPARSE_POOLER}=1' if sparse else ''} at {dtype}, "
+          f"3 slots, card vs CPU: {cpu['num_instances']} detections, classes equal, ranked "
+          f"scores within {score_err:.3e} (tol {REF_SCORE_TOL[dtype]}); {pairs} paired "
+          f"detections, boxes within {box_err:.3e}, maps within {map_err:.3e} "
+          f"(tol {REF_MAP_ULPS} ulp)")
+
+
+def range_report(torch, pred, img):
+    """One fp32 request with a forward hook on every leaf module: the largest
+    |output| of each stage, so that a non-finite output at a half dtype can be
+    told from a fault of the port (float16 ends at 65504). Returns the
+    largest."""
+    stages = {}
+
+    def stage(name):
+        parts = name.split(".")
+        if parts[0] == "backbone":
+            return "backbone." + (parts[2] if parts[1] == "bottom_up" else "fpn")
+        return {"proposal_generator": "rpn_head"}.get(parts[0], ".".join(parts[:2]))
+
+    def hook(name):
+        def record(module, args, out):
+            outs = out.values() if isinstance(out, dict) else [out]
+            m = max(float(o.detach().abs().max()) for o in outs)
+            stages[stage(name)] = max(stages.get(stage(name), 0.0), m)
+        return record
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in pred.model.named_modules()
+               if n and not list(m.children())]
+    try:
+        pred(img)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    top = max(stages.values())
+    print("range (fp32 flagship request, largest |output| per stage): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in stages.items())
+          + f"; largest {top:.4g}, float16's largest finite {FP16_MAX:.0f}")
+    return top
+
+
+def half_drift(torch, dev, pred16, dtype):
+    """The DensePose stage at ``dtype`` on an fp32 flagship request's
+    features (cast) and boxes, against the fp32 stage: the u-logit drift
+    over std(u_fp32) on the valid detections, held under 0.5 (the JAX
+    package's envelope, tests/test_realscale_parity.py:818-858). Also the
+    whole request at ``dtype`` against the fp32 one, printed with no gate:
+    random weights give near-tied detections."""
+    from densepose_tpu_torch.models.rcnn import image_tensor
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    pred32 = DensePosePredictor(path_config(FLAGSHIP), seed=0, device=dev)
+    img = frames(1, 2)[1]
+    half = getattr(torch, dtype)
+    with torch.inference_mode():
+        res32, feats, boxes = pred32.model.forward_stage1(image_tensor(img, dev))
+        valid = res32["valid"]
+        u32 = pred32.model.forward_densepose(feats, boxes)["pred_densepose_u"][valid].float()
+        u16 = pred16.model.forward_densepose({k: v.to(half) for k, v in feats.items()},
+                                             boxes)["pred_densepose_u"][valid]
+        check(u16.dtype == half, f"drift: u at {u16.dtype}")
+        u16 = u16.float()
+        check(bool(torch.isfinite(u16).all()), f"drift: non-finite u at {dtype}")
+        drift = float((u16 - u32).abs().max())
+        sigma = drift / (float(u32.std()) + 1e-9)
+        out32, out16 = pred32.numpy_outputs(pred32(img)), pred16.numpy_outputs(pred16(img))
+    torch.cuda.synchronize()
+    check(sigma < 0.5, f"drift: the DensePose stage at {dtype} drifts {sigma:.3f} std of the "
+          "fp32 u-logits (limit 0.5)")
+    b32, b16 = out32["pred_boxes"], out16["pred_boxes"]
+    near = [float(np.abs(b32 - b).max(1).min()) for b in b16] if len(b32) else []
+    n = min(len(b16), len(b32))
+    ranked = np.abs(np.sort(out16["scores"])[::-1][:n] - np.sort(out32["scores"])[::-1][:n])
+    print(f"drift: DensePose stage at {dtype} on the fp32 request's features and "
+          f"{int(valid.sum())} boxes: u-logits max abs {drift:.4g} = {sigma:.4f} std of the fp32 "
+          f"u-logits (limit 0.5); whole request at {dtype} vs fp32 (no gate): "
+          f"{out16['num_instances']} vs {out32['num_instances']} detections, ranked scores "
+          f"max abs {float(ranked.max()) if n else float('nan'):.4g}, "
+          f"{sum(d <= 1.0 for d in near)} of {len(b16)} boxes within 1 px of an fp32 box")
+    del pred32
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -921,6 +1248,9 @@ def main():
             print(f"  ptxas {name}: {k['kernel']}: {k.get('registers')} registers, "
                   f"{k.get('smem')} bytes static smem, {k.get('stack')} bytes stack, "
                   f"{k.get('spill_stores')}/{k.get('spill_loads')} bytes spill stores/loads")
+    check(len(ptxas["roi_align_sparse"]) == 6 and len(ptxas["roi_align"]) == 6,
+          "build: K2 and K3 each have 6 instantiations (float, __half, __nv_bfloat16 x ratio "
+          f"2, any ratio), got {len(ptxas['roi_align'])} and {len(ptxas['roi_align_sparse'])}")
     for k in ptxas["roi_align_sparse"]:
         check((k.get("stack"), k.get("spill_stores"), k.get("spill_loads")) == (0, 0, 0),
               f"build: K3's {k['kernel']} has a stack frame or spills")
@@ -929,16 +1259,24 @@ def main():
     cfg = get_config(FLAGSHIP)
     dev = torch.device("cuda")
     kernel_checks(torch, cfg, report, dev)
-    for name, src in SOURCES.items():
-        report[name]["ptxas"] = ptxas[src]
+    for entry in report.values():
+        entry["ptxas"] = ptxas[SOURCES[entry["name"].split("[")[0]]]
     for name, extra, sparse, per_request in PATHS:
+        dtype = path_dtype(extra)
         pred = drive_path(torch, report, dev, name, extra, sparse, per_request)
-        if name in CONSUMER_PATHS:  # before the next path measures its peak memory
-            consumer(torch, report, pred, name, per_request)
+        if (name, dtype) == (FLAGSHIP, "float32"):
+            top = range_report(torch, pred, frames(1, 1)[0])
+            check(np.isfinite(top), "range: a non-finite activation in the fp32 request")
+        if (name, dtype) in CONSUMER_PATHS:  # before the next path measures its peak memory
+            consumer(torch, report, pred, name, per_request, dtype)
+        if (name, dtype) == (FLAGSHIP, "float16"):
+            half_drift(torch, dev, pred, dtype)
         del pred
         torch.cuda.empty_cache()
     reference_check(torch, dev, FLAGSHIP, False)
     reference_check(torch, dev, LEGACY, True)
+    reference_check(torch, dev, FLAGSHIP, False, "float16")
+    reference_check(torch, dev, LEGACY, True, "bfloat16")
 
     print(json.dumps({"kernels": list(report.values())}))
     print(f"nvidia-smi: {smi_line}")

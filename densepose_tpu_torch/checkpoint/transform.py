@@ -121,11 +121,18 @@ def params_from_jax(jax_params: Dict[str, np.ndarray]) -> StateDict:
     kw) for the chart predictor's ConvTranspose2d kernels (the only 4-D
     weights under ``densepose_predictor.``), (in, out) -> (out, in) for
     linears. FrozenBN must already be folded (``TPU.FOLD_FROZEN_BN``); a
-    GroupNorm's ``.norm.weight``/``.norm.bias`` pass through as they are."""
+    GroupNorm's ``.norm.weight``/``.norm.bias`` pass through as they are.
+
+    The JAX predictor's params at a half compute dtype (``_cast_param``)
+    keep it: float16 arrays come back float16. bfloat16 arrays (``ml_dtypes``
+    on the host; numpy has no bfloat16) come back as float32 holding the same
+    values, which the port's predictor casts to bfloat16 exactly. Every
+    transform goes through float32, which holds both half types exactly."""
     out: StateDict = {}
     for name, a in jax_params.items():
         if ".norm.running_" in name:
             raise ValueError(f"{name}: unfolded FrozenBN; the port takes folded params")
+        dtype = np.float16 if np.asarray(a).dtype == np.float16 else np.float32
         a = np.asarray(a, dtype=np.float32)
         if a.ndim == 4 and ".densepose_predictor." in name:
             a = np.transpose(a, (2, 3, 0, 1))[:, :, ::-1, ::-1]
@@ -133,5 +140,5 @@ def params_from_jax(jax_params: Dict[str, np.ndarray]) -> StateDict:
             a = np.transpose(a, (3, 2, 0, 1))
         elif a.ndim == 2:
             a = a.T
-        out[name] = np.ascontiguousarray(a)
+        out[name] = np.ascontiguousarray(a, dtype=dtype)
     return out

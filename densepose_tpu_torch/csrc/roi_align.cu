@@ -41,7 +41,8 @@
 // levels are handled in one launch through a table of per-level base
 // pointers and sizes; a box's level comes from `levels`.
 //
-// No tensor cores: the operands are fp32 and parity keeps TF32 off; the
+// No tensor cores, at any element type: the fp32 sum must match the plain
+// version's bit for bit (and parity keeps TF32 off); the
 // separable Wy @ feat @ Wx^T form multiplies mostly zeros at these box sizes
 // (the TPU kernel's own docstring, roi_align_kernel.py:1-11; K3's plain
 // version, which does that dense work, takes 21.28 ms at the box pooler); and
@@ -50,6 +51,16 @@
 // Numerics: built with --fmad=false and written with the _rn intrinsics, so
 // it performs the same roundings as the plain PyTorch version, in the same
 // order: the two are bit-identical.
+//
+// Element types (TPU.COMPUTE_DTYPE): the levels and the output are float,
+// __half or __nv_bfloat16, one type a launch. Each tap is loaded as T and
+// widened to float; the tables, weights and the sum stay float in the same
+// order, and the output is rounded to T once. So K2<T>(f) is bit-identical
+// to K2<float>(f.float()).to(T), and to the plain version at T, which
+// upcasts its taps and rounds once at the end as the JAX package's gather
+// does (densepose_tpu/ops/roi_align.py:213, :224). A half load is the design
+// (the TPU kernel read the feature dtype too, roi_align_kernel.py:104): it
+// halves the bytes the bound counts, and nothing upcasts the levels first.
 
 #include <stdint.h>
 
@@ -67,20 +78,20 @@ constexpr int kTableBytes = 48 * 1024;  // static limit of dynamic shared memory
 // (DensePose pooler) off the time of G == 0 on an H100 SXM at 700 W, both
 // timed in one run (PERF.md). G == 0: `ratio` at run time, or the adaptive
 // count at ratio 0.
-template <int G>
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads) roi_align_kernel(
     LevelTable lv, const float* __restrict__ boxes, const int32_t* __restrict__ levels,
-    float* __restrict__ out, int c, int oh, int ow, int ratio, int slab, float offset,
+    T* __restrict__ out, int c, int oh, int ow, int ratio, int slab, float offset,
     int aligned) {
   extern __shared__ AxisTap tables[];  // oh x gmax for y, then ow x gmax for x
   const int b = blockIdx.x;
   const int c0 = blockIdx.y * slab;
   const int hw = oh * ow;
   const int n = min(slab, c - c0) * hw;
-  float* o = out + (static_cast<size_t>(b) * c + c0) * hw;
+  T* o = out + (static_cast<size_t>(b) * c + c0) * hw;
   const int l = levels[b];
   if (l < 0 || l >= lv.n) {
-    for (int e = threadIdx.x; e < n; e += blockDim.x) o[e] = 0.f;
+    for (int e = threadIdx.x; e < n; e += blockDim.x) o[e] = narrow<T>(0.f);
     return;
   }
   const int h = lv.h[l], w = lv.w[l];
@@ -104,32 +115,32 @@ __global__ void __launch_bounds__(kThreads) roi_align_kernel(
   int ch = e / hw, oy = (e - ch * hw) / ow;
   int ox = e - ch * hw - oy * ow;
   const size_t plane = static_cast<size_t>(h) * w;
-  const float* f0 = lv.feat[l] + static_cast<size_t>(c0) * plane;
+  const T* f0 = static_cast<const T*>(lv.feat[l]) + static_cast<size_t>(c0) * plane;
   for (; e < n; e += step) {
-    const float* f = f0 + ch * plane;
+    const T* f = f0 + ch * plane;
     float acc = 0.f;
 #pragma unroll
     for (int iy = 0; iy < gy; ++iy) {
       const AxisTap y = ty[oy * gy + iy];
       // Out-of-border samples weigh 0 in the reference, adding exact zeros.
       if (!y.ok) continue;
-      const float* r0 = f + y.lo * w;
-      const float* r1 = f + y.hi * w;
+      const T* r0 = f + y.lo * w;
+      const T* r1 = f + y.hi * w;
 #pragma unroll
       for (int ix = 0; ix < gx; ++ix) {
         const AxisTap x = tx[ox * gx + ix];
         if (!x.ok) continue;
-        const float v11 = __ldg(r0 + x.lo);
-        const float v12 = __ldg(r0 + x.hi);
-        const float v21 = __ldg(r1 + x.lo);
-        const float v22 = __ldg(r1 + x.hi);
+        const float v11 = load(r0 + x.lo);
+        const float v12 = load(r0 + x.hi);
+        const float v21 = load(r1 + x.lo);
+        const float v22 = load(r1 + x.hi);
         acc = __fadd_rn(acc, __fmul_rn(v11, __fmul_rn(y.rlerp, x.rlerp)));
         acc = __fadd_rn(acc, __fmul_rn(v12, __fmul_rn(y.rlerp, x.lerp)));
         acc = __fadd_rn(acc, __fmul_rn(v21, __fmul_rn(y.lerp, x.rlerp)));
         acc = __fadd_rn(acc, __fmul_rn(v22, __fmul_rn(y.lerp, x.lerp)));
       }
     }
-    o[e] = __fdiv_rn(acc, count);
+    o[e] = narrow<T>(__fdiv_rn(acc, count));
     ox += dox;
     oy += doy;
     ch += dch;
@@ -144,6 +155,17 @@ __global__ void __launch_bounds__(kThreads) roi_align_kernel(
   }
 }
 
+template <typename T>
+cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const LevelTable& lv,
+                   const void* boxes, const void* levels, void* out, int c, int oh, int ow,
+                   int ratio, int slab, int aligned) {
+  auto kernel = ratio == 2 ? roi_align_kernel<T, 2> : roi_align_kernel<T, 0>;  // zoo: 2
+  kernel<<<grid, kThreads, smem, stream>>>(
+      lv, static_cast<const float*>(boxes), static_cast<const int32_t*>(levels),
+      static_cast<T*>(out), c, oh, ow, ratio, slab, aligned ? 0.5f : 0.f, aligned);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -153,15 +175,18 @@ int dp_roi_align_max_levels() { return kMaxLevels; }
 // Table entries (oh + ow) x samples per bin that one CTA's shared memory holds.
 int dp_roi_align_max_table_entries() { return kTableBytes / sizeof(AxisTap); }
 
-// feats: host array of n_levels device pointers to contiguous (C, H, W) f32
-// levels; hs, ws, scales: host arrays per level. boxes (m, 4) f32, levels
-// (m,) i32, out (m, c, oh, ow) f32, written. ratio 0 is the adaptive count.
-// Returns the cudaError_t of the launch.
+// feats: host array of n_levels device pointers to contiguous (C, H, W)
+// levels of the element type `dtype` (a DtypeCode); hs, ws, scales: host
+// arrays per level. boxes (m, 4) f32, levels (m,) i32, out (m, c, oh, ow) of
+// the levels' type, written. ratio 0 is the adaptive count. Returns the
+// cudaError_t of the launch.
 int dp_roi_align(const void* const* feats, const int* hs, const int* ws,
                  const float* scales, int n_levels, const void* boxes,
                  const void* levels, void* out, int m, int c, int oh, int ow,
-                 int ratio, int aligned, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || ratio < 0) return cudaErrorInvalidValue;
+                 int ratio, int aligned, int dtype, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || ratio < 0 || dtype < kFloat32 ||
+      dtype > kBFloat16)
+    return cudaErrorInvalidValue;
   const int gmax = ratio > 0 ? ratio : kAdaptiveCap;
   const size_t smem = static_cast<size_t>(oh + ow) * gmax * sizeof(AxisTap);
   if (smem > kTableBytes) return cudaErrorInvalidValue;
@@ -171,12 +196,19 @@ int dp_roi_align(const void* const* feats, const int* hs, const int* ws,
   const int n_slabs = static_cast<int>(want < c ? want : c);
   const int slab = (c + n_slabs - 1) / n_slabs;
   const dim3 grid(m, (c + slab - 1) / slab);
-  auto kernel = ratio == 2 ? roi_align_kernel<2> : roi_align_kernel<0>;  // every zoo pooler: 2
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      make_table(feats, hs, ws, scales, n_levels), static_cast<const float*>(boxes),
-      static_cast<const int32_t*>(levels), static_cast<float*>(out), c, oh, ow, ratio, slab,
-      aligned ? 0.5f : 0.f, aligned);
-  return cudaGetLastError();
+  const LevelTable lv = make_table(feats, hs, ws, scales, n_levels);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat16:
+      return launch<__half>(grid, smem, s, lv, boxes, levels, out, c, oh, ow, ratio, slab,
+                            aligned);
+    case kBFloat16:
+      return launch<__nv_bfloat16>(grid, smem, s, lv, boxes, levels, out, c, oh, ow, ratio,
+                                   slab, aligned);
+    default:
+      return launch<float>(grid, smem, s, lv, boxes, levels, out, c, oh, ow, ratio, slab,
+                           aligned);
+  }
 }
 
 }  // extern "C"

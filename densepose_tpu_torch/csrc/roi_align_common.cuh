@@ -3,9 +3,16 @@
 // sampling arithmetic, which must round exactly as the plain PyTorch versions
 // (ops/roi_align.py::_axis_samples, _roi_geometry) do. Every source builds
 // with --fmad=false, and these helpers use the _rn intrinsics.
+//
+// Both kernels read and write the feature dtype of TPU.COMPUTE_DTYPE: float,
+// __half or __nv_bfloat16 (the element type T of their templates). A load
+// widens T to float exactly; everything between runs in float; a store
+// rounds to T once, to nearest even, as PyTorch's .to(dtype) does.
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace roi_align_common {
@@ -13,10 +20,39 @@ namespace roi_align_common {
 constexpr int kMaxLevels = 8;
 constexpr int kThreads = 256;
 
-// Per-level base pointers of contiguous (C, H, W) f32 maps, their sizes and
-// scales: every level in one launch.
+// The element type codes of the C entry points (ops/roi_align.py::DTYPE_CODES).
+enum DtypeCode { kFloat32 = 0, kFloat16 = 1, kBFloat16 = 2 };
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// A read-only feature load, widened to float.
+template <typename T>
+__device__ __forceinline__ float load(const T* p) {
+  return widen(__ldg(p));
+}
+
+// float -> T, rounded to nearest even.
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __half narrow<__half>(float v) {
+  return __float2half_rn(v);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Per-level base pointers of contiguous (C, H, W) maps of one element type,
+// their sizes and scales: every level in one launch.
 struct LevelTable {
-  const float* feat[kMaxLevels];
+  const void* feat[kMaxLevels];
   int h[kMaxLevels];
   int w[kMaxLevels];
   float scale[kMaxLevels];
@@ -27,7 +63,7 @@ inline LevelTable make_table(const void* const* feats, const int* hs, const int*
                              const float* scales, int n_levels) {
   LevelTable t{};
   for (int l = 0; l < n_levels; ++l) {
-    t.feat[l] = static_cast<const float*>(feats[l]);
+    t.feat[l] = feats[l];
     t.h[l] = hs[l];
     t.w[l] = ws[l];
     t.scale[l] = scales[l];

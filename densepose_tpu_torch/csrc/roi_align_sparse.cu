@@ -53,8 +53,8 @@
 // done once for the output row and shared by the bins that use the column;
 // stage 2 reads R from shared memory. The slab is sized from the
 // bound on |U| so R stays under kSlabBytes (32 channels at 7x7, 8 at 14x14,
-// ratio 2). Index arithmetic is 32-bit and stepped with carries, as in K2:
-// no division per output. The only atomics are the integer ORs of U's
+// ratio 2, in float; twice that in a 2-byte type). Index arithmetic is
+// 32-bit and stepped with carries, as in K2: no division per output. The only atomics are the integer ORs of U's
 // bitmap, so two runs give the same bits.
 //
 // Numerics: built with --fmad=false and written with the _rn intrinsics.
@@ -64,6 +64,16 @@
 // sums its X taps in ascending column order into one partial per tile of
 // kTile columns and adds the tiles in ascending order, as the plain version
 // does per (chunk, tile) pair: within fp32 rounding of its matrix products.
+//
+// Element types (TPU.COMPUTE_DTYPE): the levels and the output are float,
+// __half or __nv_bfloat16, one type a launch, with the TPU kernel's
+// roundings (roi_align_kernel.py:288, :291 and :174-176, output :301): each
+// nonzero Wy and Wx weight is rounded to T when its row is built (the tables
+// keep the rounded value as float); R is stored in shared memory as T, so
+// each stage-1 sum is rounded to T once (this also halves R's footprint, and
+// a slab holds twice the channels); stage 2 widens R, sums in float, and the
+// output is rounded to T once. Feature loads are T widened exactly. At
+// T = float every rounding is the identity, so K3<float> is the fp32 kernel.
 
 #include <climits>
 #include <stdint.h>
@@ -94,8 +104,9 @@ inline size_t table_words(int oh, int ow, int g, int max_w) {
 // takes the least column above the last), each weighing (the sum over
 // sub-samples i, in order, of 1 - lerp_i where lo_i is the column plus
 // lerp_i where hi_i is, for in-border samples) / g: the plain version's
-// _axis_weights to the bit. Entries past the count get column -1.
-template <int G>
+// _axis_weights to the bit, then rounded to T (held as float). Entries past
+// the count get column -1.
+template <typename T, int G>
 __device__ __forceinline__ int axis_row(const AxisTap* t, int ratio, int* col, float* wt) {
   const int g = G > 0 ? G : ratio;
   int n = 0;
@@ -118,7 +129,7 @@ __device__ __forceinline__ int axis_row(const AxisTap* t, int ratio, int* col, f
       sum = __fadd_rn(sum, term);
     }
     col[n] = next;
-    wt[n] = __fdiv_rn(sum, static_cast<float>(g));
+    wt[n] = widen(narrow<T>(__fdiv_rn(sum, static_cast<float>(g))));
     ++n;
     prev = next;
   }
@@ -126,11 +137,12 @@ __device__ __forceinline__ int axis_row(const AxisTap* t, int ratio, int* col, f
   return n;
 }
 
-// G > 0: ratio G at compile time; G == 0: `ratio` at run time (1..kMaxRatio).
-template <int G>
+// T: the element type of the levels, R and the output. G > 0: ratio G at
+// compile time; G == 0: `ratio` at run time (1..kMaxRatio).
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads) roi_align_sparse_kernel(
     LevelTable lv, const float* __restrict__ boxes, const int32_t* __restrict__ levels,
-    float* __restrict__ out, int c, int oh, int ow, int ratio, int slab, int max_w,
+    T* __restrict__ out, int c, int oh, int ow, int ratio, int slab, int max_w,
     float offset, int aligned) {
   extern __shared__ int smem[];
   const int g = G > 0 ? G : ratio;
@@ -139,10 +151,10 @@ __global__ void __launch_bounds__(kThreads) roi_align_sparse_kernel(
   const int c0 = blockIdx.y * slab;
   const int hw = oh * ow;
   const int n_ch = min(slab, c - c0);
-  float* o = out + (static_cast<size_t>(b) * c + c0) * hw;
+  T* o = out + (static_cast<size_t>(b) * c + c0) * hw;
   const int l = levels[b];
   if (l < 0 || l >= lv.n) {
-    for (int e = threadIdx.x; e < n_ch * hw; e += blockDim.x) o[e] = 0.f;
+    for (int e = threadIdx.x; e < n_ch * hw; e += blockDim.x) o[e] = narrow<T>(0.f);
     return;
   }
   const int h = lv.h[l], w = lv.w[l];
@@ -156,8 +168,8 @@ __global__ void __launch_bounds__(kThreads) roi_align_sparse_kernel(
   int* xidx = reinterpret_cast<int*>(xwt + ow * g2);       // ow x 2g
   int* ucol = xidx + ow * g2;                              // U, at most ow x 2g
   unsigned* bits = reinterpret_cast<unsigned*>(ucol + ow * g2);  // U as a bitmap
-  // R in stage 1; before it, the samples staged for the rows
-  float* rbuf = reinterpret_cast<float*>(bits + (max_w + 31) / 32);
+  // R in stage 1, as T; before it, the samples staged for the rows
+  T* rbuf = reinterpret_cast<T*>(bits + (max_w + 31) / 32);
 
   // The samples, with axis_sample's roundings, then one thread per row.
   float start_h, bin_h, start_w, bin_w;
@@ -170,9 +182,10 @@ __global__ void __launch_bounds__(kThreads) roi_align_sparse_kernel(
   __syncthreads();
   for (int p = threadIdx.x; p < oh + ow; p += blockDim.x) {
     if (p < oh)
-      ny[p] = axis_row<G>(ty + p * g, ratio, ycol + p * g2, ywt + p * g2);
+      ny[p] = axis_row<T, G>(ty + p * g, ratio, ycol + p * g2, ywt + p * g2);
     else
-      nx[p - oh] = axis_row<G>(tx + (p - oh) * g, ratio, xcol + (p - oh) * g2, xwt + (p - oh) * g2);
+      nx[p - oh] = axis_row<T, G>(tx + (p - oh) * g, ratio, xcol + (p - oh) * g2,
+                                  xwt + (p - oh) * g2);
   }
   __syncthreads();
 
@@ -204,7 +217,7 @@ __global__ void __launch_bounds__(kThreads) roi_align_sparse_kernel(
   // so its loads (kCh per Y tap) are in flight together.
   const int step = blockDim.x;
   const size_t plane = static_cast<size_t>(h) * w;
-  const float* f0 = lv.feat[l] + static_cast<size_t>(c0) * plane;
+  const T* f0 = static_cast<const T*>(lv.feat[l]) + static_cast<size_t>(c0) * plane;
   const int groups = (n_ch + kCh - 1) / kCh;
   const int n1 = groups * oh * nu;
   if (n1 > 0) {
@@ -217,7 +230,7 @@ __global__ void __launch_bounds__(kThreads) roi_align_sparse_kernel(
       const int* yc = ycol + oy * g2;
       const float* yw = ywt + oy * g2;
       const int cb = grp * kCh;
-      const float* fc = f0 + cb * plane + ucol[u];
+      const T* fc = f0 + cb * plane + ucol[u];
       float r[kCh];
 #pragma unroll
       for (int j = 0; j < kCh; ++j) r[j] = 0.f;
@@ -225,15 +238,15 @@ __global__ void __launch_bounds__(kThreads) roi_align_sparse_kernel(
       for (int k = 0; k < (G > 0 ? 2 * G : 2 * kMaxRatio); ++k) {
         if (k >= k_n) break;
         const float wk = yw[k];
-        const float* row = fc + yc[k] * w;
+        const T* row = fc + yc[k] * w;
 #pragma unroll
         for (int j = 0; j < kCh; ++j)
-          if (cb + j < n_ch) r[j] = __fadd_rn(r[j], __fmul_rn(wk, __ldg(row + j * plane)));
+          if (cb + j < n_ch) r[j] = __fadd_rn(r[j], __fmul_rn(wk, load(row + j * plane)));
       }
-      float* rr = rbuf + (cb * oh + oy) * nu + u;
+      T* rr = rbuf + (cb * oh + oy) * nu + u;
 #pragma unroll
       for (int j = 0; j < kCh; ++j)
-        if (cb + j < n_ch) rr[j * oh * nu] = r[j];
+        if (cb + j < n_ch) rr[j * oh * nu] = narrow<T>(r[j]);
       u += du;
       oy += doy;
       grp += dgrp;
@@ -258,7 +271,7 @@ __global__ void __launch_bounds__(kThreads) roi_align_sparse_kernel(
     int ox = e - grp * hw - oy * ow;
     for (; e < n2; e += step) {
       const int cb = grp * kCh;
-      const float* rrow = rbuf + (cb * oh + oy) * nu;
+      const T* rrow = rbuf + (cb * oh + oy) * nu;
       const int j_n = nx[ox];
       const int* xc = xcol + ox * g2;
       const float* xw = xwt + ox * g2;
@@ -284,16 +297,17 @@ __global__ void __launch_bounds__(kThreads) roi_align_sparse_kernel(
         const int ij = xi[j];
 #pragma unroll
         for (int c = 0; c < kCh; ++c)
-          if (cb + c < n_ch) part[c] = __fadd_rn(part[c], __fmul_rn(wj, rrow[c * oh * nu + ij]));
+          if (cb + c < n_ch)
+            part[c] = __fadd_rn(part[c], __fmul_rn(wj, widen(rrow[c * oh * nu + ij])));
       }
       if (tile >= 0) {
 #pragma unroll
         for (int c = 0; c < kCh; ++c) acc[c] = __fadd_rn(acc[c], part[c]);
       }
-      float* oo = o + cb * hw + oy * ow + ox;
+      T* oo = o + cb * hw + oy * ow + ox;
 #pragma unroll
       for (int c = 0; c < kCh; ++c)
-        if (cb + c < n_ch) oo[c * hw] = acc[c];
+        if (cb + c < n_ch) oo[c * hw] = narrow<T>(acc[c]);
       ox += dox;
       oy += doy;
       grp += dgrp;
@@ -309,30 +323,13 @@ __global__ void __launch_bounds__(kThreads) roi_align_sparse_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-int dp_roi_align_sparse_max_levels() { return kMaxLevels; }
-int dp_roi_align_sparse_max_ratio() { return kMaxRatio; }
-
-// feats: host array of n_levels device pointers to contiguous (C, H, W) f32
-// levels; hs, ws, scales: host arrays per level. boxes (m, 4) f32 and levels
-// (m,) i32 in the caller's order; out (m, c, oh, ow) f32, written (zeros for
-// a box whose level is not in [0, n_levels)). Returns the cudaError_t of the
-// launch, or cudaErrorInvalidValue for inputs the kernel does not take.
-int dp_roi_align_sparse(const void* const* feats, const int* hs, const int* ws,
-                        const float* scales, int n_levels, const void* boxes,
-                        const void* levels, void* out, int m, int c, int oh, int ow,
-                        int ratio, int aligned, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || ratio <= 0 || ratio > kMaxRatio || oh <= 0 ||
-      ow <= 0)
-    return cudaErrorInvalidValue;
-  if (static_cast<long long>(m) * c == 0) return cudaSuccess;
-  int max_w = 1;
-  for (int l = 0; l < n_levels; ++l) max_w = ws[l] > max_w ? ws[l] : max_w;
+// Sizes the launch for element type T and launches it.
+template <typename T>
+cudaError_t launch(const LevelTable& lv, int max_w, const void* boxes, const void* levels,
+                   void* out, int m, int c, int oh, int ow, int ratio, int aligned,
+                   cudaStream_t stream) {
   const int max_u = 2 * ratio * ow < max_w ? 2 * ratio * ow : max_w;
-  const size_t per_ch = static_cast<size_t>(oh) * max_u * sizeof(float);
+  const size_t per_ch = static_cast<size_t>(oh) * max_u * sizeof(T);
   const int fit = static_cast<int>(kSlabBytes / per_ch);
   const int want = fit < 1 ? 1 : (fit < c ? fit : c);
   const int n_slabs = (c + want - 1) / want;
@@ -341,18 +338,53 @@ int dp_roi_align_sparse(const void* const* feats, const int* hs, const int* ws,
   const size_t rbytes = slab * per_ch > staged ? slab * per_ch : staged;
   const size_t smem = table_words(oh, ow, ratio, max_w) * sizeof(int) + rbytes;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = ratio == 2 ? roi_align_sparse_kernel<2> : roi_align_sparse_kernel<0>;
+  auto kernel = ratio == 2 ? roi_align_sparse_kernel<T, 2> : roi_align_sparse_kernel<T, 0>;
   if (smem > kStaticSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(m, n_slabs);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      make_table(feats, hs, ws, scales, n_levels), static_cast<const float*>(boxes),
-      static_cast<const int32_t*>(levels), static_cast<float*>(out), c, oh, ow, ratio, slab,
-      max_w, aligned ? 0.5f : 0.f, aligned);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      lv, static_cast<const float*>(boxes), static_cast<const int32_t*>(levels),
+      static_cast<T*>(out), c, oh, ow, ratio, slab, max_w, aligned ? 0.5f : 0.f, aligned);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int dp_roi_align_sparse_max_levels() { return kMaxLevels; }
+int dp_roi_align_sparse_max_ratio() { return kMaxRatio; }
+
+// feats: host array of n_levels device pointers to contiguous (C, H, W)
+// levels of the element type `dtype` (a DtypeCode); hs, ws, scales: host
+// arrays per level. boxes (m, 4) f32 and levels (m,) i32 in the caller's
+// order; out (m, c, oh, ow) of the levels' type, written (zeros for a box
+// whose level is not in [0, n_levels)). Returns the cudaError_t of the
+// launch, or cudaErrorInvalidValue for inputs the kernel does not take.
+int dp_roi_align_sparse(const void* const* feats, const int* hs, const int* ws,
+                        const float* scales, int n_levels, const void* boxes,
+                        const void* levels, void* out, int m, int c, int oh, int ow,
+                        int ratio, int aligned, int dtype, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || ratio <= 0 || ratio > kMaxRatio || oh <= 0 ||
+      ow <= 0 || dtype < kFloat32 || dtype > kBFloat16)
+    return cudaErrorInvalidValue;
+  if (static_cast<long long>(m) * c == 0) return cudaSuccess;
+  int max_w = 1;
+  for (int l = 0; l < n_levels; ++l) max_w = ws[l] > max_w ? ws[l] : max_w;
+  const LevelTable lv = make_table(feats, hs, ws, scales, n_levels);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat16:
+      return launch<__half>(lv, max_w, boxes, levels, out, m, c, oh, ow, ratio, aligned, s);
+    case kBFloat16:
+      return launch<__nv_bfloat16>(lv, max_w, boxes, levels, out, m, c, oh, ow, ratio,
+                                   aligned, s);
+    default:
+      return launch<float>(lv, max_w, boxes, levels, out, m, c, oh, ow, ratio, aligned, s);
+  }
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@ FrozenBN folded (``backbone.bottom_up.stem.conv1.weight``,
 
 1. ``preprocess``: the uint8 resize with torch's scale-factor rule, rounded
    and clipped (the reference resizes the uint8 tensor), normalized and
-   zero-padded to a multiple of 32 — bit-identical to the JAX package;
+   zero-padded to a multiple of 32 in fp32, then cast once to the compute
+   dtype — bit-identical to the JAX package;
 2. the ResNet-FPN backbone;
 3. ``rpn_forward`` (NMS through kernel K1);
 4. ``box_stage_forward`` (ROIAlign through K2, NMS through K1);
@@ -20,6 +21,15 @@ FrozenBN folded (``backbone.bottom_up.stem.conv1.weight``,
 
 Each stage runs inside a ``torch.profiler.record_function`` range of its
 name, so a profile of one request reads the device time of every stage.
+
+Compute dtype (``TPU.COMPUTE_DTYPE``: float32, float16 or bfloat16), the JAX
+package's policy: the predictor casts every float32 parameter to it, and
+activations stay in it from the preprocess cast on (convolutions, linears,
+upsamples, the poolers' outputs, the DensePose maps). The fp32 islands are
+the reference's: the RPN's logits before its top-k, box decoding, the box
+softmax, NMS (boxes and scores), GroupNorm's statistics, the device
+postprocess's argmaxes, and every detection output (boxes, scores,
+``det_packed``).
 """
 
 from __future__ import annotations
@@ -41,6 +51,10 @@ from .rpn import RPNHead, rpn_forward, rpn_spec
 
 SIZE_DIVISIBILITY = 32  # FPN max stride (fpn.py:116)
 
+# TPU.COMPUTE_DTYPE -> the dtype of parameters and activations
+COMPUTE_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+                  "bfloat16": torch.bfloat16}
+
 
 def compute_resize(h: int, w: int, min_size: int, max_size: int) -> Tuple[float, int, int]:
     """DefaultPredictor resize rule (defaults.py:85-89): one scale k, output
@@ -58,8 +72,9 @@ def _check_supported(cfg) -> None:
     if cfg.MODEL.META_ARCHITECTURE != "GeneralizedRCNN":
         raise NotImplementedError(cfg.MODEL.META_ARCHITECTURE)
     t = cfg.TPU
-    if t.COMPUTE_DTYPE != "float32":
-        raise NotImplementedError(f"compute dtype {t.COMPUTE_DTYPE!r} is not ported yet")
+    if t.COMPUTE_DTYPE not in COMPUTE_DTYPES:
+        raise ValueError(f"TPU.COMPUTE_DTYPE {t.COMPUTE_DTYPE!r}: expected one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
     unported = [k for k in ("BUCKETED_DENSEPOSE", "INT8_HEAD", "INT8_BACKBONE", "INT8_RPN", "INT8_PREDICTOR",
                             "GEOMETRY_BUCKET_QUANT") if t[k]]
     if unported:
@@ -77,6 +92,7 @@ class GeneralizedRCNN(nn.Module):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
+        self.compute_dtype = COMPUTE_DTYPES[cfg.TPU.COMPUTE_DTYPE]
         self.register_buffer("pixel_mean", torch.tensor(cfg.MODEL.PIXEL_MEAN,
                                                         dtype=torch.float32), persistent=False)
         self.register_buffer("pixel_std", torch.tensor(cfg.MODEL.PIXEL_STD,
@@ -95,7 +111,9 @@ class GeneralizedRCNN(nn.Module):
 
     def preprocess(self, image_u8: torch.Tensor):
         """image_u8: (H0, W0, 3) uint8 BGR on the model's device. Returns
-        (padded image (1, 3, Hp, Wp) f32, (h1, w1) resized size, (Hp, Wp))."""
+        (padded image (1, 3, Hp, Wp) in the compute dtype, (h1, w1) resized
+        size, (Hp, Wp)). Everything up to the cast runs in fp32, as in the JAX
+        package (rcnn.py:143-155)."""
         h0, w0 = image_u8.shape[0], image_u8.shape[1]
         k, h1, w1 = compute_resize(h0, w0, self.cfg.INPUT.MIN_SIZE_TEST,
                                    self.cfg.INPUT.MAX_SIZE_TEST)
@@ -108,7 +126,7 @@ class GeneralizedRCNN(nn.Module):
         y = torch.round(y).clamp(0, 255)
         y = (y - self.pixel_mean) / self.pixel_std
         y = torch.nn.functional.pad(y.permute(2, 0, 1), (0, wp - w1, 0, hp - h1))
-        return y[None].contiguous(), (h1, w1), (hp, wp)
+        return y[None].to(self.compute_dtype).contiguous(), (h1, w1), (hp, wp)
 
     def forward_stage1(self, image_u8: torch.Tensor):
         """Preprocess -> backbone -> RPN -> box stage -> box postprocess.

@@ -87,18 +87,26 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Built]:
     return built
 
 
+# mangled template type arguments -> their names
+_MANGLED_TYPES = {"f": "float", "6__half": "__half", "13__nv_bfloat16": "__nv_bfloat16"}
+
+
 def ptxas_report(log: str) -> List[dict]:
     """Per kernel of a build log: registers, static shared memory, stack
     frame and spills, from ptxas -v. A kernel is named by the ``*_kernel``
-    part of its mangled name and its integer template argument, if any
-    (``roi_align_kernel<2>``)."""
+    part of its mangled name and its template arguments, if any: an element
+    type and an integer (``roi_align_kernel<__half, 2>``)."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = re.search(r"\d([a-z_]+_kernel)(?:ILi(\d+)E)?", m.group(1))
-            cur = {"kernel": m.group(1) if not name else
-                   name.group(1) + (f"<{name.group(2)}>" if name.group(2) else "")}
+            name = re.search(r"\d([a-z_]+_kernel)(?:I(f|6__half|13__nv_bfloat16)?Li(\d+)E)?",
+                             m.group(1))
+            if name:
+                kernel, elem, ratio = name.groups()
+                args = [a for a in (_MANGLED_TYPES.get(elem), ratio) if a]
+                kernel += f"<{', '.join(args)}>" if args else ""
+            cur = {"kernel": kernel if name else m.group(1)}
             out.append(cur)
             continue
         if cur is None:

@@ -15,6 +15,11 @@ XYXY in input-image coordinates, levels (M,) int32, output (M, C, oh, ow).
 (The JAX package takes (H, W, C) levels and returns (M, oh, ow, C); the tests
 permute explicitly.)
 
+Dtypes: the levels are float32, float16 or bfloat16 (TPU.COMPUTE_DTYPE), all
+of one dtype, and the output has theirs. Boxes, sample weights and sums are
+float32; each output is rounded to the levels' dtype once, at the end, as the
+JAX package's gather does (roi_align.py:151, :213, :224).
+
 For CUDA tensors the pooling is kernel K2 (``csrc/roi_align.cu``): all levels
 in one launch, one CTA per (box, slab of channels) with per-box tap tables in
 shared memory. For CPU tensors it is ``roi_align_plain``, a PyTorch port of
@@ -134,8 +139,9 @@ def roi_align_plain(
     aligned: bool,
 ) -> torch.Tensor:
     """The plain PyTorch version of K2: each box gathers its taps from its
-    level of the flattened (C, H, W) pyramid and sums them in fp32, in the
-    JAX package's order, then divides by its sample count."""
+    level of the flattened (C, H, W) pyramid, widens them to fp32 and sums
+    them in fp32, in the JAX package's order, then divides by its sample
+    count and rounds to the levels' dtype."""
     out_h, out_w = output_size
     c = feats[0].shape[0]
     dev = boxes.device
@@ -174,16 +180,25 @@ def roi_align_plain(
             w22 = (fy[:, :, None] * fx[:, None, :] * ok)[:, None]
             acc = (acc + take(yl, xl) * w11 + take(yl, xh) * w12
                    + take(yh, xl) * w21 + take(yh, xh) * w22)
-    return acc / count[:, None, None, None]
+    return (acc / count[:, None, None, None]).to(flat.dtype)
+
+
+# the element type codes of K2's and K3's C entry points
+# (csrc/roi_align_common.cuh::DtypeCode)
+DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+# the C signature of K2's and K3's entry points: per-level pointers, heights,
+# widths, scales; the level count; boxes, levels, out; m, c, oh, ow, ratio,
+# aligned, the dtype code; the stream
+ENTRY_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """K2's library, built on first use, with its C signatures set once."""
     lib = library("roi_align")
-    lib.dp_roi_align.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.dp_roi_align.argtypes = ENTRY_ARGTYPES
     for fn in (lib.dp_roi_align, lib.dp_roi_align_max_levels,
                lib.dp_roi_align_max_table_entries):
         fn.restype = ctypes.c_int
@@ -192,18 +207,21 @@ def _lib() -> ctypes.CDLL:
 
 def check_cuda_inputs(feats, boxes, levels, scales) -> None:
     """What the ROIAlign kernels (K2, K3) take: per level a contiguous
-    (C, H, W) float32 CUDA tensor and a scale, boxes (M, 4) float32 and
-    levels (M,) int32, contiguous, all on one device. Raises ValueError."""
+    (C, H, W) CUDA tensor of float32, float16 or bfloat16, the same dtype for
+    all, and a scale; boxes (M, 4) float32 and levels (M,) int32,
+    contiguous, all on one device. Raises ValueError."""
     n = len(feats)
     if n < 1 or len(scales) != n:
         raise ValueError(f"need one scale per level, got {n} levels and "
                          f"{len(scales)} scales")
     dev = boxes.device
-    c = feats[0].shape[0]
+    c, dtype = feats[0].shape[0], feats[0].dtype
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"levels must be float32, float16 or bfloat16, got {dtype}")
     for i, f in enumerate(feats):
-        if (not f.is_cuda or f.device != dev or f.dtype != torch.float32
+        if (not f.is_cuda or f.device != dev or f.dtype != dtype
                 or f.dim() != 3 or f.shape[0] != c or not f.is_contiguous()):
-            raise ValueError(f"level {i} must be a contiguous ({c}, H, W) float32 "
+            raise ValueError(f"level {i} must be a contiguous ({c}, H, W) {dtype} "
                              f"CUDA tensor on {dev}, got {f.dtype} {tuple(f.shape)}")
     if (not boxes.is_cuda or boxes.dtype != torch.float32 or boxes.dim() != 2
             or boxes.shape[1] != 4 or not boxes.is_contiguous()):
@@ -234,10 +252,11 @@ def roi_align_cuda(
     sampling_ratio: int,
     aligned: bool,
 ) -> torch.Tensor:
-    """Kernel K2 on CUDA tensors: feats per level (C, H, W) f32 contiguous,
-    boxes (M, 4) f32, levels (M,) i32, all on one device; sampling_ratio 0
-    is the adaptive count. Returns (M, C, oh, ow) f32. Raises if the inputs
-    do not fit or the launch fails."""
+    """Kernel K2 on CUDA tensors: feats per level (C, H, W) contiguous, all
+    float32, float16 or bfloat16; boxes (M, 4) f32, levels (M,) i32, all on
+    one device; sampling_ratio 0 is the adaptive count. Returns (M, C, oh, ow)
+    in the levels' dtype. Raises if the inputs do not fit or the launch
+    fails."""
     check_cuda_inputs(feats, boxes, levels, scales)
     if sampling_ratio < 0:
         raise ValueError(f"K2 takes a sampling_ratio >= 0, got {sampling_ratio}")
@@ -251,12 +270,13 @@ def roi_align_cuda(
     if entries > lib.dp_roi_align_max_table_entries():
         raise ValueError(f"K2's tap tables ({entries} entries for {output_size} at ratio "
                          f"{sampling_ratio}) exceed {lib.dp_roi_align_max_table_entries()}")
-    out = torch.empty((m, c, oh, ow), dtype=torch.float32, device=dev)
+    out = torch.empty((m, c, oh, ow), dtype=feats[0].dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dp_roi_align(*level_args(feats, scales), boxes.data_ptr(),
                                levels.data_ptr(), out.data_ptr(), m, c, oh, ow,
-                               int(sampling_ratio), int(bool(aligned)), stream)
+                               int(sampling_ratio), int(bool(aligned)),
+                               DTYPE_CODES[out.dtype], stream)
     if err != 0:
         raise RuntimeError(f"roi_align_cuda launch failed: cudaError {err}")
     roi_align_cuda.launches += 1
@@ -275,7 +295,8 @@ def roi_align_multilevel(
     sampling_ratio: int,
     aligned: bool,
 ) -> torch.Tensor:
-    """Pool each box from its assigned level. Returns (M, C, oh, ow) float32.
+    """Pool each box from its assigned level. Returns (M, C, oh, ow) in the
+    levels' dtype.
 
     K2 for CUDA tensors and the plain version for CPU tensors; with
     ``DENSEPOSE_TPU_SPARSE_POOLER`` set and a fixed ratio, the skip-flag

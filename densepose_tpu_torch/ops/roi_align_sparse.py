@@ -20,7 +20,13 @@ taps per axis and divide by the ratio. The schedule is the JAX package's:
 * results return in the caller's box order.
 
 Layouts are the port's: (C, H, W) levels, boxes (M, 4) XYXY in input-image
-coordinates, levels (M,) int, output (M, C, oh, ow) float32.
+coordinates, levels (M,) int, output (M, C, oh, ow) in the levels' dtype.
+
+At a half dtype (float16 or bfloat16, TPU.COMPUTE_DTYPE) both versions round
+where the Pallas kernel does (roi_align_kernel.py:288, :291, :174-176,
+:301): every weight of Wy and Wx to the dtype, each stage-1 row
+``Wy . feat`` (summed in fp32) to the dtype; stage 2 and the per-level
+partials sum in fp32, and the output is rounded to the dtype once.
 
 For CUDA tensors the pooling is kernel K3 (``csrc/roi_align_sparse.cu``), one
 launch per call: each box contracts only the nonzero entries of its own rows
@@ -40,7 +46,8 @@ import torch
 
 from .boxes import true_div
 from .cuda_build import library
-from .roi_align import _axis_samples, _roi_geometry, check_cuda_inputs, level_args
+from .roi_align import (DTYPE_CODES, ENTRY_ARGTYPES, _axis_samples, _roi_geometry,
+                        check_cuda_inputs, level_args)
 
 CHUNK = 128  # boxes per chunk (roi_align_kernel.py:155, CHUNK_S)
 TILE = 8     # feature columns per tile (roi_align_kernel.py:156, TW_S)
@@ -111,8 +118,8 @@ def sort_order(boxes: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
 class SparseSchedule(NamedTuple):
     order: torch.Tensor        # (M,) sorted position -> caller index
     inv: torch.Tensor          # (M,) caller index -> sorted position
-    wy: List[torch.Tensor]     # per level (Mp, oh, H) f32, sorted boxes
-    wx: List[torch.Tensor]     # per level (Mp, ow, W) f32, other levels' rows zero
+    wy: List[torch.Tensor]     # per level (Mp, oh, H) f32 of levels'-dtype values, sorted boxes
+    wx: List[torch.Tensor]     # per level (Mp, ow, W), as wy; other levels' rows zero
     flags: List[torch.Tensor]  # per level (Mp / CHUNK, ceil(W / TILE)) int32
 
 
@@ -126,9 +133,11 @@ def sparse_schedule(
     aligned: bool,
 ) -> SparseSchedule:
     """The JAX package's host-side schedule (roi_align_kernel.py:256-301):
-    order and inverse, per-level weight rows padded to whole chunks, and the
-    activity flags from ``Wx != 0`` over each (chunk, tile)."""
+    order and inverse, per-level weight rows padded to whole chunks and
+    rounded to the levels' dtype (held in float32), and the activity flags
+    from the rounded ``Wx != 0`` over each (chunk, tile)."""
     out_h, out_w = output_size
+    dtype = feats[0].dtype
     m = boxes.shape[0]
     mp = -(-m // CHUNK) * CHUNK
     dev = boxes.device
@@ -144,7 +153,8 @@ def sparse_schedule(
         start_h, bin_h, start_w, bin_w = _roi_geometry(b_s, scale_b, output_size, aligned)
         wy = _axis_weights(start_h, bin_h, out_h, sampling_ratio, h)
         wx = _axis_weights(start_w, bin_w, out_w, sampling_ratio, w)
-        wx = wx * (lv_s == li).float()[:, None, None]
+        wx = (wx * (lv_s == li).float()[:, None, None]).to(dtype).float()
+        wy = wy.to(dtype).float()
         wy = torch.cat([wy, wy.new_zeros((mp - m, out_h, h))])
         wx = torch.cat([wx, wx.new_zeros((mp - m, out_w, w))])
         tiles = -(-w // TILE)
@@ -166,8 +176,9 @@ def roi_align_sparse_plain(
     aligned: bool,
 ) -> torch.Tensor:
     """The plain PyTorch version of K3: per level and active (chunk, tile)
-    pair, rows = Wy . feat_tile, then out += Wx_tile . rows; inactive pairs are
-    skipped. Returns (M, C, oh, ow) float32 in the caller's order."""
+    pair, rows = Wy . feat_tile in fp32, rounded to the levels' dtype, then
+    out += Wx_tile . rows in fp32; inactive pairs are skipped. Returns
+    (M, C, oh, ow) in the caller's order, rounded to the levels' dtype."""
     out_h, out_w = output_size
     m = boxes.shape[0]
     c = feats[0].shape[0]
@@ -181,17 +192,16 @@ def roi_align_sparse_plain(
             rows = slice(k * CHUNK, (k + 1) * CHUNK)
             cols = slice(t * TILE, (t + 1) * TILE)
             tile_rows = torch.einsum("byh,chw->bcyw", wy[rows], f[:, :, cols])
+            tile_rows = tile_rows.to(feat.dtype).float()
             out[rows] += torch.einsum("bcyw,bxw->bcyx", tile_rows, wx[rows, :, cols])
-    return out[:m][sched.inv]
+    return out[:m][sched.inv].to(feats[0].dtype)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """K3's library, built on first use, with its C signature set once."""
     lib = library("roi_align_sparse")
-    lib.dp_roi_align_sparse.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.dp_roi_align_sparse.argtypes = ENTRY_ARGTYPES
     for fn in (lib.dp_roi_align_sparse, lib.dp_roi_align_sparse_max_levels,
                lib.dp_roi_align_sparse_max_ratio):
         fn.restype = ctypes.c_int
@@ -208,11 +218,12 @@ def roi_align_sparse_cuda(
     aligned: bool,
 ) -> torch.Tensor:
     """Kernel K3 on CUDA tensors, in one launch: feats per level (C, H, W)
-    f32 contiguous, boxes (M, 4) f32, levels (M,) i32, all on one device.
-    Returns (M, C, oh, ow) f32 in the caller's order; a box whose level is
-    not in [0, len(feats)) gets zeros. No sort and no flag table: on the card
-    the flags skip nothing (``csrc/roi_align_sparse.cu``). Raises if the
-    inputs do not fit or the launch fails."""
+    contiguous, all float32, float16 or bfloat16; boxes (M, 4) f32, levels
+    (M,) i32, all on one device. Returns (M, C, oh, ow) in the levels' dtype,
+    in the caller's order; a box whose level is not in [0, len(feats)) gets
+    zeros. No sort and no flag table: on the card the flags skip nothing
+    (``csrc/roi_align_sparse.cu``). Raises if the inputs do not fit or the
+    launch fails."""
     check_cuda_inputs(feats, boxes, levels, scales)
     lib = _lib()
     if len(feats) > lib.dp_roi_align_sparse_max_levels():
@@ -222,14 +233,15 @@ def roi_align_sparse_cuda(
                          f"{lib.dp_roi_align_sparse_max_ratio()}, got {sampling_ratio}")
     m, c = boxes.shape[0], feats[0].shape[0]
     oh, ow = output_size
-    out = torch.empty((m, c, oh, ow), dtype=torch.float32, device=boxes.device)
+    out = torch.empty((m, c, oh, ow), dtype=feats[0].dtype, device=boxes.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = lib.dp_roi_align_sparse(*level_args(feats, scales), boxes.data_ptr(),
                                       levels.data_ptr(), out.data_ptr(), m, c, oh, ow,
-                                      int(sampling_ratio), int(bool(aligned)), stream)
+                                      int(sampling_ratio), int(bool(aligned)),
+                                      DTYPE_CODES[out.dtype], stream)
     if err != 0:
         raise RuntimeError(f"roi_align_sparse_cuda launch failed: cudaError {err}")
     roi_align_sparse_cuda.launches += 1
@@ -249,7 +261,7 @@ def roi_align_sparse(
     aligned: bool,
 ) -> torch.Tensor:
     """The skip-flag pooler: K3 for CUDA tensors, its plain version for CPU
-    tensors. Returns (M, C, oh, ow) float32."""
+    tensors. Returns (M, C, oh, ow) in the levels' dtype."""
     if sampling_ratio <= 0:
         raise ValueError("the skip-flag pooler takes a fixed sampling_ratio > 0, as the JAX "
                          "package's does; ratio 0 takes the gather (roi_align_multilevel)")

@@ -17,10 +17,22 @@ array. What it returns is the caller's own: copies of the valid rows, not
 views of the pinned buffers (only the streaming loop, which draws each frame
 at once and drops it, reads views with ``copy=False``).
 
-fp32 parity: TF32 is turned off for cuDNN convolutions and matmuls, which
-otherwise run float32 convolutions at about three decimal digits. A frame
-served twice may differ in the last bits of its maps: cuDNN's transposed
-convolutions add with atomics.
+Compute dtype (``TPU.COMPUTE_DTYPE``): float32, float16 or bfloat16, the
+JAX package's policy (predictor.py:89-90, 147-152). After loading, every
+float32 parameter is cast to the dtype; the ``pixel_mean``/``pixel_std``
+buffers stay float32, so the normalize runs in fp32. The model keeps the
+reference's fp32 islands (``models/rcnn.py``). Detections come back in fp32
+and the DensePose maps in the dtype: float16 maps as float16 arrays;
+bfloat16 maps cross to the host as their 2-byte payload and are widened to
+float32 exactly there (numpy has no bfloat16; the JAX package returns
+``ml_dtypes.bfloat16`` arrays holding the same values).
+
+Parity: TF32 is turned off for cuDNN convolutions and matmuls, which
+otherwise run float32 convolutions at about three decimal digits, and cuBLAS
+may not reduce float16 or bfloat16 products in reduced precision (the JAX
+package's products accumulate in fp32). These flags are process-wide and set
+once, when a predictor is built. A frame served twice may differ in the last
+bits of its maps: cuDNN's transposed convolutions add with atomics.
 """
 
 from __future__ import annotations
@@ -68,12 +80,16 @@ class DensePosePredictor:
                                "device='cpu' to run on the CPU")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.cfg = cfg
         self.model = build_model(cfg)
+        self.compute_dtype = self.model.compute_dtype
         if params is None:
             params = load_params(cfg, weights_path, seed=seed, model=self.model)
         self.model.load_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in
                                     params.items()})
+        cast_parameters(self.model, self.compute_dtype)
         self.model.to(self.device).eval()
 
     def stage_input(self, image_bgr_u8: np.ndarray):
@@ -127,8 +143,9 @@ class DensePosePredictor:
         done = torch.cuda.Event()
         with torch.cuda.stream(side):
             for v in pending:
-                host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                host.copy_(v, non_blocking=True)
+                src = _payload(v)
+                host = torch.empty(v.shape, dtype=src.dtype, pin_memory=True)
+                host.copy_(src, non_blocking=True)
                 v.record_stream(side)  # its memory is not reused before the copy ends
                 setattr(v, _HOST_COPY, (host, done))
             done.record(side)
@@ -179,6 +196,16 @@ class DensePosePredictor:
         return result
 
 
+def cast_parameters(model: torch.nn.Module, dtype: torch.dtype) -> None:
+    """Every float32 parameter to ``dtype``; other parameters and every
+    buffer as they are (the JAX package's ``_cast_param``). Not
+    ``Module.to(dtype)``: that would also cast the float32 normalize
+    buffers."""
+    for p in model.parameters():
+        if p.dtype == torch.float32 and dtype != torch.float32:
+            p.data = p.data.to(dtype)
+
+
 _HOST_COPY = "_densepose_host_copy"  # tensor attribute: (pinned host copy, CUDA event)
 _DETECTION_KEYS = ("num_instances", "valid", "image_size", "pred_boxes", "scores",
                    "pred_classes")
@@ -203,15 +230,30 @@ def take_rows(v: np.ndarray, idx: np.ndarray, copy: bool = True) -> np.ndarray:
     return v[:len(idx)] if len(idx) == 0 or idx[-1] == len(idx) - 1 else v[idx]
 
 
+def _payload(v: torch.Tensor) -> torch.Tensor:
+    """What crosses to the host for ``v``: ``v`` itself, or for bfloat16 its
+    2-byte payload as int16 (numpy and ``Tensor.numpy`` have no bfloat16)."""
+    return v.view(torch.int16) if v.dtype == torch.bfloat16 else v
+
+
+def bfloat16_to_float32(payload: np.ndarray) -> np.ndarray:
+    """bfloat16 values from their 2-byte payload (int16 or uint16) as
+    float32, exactly: a bfloat16 is the upper half of a float32."""
+    return (payload.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
 def _to_numpy(v) -> np.ndarray:
     """A tensor or array as numpy: a copy ``start_fetch`` started is waited
-    for and taken (once); any other tensor is copied now."""
+    for and taken (once); any other tensor is copied now. A bfloat16 tensor
+    comes back as float32 holding its values exactly."""
     if not isinstance(v, torch.Tensor):
         return np.asarray(v)
     started = getattr(v, _HOST_COPY, None)
     if started is None:
-        return v.cpu().numpy()
-    delattr(v, _HOST_COPY)
-    host, done = started
-    done.synchronize()
-    return host.numpy()
+        host = _payload(v).cpu().numpy()
+    else:
+        delattr(v, _HOST_COPY)
+        pinned, done = started
+        done.synchronize()
+        host = pinned.numpy()
+    return bfloat16_to_float32(host) if v.dtype == torch.bfloat16 else host

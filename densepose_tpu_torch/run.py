@@ -7,7 +7,11 @@
 published checkpoint is used when it is cached, else random weights with a
 warning) or a YAML config (``--weights`` for a detectron2 ``.pkl``; random
 weights otherwise). It runs on the CUDA device, and on the CPU with
-``--cpu``; without ``--cpu`` and without a card it raises. A directory is
+``--cpu``; without ``--cpu`` and without a card it raises. It computes in
+the config's ``TPU.COMPUTE_DTYPE`` (float32 by default; ``--opts
+TPU.COMPUTE_DTYPE float16`` or ``bfloat16`` for half precision with the
+reference's fp32 islands), and in float32 whatever the config says with
+``--fp32``. A directory is
 walked image by image, skipping its own ``*_pred`` outputs; a video goes
 through the streaming pipeline (``parallel/pipeline.py``) and is written as
 ``<input>_pred.mp4``.
@@ -30,7 +34,8 @@ from typing import List, Optional
 IMAGE_EXTS = [".jpg", ".png", ".jpeg", ".bmp", ".tif", ".tiff"]
 
 
-def load_predictor(model_path: str, weights: str, opts: List[str], device: str):
+def load_predictor(model_path: str, weights: str, opts: List[str], device: str,
+                   fp32: bool = False):
     from .config import get_cfg
     from .predictor import DensePosePredictor
 
@@ -53,6 +58,8 @@ def load_predictor(model_path: str, weights: str, opts: List[str], device: str):
         cfg.merge_from_file(model_path)
     if opts:
         cfg.merge_from_list(opts)
+    if fp32:
+        cfg.TPU.COMPUTE_DTYPE = "float32"
     cfg.freeze()
     if cfg.TEST.AUG.ENABLED:
         raise NotImplementedError("TEST.AUG.ENABLED: test-time augmentation is not ported yet "
@@ -75,8 +82,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="Checkpoint .pkl (default: the zoo name's, if cached)")
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU")
     parser.add_argument("--fp32", action="store_true",
-                        help="Float32 compute (the only mode the port has; accepted for "
-                             "the JAX CLI's contract)")
+                        help="Force float32 compute, over the config's and --opts' "
+                             "TPU.COMPUTE_DTYPE")
     parser.add_argument("--batch", type=int, default=0,
                         help="Video frames per batch (accepted for the JAX CLI's contract; "
                              "the port runs frame by frame on one device)")
@@ -98,7 +105,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     visualizer = End2EndVisualizer(alpha=0.7, keep_bg=False, mode=args.vis)
     predictor = load_predictor(args.model, args.weights, args.opts,
-                               device="cpu" if args.cpu else "cuda")
+                               device="cpu" if args.cpu else "cuda", fp32=args.fp32)
     if args.profile:
         from .utils.timing import TRACE_FILE, trace_device
         with trace_device(args.profile):

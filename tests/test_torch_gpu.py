@@ -13,7 +13,18 @@ ROIAlign) within 1e-5 of its plain version, which contracts the same weights
 in another order, and 2e-5 of K2, at ratios 1, 2 and 8, M = 0, 1 and 3000,
 and on the edge cases of ``tests/torch_cases.py::k3_edge_cases``; two runs
 the same bits, one launch a call, and no stack frame or spills in ptxas.
+
+At a half dtype (float16, bfloat16): K2<T> bit-identical to K2 on the
+widened levels rounded to T (only its loads and its store change), and to
+its plain version at T; K3<T> within one unit in the last place of T, at the
+output's largest magnitude, of its plain version at T (stage-1 rows rounded
+to T may round the other way where their fp32 sums differ in order). A half
+predictor's outputs: detections in fp32, maps in the dtype, finite; a
+bfloat16 map fetched as float32 equal to the device values widened.
 """
+
+import math
+
 
 import numpy as np
 import pytest
@@ -133,6 +144,61 @@ def test_k1_refuses_too_many_boxes(cuda):
                           torch.ones(1, k, dtype=torch.bool, device=cuda), 0.5)
 
 
+HALF = [torch.float16, torch.bfloat16]
+EPS = {torch.float16: 2.0 ** -10, torch.bfloat16: 2.0 ** -7}  # a unit in the last place at 1
+
+
+def ulp(dtype, t):
+    """One unit in the last place of ``dtype`` at the largest magnitude of ``t``."""
+    return EPS[dtype] * 2.0 ** math.floor(math.log2(max(float(t.abs().max()), 2.0 ** -14)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("ratio,out", [(2, 7), (2, 28), (0, 7)])
+def test_k2_half_is_rounded_float(cuda, dtype, ratio, out):
+    rng = np.random.RandomState(16)
+    feats = [torch.randn(48, 64 // 2 ** i, 96 // 2 ** i, generator=torch.Generator().manual_seed(i))
+             .to(cuda).to(dtype) for i in range(4)]
+    b = torch.from_numpy(boxes_np(rng, 300, 380, 200)).to(cuda)
+    lv = roi_align.assign_boxes_to_levels(b, 2, 5)
+    args = (b, lv, [1 / 4, 1 / 8, 1 / 16, 1 / 32], (out, out), ratio, False)
+    before = roi_align.roi_align_cuda.launches
+    got = roi_align.roi_align_multilevel(feats, *args)
+    upcast = roi_align.roi_align_cuda([f.float() for f in feats], *args)
+    plain = roi_align.roi_align_plain(feats, *args)
+    torch.cuda.synchronize()
+    assert roi_align.roi_align_cuda.launches == before + 2
+    assert got.dtype == plain.dtype == dtype
+    assert torch.equal(got, upcast.to(dtype))
+    assert torch.equal(got, plain)
+    assert float(got.abs().max()) > 0.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("m", [0, 1, 3000])
+def test_k3_half_within_one_ulp(cuda, dtype, m):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(18)
+    feats = [f.to(dtype) for f in k3_pyramid(40, cuda)]
+    b = torch.from_numpy(boxes_np(rng, m, np.float32(K3_IMAGE_HW[::-1]), 200)).to(cuda)
+    lv = roi_align.assign_boxes_to_levels(b, 2, 5)
+    args = (feats, b, lv, K3_SCALES, (7, 7), 2, False)
+    before = roi_align_sparse.roi_align_sparse_cuda.launches
+    got = roi_align_sparse.roi_align_sparse_cuda(*args)
+    again = roi_align_sparse.roi_align_sparse_cuda(*args)
+    want = roi_align_sparse.roi_align_sparse_plain(*args)
+    torch.cuda.synchronize()
+    assert roi_align_sparse.roi_align_sparse_cuda.launches == before + 2 * (m > 0)
+    assert got.dtype == want.dtype == dtype and got.shape == (m, 40, 7, 7)
+    assert torch.equal(got, again)
+    if m:
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= ulp(dtype, want), (err, ulp(dtype, want))
+        assert float(want.abs().max()) > 0.1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("aligned", [False, True])
 def test_k3_matches_plain(cuda, aligned, monkeypatch):
@@ -206,7 +272,7 @@ def test_k3_no_stack_frame(cuda):
     """ptxas keeps K3's tables in shared memory and its sums in registers."""
     report = cuda_build.ptxas_report(cuda_build.build(["roi_align_sparse"])["roi_align_sparse"].log)
     kernels = [k for k in report if k["kernel"].startswith("roi_align_sparse_kernel")]
-    assert len(kernels) == 2, report  # ratio 2, and any ratio
+    assert len(kernels) == 6, report  # float, __half, __nv_bfloat16 x ratio 2, any ratio
     for k in kernels:
         assert (k["stack"], k["spill_stores"], k["spill_loads"]) == (0, 0, 0), k
 
@@ -220,14 +286,14 @@ def test_k3_refuses_cpu_tensors(cuda):
                                                (7, 7), 2, False)
 
 
-def small_flagship_predictor(device):
+def small_flagship_predictor(device, dtype="float32"):
     """The flagship at full width on a small input, with random weights."""
     from densepose_tpu_torch.model_zoo import get_config
     from densepose_tpu_torch.predictor import DensePosePredictor
     cfg = get_config("densepose_rcnn_R_50_FPN_s1x").clone()
     cfg.defrost()
     cfg.merge_from_list(["INPUT.MIN_SIZE_TEST", 128, "INPUT.MAX_SIZE_TEST", 192,
-                         "TEST.DETECTIONS_PER_IMAGE", 20])
+                         "TEST.DETECTIONS_PER_IMAGE", 20, "TPU.COMPUTE_DTYPE", dtype])
     cfg.freeze()
     return DensePosePredictor(cfg, seed=0, device=device)
 
@@ -291,3 +357,52 @@ def test_fetched_maps_do_not_alias_pinned_memory(cuda):
         prefix = bool(out["valid"][:n].all())  # else even copy=False copies
         trimmed = set(got) - {"image_size", "num_instances"}  # the per-detection arrays
         assert aliased == (trimmed if prefix and not copy else set()), aliased
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_half_predictor_on_card(cuda, dtype):
+    """A half predictor on the card: the detections and det_packed in fp32,
+    the maps in the dtype, all finite, through K1 and K2."""
+    pred = small_flagship_predictor(cuda, dtype)
+    frame = (np.random.RandomState(10).rand(96, 128, 3) * 255).astype(np.uint8)
+    k1, k2 = nms.nms_keep_cuda.launches, roi_align.roi_align_cuda.launches
+    out = pred(frame)
+    torch.cuda.synchronize()
+    assert (nms.nms_keep_cuda.launches - k1, roi_align.roi_align_cuda.launches - k2) == (2, 2)
+    half = getattr(torch, dtype)
+    assert {p.dtype for p in pred.model.parameters()} == {half}
+    for k in ("pred_boxes", "scores", "det_packed"):
+        assert out[k].dtype == torch.float32, k
+    maps = [k for k in out if k.startswith("pred_densepose_")]
+    assert len(maps) == 4
+    for k, v in out.items():
+        if k in maps:
+            assert v.dtype == half, k
+        if v.is_floating_point():
+            assert bool(torch.isfinite(v).all()), k
+    assert int(out["num_instances"]) >= 1
+
+
+@pytest.mark.gpu
+def test_bfloat16_fetch_on_card(cuda):
+    """A bfloat16 predictor's maps cross as their 2-byte payload (start_fetch)
+    and come back from numpy_outputs as float32 arrays equal to the device
+    values widened, arrays of their own."""
+    from densepose_tpu_torch.predictor import _HOST_COPY
+    pred = small_flagship_predictor(cuda, "bfloat16")
+    out = pred((np.random.RandomState(12).rand(96, 128, 3) * 255).astype(np.uint8))
+    pred.start_fetch(out)
+    pinned = {k: getattr(v, _HOST_COPY)[0] for k, v in out.items()}
+    assert pinned["pred_densepose_u"].dtype == torch.int16
+    assert pinned["pred_densepose_u"].element_size() == 2
+    got = pred.numpy_outputs(out)
+    n = got["num_instances"]
+    assert n >= 1
+    valid = out["valid"].cpu()
+    for k in ("pred_densepose_coarse_segm", "pred_densepose_fine_segm", "pred_densepose_u",
+              "pred_densepose_v"):
+        assert got[k].dtype == np.float32
+        want = out[k].cpu()[valid[:len(out[k])]].float().numpy()
+        np.testing.assert_array_equal(got[k], want, err_msg=k)
+        assert not np.may_share_memory(got[k], pinned[k].numpy()), k
