@@ -11,11 +11,13 @@ toolkit. Phases, each of which fails the run:
    with the ptxas register / shared-memory report;
 3. kernel checks at the main paths' shapes (a 480x640 frame padded to
    800x1088): each kernel against its plain PyTorch version on the card,
-   K1 (NMS) exactly at the RPN, box-stage and classed sites and at its edge
+   K1 (NMS) exactly at the RPN, box-stage and classed sites, at TTA's
+   class-aware merge (18 views x 100 detections) and at its edge
    cases (word edges, all invalid, all identical, zero area, a sweep across
    the threshold, three classes); K2 (ROIAlign) bit-identical at the box and
-   DensePose poolers and within 1e-5 absolute at ratio 0 (adaptive) on the
-   box pooler's inputs; K3 (the skip-flag ROIAlign, one launch a call)
+   DensePose poolers, also on the pyramids of TTA's largest view (1216x1600)
+   and of a geometry canvas (768x1344), and within 1e-5 absolute at ratio 0
+   (adaptive) on the box pooler's inputs; K3 (the skip-flag ROIAlign, one launch a call)
    within 1e-5 of its plain version and 2e-5 of K2 on the same inputs, two
    runs bit-identical, at the box pooler and at the legacy DensePose pooler,
    and on its edge cases at 7x7 and 14x14 (K1's and K3's edge cases come
@@ -77,11 +79,39 @@ toolkit. Phases, each of which fails the run:
    them); it prints ms per frame of both loops, host ms per frame of
    extraction + blend, bytes fetched per frame with the overlay's
    fetch_keys and without, and the differences of the frames served again;
-6. reference: a narrowed flagship, and a narrowed R101 legacy model with the
+6. geometry: the fp32 flagship with TPU.GEOMETRY_BUCKET_QUANT 64 and tamed
+   detection weights (DETECTION_TAME) on frames of four sizes, two sharing a
+   canvas: each canvas, built on the card, equal to the host's bucketize bit
+   for bit; 2 K1 + 2 K2 per request; one more request a frame with every K1
+   and K2 launch held against its plain version (HeldAgainstPlain); the detections against the exact path's
+   within tests/test_bucketing.py's envelope; each frame's request ms on
+   both paths;
+7. detection buckets: on one fp32 flagship request's features, the switched
+   DensePose stage ({8, 32, D}) and TPU.BUCKETED_DENSEPOSE's stage 2 ({8, 16,
+   32, 64, D}) with the count forced to 5, 12, 20, 50 and 100: each bucket's
+   rows equal the D-slot rows within SERVED_AGAIN_TOL + BUCKET_RTOL of the
+   map's largest magnitude, each bucket's
+   stage-2 device ms; stage 2 at each count with its K2 launches held
+   against the plain version; with cuDNN off (one sample at a time), bucket
+   8's rows within SERVED_AGAIN_TOL of the D-slot rows, the witness that
+   cuDNN's batch-size-dependent algorithms make the gap; then
+   BUCKETED_DENSEPOSE requests (2 K1 + 2 K2 each);
+8. TTA: the flagship with the config's own TEST.AUG (nine scales 400..1200,
+   flips: 18 views) in fp32 and at float16, a warm-up and two timed frames:
+   37 K1 + 36 K2 per request, maps fp32 and finite, the peak memory, one
+   more request with every K1 and K2 launch (the merge's and the 1200 px
+   views' among them) held against its plain version, one
+   profiled request split into TTA's stage 1, merge, stage 2 and reduce;
+   and a single-view TTA (800, 1333, no flip) against the base request: the
+   detections after the merge exact, the maps within SERVED_AGAIN_TOL of the
+   DensePose stage on the merged boxes, and of the base request's maps on
+   the shared detections that pool the same box;
+9. reference: a narrowed flagship, and a narrowed R101 legacy model with the
    sparse pooler, on the card agree with the same models on the CPU (plain
    versions; tests/test_torch_*.py hold those against the JAX package); and
    the same at float16 (flagship) and bfloat16 (legacy), within the half
-   tolerances of reference_check.
+   tolerances of reference_check; and a narrowed flagship under TTA (two
+   scales, flips) and one with TPU.GEOMETRY_BUCKET_QUANT 64, in fp32.
 
 Prints a ``{"kernels": [...]}`` line with one entry per kernel and compute
 dtype (K1 takes fp32 boxes at every dtype: one entry), the nvidia-smi line,
@@ -148,7 +178,9 @@ def cuda_ms(fn, reps, warmup=2):
 def device_ms(torch, fn, reps=20):
     """Device time per call of ``fn``: the device events torch.profiler
     records over ``reps`` back-to-back calls, summed, over ``reps``. Unlike
-    cuda_ms it leaves out the host's time between launches."""
+    cuda_ms it leaves out the host's time between launches. The profiler
+    mirrors each record_function range of the model on the device; those
+    events span kernels already counted and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -158,7 +190,7 @@ def device_ms(torch, fn, reps=20):
             fn()
         torch.cuda.synchronize()
     us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
+             if e.device_type == DeviceType.CUDA and e.name not in STAGES + TTA_STAGES)
     return us / 1e3 / reps
 
 
@@ -185,13 +217,20 @@ def bound(nbytes, ops):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def main_path_shapes(cfg):
+def main_path_shapes(cfg, min_size=None, max_size=None):
+    """The padded input and the FPN levels of a FRAME_HW frame at the
+    config's test resolution, or at ``min_size`` / ``max_size``."""
     from densepose_tpu_torch.models.rcnn import compute_resize, pad_to_divisible
-    _, h1, w1 = compute_resize(*FRAME_HW, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    _, h1, w1 = compute_resize(*FRAME_HW, min_size or cfg.INPUT.MIN_SIZE_TEST,
+                               max_size or cfg.INPUT.MAX_SIZE_TEST)
     hp, wp = pad_to_divisible(h1, w1)
+    return (hp, wp), pyramid_levels(hp, wp)
+
+
+def pyramid_levels(hp, wp):
     levels = {f"p{s}": (hp // 2 ** s, wp // 2 ** s) for s in (2, 3, 4, 5)}
     levels["p6"] = (-(-levels["p5"][0] // 2), -(-levels["p5"][1] // 2))
-    return (hp, wp), levels
+    return levels
 
 
 def clustered_boxes(rng, k, hw):
@@ -203,6 +242,17 @@ def clustered_boxes(rng, k, hw):
     jitter = 1 + 0.15 * rng.randn(n, 5, 4)
     b = np.concatenate([ctr - wh / 2, ctr + wh / 2], 1)[:, None, :] * jitter
     b = b.reshape(-1, 4)[:k]
+    return np.concatenate([np.minimum(b[:, :2], b[:, 2:]), np.maximum(b[:, :2], b[:, 2:])],
+                          1).astype(np.float32)
+
+
+def view_detections(rng, views, d, hw):
+    """The TTA merge's input: ``views`` views' ``d`` detections of the same
+    objects in a frame of size ``hw`` (each view's boxes the same clustered
+    boxes, jittered by 2%), concatenated and in the order of the merge's
+    global score sort (views interleaved)."""
+    b = clustered_boxes(rng, d, hw)[None] * (1 + 0.02 * rng.randn(views, d, 4))
+    b = b.reshape(-1, 4)[rng.permutation(views * d)]
     return np.concatenate([np.minimum(b[:, :2], b[:, 2:]), np.maximum(b[:, :2], b[:, 2:])],
                           1).astype(np.float32)
 
@@ -291,22 +341,33 @@ def kernel_checks(torch, cfg, report, dev):
     (hp, wp), levels = main_path_shapes(cfg)
     rng = np.random.RandomState(0)
 
-    # K1 at its two main-path sites, plus a classed problem
+    # K1 at its two main-path sites, plus a classed problem, plus TTA's
+    # class-aware merge of every view's detections (K = views x D, the
+    # config's own TEST.AUG, at the box stage's threshold)
     rpn_k = cfg.MODEL.RPN.PRE_NMS_TOPK_TEST
     counts = [min(h * w * 3, rpn_k) for h, w in levels.values()]
+    merge_views = len(cfg.TEST.AUG.MIN_SIZES) * (2 if cfg.TEST.AUG.FLIP else 1)
     sites = [
-        ("rpn", len(counts), rpn_k, counts, cfg.MODEL.RPN.NMS_THRESH, False),
+        ("rpn", len(counts), rpn_k, counts, cfg.MODEL.RPN.NMS_THRESH, None, None),
         ("box_stage", 1, cfg.MODEL.RPN.POST_NMS_TOPK_TEST * cfg.MODEL.ROI_HEADS.NUM_CLASSES,
-         None, cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST, False),
-        ("classed", 1, 1000, None, 0.5, True),
+         None, cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST, None, None),
+        ("classed", 1, 1000, None, 0.5, 3, None),
+        ("tta_merge", 1, merge_views * cfg.TEST.DETECTIONS_PER_IMAGE, None,
+         cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST, cfg.MODEL.ROI_HEADS.NUM_CLASSES, merge_views),
     ]
     k1 = []
-    for site, p, k, valid_counts, thr, classed in sites:
-        b = torch.from_numpy(np.stack([clustered_boxes(rng, k, (hp, wp)) for _ in range(p)])).to(dev)
-        v = torch.from_numpy(rng.rand(p, k) > 0.05).to(dev)
+    for site, p, k, valid_counts, thr, n_classes, views in sites:
+        r = rng if views is None else np.random.RandomState(1)
+        if views is None:
+            b = np.stack([clustered_boxes(r, k, (hp, wp)) for _ in range(p)])
+        else:
+            b = view_detections(r, views, k // views, FRAME_HW)[None]
+        b = torch.from_numpy(b).to(dev)
+        v = torch.from_numpy(r.rand(p, k) > 0.05).to(dev)
         if valid_counts is not None:
             v &= torch.arange(k, device=dev)[None] < torch.tensor(valid_counts, device=dev)[:, None]
-        c = torch.from_numpy(rng.randint(0, 3, size=(p, k)).astype(np.int32)).to(dev) if classed else None
+        c = None if n_classes is None else torch.from_numpy(
+            r.randint(0, n_classes, size=(p, k)).astype(np.int32)).to(dev)
         got = nms.nms_keep_cuda(b, v, thr, c)
         want = nms.nms_keep_plain(b, v, thr, c)
         torch.cuda.synchronize()
@@ -358,15 +419,35 @@ def kernel_checks(torch, cfg, report, dev):
     lv = roi_align.assign_boxes_to_levels(boxes, 2, 5)
     dp = cfg.MODEL.ROI_DENSEPOSE_HEAD
     res_b, res_d = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION, dp.POOLER_RESOLUTION
+    ratio_b = cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO
     det = boxes[:cfg.TEST.DETECTIONS_PER_IMAGE].contiguous()
     sites = [
-        ("box_pooler", pyramid, boxes, lv, scales, (res_b, res_b),
-         cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO, 0.0),
+        ("box_pooler", pyramid, boxes, lv, scales, (res_b, res_b), ratio_b, 0.0),
         ("densepose_pooler", pyramid[:1], det,
          torch.zeros(det.shape[0], dtype=torch.int32, device=dev), scales[:1], (res_d, res_d),
          dp.POOLER_SAMPLING_RATIO, 0.0),
         ("box_pooler_ratio0", pyramid, boxes, lv, scales, (res_b, res_b), 0, K2_TOL),
     ]
+    # and both poolers at the other pyramids the slice's paths give K2: TTA's
+    # largest view (the frame at the config's largest TEST.AUG.MIN_SIZES) and
+    # a geometry canvas, each with boxes inside its image
+    rng2 = np.random.RandomState(2)
+    (tp_h, tp_w), _ = main_path_shapes(cfg, max(cfg.TEST.AUG.MIN_SIZES), cfg.TEST.AUG.MAX_SIZE)
+    for tag, (ph, pw) in [(f"tta_{tp_h}x{tp_w}", (tp_h, tp_w)),
+                          (f"geometry_{GEOMETRY_CANVAS[0]}x{GEOMETRY_CANVAS[1]}",
+                           GEOMETRY_CANVAS)]:
+        pyr = [torch.randn(c, h, w, device=dev)
+               for f, (h, w) in pyramid_levels(ph, pw).items() if f != "p6"]
+        bx = torch.from_numpy(clustered_boxes(rng2, box_m, (ph, pw))).to(dev)
+        bx = torch.stack([bx[:, 0].clamp(0, pw), bx[:, 1].clamp(0, ph),
+                          bx[:, 2].clamp(0, pw), bx[:, 3].clamp(0, ph)], 1)
+        dbx = bx[:cfg.TEST.DETECTIONS_PER_IMAGE].contiguous()
+        sites += [
+            (f"{tag}_box_pooler", pyr, bx, roi_align.assign_boxes_to_levels(bx, 2, 5), scales,
+             (res_b, res_b), ratio_b, 0.0),
+            (f"{tag}_densepose_pooler", pyr[:1], dbx,
+             torch.zeros(dbx.shape[0], dtype=torch.int32, device=dev), scales[:1],
+             (res_d, res_d), dp.POOLER_SAMPLING_RATIO, 0.0)]
     k2 = []
     for site, feats, b, l, sc, out_hw, ratio, tol in sites:
         got = roi_align.roi_align_cuda(feats, b, l, sc, out_hw, ratio, False)
@@ -391,6 +472,7 @@ def kernel_checks(torch, cfg, report, dev):
                    "bound_ms": bound_ms,
                    "bound_by": bound_by})
         print(f"K2 roi_align_cuda {site} M={b.shape[0]} {out_hw} C={c} levels={len(feats)} "
+              f"(first {tuple(feats[0].shape[1:])}) "
               f"ratio={ratio}: " + ("bit-identical" if tol == 0.0 else
                                     f"max abs err {err:.3e} (tol {tol})")
               + f"; {ms:.4f} ms (device {dev_ms:.4f})"
@@ -518,7 +600,7 @@ def kernel_checks_half(torch, dtype, k2_sites, k3_sites, edge3, pyramid, scales,
     levels_t = [f.to(t) for f in pyramid]
     k2h, k3h = [], []
     for site, feats, b, l, sc, out_hw, ratio, _ in k2_sites:
-        feats = levels_t[:len(feats)]
+        feats = levels_t[:len(feats)] if feats[0] is pyramid[0] else [f.to(t) for f in feats]
         args = (b, l, sc, out_hw, ratio, False)
         got = roi_align.roi_align_cuda(feats, *args)
         upcast = roi_align.roi_align_cuda([f.float() for f in feats], *args).to(t)
@@ -613,15 +695,17 @@ def check_k3_half(torch, dtype, args, what):
 
 def frames(seed, n):
     rng = np.random.RandomState(seed)
-    out = []
-    for _ in range(n):
-        img = rng.randint(0, 256, size=(*FRAME_HW, 3)).astype(np.uint8)
-        # a smooth blob so the frames are not pure noise
-        yy, xx = np.mgrid[:FRAME_HW[0], :FRAME_HW[1]]
-        cy, cx = rng.rand(2) * FRAME_HW
-        blob = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * 80.0 ** 2))
-        out.append(np.clip(img * 0.3 + blob[..., None] * 180, 0, 255).astype(np.uint8))
-    return out
+    return [synthetic_frame(rng, FRAME_HW) for _ in range(n)]
+
+
+def synthetic_frame(rng, hw):
+    """A frame of size ``hw`` drawn from ``rng``: noise plus a smooth blob,
+    so that it is not pure noise."""
+    img = rng.randint(0, 256, size=(*hw, 3)).astype(np.uint8)
+    yy, xx = np.mgrid[:hw[0], :hw[1]]
+    cy, cx = rng.rand(2) * hw
+    blob = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * 80.0 ** 2))
+    return np.clip(img * 0.3 + blob[..., None] * 180, 0, 255).astype(np.uint8)
 
 
 def path_config(name, extra=()):
@@ -636,6 +720,80 @@ def path_config(name, extra=()):
         node[leaf] = value
     cfg.freeze()
     return cfg
+
+
+def counters():
+    """Each kernel wrapper, whose ``launches`` counts its kernel's launches."""
+    from densepose_tpu_torch.ops import nms, roi_align, roi_align_sparse
+    return {"nms_keep_cuda": nms.nms_keep_cuda, "roi_align_cuda": roi_align.roi_align_cuda,
+            "roi_align_sparse_cuda": roi_align_sparse.roi_align_sparse_cuda}
+
+
+def count_launches(report, tag, dtype, launches, per_request, n_req, what="requests"):
+    """Checks a run's launches against ``per_request`` for ``n_req`` requests
+    and adds them to the kernels line."""
+    for k, n in per_request.items():
+        check(launches[k] == n * n_req, f"{tag}: {launches[k]} {k} launches for {n_req} "
+              f"{what}, expected {n} per request")
+        report[entry_name(k, dtype)]["launches"] += launches[k]
+        report[entry_name(k, dtype)]["launches_per_path"][tag] = launches[k]
+
+
+class HeldAgainstPlain:
+    """Within the block, each K1 and K2 launch a path makes is held against
+    its plain version on the same inputs, as kernel_checks holds its sites:
+    K1's keep flags exact, K2 bit-identical (ratio 0: within K2_TOL, or one
+    unit in the last place of a half dtype). The wrappers are swapped in the
+    modules that dispatch to them and restored on exit; the launches in the
+    block are counted on the held wrappers, apart, and not read."""
+
+    def __init__(self, torch, what):
+        self.torch, self.what = torch, what
+        self.k1, self.k2 = [], []  # (P, K, classed); (M, first level (H, W), dtype)
+
+    def __enter__(self):
+        from densepose_tpu_torch.ops import nms, roi_align
+        torch, what = self.torch, self.what
+        self.mods = (nms, roi_align)
+        self.orig = k1, k2 = nms.nms_keep_cuda, roi_align.roi_align_cuda
+
+        def held_k1(boxes, valid, thr, classes=None):
+            keep = k1(boxes, valid, thr, classes)
+            want = nms.nms_keep_plain(boxes, valid, thr, classes)
+            check(torch.equal(keep, want), f"{what}: K1 at P={boxes.shape[0]} K={boxes.shape[1]}: "
+                  f"{int((keep != want).sum())} keep flags differ from the plain version")
+            self.k1.append((boxes.shape[0], boxes.shape[1], classes is not None))
+            return keep
+
+        def held_k2(feats, boxes, levels, scales, out_hw, ratio, aligned):
+            out = k2(feats, boxes, levels, scales, out_hw, ratio, aligned)
+            want = roi_align.roi_align_plain(feats, boxes, levels, scales, out_hw, ratio, aligned)
+            err = float((out.float() - want.float()).abs().max()) if out.numel() else 0.0
+            dtype = str(feats[0].dtype).split(".")[-1]
+            check(torch.equal(out, want) if ratio else err <= max(K2_TOL, ulp(dtype, want)),
+                  f"{what}: K2 at M={boxes.shape[0]} on {tuple(feats[0].shape)} {dtype}: max abs "
+                  f"error {err} against the plain version")
+            self.k2.append((boxes.shape[0], tuple(feats[0].shape[1:]), dtype))
+            return out
+
+        # a wrapper counts through its module's name, which is now the held
+        # one's: the launches in the block land here and are not read
+        held_k1.launches = held_k2.launches = 0
+        nms.nms_keep_cuda, roi_align.roi_align_cuda = held_k1, held_k2
+        return self
+
+    def __exit__(self, *exc):
+        (nms, roi_align), (k1, k2) = self.mods, self.orig
+        nms.nms_keep_cuda, roi_align.roi_align_cuda = k1, k2
+        return False
+
+    def summary(self):
+        k1 = (f"{len(self.k1)} K1 calls (largest K {max(k for _, k, _ in self.k1)}, "
+              f"{sum(c for *_, c in self.k1)} classed)") if self.k1 else "no K1 call"
+        k2 = (f"{len(self.k2)} K2 calls (first levels up to "
+              f"{max((hw for _, hw, _ in self.k2), key=lambda hw: hw[0] * hw[1])}, M "
+              f"{sorted({m for m, *_ in self.k2})})") if self.k2 else "no K2 call"
+        return f"{k1} and {k2} equal to their plain versions"
 
 
 # (zoo name, config changes, DENSEPOSE_TPU_SPARSE_POOLER set, launches per request)
@@ -660,10 +818,7 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request):
     """One path at full width: a warm-up request, timed requests with the
     launch counters set to 0 just before and read just after, output checks,
     then one profiled request. Returns the predictor."""
-    from densepose_tpu_torch.ops import nms, roi_align, roi_align_sparse
     from densepose_tpu_torch.predictor import DensePosePredictor
-    counters = {"nms_keep_cuda": nms.nms_keep_cuda, "roi_align_cuda": roi_align.roi_align_cuda,
-                "roi_align_sparse_cuda": roi_align_sparse.roi_align_sparse_cuda}
 
     cfg = path_config(name, extra)
     tag = name + (f" with {SPARSE_POOLER}=1" if sparse else "") + "".join(
@@ -679,7 +834,7 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request):
         pred(warm)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
+        for fn in counters().values():
             fn.launches = 0
         outs, lat = [], []
         for img in timed:
@@ -688,7 +843,7 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request):
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t0) * 1e3)
             outs.append(out)
-        launches = {k: fn.launches for k, fn in counters.items()}
+        launches = {k: fn.launches for k, fn in counters().items()}
         peak_mib = torch.cuda.max_memory_allocated() / 2**20
         breakdown(torch, pred, timed[0], float(np.median(lat)))
     finally:
@@ -696,11 +851,7 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request):
 
     n_req = len(timed)
     dtype = path_dtype(extra)
-    for k, n in per_request.items():
-        check(launches[k] == n * n_req, f"{name}: {launches[k]} {k} launches for {n_req} "
-              f"requests, expected {n} per request")
-        report[entry_name(k, dtype)]["launches"] += launches[k]
-        report[entry_name(k, dtype)]["launches_per_path"][tag] = launches[k]
+    count_launches(report, tag, dtype, launches, per_request, n_req)
     d = cfg.TEST.DETECTIONS_PER_IMAGE
     dp = cfg.MODEL.ROI_DENSEPOSE_HEAD
     heat = dp.POOLER_RESOLUTION * 2 * dp.UP_SCALE  # deconv stride 2, then the upsample
@@ -762,6 +913,8 @@ STAGES = ("preprocess", "backbone", "rpn", "box_stage", "postprocess", "decoder"
 
 
 TOP_KERNEL_STAGES = ("rpn", "box_stage")
+# the ranges TTAPredictor.__call__ runs its phases in (tta.py)
+TTA_STAGES = ("tta_stage1", "tta_merge", "tta_stage2", "tta_reduce")
 
 
 def short_kernel_name(name):
@@ -776,12 +929,15 @@ def short_kernel_name(name):
     return name.removeprefix("void ")[:100]
 
 
-def breakdown(torch, pred, img, latency_ms):
+def breakdown(torch, pred, img, latency_ms, stages_of=STAGES, top_stages=TOP_KERNEL_STAGES):
     """One more request under torch.profiler: the device time of each stage
     range, and the device's idle share, both over the profiled request's wall
     time and over ``latency_ms`` (an unprofiled request's); for the RPN and
     box-stage ranges also the three device kernels that take the most time.
     Prints "not measured" when the profiler sees no device activity.
+    ``stages_of``: the ranges to split by (TTA's four for a TTA request: the
+    model's own ranges nest inside them); ``top_stages``: those to list the
+    top kernels of.
 
     A device event belongs to the stage whose range holds the host call that
     launched it (matched by correlation id): the profiler links kernels only
@@ -798,15 +954,16 @@ def breakdown(torch, pred, img, latency_ms):
     wall_ms = next(e for e in host if e.name == "request").time_range.elapsed_us() / 1e3
     # kernels and copies; the profiler also mirrors each range on the device
     device = [e for e in events if e.device_type == DeviceType.CUDA
-              and e.name not in STAGES + ("request",)]
+              and e.name not in STAGES + TTA_STAGES + ("request",)]
     if not device:
         print("breakdown: not measured (the profiler saw no device activity)")
         return
     launched_at = {e.id: e.time_range.start for e in host if e.name.startswith("cu")}
-    ranges = [(e.time_range.start, e.time_range.end, e.name) for e in host if e.name in STAGES]
-    stages = dict.fromkeys(STAGES, 0.0)
-    host_ms = dict.fromkeys(STAGES, 0.0)
-    by_kernel = {s: {} for s in TOP_KERNEL_STAGES}
+    ranges = [(e.time_range.start, e.time_range.end, e.name) for e in host
+              if e.name in stages_of]
+    stages = dict.fromkeys(stages_of, 0.0)
+    host_ms = dict.fromkeys(stages_of, 0.0)
+    by_kernel = {s: {} for s in top_stages}
     for s, end, n in ranges:
         host_ms[n] += (end - s) / 1e3
     outside = 0.0
@@ -954,12 +1111,9 @@ def consumer(torch, report, pred, name, per_request, dtype="float32"):
     per frame of extraction + blend, bytes fetched per frame with fetch_keys
     and without, and the differences of the frames served again."""
     from densepose_tpu_torch import native
-    from densepose_tpu_torch.ops import nms, roi_align, roi_align_sparse
     from densepose_tpu_torch.parallel.pipeline import stream
     from densepose_tpu_torch.predictor import fetch_subset
     from densepose_tpu_torch.visualizer import End2EndVisualizer
-    counters = {"nms_keep_cuda": nms.nms_keep_cuda, "roi_align_cuda": roi_align.roi_align_cuda,
-                "roi_align_sparse_cuda": roi_align_sparse.roi_align_sparse_cuda}
 
     check(native.get_lib() is not None, f"consumer {name}: the native library did not build")
     imgs = frames(7, CONSUMER_FRAMES)
@@ -971,18 +1125,15 @@ def consumer(torch, report, pred, name, per_request, dtype="float32"):
     # rec keeps the views stream hands the overlay: pinned buffers, held
     # until this phase ends
     rec, overlays, kept = RecordingVisualizer(vis), [], KeepOutputs(pred)
-    for fn in counters.values():
+    for fn in counters().values():
         fn.launches = 0
     t0 = time.perf_counter()
     t_frames, steady_s = stream(kept, rec, [f.copy() for f in imgs], overlays.append)
     torch.cuda.synchronize()
     stream_ms = (time.perf_counter() - t0) * 1e3 / len(imgs)
-    launches = {k: fn.launches for k, fn in counters.items()}
-    for k, n in per_request.items():
-        check(launches[k] == n * len(imgs), f"consumer {name}: {launches[k]} {k} launches for "
-              f"{len(imgs)} streamed frames, expected {n} per frame")
-        report[entry_name(k, dtype)]["launches"] += launches[k]
-        report[entry_name(k, dtype)]["launches_per_path"][f"{name} {dtype} consumer"] = launches[k]
+    launches = {k: fn.launches for k, fn in counters().items()}
+    count_launches(report, f"{name} {dtype} consumer", dtype, launches, per_request, len(imgs),
+                   "streamed frames")
     check(len(overlays) == len(rec.outs) == len(imgs), f"consumer {name}: {len(overlays)} "
           f"overlays for {len(imgs)} frames")
 
@@ -1060,13 +1211,17 @@ NARROW = [
     ("INPUT.MIN_SIZE_TEST", 64), ("INPUT.MAX_SIZE_TEST", 96)]
 
 
+# the narrowed TTA of the reference phase: two scales and flips
+REF_TTA = (("TEST.AUG.ENABLED", True), ("TEST.AUG.MIN_SIZES", (64, 80)),
+           ("TEST.AUG.MAX_SIZE", 128), ("TEST.AUG.FLIP", True))
+
 # card against CPU at a half dtype (reference_check): the ranked scores, and
 # the paired detections' maps in units in the last place at their magnitude
 REF_SCORE_TOL = {"float16": 2e-3, "bfloat16": 1e-2}
 REF_MAP_ULPS = 8
 
 
-def reference_check(torch, dev, name, sparse, dtype="float32"):
+def reference_check(torch, dev, name, sparse, dtype="float32", extra=(), hw=(64, 64)):
     """A narrowed zoo model, card against CPU: in fp32 the same detections
     (count and classes exact, boxes and scores within 1e-3) and SIUV maps
     (1e-3). At a half dtype, with the three detection slots of
@@ -1076,20 +1231,27 @@ def reference_check(torch, dev, name, sparse, dtype="float32"):
     scores within REF_SCORE_TOL, and each card detection whose box is within
     test_fp16_mode_runs' envelope (atol 2, rtol 0.1) of a CPU one has that
     one's maps within REF_MAP_ULPS units in the last place; at least one
-    pairs up."""
+    pairs up. ``extra``: more config changes (a TTA config gets a
+    TTAPredictor); ``hw``: the frame's size."""
     from densepose_tpu_torch.predictor import DensePosePredictor
+    from densepose_tpu_torch.tta import TTAPredictor
 
-    extra = NARROW if dtype == "float32" else NARROW + [
+    changes = NARROW if dtype == "float32" else NARROW + [
         ("TPU.COMPUTE_DTYPE", dtype), ("TEST.DETECTIONS_PER_IMAGE", 3)]
-    cfg = path_config(name, extra)
-    img = (np.random.RandomState(21).rand(64, 64, 3) * 255).astype(np.uint8)
+    cfg = path_config(name, list(changes) + list(extra))
+    img = (np.random.RandomState(21).rand(*hw, 3) * 255).astype(np.uint8)
+
+    def predict(device):
+        pred = DensePosePredictor(cfg, seed=5, device=device)
+        return (TTAPredictor(pred) if cfg.TEST.AUG.ENABLED else pred).predict_numpy(img)
+
     if sparse:
         os.environ[SPARSE_POOLER] = "1"
     try:
-        gpu = DensePosePredictor(cfg, seed=5, device=dev).predict_numpy(img)
-        cpu = DensePosePredictor(cfg, seed=5, device="cpu").predict_numpy(img)
+        gpu, cpu = predict(dev), predict("cpu")
     finally:
         os.environ.pop(SPARSE_POOLER, None)
+    name = name + "".join(f", {k}={v}" for k, v in extra)
     n = cpu["num_instances"]
     check(gpu["num_instances"] == n >= 1, f"reference {name}: {gpu['num_instances']} vs {n} "
           "detections")
@@ -1212,6 +1374,378 @@ def half_drift(torch, dev, pred16, dtype):
     torch.cuda.empty_cache()
 
 
+# tests/test_realscale_parity.py's DETECTION_TAME: random weights at full
+# width give every detection a score of ~1 and a box that the clip collapses
+# to the image border; these factors on the detection stage's weights give
+# spread scores and boxes of real size, so a comparison of two paths'
+# detections means something (the JAX package's bucketing and TTA tests use
+# them)
+DETECTION_TAME = {"proposal_generator.rpn_head.anchor_deltas": 0.003,
+                  "roi_heads.box_head.fc1": 0.2, "roi_heads.box_head.fc2": 0.2,
+                  "roi_heads.box_predictor.cls_score": 0.02,
+                  "roi_heads.box_predictor.bbox_pred": 0.01}
+
+
+def tamed_params(cfg, seed=0):
+    """The port's random weights from ``seed`` with DETECTION_TAME applied."""
+    from densepose_tpu_torch.predictor import load_params
+    params = load_params(cfg, seed=seed)
+    for k in params:
+        for prefix, f in DETECTION_TAME.items():
+            if k.startswith(prefix + "."):
+                params[k] = params[k] * np.float32(f)
+    return params
+
+
+
+
+# geometry phase: four frame sizes, two of which share a bucket (480x640 and
+# 470x630 resize to 800x1066 and 799x1072: canvas 832x1088); 360x640 and
+# 640x480 fall in 768x1344 and 1088x832
+GEOMETRY_QUANT = 64
+GEOMETRY_FRAMES = ((480, 640), (470, 630), (360, 640), (640, 480))
+GEOMETRY_CANVAS = (768, 1344)  # the 360x640 frame's; kernel_checks holds K2 there
+GEOMETRY_REPEATS = 3  # requests a frame on each path; the median is printed
+# tests/test_bucketing.py's envelope of the bucketed path against the exact one
+# (the 8 best detections of each: at least half matched within 8 px)
+ENVELOPE = {"count": 3, "box": 8.0, "score": 0.08}
+
+
+def envelope(a, b):
+    """Count drift, worst matched box (px) and score of ``b`` against ``a``
+    (tests/test_bucketing.py's matching of the 8 best detections)."""
+    na, nb = a["num_instances"], b["num_instances"]
+    k = min(na, nb, 8)
+    check(k >= 1, f"envelope: {na} and {nb} detections")
+    d = np.array([np.abs(b["pred_boxes"] - a["pred_boxes"][i]).max(1) for i in range(k)])
+    nearest = d.argmin(1)
+    matched = [i for i in range(k) if d[i, nearest[i]] < ENVELOPE["box"]]
+    check(len(matched) >= max(1, k // 2), f"envelope: {len(matched)} of {k} detections matched")
+    return (abs(na - nb), max(float(d[i, nearest[i]]) for i in matched),
+            max(float(abs(a["scores"][i] - b["scores"][nearest[i]])) for i in matched))
+
+
+def geometry_phase(torch, report, dev):
+    """TPU.GEOMETRY_BUCKET_QUANT 64 on the fp32 flagship with tamed detection
+    weights: each frame's canvas, built on the card from the uploaded frame,
+    equals the host's bucketize bit for bit; the requests launch 2 K1 and 2
+    K2 each (counters 0 just before, read just after); outputs finite; the
+    detections against an exact-path predictor with the same weights within
+    ENVELOPE. Prints each frame's median request ms of GEOMETRY_REPEATS on
+    both paths (after a first pass that met every shape once)."""
+    from densepose_tpu_torch.models.rcnn import image_tensor
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    plain_cfg = path_config(FLAGSHIP)
+    params = tamed_params(plain_cfg)
+    geo = DensePosePredictor(path_config(FLAGSHIP, (("TPU.GEOMETRY_BUCKET_QUANT",
+                                                     GEOMETRY_QUANT),)),
+                             device=dev, params=params)
+    plain = DensePosePredictor(plain_cfg, device=dev, params=params)
+    imgs = [synthetic_frame(np.random.RandomState(40 + i), hw)
+            for i, hw in enumerate(GEOMETRY_FRAMES)]
+    canvases = set()
+    for img in imgs:
+        host, sizes = geo.bucketize(img)
+        canvas, dsizes = geo.model.bucket_canvas(image_tensor(img, dev), GEOMETRY_QUANT)
+        check(torch.equal(canvas.cpu(), torch.from_numpy(host)) and
+              tuple(dsizes) == tuple(int(v) for v in sizes),
+              f"geometry: the device canvas of a {img.shape[:2]} frame differs from the host's")
+        canvases.add(host.shape[:2])
+        geo(img), plain(img)  # every shape once
+    check(len(canvases) == len(imgs) - 1 and GEOMETRY_CANVAS in canvases,
+          f"geometry: canvases {sorted(canvases)}, expected {len(imgs) - 1} (two frames share "
+          f"one) with {GEOMETRY_CANVAS}")
+    with HeldAgainstPlain(torch, "geometry") as held:
+        for img in imgs:
+            geo(img)
+        torch.cuda.synchronize()
+    print(f"geometry: one request a frame, {held.summary()}")
+    torch.cuda.synchronize()
+    outs, ms = {}, {}
+    for pred in (geo, plain):
+        for fn in counters().values():
+            fn.launches = 0
+        outs[pred], ms[pred] = [], []
+        for img in imgs:
+            lat = []
+            for _ in range(GEOMETRY_REPEATS):
+                t0 = time.perf_counter()
+                out = pred(img)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            outs[pred].append(out)
+            ms[pred].append(float(np.median(lat)))
+        if pred is geo:
+            launches = {k: fn.launches for k, fn in counters().items()}
+    count_launches(report, f"{FLAGSHIP} geometry-bucketed", "float32", launches, ON_K2,
+                   len(imgs) * GEOMETRY_REPEATS)
+    worst = [0, 0.0, 0.0]
+    for i, img in enumerate(imgs):
+        g, p = geo.numpy_outputs(outs[geo][i]), plain.numpy_outputs(outs[plain][i])
+        for k, v in g.items():
+            if isinstance(v, np.ndarray) and v.dtype.kind == "f":
+                check(np.isfinite(v).all(), f"geometry: non-finite {k}")
+        check(g["pred_densepose_u"].shape[1:] == p["pred_densepose_u"].shape[1:],
+              f"geometry: maps {g['pred_densepose_u'].shape} vs {p['pred_densepose_u'].shape}")
+        drift = envelope(p, g)
+        worst = [max(a, b) for a, b in zip(worst, drift)]
+        print(f"geometry: {img.shape[0]}x{img.shape[1]} frame on a "
+              f"{'x'.join(map(str, geo.bucketize(img)[0].shape[:2]))} canvas: request "
+              f"{ms[geo][i]:.2f} ms bucketed, {ms[plain][i]:.2f} ms exact; {g['num_instances']} vs "
+              f"{p['num_instances']} detections, count drift {drift[0]}, matched boxes "
+              f"{drift[1]:.3f} px, scores {drift[2]:.4f}")
+    check(worst[0] <= ENVELOPE["count"] and worst[1] < ENVELOPE["box"]
+          and worst[2] < ENVELOPE["score"], f"geometry: envelope {worst} beyond {ENVELOPE}")
+    print(f"geometry: {len(imgs)} frames, canvases equal to the host's, "
+          f"{launches} kernel launches; envelope against the exact path: count drift "
+          f"{worst[0]}, matched boxes {worst[1]:.3f} px, scores {worst[2]:.4f} (limits "
+          f"{ENVELOPE}); request ms bucketed {[round(x, 2) for x in ms[geo]]}, exact "
+          f"{[round(x, 2) for x in ms[plain]]}")
+    del geo, plain, outs
+    torch.cuda.empty_cache()
+
+
+# detection counts forced onto one request's detections, and the buckets
+# each reaches: the switched stage's {8, 32, D} and TPU.BUCKETED_DENSEPOSE's
+# {8, 16, 32, 64, D}
+FORCED_COUNTS = (5, 12, 20, 50, 100)
+# A bucket's rows against the D-slot rows: cuDNN may choose another algorithm
+# for another batch size, which sums each dot product in another order, and
+# the fp32 rounding of a sum scales with its terms: random weights drive the
+# maps to ~600, where an NVIDIA H100 80GB HBM3 (700 W) measured 3.0e-3 at
+# bucket 8, and 0 with cuDNN off (the phase checks that witness each run).
+# So SERVED_AGAIN_TOL plus BUCKET_RTOL of the map's largest magnitude.
+BUCKET_RTOL = 1e-5
+
+
+def detection_bucket_phase(torch, report, dev):
+    """The DensePose stage's detection-count buckets on the card. Random
+    weights give 100 detections a frame, so the count is forced: on one
+    fp32 flagship request's features and boxes, forward_densepose_switched and
+    TPU.BUCKETED_DENSEPOSE's stage 2 run with counts FORCED_COUNTS, and each
+    bucket's rows equal the 100-slot rows within SERVED_AGAIN_TOL plus
+    BUCKET_RTOL of the map's largest magnitude (cuDNN chooses algorithms by
+    batch size); prints each bucket's stage-2 device ms.
+    Then two BUCKETED_DENSEPOSE requests (2 K1 + 2 K2 each)."""
+    from densepose_tpu_torch.models.rcnn import densepose_bucket, image_tensor
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    pred = DensePosePredictor(path_config(FLAGSHIP, (("TPU.BUCKETED_DENSEPOSE", True),)),
+                              seed=0, device=dev)
+    d = pred.cfg.TEST.DETECTIONS_PER_IMAGE
+    img = frames(1, 2)[1]
+    with torch.inference_mode():
+        _, feats, boxes = pred.model.forward_stage1(image_tensor(img, dev))
+        full = pred.model.forward_densepose(feats, boxes)
+        rows = []
+        for count in FORCED_COUNTS:
+            sw_b, two_b = densepose_bucket(count, d), pred.stage2_bucket(count)
+            switched = pred.model.forward_densepose_switched(feats, boxes, count)
+            two = pred.densepose_stage2(feats, boxes, count)
+            err = rel = 0.0
+            for k, v in full.items():
+                check(switched[k].shape[0] == d and two[k].shape[0] == two_b,
+                      f"buckets: {k} rows {switched[k].shape[0]}, {two[k].shape[0]}")
+                check(not bool(switched[k][sw_b:].any()), f"buckets: {k} not zero past {sw_b}")
+                tol = SERVED_AGAIN_TOL + BUCKET_RTOL * float(v.abs().max())
+                for got in (switched[k][:count], two[k][:count]):
+                    e = float((got.float() - v[:count].float()).abs().max())
+                    check(e <= tol, f"buckets: count {count}: {k} rows differ from the "
+                          f"{d}-slot rows by {e} > {tol}")
+                    err, rel = max(err, e), max(rel, e / float(v.abs().max()))
+            two_ms = device_ms(torch, lambda: pred.densepose_stage2(feats, boxes, count), reps=5)
+            sw_ms = device_ms(torch, lambda: pred.model.forward_densepose_switched(
+                feats, boxes, count), reps=5)
+            rows.append((count, two_b, two_ms, sw_b, sw_ms, err, rel))
+        with HeldAgainstPlain(torch, "buckets") as held:
+            for count in FORCED_COUNTS:
+                pred.densepose_stage2(feats, boxes, count)
+            torch.cuda.synchronize()
+        # the witness of the cause: with cuDNN off, convolutions go through
+        # PyTorch's own im2col + GEMM, one sample at a time, so a row cannot
+        # depend on the batch size; the smallest bucket's rows must then
+        # equal the D-slot rows within SERVED_AGAIN_TOL
+        count = FORCED_COUNTS[0]
+        torch.backends.cudnn.enabled = False
+        try:
+            full_nc = pred.model.forward_densepose(feats, boxes)
+            two_nc = pred.densepose_stage2(feats, boxes, count)
+        finally:
+            torch.backends.cudnn.enabled = True
+        gap_nc = max(float((two_nc[k][:count].float() - v[:count].float()).abs().max())
+                     for k, v in full_nc.items())
+        check(gap_nc <= SERVED_AGAIN_TOL, f"buckets: with cuDNN off, bucket "
+              f"{pred.stage2_bucket(count)} rows differ from the {d}-slot rows by {gap_nc}")
+    del full, switched, two, full_nc, two_nc
+    for fn in counters().values():
+        fn.launches = 0
+    n_req, counts = 2, []
+    for img in frames(5, n_req):
+        out = pred(img)
+        torch.cuda.synchronize()
+        n = int(out["num_instances"])
+        counts.append(n)
+        check(out["pred_densepose_u"].shape[0] == pred.stage2_bucket(n),
+              f"buckets: a request of {n} detections has {out['pred_densepose_u'].shape[0]} rows")
+    count_launches(report, f"{FLAGSHIP} BUCKETED_DENSEPOSE", "float32",
+                   {k: fn.launches for k, fn in counters().items()}, ON_K2, n_req)
+    print("buckets: forced counts on one fp32 request's features: "
+          + "; ".join(f"count {c}: TPU.BUCKETED_DENSEPOSE bucket {b} stage 2 {t:.3f} device ms, "
+                      f"switched bucket {sb} {st:.3f} device ms, rows within {e:.2e} of the "
+                      f"{d}-slot rows ({r:.2e} of the map's largest magnitude)"
+                      for c, b, t, sb, st, e, r in rows)
+          + f" (tol {SERVED_AGAIN_TOL} + {BUCKET_RTOL} of the largest magnitude); with cuDNN "
+          f"off, count {FORCED_COUNTS[0]}'s bucket {pred.stage2_bucket(FORCED_COUNTS[0])} rows "
+          f"within {gap_nc:.3e} of the {d}-slot rows (tol {SERVED_AGAIN_TOL}); stage 2 at every "
+          f"count, {held.summary()}; {n_req} BUCKETED_DENSEPOSE requests of {counts} detections")
+    del pred, feats, boxes
+    torch.cuda.empty_cache()
+
+
+def tta_predictor(torch, dev, extra=(), params=None):
+    """The flagship wrapped in a TTAPredictor with the config's own TEST.AUG
+    (MIN_SIZES 400..1200 in nine steps, MAX_SIZE 4000, FLIP), or ``extra``."""
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    from densepose_tpu_torch.tta import TTAPredictor
+    cfg = path_config(FLAGSHIP, (("TEST.AUG.ENABLED", True),) + tuple(extra))
+    return TTAPredictor(DensePosePredictor(cfg, seed=0, device=dev, params=params))
+
+
+TTA_TIMED = 2
+
+
+def tta_phase(torch, report, dev, dtype):
+    """The flagship at full width under TTA (18 views of a 480x640 frame, up
+    to 1200x1600), at ``dtype``: a warm-up and TTA_TIMED distinct frames with
+    the counters 0 just before and read just after (per request: 2 K1 a view
+    and the merge's, 37; 2 K2 a view, 36); outputs finite, maps fp32 of
+    (100, C, 112, 112); the peak memory; then one profiled request split into
+    TTA's stage 1, merge, stage 2 and reduce."""
+    pred = tta_predictor(torch, dev, (("TPU.COMPUTE_DTYPE", dtype),))
+    views = len(pred.min_sizes) * (2 if pred.flip else 1)
+    per_request = {"nms_keep_cuda": 2 * views + 1, "roi_align_cuda": 2 * views,
+                   "roi_align_sparse_cuda": 0}
+    warm, *timed = frames(3, 1 + TTA_TIMED)
+    pred(warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters().values():
+        fn.launches = 0
+    lat, outs = [], []
+    for img in timed:
+        t0 = time.perf_counter()
+        out = pred(img)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    launches = {k: fn.launches for k, fn in counters().items()}
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    count_launches(report, f"{FLAGSHIP} TTA {dtype}", dtype, launches, per_request, len(timed))
+    d, dp = pred.base.cfg.TEST.DETECTIONS_PER_IMAGE, pred.base.cfg.MODEL.ROI_DENSEPOSE_HEAD
+    heat = dp.POOLER_RESOLUTION * 2 * dp.UP_SCALE
+    for i, out in enumerate(outs):
+        n = int(out["num_instances"])
+        check(n >= 1, f"TTA {dtype} request {i}: no detections")
+        for k, v in out.items():
+            if k.startswith("pred_densepose_"):
+                check(v.dtype == torch.float32 and v.shape[0] == d
+                      and v.shape[2:] == (heat, heat), f"TTA {dtype}: {k} {v.dtype} "
+                      f"{tuple(v.shape)}")
+            if v.is_floating_point():
+                check(bool(torch.isfinite(v).all()), f"TTA {dtype} request {i}: non-finite {k}")
+    del outs
+    with HeldAgainstPlain(torch, f"TTA {dtype}") as held:
+        pred(warm)
+        torch.cuda.synchronize()
+    (top_h, top_w), top_levels = main_path_shapes(pred.base.cfg, max(pred.min_sizes),
+                                                  pred.max_size)
+    check((1, views * d, True) in held.k1, f"TTA {dtype}: no K1 call at the merge's "
+          f"K = {views} x {d}, classed")
+    check(any(hw == top_levels["p2"] for _, hw, _ in held.k2),
+          f"TTA {dtype}: no K2 call on the {top_h}x{top_w} view's p2 level")
+    print(f"TTA {dtype}: one request, {held.summary()}")
+    print(f"TTA {dtype}: {views} views of {FRAME_HW[0]}x{FRAME_HW[1]} frames (MIN_SIZES "
+          f"{pred.min_sizes}, MAX_SIZE {pred.max_size}, flip {pred.flip}): request ms "
+          f"{', '.join(f'{x:.2f}' for x in lat)}; kernel launches {launches}; max memory "
+          f"allocated {peak_mib:.1f} MiB")
+    breakdown(torch, pred, timed[0], float(np.median(lat)), TTA_STAGES, ("tta_merge",))
+    del pred
+    torch.cuda.empty_cache()
+
+
+def single_view_tta(torch, dev):
+    """A TTA of one view at the flagship's own resolution (MIN_SIZES (800,),
+    MAX_SIZE 1333, no flip), tamed detection weights: the detections are the
+    base request's after the merge (its class-aware NMS at the test threshold
+    sees the boxes clipped to the frame, so it may drop a base detection;
+    the count dropped is printed), exactly; the maps the DensePose stage on
+    the merged boxes in the view's coordinates within SERVED_AGAIN_TOL. The
+    base request's own maps pool the unclipped network boxes (the
+    reference's discarded clip), and the TTA pools the rescaled boxes scaled
+    back, in fp32: the detections the two share, paired by box, whose pooled
+    box is the same on both (unclipped, and the fp32 round trip exact) hold
+    the base request's maps within SERVED_AGAIN_TOL; the others' difference
+    is printed, the clipped apart from those the round trip moved."""
+    from densepose_tpu_torch.models.rcnn import image_tensor
+    from densepose_tpu_torch.tta import merge_detections
+    pred = tta_predictor(torch, dev, (("TEST.AUG.MIN_SIZES", (800,)),
+                                      ("TEST.AUG.MAX_SIZE", 1333), ("TEST.AUG.FLIP", False)),
+                         params=tamed_params(path_config(FLAGSHIP)))
+    base = pred.base
+    img = frames(1, 2)[1]
+    base_out = base(img)
+    merged = dict(zip(("pred_boxes", "scores", "pred_classes", "valid"), merge_detections(
+        *(base_out[k] for k in ("pred_boxes", "scores", "pred_classes", "valid")),
+        pred.nms_thresh, pred.topk)))
+    want = base.numpy_outputs(dict(merged, image_size=base_out["image_size"],
+                                   num_instances=merged["valid"].sum()))
+    base_np = base.numpy_outputs(base_out)
+    out = pred(img)
+    got = pred.numpy_outputs(out)
+    check(got["num_instances"] == want["num_instances"] >= 1,
+          f"single-view TTA: {got['num_instances']} vs {want['num_instances']} detections")
+    for k in ("pred_boxes", "scores", "pred_classes"):
+        check(np.array_equal(got[k], want[k]), f"single-view TTA: {k} differ from the base's")
+    with torch.inference_mode():
+        res, feats, boxes_net = base.model.forward_stage1(image_tensor(img, dev))
+        _, h1, w1 = base.model.resized_size(*FRAME_HW)
+        scale = torch.tensor([w1 / FRAME_HW[1], h1 / FRAME_HW[0]] * 2, dtype=torch.float32,
+                             device=dev)
+        ref = base.model.forward_densepose(feats, out["pred_boxes"] * scale)
+    err = max(float((out[k] - v.float()).abs().max()) for k, v in ref.items())
+    check(err <= SERVED_AGAIN_TOL, f"single-view TTA: maps differ from the DensePose stage on "
+          f"the merged boxes by {err}")
+    # the base request's maps, paired by box
+    check(torch.equal(res["pred_boxes"], base_out["pred_boxes"]),
+          "single-view TTA: stage 1 run again gave other boxes than the base request")
+    back = torch.tensor([FRAME_HW[1] / w1, FRAME_HW[0] / h1] * 2, dtype=torch.float32,
+                        device=dev)  # the rescale of forward_stage1
+    clipped = (boxes_net * back != res["pred_boxes"]).any(1)[base_out["valid"]].cpu().numpy()
+    net = boxes_net[base_out["valid"]].cpu().numpy()            # rows of base_np
+    pooled = (out["pred_boxes"] * scale)[out["valid"]].cpu().numpy()  # rows of got
+    row_of = {b.tobytes(): j for j, b in enumerate(base_np["pred_boxes"])}
+    maps = [k for k in got if k.startswith("pred_densepose_")]
+    same, rounded, cut = [], [], []
+    for i, b in enumerate(got["pred_boxes"]):
+        j = row_of.get(b.tobytes())
+        check(j is not None, f"single-view TTA: merged box {b} is none of the base's")
+        e = max(float(np.abs(got[k][i] - base_np[k][j]).max()) for k in maps)
+        (same if np.array_equal(pooled[i], net[j]) else cut if clipped[j] else rounded).append(e)
+    check(len(same) >= 1, "single-view TTA: no shared detection pools the same box")
+    check(max(same) <= SERVED_AGAIN_TOL, f"single-view TTA: on {len(same)} detections that pool "
+          f"the same box, the maps differ from the base request's by {max(same)}")
+    print(f"single-view TTA (800, 1333, no flip, tamed weights): {got['num_instances']} "
+          f"detections equal to the base request's {base_np['num_instances']} after the "
+          f"merge ({base_np['num_instances'] - got['num_instances']} dropped by its NMS on "
+          f"the clipped boxes); maps within {err:.3e} of the DensePose "
+          f"stage on the merged boxes (tol {SERVED_AGAIN_TOL}); against the base request's "
+          f"maps, paired by box: {len(same)} detections pooling the same box within "
+          f"{max(same):.3e} (tol {SERVED_AGAIN_TOL}); {len(rounded)} whose box the rescale's "
+          f"fp32 round trip moved by an ulp within {max(rounded, default=0.0):.3e}, and "
+          f"{len(cut)} clipped within {max(cut, default=0.0):.3e} (no gate)")
+    del pred, base, feats, ref, res, boxes_net
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -1273,10 +1807,18 @@ def main():
             half_drift(torch, dev, pred, dtype)
         del pred
         torch.cuda.empty_cache()
+    geometry_phase(torch, report, dev)
+    detection_bucket_phase(torch, report, dev)
+    for dtype in ("float32", "float16"):
+        tta_phase(torch, report, dev, dtype)
+    single_view_tta(torch, dev)
     reference_check(torch, dev, FLAGSHIP, False)
     reference_check(torch, dev, LEGACY, True)
     reference_check(torch, dev, FLAGSHIP, False, "float16")
     reference_check(torch, dev, LEGACY, True, "bfloat16")
+    reference_check(torch, dev, FLAGSHIP, False, extra=REF_TTA)
+    reference_check(torch, dev, FLAGSHIP, False, extra=(("TPU.GEOMETRY_BUCKET_QUANT", 64),),
+                    hw=(60, 80))
 
     print(json.dumps({"kernels": list(report.values())}))
     print(f"nvidia-smi: {smi_line}")

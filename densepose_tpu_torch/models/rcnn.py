@@ -19,6 +19,17 @@ FrozenBN folded (``backbone.bottom_up.stem.conv1.weight``,
 7. with ``TPU.DEVICE_POSTPROCESS``, ``device_postprocess``: the SIUV maps
    collapse into a label map and a UV map on the device.
 
+``forward_bucketed`` (``TPU.GEOMETRY_BUCKET_QUANT``) runs the same stages on
+a geometry-bucket canvas: the resized image at the top left of a canvas
+padded to a multiple of the quantum (``bucket_canvas``), normalized in fp32
+and zeroed outside the resized extent, with the RPN's clip and anchor mask
+at the minimal-pad extent. Inside that extent the input is bitwise the one
+``preprocess`` gives; the wider zero border moves the convolutions' boundary
+effects, so outputs agree with ``forward`` within an envelope, not exactly
+(tests/test_torch_bucketing.py). ``preprocess`` and ``forward_stage1`` take
+a test-resolution override (``min_size`` / ``max_size``), which TTA's views
+use.
+
 Each stage runs inside a ``torch.profiler.record_function`` range of its
 name, so a profile of one request reads the device time of every stage.
 
@@ -35,7 +46,7 @@ postprocess's argmaxes, and every detection output (boxes, scores,
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,8 +86,7 @@ def _check_supported(cfg) -> None:
     if t.COMPUTE_DTYPE not in COMPUTE_DTYPES:
         raise ValueError(f"TPU.COMPUTE_DTYPE {t.COMPUTE_DTYPE!r}: expected one of "
                          f"{sorted(COMPUTE_DTYPES)}")
-    unported = [k for k in ("BUCKETED_DENSEPOSE", "INT8_HEAD", "INT8_BACKBONE", "INT8_RPN", "INT8_PREDICTOR",
-                            "GEOMETRY_BUCKET_QUANT") if t[k]]
+    unported = [k for k in ("INT8_HEAD", "INT8_BACKBONE", "INT8_RPN", "INT8_PREDICTOR") if t[k]]
     if unported:
         raise NotImplementedError(f"TPU.{unported[0]} is not ported yet")
 
@@ -109,39 +119,66 @@ class GeneralizedRCNN(nn.Module):
         spec.update(roi_heads_spec(self.cfg))
         return spec
 
-    def preprocess(self, image_u8: torch.Tensor):
-        """image_u8: (H0, W0, 3) uint8 BGR on the model's device. Returns
-        (padded image (1, 3, Hp, Wp) in the compute dtype, (h1, w1) resized
-        size, (Hp, Wp)). Everything up to the cast runs in fp32, as in the JAX
-        package (rcnn.py:143-155)."""
-        h0, w0 = image_u8.shape[0], image_u8.shape[1]
-        k, h1, w1 = compute_resize(h0, w0, self.cfg.INPUT.MIN_SIZE_TEST,
-                                   self.cfg.INPUT.MAX_SIZE_TEST)
-        hp, wp = pad_to_divisible(h1, w1)
+    def resized_size(self, h0: int, w0: int, min_size: Optional[int] = None,
+                     max_size: Optional[int] = None) -> Tuple[float, int, int]:
+        """(k, h1, w1) of an (h0, w0) frame at the config's test resolution,
+        or at ``min_size`` / ``max_size`` where given (TTA's views)."""
+        return compute_resize(h0, w0, min_size or self.cfg.INPUT.MIN_SIZE_TEST,
+                              max_size or self.cfg.INPUT.MAX_SIZE_TEST)
+
+    def resize_u8(self, image_u8: torch.Tensor, min_size: Optional[int] = None,
+                  max_size: Optional[int] = None) -> torch.Tensor:
+        """The reference's uint8 resize, in network channel order, as fp32
+        holding integers: (h1, w1, 3)."""
+        k, h1, w1 = self.resized_size(image_u8.shape[0], image_u8.shape[1], min_size, max_size)
         x = image_u8
         if self.cfg.INPUT.FORMAT == "RGB":  # defaults.py:81-83
             x = x.flip(-1)
         y = resize_image(x, (h1, w1), scale=(k, k))
         # the reference resizes the uint8 tensor: round-to-nearest-even, clip
-        y = torch.round(y).clamp(0, 255)
+        return torch.round(y).clamp(0, 255)
+
+    def preprocess(self, image_u8: torch.Tensor, min_size: Optional[int] = None,
+                   max_size: Optional[int] = None):
+        """image_u8: (H0, W0, 3) uint8 BGR on the model's device. Returns
+        (padded image (1, 3, Hp, Wp) in the compute dtype, (h1, w1) resized
+        size, (Hp, Wp)). Everything up to the cast runs in fp32, as in the JAX
+        package (rcnn.py:143-155). ``min_size`` / ``max_size`` override the
+        config's test resolution."""
+        y = self.resize_u8(image_u8, min_size, max_size)
+        h1, w1 = y.shape[0], y.shape[1]
+        hp, wp = pad_to_divisible(h1, w1)
         y = (y - self.pixel_mean) / self.pixel_std
         y = torch.nn.functional.pad(y.permute(2, 0, 1), (0, wp - w1, 0, hp - h1))
         return y[None].to(self.compute_dtype).contiguous(), (h1, w1), (hp, wp)
 
-    def forward_stage1(self, image_u8: torch.Tensor):
+    def forward_stage1(self, image_u8: torch.Tensor, min_size: Optional[int] = None,
+                       max_size: Optional[int] = None):
         """Preprocess -> backbone -> RPN -> box stage -> box postprocess.
         Returns (result dict without DensePose, features, boxes_net): the
         detection boxes in network (resized) coordinates feed the DensePose
-        pooler."""
-        cfg = self.cfg
+        pooler. ``min_size`` / ``max_size``: a test-resolution override (TTA's
+        views)."""
         h0, w0 = int(image_u8.shape[0]), int(image_u8.shape[1])
         with record_function("preprocess"):
-            x, (h1, w1), (hp, wp) = self.preprocess(image_u8)
+            x, (h1, w1), (hp, wp) = self.preprocess(image_u8, min_size, max_size)
+        # detector_postprocess's rescale: w0 / w1 in double, then rounded to fp32
+        scale = torch.tensor([w0 / w1, h0 / h1], dtype=torch.float32)
+        return self._detect(x, (hp, wp), None, (h0, w0), scale)
+
+    def _detect(self, x: torch.Tensor, clip_hw: Tuple[int, int], anchor_valid_hw,
+                orig_hw: Tuple[int, int], scale_xy: torch.Tensor):
+        """Backbone -> RPN -> box stage -> box postprocess on a normalized
+        input ``x``; the RPN clips to ``clip_hw`` and masks anchors beyond
+        ``anchor_valid_hw`` (or none); the boxes go back to the original
+        resolution by the fp32 factors ``scale_xy`` (x, y)."""
+        cfg = self.cfg
+        h0, w0 = orig_hw
         with record_function("backbone"):
             features = self.backbone(x)
         with record_function("rpn"):
             proposals, _, pvalid = rpn_forward(self.proposal_generator.rpn_head, features,
-                                               (hp, wp), cfg)
+                                               clip_hw, cfg, anchor_valid_hw)
         with record_function("box_stage"):
             boxes_net, scores, classes, dvalid = box_stage_forward(
                 self.roi_heads, features, proposals, pvalid, cfg)
@@ -149,9 +186,7 @@ class GeneralizedRCNN(nn.Module):
         with record_function("postprocess"):
             # detector_postprocess: rescale to the original resolution, drop
             # empty boxes, clip with the correct (H, W) order
-            sx, sy = w0 / w1, h0 / h1
-            boxes = boxes_net * torch.tensor([sx, sy, sx, sy], dtype=torch.float32,
-                                             device=boxes_net.device)
+            boxes = boxes_net * scale_xy.repeat(2).to(boxes_net.device)
             valid = dvalid & nonempty_boxes(boxes)
             boxes = clip_boxes(boxes, (h0, w0))
             result = {
@@ -164,6 +199,47 @@ class GeneralizedRCNN(nn.Module):
             }
             result["det_packed"] = self.pack_detections(result)
         return result, features, boxes_net
+
+    def bucket_canvas(self, image_u8: torch.Tensor, quant: int):
+        """The geometry-bucket canvas of a frame on its device: the uint8
+        resize at the top left of an (HB, WB, 3) uint8 canvas, HB and WB the
+        resized size rounded up to a multiple of ``quant``, zero elsewhere.
+        Bitwise the host's ``DensePosePredictor.bucketize``. Returns (canvas,
+        (h0, w0, h1, w1))."""
+        h0, w0 = int(image_u8.shape[0]), int(image_u8.shape[1])
+        y = self.resize_u8(image_u8)
+        h1, w1 = y.shape[0], y.shape[1]
+        hb, wb = -(-h1 // quant) * quant, -(-w1 // quant) * quant
+        canvas = torch.zeros((hb, wb, 3), dtype=torch.uint8, device=image_u8.device)
+        canvas[:h1, :w1] = y.to(torch.uint8)
+        return canvas, (h0, w0, h1, w1)
+
+    def preprocess_bucketed(self, canvas_u8: torch.Tensor, h1: int, w1: int) -> torch.Tensor:
+        """A bucket canvas normalized in fp32, zero outside its top-left
+        (h1, w1), cast once: (1, 3, HB, WB) in the compute dtype, bitwise
+        ``preprocess``'s input inside the minimal-pad extent (JAX
+        rcnn.py:244-257)."""
+        x = (canvas_u8.float() - self.pixel_mean) / self.pixel_std
+        inside = torch.zeros(canvas_u8.shape[:2], dtype=torch.bool, device=x.device)
+        inside[:h1, :w1] = True
+        x = torch.where(inside[..., None], x, torch.zeros((), device=x.device))
+        return x.permute(2, 0, 1)[None].to(self.compute_dtype).contiguous()
+
+    def forward_bucketed(self, canvas_u8: torch.Tensor,
+                         sizes: Tuple[int, int, int, int]) -> Dict[str, torch.Tensor]:
+        """Full inference from a geometry-bucket canvas (JAX rcnn.py:259-329):
+        ``canvas_u8`` (HB, WB, 3) uint8 from ``bucket_canvas``, ``sizes`` =
+        (h0, w0, h1, w1). The RPN's swapped clip and its anchor mask use the
+        minimal-pad extent ``pad_to_divisible(h1, w1)``, not the canvas; the
+        boxes rescale by w0 / w1 and h0 / h1 divided in fp32, as the JAX
+        package divides its traced sizes. Outputs as ``forward``'s."""
+        h0, w0, h1, w1 = sizes
+        with record_function("preprocess"):
+            x = self.preprocess_bucketed(canvas_u8, h1, w1)
+        hp, wp = pad_to_divisible(h1, w1)
+        scale = torch.from_numpy(np.float32([w0, h0]) / np.float32([w1, h1]))
+        result, features, boxes_net = self._detect(x, (hp, wp), (hp, wp), (h0, w0), scale)
+        return self._with_densepose(result, features, boxes_net)
 
     @staticmethod
     def pack_detections(result: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -205,7 +281,11 @@ class GeneralizedRCNN(nn.Module):
     def forward(self, image_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Full single-image inference: fixed-size slots + num_instances,
         DensePose maps NCHW (D, C, HEATMAP, HEATMAP)."""
-        result, features, boxes_net = self.forward_stage1(image_u8)
+        return self._with_densepose(*self.forward_stage1(image_u8))
+
+    def _with_densepose(self, result, features, boxes_net) -> Dict[str, torch.Tensor]:
+        """Stage 1's result with the DensePose stage (switched on the count,
+        and collapsed by the device postprocess, as the config says)."""
         if self.cfg.MODEL.DENSEPOSE_ON:
             if self.cfg.TPU.SWITCHED_DENSEPOSE:
                 # the one device-to-host sync of the request

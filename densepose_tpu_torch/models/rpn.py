@@ -6,11 +6,16 @@ then per-level NMS at RPN.NMS_THRESH as ONE launch of kernel K1 with the
 levels as its problems (levels padded to a common K with invalid slots),
 then the global top POST_NMS_TOPK_TEST -> (K, 4) proposals + valid mask,
 exactly the slots of the JAX package.
+
+On a geometry-bucket canvas (``anchor_valid_hw``, rpn.py:60-72 of the JAX
+package) anchors whose centre lies in the bucket's padding are masked out of
+every level's top-k, so the proposal pool is the one the minimally padded
+input would give.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -52,7 +57,10 @@ def rpn_spec(cfg, prefix: str = "proposal_generator.rpn_head") -> Spec:
 
 class RPNHead(nn.Module):
     """StandardRPNHead: shared 3x3 conv + ReLU, then 1x1 objectness and
-    delta convs. Keeps the anchors of the last input geometry on its device."""
+    delta convs. Keeps the anchors of the last ``ANCHOR_CACHE`` input
+    geometries on their device (a TTA request alternates nine)."""
+
+    ANCHOR_CACHE = 32
 
     def __init__(self, cfg):
         super().__init__()
@@ -61,16 +69,20 @@ class RPNHead(nn.Module):
         self.conv = nn.Conv2d(c, c, 3, padding=1)
         self.objectness_logits = nn.Conv2d(c, a, 1)
         self.anchor_deltas = nn.Conv2d(c, a * 4, 1)
-        self._anchors = (None, None)
+        self._anchors: Dict[tuple, List[torch.Tensor]] = {}
 
     def anchors(self, grid_sizes, strides, cfg, device) -> List[torch.Tensor]:
-        key = (tuple(grid_sizes), device)
-        if self._anchors[0] != key:
+        key = (tuple(map(tuple, grid_sizes)), tuple(strides), device)
+        cached = self._anchors.get(key)
+        if cached is None:
             g = cfg.MODEL.ANCHOR_GENERATOR
             anchors = anchors_for_levels(grid_sizes, strides, g.SIZES, g.ASPECT_RATIOS,
                                          g.OFFSET)
-            self._anchors = (key, [torch.from_numpy(a).to(device) for a in anchors])
-        return self._anchors[1]
+            cached = [torch.from_numpy(a).to(device) for a in anchors]
+            if len(self._anchors) >= self.ANCHOR_CACHE:  # drop the oldest geometry
+                del self._anchors[next(iter(self._anchors))]
+            self._anchors[key] = cached
+        return cached
 
 
 def rpn_forward(
@@ -78,11 +90,18 @@ def rpn_forward(
     features: Dict[str, torch.Tensor],
     image_size_hw: Tuple[int, int],
     cfg,
+    anchor_valid_hw: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """features: NCHW maps (batch 1) for cfg.MODEL.RPN.IN_FEATURES;
     image_size_hw: (H_pad, W_pad) of the network input. Returns (proposals
     (K, 4) f32, objectness (K,), valid (K,) bool), K = POST_NMS_TOPK_TEST,
-    sorted by objectness descending."""
+    sorted by objectness descending.
+
+    ``anchor_valid_hw``: (H, W) bound of a geometry-bucket canvas's minimal-pad
+    extent. Anchors whose centre is not below it get the objectness ``_NEG``
+    (after the fp32 cast: -1e30 overflows float16) before the top-k, and those
+    that still enter a level's top-k (a level with fewer unmasked anchors than
+    PRE_NMS_TOPK_TEST) are dropped from ``valid``."""
     in_features: List[str] = list(cfg.MODEL.RPN.IN_FEATURES)
     pre_topk = cfg.MODEL.RPN.PRE_NMS_TOPK_TEST
     post_topk = cfg.MODEL.RPN.POST_NMS_TOPK_TEST
@@ -105,16 +124,25 @@ def rpn_forward(
         deltas = head.anchor_deltas(t)[0].permute(1, 2, 0).reshape(-1, 4)
         hwa = logits.shape[0]
         k = min(hwa, pre_topk)
-        top_scores, top_idx = top_k(logits.float(), k)
+        logits = logits.float()
+        if anchor_valid_hw is not None:
+            vh, vw = anchor_valid_hw
+            cx = (anc[:, 0] + anc[:, 2]) * 0.5
+            cy = (anc[:, 1] + anc[:, 3]) * 0.5
+            logits = torch.where((cx < vw) & (cy < vh), logits, torch.full_like(logits, _NEG))
+        top_scores, top_idx = top_k(logits, k)
         boxes = apply_deltas(deltas[top_idx], anc[top_idx], weights)
 
         pad = max_k - k
         if pad:
             boxes = torch.cat([boxes, boxes.new_zeros((pad, 4))])
             top_scores = torch.cat([top_scores, top_scores.new_full((pad,), _NEG)])
+        valid = torch.arange(max_k, device=device) < k
+        if anchor_valid_hw is not None:
+            valid &= top_scores > _NEG / 2
         lvl_boxes.append(boxes)
         lvl_scores.append(top_scores)
-        lvl_valid.append(torch.arange(max_k, device=device) < k)
+        lvl_valid.append(valid)
 
     boxes = torch.stack(lvl_boxes)     # (L, K, 4)
     scores = torch.stack(lvl_scores)   # (L, K)

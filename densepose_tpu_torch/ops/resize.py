@@ -1,12 +1,15 @@
 """Bilinear resizing with PyTorch ``F.interpolate`` semantics (port of
 densepose_tpu/ops/resize.py).
 
-Two uses on the flagship path:
+Uses:
 
 * the preprocess resize of the uint8 image (``resize_image``): fp32 taps
   from torch's scale-factor coordinate rule and a fp32 lerp per axis, the
   same roundings as the JAX package's ``resize_bilinear_packed`` and
   ``resize_bilinear_np``, so the result is bit-identical to theirs;
+* ``resize_bilinear_np``, the same resize in numpy on the host (a copy of
+  the JAX package's): the geometry-bucket canvas of
+  ``predictor.DensePosePredictor.bucketize``;
 * the decoder and chart-predictor 2x upsamples (``resize_bilinear``), which
   call ``F.interpolate(..., align_corners=False)`` directly.
 
@@ -70,6 +73,21 @@ def resize_image(
     yb = y.index_select(1, torch.from_numpy(j1).to(dev))
     return (ya * torch.from_numpy(v0).to(dev)[None, :, None]
             + yb * torch.from_numpy(v1).to(dev)[None, :, None])
+
+
+def resize_bilinear_np(x: np.ndarray, out_hw: Tuple[int, int],
+                       scale: Optional[Tuple[float, float]] = None) -> np.ndarray:
+    """(H, W, C) uint8 or float array -> (H_out, W_out, C) float32 on the host:
+    the taps and per-element fp32 lerps of ``resize_image`` (two rounded
+    products and one rounded sum, the same in numpy and PyTorch), so the two
+    agree bit for bit."""
+    h_in, w_in = x.shape[:2]
+    h_out, w_out = out_hw
+    sh, sw = scale if scale is not None else (None, None)
+    i0, i1, w0, w1 = _axis_weights(h_in, h_out, sh)
+    y = x[i0].astype(np.float32) * w0[:, None, None] + x[i1].astype(np.float32) * w1[:, None, None]
+    j0, j1, v0, v1 = _axis_weights(w_in, w_out, sw)
+    return y[:, j0] * v0[None, :, None] + y[:, j1] * v1[None, :, None]
 
 
 def resize_bilinear(

@@ -17,6 +17,25 @@ array. What it returns is the caller's own: copies of the valid rows, not
 views of the pinned buffers (only the streaming loop, which draws each frame
 at once and drops it, reads views with ``copy=False``).
 
+Two bucketing modes, as in the JAX package (predictor.py:96-109, 516-588):
+
+* ``TPU.GEOMETRY_BUCKET_QUANT`` q (a multiple of 32): each frame is resized
+  and placed on a canvas whose sides are multiples of q
+  (``GeneralizedRCNN.bucket_canvas``, on the device from the uploaded frame;
+  ``bucketize`` is the same canvas built on the host), and
+  ``forward_bucketed`` serves it. The JAX package buckets to compile one graph
+  per canvas; the port compiles nothing, so here the mode only reproduces
+  the JAX package's numbers on a mixed-size directory, at the cost of the
+  wider canvas;
+* ``TPU.BUCKETED_DENSEPOSE``: stage 1, one host sync on the detection count,
+  then the DensePose stage on the smallest of {8, 16, 32, 64} and D covering
+  it. The maps keep the bucket's rows, not D (``numpy_outputs`` trims to the
+  valid rows either way), and, as in the JAX package, the device
+  postprocess does not run in this mode.
+
+The two are exclusive. ``predict_batch`` takes the per-shape path whatever
+the mode, as the JAX package's does.
+
 Compute dtype (``TPU.COMPUTE_DTYPE``): float32, float16 or bfloat16, the
 JAX package's policy (predictor.py:89-90, 147-152). After loading, every
 float32 parameter is cast to the dtype; the ``pixel_mean``/``pixel_std``
@@ -45,7 +64,9 @@ import torch
 
 from .checkpoint.pkl_loader import align_state_dicts, load_checkpoint_file
 from .checkpoint.transform import fold_state, random_torch_state
-from .models.rcnn import GeneralizedRCNN, build_model, check_image, image_tensor
+from .models.rcnn import (SIZE_DIVISIBILITY, GeneralizedRCNN, build_model, check_image,
+                          image_tensor)
+from .ops.resize import resize_bilinear_np
 
 logger = logging.getLogger(__name__)
 
@@ -83,6 +104,17 @@ class DensePosePredictor:
         torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.cfg = cfg
+        self.bucketed = bool(cfg.TPU.BUCKETED_DENSEPOSE) and cfg.MODEL.DENSEPOSE_ON
+        self.geometry_quant = int(cfg.TPU.GEOMETRY_BUCKET_QUANT)
+        if self.geometry_quant % SIZE_DIVISIBILITY:
+            raise ValueError(f"TPU.GEOMETRY_BUCKET_QUANT {self.geometry_quant} must be a "
+                             f"multiple of the backbone size divisibility ({SIZE_DIVISIBILITY})")
+        if self.geometry_quant and self.bucketed:
+            raise ValueError("TPU.GEOMETRY_BUCKET_QUANT and TPU.BUCKETED_DENSEPOSE are "
+                             "exclusive; TPU.SWITCHED_DENSEPOSE buckets the detection count "
+                             "within a geometry-bucketed request")
+        d = cfg.TEST.DETECTIONS_PER_IMAGE
+        self.buckets = sorted({b for b in (8, 16, 32, 64) if b < d} | {d})
         self.model = build_model(cfg)
         self.compute_dtype = self.model.compute_dtype
         if params is None:
@@ -107,21 +139,64 @@ class DensePosePredictor:
     def __call__(self, image_bgr_u8) -> Dict[str, torch.Tensor]:
         """image: (H, W, 3) uint8 BGR (the run.py contract), numpy or a
         ``stage_input`` tensor. Returns tensors on the device: fixed-size
-        slots + num_instances."""
-        return self.model(image_tensor(image_bgr_u8, self.device))
+        slots + num_instances (under ``TPU.BUCKETED_DENSEPOSE`` the maps hold
+        the bucket's rows)."""
+        image = image_tensor(image_bgr_u8, self.device)
+        if self.geometry_quant:
+            return self.model.forward_bucketed(*self.model.bucket_canvas(image,
+                                                                         self.geometry_quant))
+        if self.bucketed:
+            result, features, boxes_net = self.model.forward_stage1(image)
+            result.update(self.densepose_stage2(features, boxes_net,
+                                                int(result["num_instances"])))  # the one sync
+            return result
+        return self.model(image)
+
+    def stage2_bucket(self, num_valid: int) -> int:
+        """``TPU.BUCKETED_DENSEPOSE``'s bucket: the smallest of
+        ``self.buckets`` that holds ``num_valid`` (at least one slot)."""
+        return next((b for b in self.buckets if b >= max(num_valid, 1)), self.buckets[-1])
+
+    def densepose_stage2(self, features: Dict[str, torch.Tensor], boxes_net: torch.Tensor,
+                         num_valid: int) -> Dict[str, torch.Tensor]:
+        """``TPU.BUCKETED_DENSEPOSE``'s stage 2: the DensePose stage on the
+        first ``stage2_bucket(num_valid)`` detections (valid ones are a
+        score-sorted prefix), maps of that many rows (JAX predictor.py:541-553)."""
+        return self.model.forward_densepose(features,
+                                            boxes_net[:self.stage2_bucket(num_valid)])
+
+    def bucketize(self, image_bgr_u8: np.ndarray):
+        """The geometry-bucket canvas built on the host, a copy of the JAX
+        package's ``bucketize`` (predictor.py:555-575): the reference's uint8
+        resize in numpy, zero-padded to multiples of TPU.GEOMETRY_BUCKET_QUANT.
+        Returns (canvas (HB, WB, 3) uint8, int32 [h0, w0, h1, w1]). Bitwise
+        the canvas ``__call__`` builds on the device."""
+        image = check_image(image_bgr_u8)
+        h0, w0 = image.shape[:2]
+        k, h1, w1 = self.model.resized_size(h0, w0)
+        if self.cfg.INPUT.FORMAT == "RGB":  # defaults.py:81-83
+            image = image[:, :, ::-1]
+        y = resize_bilinear_np(image, (h1, w1), scale=(k, k))
+        q = self.geometry_quant
+        canvas = np.zeros((-(-h1 // q) * q, -(-w1 // q) * q, 3), np.uint8)
+        canvas[:h1, :w1] = np.clip(np.rint(y), 0, 255).astype(np.uint8)
+        return canvas, np.asarray([h0, w0, h1, w1], np.int32)
 
     def predict_numpy(self, image_bgr_u8: np.ndarray) -> Dict[str, np.ndarray]:
         return self.numpy_outputs(self(image_bgr_u8))
 
+    @torch.inference_mode()
     def predict_batch(self, images_bgr_u8: np.ndarray) -> Dict[str, torch.Tensor]:
         """Same-shaped frames (B, H, W, 3) -> outputs stacked to (B, ...). The
-        model serves one frame at a time, so this runs the frames in turn; the
-        stack holds because every output has a fixed size (the DensePose maps
+        model serves one frame at a time, so this runs the frames in turn on
+        the per-shape path (``GeneralizedRCNN.forward``), bypassing both
+        bucketing modes as the JAX package's ``predict_batch`` does; the stack
+        holds because every output then has a fixed size (the DensePose maps
         are padded to D slots whatever bucket a frame takes)."""
         images = np.asarray(images_bgr_u8)
         if images.ndim != 4 or images.shape[-1] != 3:
             raise ValueError(f"expected (B, H, W, 3) frames, got {images.shape}")
-        outs = [self(image) for image in images]
+        outs = [self.model(image_tensor(image, self.device)) for image in images]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     @staticmethod

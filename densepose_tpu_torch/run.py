@@ -16,12 +16,17 @@ walked image by image, skipping its own ``*_pred`` outputs; a video goes
 through the streaming pipeline (``parallel/pipeline.py``) and is written as
 ``<input>_pred.mp4``.
 
+A directory of images of more than one size turns on input-geometry
+bucketing (``TPU.GEOMETRY_BUCKET_QUANT 64``, with a note on stderr) unless
+``--no-bucket``, an explicit ``--opts TPU.GEOMETRY_BUCKET_QUANT``, or a mode
+that manages its own geometry (``TPU.BUCKETED_DENSEPOSE``,
+``TEST.AUG.ENABLED``) says otherwise, so that the port gives the JAX CLI's
+numbers on the same directory. A config with ``TEST.AUG.ENABLED`` runs
+multi-scale + flip test-time augmentation (``tta.py``).
+
 Not ported yet, and refused with the ROADMAP.md item that lifts it: an
-exported ``.npz`` bundle (queue 1, item 9) and test-time augmentation,
-``TEST.AUG.ENABLED`` (item 8). Geometry bucketing (item 4) is not ported
-either: every input size runs exactly, as the JAX CLI's ``--no-bucket``. Nor
-are batched video frames (item 10): ``--batch`` is accepted and a video runs
-frame by frame.
+exported ``.npz`` bundle (queue 1, item 9). Nor are batched video frames
+(item 10): ``--batch`` is accepted and a video runs frame by frame.
 """
 
 from __future__ import annotations
@@ -34,8 +39,40 @@ from typing import List, Optional
 IMAGE_EXTS = [".jpg", ".png", ".jpeg", ".bmp", ".tif", ".tiff"]
 
 
+def scan_dir_sizes(dirpath: str, limit: int = 16):
+    """The decoded (h, w) of up to ``limit`` images of ``dirpath``, stopping
+    at the second size: the probe for a mixed-size directory."""
+    import cv2
+    sizes = set()
+    for name in image_names(dirpath)[:limit]:
+        img = cv2.imread(os.path.join(dirpath, name))
+        if img is not None:
+            sizes.add(img.shape[:2])
+        if len(sizes) > 1:
+            break
+    return sizes
+
+
+def maybe_auto_bucket(cfg, opts: List[str]) -> None:
+    """A mixed-size directory: turn on input-geometry bucketing at quantum 64,
+    as the JAX CLI does (run.py:50-72), unless ``--opts`` set
+    TPU.GEOMETRY_BUCKET_QUANT or the config already buckets or runs TTA."""
+    if opts and "TPU.GEOMETRY_BUCKET_QUANT" in opts:
+        return  # the user decided
+    if cfg.TPU.GEOMETRY_BUCKET_QUANT or cfg.TPU.BUCKETED_DENSEPOSE or cfg.TEST.AUG.ENABLED:
+        return  # already on, or a mode that manages its own geometry
+    cfg.TPU.GEOMETRY_BUCKET_QUANT = 64
+    print("note: mixed-size directory — enabling input-geometry bucketing "
+          "(TPU.GEOMETRY_BUCKET_QUANT 64); pass --no-bucket or --opts "
+          "TPU.GEOMETRY_BUCKET_QUANT 0 for one exact graph per size", file=sys.stderr)
+
+
 def load_predictor(model_path: str, weights: str, opts: List[str], device: str,
-                   fp32: bool = False):
+                   fp32: bool = False, auto_bucket: bool = False):
+    """The CLI's predictor: a ``DensePosePredictor``, wrapped in a
+    ``TTAPredictor`` when the config has ``TEST.AUG.ENABLED``.
+    ``auto_bucket``: the input is a mixed-size directory
+    (``maybe_auto_bucket``)."""
     from .config import get_cfg
     from .predictor import DensePosePredictor
 
@@ -60,11 +97,14 @@ def load_predictor(model_path: str, weights: str, opts: List[str], device: str,
         cfg.merge_from_list(opts)
     if fp32:
         cfg.TPU.COMPUTE_DTYPE = "float32"
+    if auto_bucket:
+        maybe_auto_bucket(cfg, opts)
     cfg.freeze()
+    pred = DensePosePredictor(cfg, weights_path=weights or None, device=device)
     if cfg.TEST.AUG.ENABLED:
-        raise NotImplementedError("TEST.AUG.ENABLED: test-time augmentation is not ported yet "
-                                  "(ROADMAP.md queue 1, item 8)")
-    return DensePosePredictor(cfg, weights_path=weights or None, device=device)
+        from .tta import TTAPredictor
+        pred = TTAPredictor(pred)
+    return pred
 
 
 def image_names(dirpath: str) -> List[str]:
@@ -95,7 +135,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="Overlay: fine-segm labels (the reference's), U/V channels, "
                              "or scored boxes")
     parser.add_argument("--no-bucket", action="store_true",
-                        help="Run every input size exactly (the only mode the port has)")
+                        help="Disable the input-geometry bucketing that a directory of "
+                             "mixed-size images turns on (every size then runs exactly)")
     return parser.parse_args(argv)
 
 
@@ -104,8 +145,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     from .visualizer import End2EndVisualizer
 
     visualizer = End2EndVisualizer(alpha=0.7, keep_bg=False, mode=args.vis)
+    auto_bucket = (not args.no_bucket and os.path.isdir(args.input)
+                   and len(scan_dir_sizes(args.input)) > 1)
     predictor = load_predictor(args.model, args.weights, args.opts,
-                               device="cpu" if args.cpu else "cuda", fp32=args.fp32)
+                               device="cpu" if args.cpu else "cuda", fp32=args.fp32,
+                               auto_bucket=auto_bucket)
     if args.profile:
         from .utils.timing import TRACE_FILE, trace_device
         with trace_device(args.profile):
@@ -124,18 +168,12 @@ def _dispatch(args, predictor, visualizer) -> None:
         names = image_names(args.input)
         if not names:
             sys.exit(f"error: no images in {args.input!r}")
-        sizes = set()
         for i, name in enumerate(names):
             path = os.path.join(args.input, name)
             img = cv2.imread(path)
             if img is None:
                 print(f"warning: skipping unreadable {path}", file=sys.stderr)
                 continue
-            sizes.add(img.shape[:2])
-            if len(sizes) == 2 and not args.no_bucket:
-                print("note: mixed-size directory: every size runs exactly; geometry "
-                      "bucketing is not ported yet (ROADMAP.md queue 1, item 4)",
-                      file=sys.stderr)
             outputs = predictor.numpy_outputs(predictor(img), keys=fetch)
             out_path = "_pred".join(os.path.splitext(path))
             cv2.imwrite(out_path, visualizer.visualize(img, outputs))

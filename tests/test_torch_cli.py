@@ -269,23 +269,18 @@ def test_directory_skips_its_outputs(tmp_path, capsys):
     assert sorted(os.listdir(tmp_path)) == ["f0.png", "f0_pred.png", "f1.png", "f1_pred.png",
                                             "f2.png", "f2_pred.png", "old_pred.png"]
     err = capsys.readouterr().err
-    assert err.count("geometry bucketing is not ported") == 1
+    assert err.count("enabling input-geometry bucketing") == 1
     cli(FLAGSHIP, str(tmp_path), "--no-bucket")  # again: the _pred files stay skipped
     assert len(os.listdir(tmp_path)) == 7
     assert "geometry bucketing" not in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("what", ["npz", "tta"])
+@pytest.mark.parametrize("what", ["npz"])
 def test_refuses_what_is_not_ported(tmp_path, what):
     img_path = tmp_path / "in.jpg"
     cv2.imwrite(str(img_path), image(3))
-    if what == "npz":
-        with pytest.raises(NotImplementedError, match="item 9"):
-            run.main([str(tmp_path / "model.npz"), str(img_path), "--cpu"])
-    else:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            run.main([FLAGSHIP, str(img_path), "--cpu", "--opts", *NARROW_OPTS,
-                      "TEST.AUG.ENABLED", "True"])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        run.main([str(tmp_path / "model.npz"), str(img_path), "--cpu"])
     assert not (tmp_path / "in_pred.jpg").exists()
 
 

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from densepose_tpu_torch.models.rcnn import image_tensor
 from densepose_tpu_torch.ops import cuda_build, nms, roi_align, roi_align_sparse
 from torch_cases import k1_edge_cases, k3_edge_cases  # tests/ is on the path (rootdir insertion)
 
@@ -286,14 +287,15 @@ def test_k3_refuses_cpu_tensors(cuda):
                                                (7, 7), 2, False)
 
 
-def small_flagship_predictor(device, dtype="float32"):
+def small_flagship_predictor(device, dtype="float32", extra=()):
     """The flagship at full width on a small input, with random weights."""
     from densepose_tpu_torch.model_zoo import get_config
     from densepose_tpu_torch.predictor import DensePosePredictor
     cfg = get_config("densepose_rcnn_R_50_FPN_s1x").clone()
     cfg.defrost()
     cfg.merge_from_list(["INPUT.MIN_SIZE_TEST", 128, "INPUT.MAX_SIZE_TEST", 192,
-                         "TEST.DETECTIONS_PER_IMAGE", 20, "TPU.COMPUTE_DTYPE", dtype])
+                         "TEST.DETECTIONS_PER_IMAGE", 20, "TPU.COMPUTE_DTYPE", dtype,
+                         *extra])
     cfg.freeze()
     return DensePosePredictor(cfg, seed=0, device=device)
 
@@ -406,3 +408,85 @@ def test_bfloat16_fetch_on_card(cuda):
         want = out[k].cpu()[valid[:len(out[k])]].float().numpy()
         np.testing.assert_array_equal(got[k], want, err_msg=k)
         assert not np.may_share_memory(got[k], pinned[k].numpy()), k
+
+
+@pytest.mark.gpu
+def test_geometry_canvas_on_card_equals_host(cuda):
+    """TPU.GEOMETRY_BUCKET_QUANT on the card: the canvas the predictor builds
+    from the uploaded frame equals the host's bucketize bit for bit, for
+    frames of three buckets; each request launches 2 K1 and 2 K2."""
+    pred = small_flagship_predictor(cuda, extra=("TPU.GEOMETRY_BUCKET_QUANT", 64))
+    for seed, hw in enumerate([(96, 128), (94, 126), (72, 128), (128, 96)]):
+        frame = (np.random.RandomState(30 + seed).rand(*hw, 3) * 255).astype(np.uint8)
+        want, sizes = pred.bucketize(frame)
+        canvas, dsizes = pred.model.bucket_canvas(image_tensor(frame, cuda), 64)
+        np.testing.assert_array_equal(canvas.cpu().numpy(), want)
+        assert tuple(dsizes) == tuple(int(v) for v in sizes)
+        k1, k2 = nms.nms_keep_cuda.launches, roi_align.roi_align_cuda.launches
+        out = pred(frame)
+        torch.cuda.synchronize()
+        assert (nms.nms_keep_cuda.launches - k1, roi_align.roi_align_cuda.launches - k2) == (2, 2)
+        assert int(out["num_instances"]) >= 1
+        assert all(bool(torch.isfinite(v).all()) for v in out.values() if v.is_floating_point())
+
+
+@pytest.mark.gpu
+def test_forced_detection_buckets_equal_full_rows(cuda):
+    """The switched DensePose stage ({8, D}) and TPU.BUCKETED_DENSEPOSE's stage
+    2 ({8, 16, D}) with the count forced: each bucket's rows equal the
+    D-slot rows within SERVED_AGAIN_TOL (cuDNN may pick batch-size-dependent
+    algorithms)."""
+    pred = small_flagship_predictor(cuda, extra=("TPU.BUCKETED_DENSEPOSE", True))
+    frame = (np.random.RandomState(13).rand(96, 128, 3) * 255).astype(np.uint8)
+    with torch.inference_mode():
+        _, feats, boxes = pred.model.forward_stage1(image_tensor(frame, cuda))
+        full = pred.model.forward_densepose(feats, boxes)
+        d = boxes.shape[0]
+        for count, switched_rows, rows in [(5, 8, 8), (12, 20, 16), (20, 20, 20)]:
+            switched = pred.model.forward_densepose_switched(feats, boxes, count)
+            two_stage = pred.densepose_stage2(feats, boxes, count)
+            for k, v in full.items():
+                assert switched[k].shape[0] == d and two_stage[k].shape[0] == rows, k
+                assert not switched[k][switched_rows:].any(), k
+                for got in (switched[k][:count], two_stage[k][:count]):
+                    np.testing.assert_allclose(got.float().cpu().numpy(),
+                                               v[:count].float().cpu().numpy(),
+                                               rtol=0, atol=SERVED_AGAIN_TOL, err_msg=k)
+
+
+@pytest.mark.gpu
+def test_single_view_tta_equals_base_on_card(cuda):
+    """A TTA of one view at the config's own resolution, no flip: the base
+    request's detections after the merge (its NMS sees the boxes clipped to
+    the frame, so it may drop one) exactly, and maps equal to the DensePose
+    stage on the merged boxes in the view's coordinates within
+    SERVED_AGAIN_TOL."""
+    from densepose_tpu_torch.tta import TTAPredictor, merge_detections
+    pred = small_flagship_predictor(cuda, extra=(
+        "TEST.AUG.ENABLED", True, "TEST.AUG.MIN_SIZES", (128,), "TEST.AUG.MAX_SIZE", 192,
+        "TEST.AUG.FLIP", False))
+    tta = TTAPredictor(pred)
+    frame = (np.random.RandomState(14).rand(96, 128, 3) * 255).astype(np.uint8)
+    base = pred(frame)
+    keys = ("pred_boxes", "scores", "pred_classes", "valid")
+    merged = dict(zip(keys, merge_detections(*(base[k] for k in keys), tta.nms_thresh,
+                                             tta.topk)))
+    want = pred.numpy_outputs(dict(merged, image_size=base["image_size"],
+                                   num_instances=merged["valid"].sum()))
+    k1 = nms.nms_keep_cuda.launches
+    out = tta(frame)
+    torch.cuda.synchronize()
+    assert nms.nms_keep_cuda.launches - k1 == 3  # RPN, box stage, merge
+    got = tta.numpy_outputs(out)
+    assert got["num_instances"] == want["num_instances"] >= 1
+    for k in ("pred_boxes", "scores", "pred_classes"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    with torch.inference_mode():
+        _, feats, _ = pred.model.forward_stage1(image_tensor(frame, cuda))
+        _, h1, w1 = pred.model.resized_size(96, 128)
+        scale = torch.tensor([w1 / 128, h1 / 96] * 2, dtype=torch.float32, device=cuda)
+        ref = pred.model.forward_densepose(feats, out["pred_boxes"] * scale)
+    for k, v in ref.items():
+        assert out[k].dtype == torch.float32
+        np.testing.assert_allclose(out[k].cpu().numpy(), v.float().cpu().numpy(), rtol=0,
+                                   atol=SERVED_AGAIN_TOL, err_msg=k)
