@@ -15,8 +15,10 @@ toolkit. Phases, each of which fails the run:
    class-aware merge (18 views x 100 detections) and at its edge
    cases (word edges, all invalid, all identical, zero area, a sweep across
    the threshold, three classes); K2 (ROIAlign) bit-identical at the box and
-   DensePose poolers, also on the pyramids of TTA's largest view (1216x1600)
-   and of a geometry canvas (768x1344), and within 1e-5 absolute at ratio 0
+   DensePose poolers, also on the pyramids of TTA's largest view (1216x1600),
+   of a geometry canvas (768x1344) and of HRNet-W32's HRFPN (the frame padded
+   to 64, 832x1088: the box pooler over five levels p1..p5, the DensePose
+   pooler on the stride-4 map), and within 1e-5 absolute at ratio 0
    (adaptive) on the box pooler's inputs; K3 (the skip-flag ROIAlign, one launch a call)
    within 1e-5 of its plain version and 2e-5 of K2 on the same inputs, two
    runs bit-identical, at the box pooler and at the legacy DensePose pooler,
@@ -38,7 +40,7 @@ toolkit. Phases, each of which fails the run:
    widened to float, the float kernel, the output rounded to T); and all six
    instantiations of K3 (and of K2) in ptxas, K3's with no stack frame or
    spills;
-4. three paths, each at full width with random weights from seed 0: a
+4. paths, each at full width with random weights from seed 0: a
    DensePosePredictor answers a warm-up request and then distinct synthetic
    frames; outputs finite and of the expected shapes; the kernels' launch
    counters, set to 0 just before the timed requests and read just after,
@@ -56,9 +58,16 @@ toolkit. Phases, each of which fails the run:
    - at half precision (TPU.COMPUTE_DTYPE), the flagship at float16 and the
      R101 legacy path at bfloat16, and, so that K2 and K3 run at both half
      types, DL at bfloat16 and R101 legacy at float16: detections and
-     det_packed in fp32, the DensePose maps in the dtype.
-   After the fp32 flagship's requests, one more with forward hooks prints
-   the largest |output| of each stage (float16 ends at 65504). After the
+     det_packed in fp32, the DensePose maps in the dtype;
+   - densepose_rcnn_HRFPN_HRNet_w32_s1x in fp32 and at float16 (the input
+     padded to 64; the box pooler over p1..p5; the backbone rescaled to
+     unit-variance outputs first, path_params): 2 K1 and 2 K2 per request,
+     and one more request with every K1 and K2 launch held against its plain
+     version (HeldAgainstPlain: K1 exact, K2 bit-identical);
+   - densepose_rcnn_R_50_FPN_s1x_cse: 2 K1 and 2 K2 per request, the
+     embedding and coarse segmentation maps in place of the chart maps.
+   After the fp32 flagship's and HRNet's requests, one more with forward
+   hooks prints the largest |output| of each stage (float16 ends at 65504). After the
    float16 flagship's, the DensePose stage at float16 on an fp32 request's
    features (cast) and boxes drifts under 0.5 std of the fp32 u-logits, and
    the whole request at float16 is printed against the fp32 one;
@@ -79,14 +88,22 @@ toolkit. Phases, each of which fails the run:
    them); it prints ms per frame of both loops, host ms per frame of
    extraction + blend, bytes fetched per frame with the overlay's
    fetch_keys and without, and the differences of the frames served again;
-6. geometry: the fp32 flagship with TPU.GEOMETRY_BUCKET_QUANT 64 and tamed
+6. CSE: R50-CSE with tamed detection weights (DETECTION_TAME) on one frame,
+   2 K1 + 2 K2; visualizer.CseResultExtractor on the card (the SMPL mesh's
+   vertex embeddings computed there, each box's embedding resized on the
+   host, the closest-vertex lookups on the card in row chunks), each lookup
+   timed apart from the host's resizes; then a whole 480x640 frame's pixels
+   looked up, with the chunk size, device ms and peak memory. A sample of
+   both lookups' pixels must choose vertices within CSE_TIE (1 + |p|) of a
+   CPU float64 evaluation's minimum, every index below the vertex count;
+7. geometry: the fp32 flagship with TPU.GEOMETRY_BUCKET_QUANT 64 and tamed
    detection weights (DETECTION_TAME) on frames of four sizes, two sharing a
    canvas: each canvas, built on the card, equal to the host's bucketize bit
    for bit; 2 K1 + 2 K2 per request; one more request a frame with every K1
    and K2 launch held against its plain version (HeldAgainstPlain); the detections against the exact path's
    within tests/test_bucketing.py's envelope; each frame's request ms on
    both paths;
-7. detection buckets: on one fp32 flagship request's features, the switched
+8. detection buckets: on one fp32 flagship request's features, the switched
    DensePose stage ({8, 32, D}) and TPU.BUCKETED_DENSEPOSE's stage 2 ({8, 16,
    32, 64, D}) with the count forced to 5, 12, 20, 50 and 100: each bucket's
    rows equal the D-slot rows within SERVED_AGAIN_TOL + BUCKET_RTOL of the
@@ -96,7 +113,7 @@ toolkit. Phases, each of which fails the run:
    8's rows within SERVED_AGAIN_TOL of the D-slot rows, the witness that
    cuDNN's batch-size-dependent algorithms make the gap; then
    BUCKETED_DENSEPOSE requests (2 K1 + 2 K2 each);
-8. TTA: the flagship with the config's own TEST.AUG (nine scales 400..1200,
+9. TTA: the flagship with the config's own TEST.AUG (nine scales 400..1200,
    flips: 18 views) in fp32 and at float16, a warm-up and two timed frames:
    37 K1 + 36 K2 per request, maps fp32 and finite, the peak memory, one
    more request with every K1 and K2 launch (the merge's and the 1200 px
@@ -106,12 +123,14 @@ toolkit. Phases, each of which fails the run:
    detections after the merge exact, the maps within SERVED_AGAIN_TOL of the
    DensePose stage on the merged boxes, and of the base request's maps on
    the shared detections that pool the same box;
-9. reference: a narrowed flagship, and a narrowed R101 legacy model with the
+10. reference: a narrowed flagship, and a narrowed R101 legacy model with the
    sparse pooler, on the card agree with the same models on the CPU (plain
    versions; tests/test_torch_*.py hold those against the JAX package); and
    the same at float16 (flagship) and bfloat16 (legacy), within the half
-   tolerances of reference_check; and a narrowed flagship under TTA (two
-   scales, flips) and one with TPU.GEOMETRY_BUCKET_QUANT 64, in fp32.
+   tolerances of reference_check; a narrowed flagship under TTA (two
+   scales, flips) and one with TPU.GEOMETRY_BUCKET_QUANT 64, in fp32; a
+   narrowed HRNet (NARROW_HRNET) in fp32 and at float16, and a narrowed
+   R50-CSE in fp32 and at bfloat16.
 
 Prints a ``{"kernels": [...]}`` line with one entry per kernel and compute
 dtype (K1 takes fp32 boxes at every dtype: one entry), the nvidia-smi line,
@@ -133,6 +152,8 @@ H100_FP32_PER_S = 67e12      # fp32 outside the tensor cores, H100 SXM data shee
 FLAGSHIP = "densepose_rcnn_R_50_FPN_s1x"
 LEGACY = "densepose_rcnn_R_101_FPN_s1x_legacy"
 DEEPLAB = "densepose_rcnn_R_50_FPN_DL_s1x"
+HRNET = "densepose_rcnn_HRFPN_HRNet_w32_s1x"
+CSE = "densepose_rcnn_R_50_FPN_s1x_cse"
 SPARSE_POOLER = "DENSEPOSE_TPU_SPARSE_POOLER"
 FRAME_HW = (480, 640)
 TIMED_REQUESTS = 3
@@ -218,12 +239,14 @@ def bound(nbytes, ops):
 
 
 def main_path_shapes(cfg, min_size=None, max_size=None):
-    """The padded input and the FPN levels of a FRAME_HW frame at the
-    config's test resolution, or at ``min_size`` / ``max_size``."""
-    from densepose_tpu_torch.models.rcnn import compute_resize, pad_to_divisible
+    """The padded input (to the config's size divisibility) and the FPN levels
+    of a FRAME_HW frame at the config's test resolution, or at ``min_size`` /
+    ``max_size``."""
+    from densepose_tpu_torch.models.rcnn import (compute_resize, pad_to_divisible,
+                                                 size_divisibility)
     _, h1, w1 = compute_resize(*FRAME_HW, min_size or cfg.INPUT.MIN_SIZE_TEST,
                                max_size or cfg.INPUT.MAX_SIZE_TEST)
-    hp, wp = pad_to_divisible(h1, w1)
+    hp, wp = pad_to_divisible(h1, w1, size_divisibility(cfg))
     return (hp, wp), pyramid_levels(hp, wp)
 
 
@@ -231,6 +254,11 @@ def pyramid_levels(hp, wp):
     levels = {f"p{s}": (hp // 2 ** s, wp // 2 ** s) for s in (2, 3, 4, 5)}
     levels["p6"] = (-(-levels["p5"][0] // 2), -(-levels["p5"][1] // 2))
     return levels
+
+
+def hrfpn_levels(hp, wp):
+    """HRFPN's p1..p5 of an (hp, wp) input padded to 64: strides 4..64."""
+    return {f"p{i + 1}": (hp // 4 // 2 ** i, wp // 4 // 2 ** i) for i in range(5)}
 
 
 def clustered_boxes(rng, k, hw):
@@ -448,6 +476,23 @@ def kernel_checks(torch, cfg, report, dev):
             (f"{tag}_densepose_pooler", pyr[:1], dbx,
              torch.zeros(dbx.shape[0], dtype=torch.int32, device=dev), scales[:1],
              (res_d, res_d), dp.POOLER_SAMPLING_RATIO, 0.0)]
+    # and at HRNet-W32's HRFPN: the box pooler over its five levels p1..p5
+    # (levels 2..6) and the DensePose pooler on its decoder map, on the
+    # 480x640 frame's input padded to 64
+    hcfg = get_config(HRNET)
+    (hh, hw_), _ = main_path_shapes(hcfg)
+    c_h = hcfg.MODEL.HRNET.HRFPN.OUT_CHANNELS
+    pyr = [torch.randn(c_h, h, w, device=dev) for h, w in hrfpn_levels(hh, hw_).values()]
+    bx = torch.from_numpy(clustered_boxes(np.random.RandomState(3), box_m, (hh, hw_))).to(dev)
+    bx = torch.stack([bx[:, 0].clamp(0, hw_), bx[:, 1].clamp(0, hh),
+                      bx[:, 2].clamp(0, hw_), bx[:, 3].clamp(0, hh)], 1)
+    dbx = bx[:cfg.TEST.DETECTIONS_PER_IMAGE].contiguous()
+    sites += [
+        (f"hrfpn_{hh}x{hw_}_box_pooler", pyr, bx, roi_align.assign_boxes_to_levels(bx, 2, 6),
+         [1 / 2 ** (i + 2) for i in range(5)], (res_b, res_b), ratio_b, 0.0),
+        (f"hrfpn_{hh}x{hw_}_densepose_pooler", pyr[:1], dbx,
+         torch.zeros(dbx.shape[0], dtype=torch.int32, device=dev), [1 / 4], (res_d, res_d),
+         dp.POOLER_SAMPLING_RATIO, 0.0)]
     k2 = []
     for site, feats, b, l, sc, out_hw, ratio, tol in sites:
         got = roi_align.roi_align_cuda(feats, b, l, sc, out_hw, ratio, False)
@@ -467,11 +512,13 @@ def kernel_checks(torch, cfg, report, dev):
                                                              False), reps=3, warmup=1)
         bound_ms, bound_by = bound(*roi_align_work(feats, b, l, sc, out_hw, ratio, False))
         was = EARLIER_MS.get(("roi_align_cuda", site))
-        k2.append({"site": site, "shape": [b.shape[0], c, *out_hw], "ratio": ratio,
+        k2.append({"site": site, "shape": [b.shape[0], feats[0].shape[0], *out_hw],
+                   "levels": len(feats), "ratio": ratio,
                    "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms,
                    "bound_by": bound_by})
-        print(f"K2 roi_align_cuda {site} M={b.shape[0]} {out_hw} C={c} levels={len(feats)} "
+        print(f"K2 roi_align_cuda {site} M={b.shape[0]} {out_hw} C={feats[0].shape[0]} "
+              f"levels={len(feats)} "
               f"(first {tuple(feats[0].shape[1:])}) "
               f"ratio={ratio}: " + ("bit-identical" if tol == 0.0 else
                                     f"max abs err {err:.3e} (tol {tol})")
@@ -722,6 +769,25 @@ def path_config(name, extra=()):
     return cfg
 
 
+def path_params(cfg, dev):
+    """The weights a path serves: None (the predictor's random init from seed
+    0), or for HRNet those weights with the backbone rescaled to
+    unit-variance outputs on the warm-up frame in fp32
+    (tests/torch_cases.py::unit_variance_): with the plain init HRNet-W32's
+    activations on these frames reach ~2e6 in fp32 at its depth, past
+    float16's 65504, and a float16 request has no finite detection."""
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    if cfg.MODEL.BACKBONE.NAME != "build_hrfpn_backbone":
+        return None
+    fp32_cfg = cfg.clone()
+    fp32_cfg.defrost()
+    fp32_cfg.TPU.COMPUTE_DTYPE = "float32"
+    fp32 = DensePosePredictor(fp32_cfg, seed=0, device=dev)
+    warm = frames(1, 1)[0]
+    torch_cases().unit_variance_(fp32.model.backbone, lambda: fp32(warm))
+    return {k: v.cpu() for k, v in fp32.model.state_dict().items()}
+
+
 def counters():
     """Each kernel wrapper, whose ``launches`` counts its kernel's launches."""
     from densepose_tpu_torch.ops import nms, roi_align, roi_align_sparse
@@ -749,7 +815,8 @@ class HeldAgainstPlain:
 
     def __init__(self, torch, what):
         self.torch, self.what = torch, what
-        self.k1, self.k2 = [], []  # (P, K, classed); (M, first level (H, W), dtype)
+        # (P, K, classed); (M, first level (H, W), dtype, levels)
+        self.k1, self.k2 = [], []
 
     def __enter__(self):
         from densepose_tpu_torch.ops import nms, roi_align
@@ -773,7 +840,7 @@ class HeldAgainstPlain:
             check(torch.equal(out, want) if ratio else err <= max(K2_TOL, ulp(dtype, want)),
                   f"{what}: K2 at M={boxes.shape[0]} on {tuple(feats[0].shape)} {dtype}: max abs "
                   f"error {err} against the plain version")
-            self.k2.append((boxes.shape[0], tuple(feats[0].shape[1:]), dtype))
+            self.k2.append((boxes.shape[0], tuple(feats[0].shape[1:]), dtype, len(feats)))
             return out
 
         # a wrapper counts through its module's name, which is now the held
@@ -791,8 +858,9 @@ class HeldAgainstPlain:
         k1 = (f"{len(self.k1)} K1 calls (largest K {max(k for _, k, _ in self.k1)}, "
               f"{sum(c for *_, c in self.k1)} classed)") if self.k1 else "no K1 call"
         k2 = (f"{len(self.k2)} K2 calls (first levels up to "
-              f"{max((hw for _, hw, _ in self.k2), key=lambda hw: hw[0] * hw[1])}, M "
-              f"{sorted({m for m, *_ in self.k2})})") if self.k2 else "no K2 call"
+              f"{max((k[1] for k in self.k2), key=lambda hw: hw[0] * hw[1])}, M "
+              f"{sorted({m for m, *_ in self.k2})}, levels "
+              f"{sorted({k[3] for k in self.k2})})") if self.k2 else "no K2 call"
         return f"{k1} and {k2} equal to their plain versions"
 
 
@@ -811,6 +879,11 @@ PATHS = [
     (LEGACY, BF16, True, ON_K3),
     (DEEPLAB, (("TPU.DEVICE_POSTPROCESS", True),) + BF16, False, ON_K2),
     (LEGACY, FP16, True, ON_K3),
+    # HRNet-W32 + HRFPN (the box pooler over p1..p5) in fp32 and at float16,
+    # and R50 with the CSE embedding predictor: 2 K1 + 2 K2 a request each
+    (HRNET, (), False, ON_K2),
+    (HRNET, FP16, False, ON_K2),
+    (CSE, (), False, ON_K2),
 ]
 
 
@@ -824,8 +897,10 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request):
     tag = name + (f" with {SPARSE_POOLER}=1" if sparse else "") + "".join(
         f", {k}={v}" for k, v in extra)
     t0 = time.perf_counter()
-    pred = DensePosePredictor(cfg, seed=0, device=dev)
-    print(f"path {tag}: built with random weights (seed 0) in "
+    params = path_params(cfg, dev)
+    pred = DensePosePredictor(cfg, seed=0, device=dev, params=params)
+    print(f"path {tag}: built with random weights (seed 0"
+          f"{'' if params is None else ', backbone at unit variance'}) in "
           f"{time.perf_counter() - t0:.1f} s")
     warm, *timed = frames(1, 1 + TIMED_REQUESTS)
     if sparse:
@@ -855,8 +930,11 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request):
     d = cfg.TEST.DETECTIONS_PER_IMAGE
     dp = cfg.MODEL.ROI_DENSEPOSE_HEAD
     heat = dp.POOLER_RESOLUTION * 2 * dp.UP_SCALE  # deconv stride 2, then the upsample
-    channels = {"coarse_segm": dp.NUM_COARSE_SEGM_CHANNELS, "fine_segm": dp.NUM_PATCHES + 1,
-                "u": dp.NUM_PATCHES + 1, "v": dp.NUM_PATCHES + 1}
+    if dp.PREDICTOR_NAME == "DensePoseEmbeddingPredictor":
+        channels = {"embedding": dp.CSE.EMBED_SIZE, "coarse_segm": dp.NUM_COARSE_SEGM_CHANNELS}
+    else:
+        channels = {"coarse_segm": dp.NUM_COARSE_SEGM_CHANNELS, "fine_segm": dp.NUM_PATCHES + 1,
+                    "u": dp.NUM_PATCHES + 1, "v": dp.NUM_PATCHES + 1}
     half = getattr(torch, dtype)
     for i, out in enumerate(outs):
         res = pred.numpy_outputs(out)
@@ -887,17 +965,21 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request):
                   f"{name} request {i}: SIUV maps left beside labels and uv")
             shape = tuple(res["pred_densepose_uv"].shape)
         else:
+            check(sorted(k for k in res if k.startswith("pred_densepose_"))
+                  == sorted(f"pred_densepose_{k}" for k in channels),
+                  f"{name} request {i}: maps {sorted(res)}, expected {sorted(channels)}")
             for k, ch in channels.items():
                 v = res[f"pred_densepose_{k}"]
                 check(v.shape == (n, ch, heat, heat), f"{name} request {i}: "
                       f"pred_densepose_{k} shape {v.shape}, expected {(n, ch, heat, heat)}")
-            shape = tuple(res["pred_densepose_u"].shape)
+            shape = {k: tuple(res[f"pred_densepose_{k}"].shape) for k in channels}
         for k, v in res.items():
             if isinstance(v, np.ndarray) and v.dtype.kind == "f":
                 check(np.isfinite(v).all(), f"{name} request {i}: non-finite {k}")
         print(f"path {tag}: request {i}: {lat[i]:.2f} ms, num_instances {n}, "
-              f"{'uv' if cfg.TPU.DEVICE_POSTPROCESS else 'SIUV'} {shape}")
-    print(f"path {tag}: {n_req} requests of {FRAME_HW[0]}x{FRAME_HW[1]} frames: latency ms "
+              f"{'uv' if cfg.TPU.DEVICE_POSTPROCESS else 'maps'} {shape}")
+    print(f"path {tag}: {n_req} requests of {FRAME_HW[0]}x{FRAME_HW[1]} frames (input "
+          f"{'x'.join(map(str, main_path_shapes(cfg)[0]))}): latency ms "
           f"{', '.join(f'{x:.2f}' for x in lat)} (median {np.median(lat):.2f}); "
           f"kernel launches {launches}; max memory allocated {peak_mib:.1f} MiB")
     del outs
@@ -1211,6 +1293,19 @@ NARROW = [
     ("INPUT.MIN_SIZE_TEST", 64), ("INPUT.MAX_SIZE_TEST", 96)]
 
 
+# HRNet narrowed further (tests/test_torch_hrnet.py's): one module of one
+# BasicBlock a branch, branches of 8..64 channels, an HRFPN of 32
+NARROW_HRNET = [
+    ("MODEL.HRNET.STAGE2.NUM_CHANNELS", [8, 16]),
+    ("MODEL.HRNET.STAGE3.NUM_CHANNELS", [8, 16, 32]),
+    ("MODEL.HRNET.STAGE4.NUM_CHANNELS", [8, 16, 32, 64]),
+    ("MODEL.HRNET.STAGE2.NUM_MODULES", 1), ("MODEL.HRNET.STAGE3.NUM_MODULES", 1),
+    ("MODEL.HRNET.STAGE4.NUM_MODULES", 1),
+    ("MODEL.HRNET.STAGE2.NUM_BLOCKS", [1, 1]), ("MODEL.HRNET.STAGE3.NUM_BLOCKS", [1, 1, 1]),
+    ("MODEL.HRNET.STAGE4.NUM_BLOCKS", [1, 1, 1, 1]),
+    ("MODEL.HRNET.HRFPN.OUT_CHANNELS", 32)]
+
+
 # the narrowed TTA of the reference phase: two scales and flips
 REF_TTA = (("TEST.AUG.ENABLED", True), ("TEST.AUG.MIN_SIZES", (64, 80)),
            ("TEST.AUG.MAX_SIZE", 128), ("TEST.AUG.FLIP", True))
@@ -1236,8 +1331,9 @@ def reference_check(torch, dev, name, sparse, dtype="float32", extra=(), hw=(64,
     from densepose_tpu_torch.predictor import DensePosePredictor
     from densepose_tpu_torch.tta import TTAPredictor
 
-    changes = NARROW if dtype == "float32" else NARROW + [
-        ("TPU.COMPUTE_DTYPE", dtype), ("TEST.DETECTIONS_PER_IMAGE", 3)]
+    changes = NARROW + (NARROW_HRNET if name == HRNET else [])
+    if dtype != "float32":
+        changes = changes + [("TPU.COMPUTE_DTYPE", dtype), ("TEST.DETECTIONS_PER_IMAGE", 3)]
     cfg = path_config(name, list(changes) + list(extra))
     img = (np.random.RandomState(21).rand(*hw, 3) * 255).astype(np.uint8)
 
@@ -1261,14 +1357,17 @@ def reference_check(torch, dev, name, sparse, dtype="float32", extra=(), hw=(64,
     # near-equal random-weight scores may swap order: match detections by box
     order = [np.lexsort(r["pred_boxes"].T[::-1]) for r in (gpu, cpu)]
     err = 0.0
-    for k in ("pred_boxes", "scores", "pred_classes", "pred_densepose_coarse_segm",
-              "pred_densepose_fine_segm", "pred_densepose_u", "pred_densepose_v"):
+    maps = sorted(k for k in cpu if k.startswith("pred_densepose_"))
+    check(maps == sorted(k for k in gpu if k.startswith("pred_densepose_")) and len(maps) >= 2,
+          f"reference {name}: maps {maps}")
+    for k in ["pred_boxes", "scores", "pred_classes"] + maps:
         a, b = gpu[k][order[0]], cpu[k][order[1]]
         e = float(np.abs(a.astype(np.float64) - b).max())
         check(e <= (0 if k == "pred_classes" else 1e-3), f"reference {name}: {k} differs by {e}")
         err = max(err, e)
     print(f"reference: narrowed {name}{f' with {SPARSE_POOLER}=1' if sparse else ''} on the "
-          f"card == on the CPU: {n} detections, max abs difference {err:.3e} (tol 1e-3)")
+          f"card == on the CPU: {n} detections, {len(maps)} maps, max abs difference "
+          f"{err:.3e} (tol 1e-3)")
 
 
 def reference_check_half(gpu, cpu, name, sparse, dtype):
@@ -1298,7 +1397,7 @@ def reference_check_half(gpu, cpu, name, sparse, dtype):
           f"(tol {REF_MAP_ULPS} ulp)")
 
 
-def range_report(torch, pred, img):
+def range_report(torch, pred, img, what="flagship"):
     """One fp32 request with a forward hook on every leaf module: the largest
     |output| of each stage, so that a non-finite output at a half dtype can be
     told from a fault of the port (float16 ends at 65504). Returns the
@@ -1308,7 +1407,9 @@ def range_report(torch, pred, img):
     def stage(name):
         parts = name.split(".")
         if parts[0] == "backbone":
-            return "backbone." + (parts[2] if parts[1] == "bottom_up" else "fpn")
+            if parts[1] != "bottom_up":
+                return "backbone.fpn"
+            return "backbone." + (parts[2] if not parts[2].startswith("conv") else "stem")
         return {"proposal_generator": "rpn_head"}.get(parts[0], ".".join(parts[:2]))
 
     def hook(name):
@@ -1327,7 +1428,7 @@ def range_report(torch, pred, img):
         for h in handles:
             h.remove()
     top = max(stages.values())
-    print("range (fp32 flagship request, largest |output| per stage): "
+    print(f"range (fp32 {what} request, largest |output| per stage): "
           + ", ".join(f"{k} {v:.4g}" for k, v in stages.items())
           + f"; largest {top:.4g}, float16's largest finite {FP16_MAX:.0f}")
     return top
@@ -1397,6 +1498,138 @@ def tamed_params(cfg, seed=0):
     return params
 
 
+
+
+# the CSE consumer: pixels whose closest vertex is held against a CPU float64
+# evaluation of the same expression, and the slack allowed there (the card's
+# fp32 dot products round in another order than float64: two vertices whose
+# scores lie that close may trade places), times 1 + |p|
+CSE_SAMPLE = 1000
+CSE_TIE = 1e-5
+
+
+def lookup_gate(pixels, verts, got, what):
+    """CSE_SAMPLE of the looked-up pixels against the float64 argmin of -2
+    p.v + |v|^2 on the CPU: each chosen vertex within CSE_TIE (1 + |p|) of the
+    minimum; every index below the vertex count. Returns (worst slack, share
+    of indices equal to the float64 argmin)."""
+    n = verts.shape[0]
+    check(int(got.max()) < n and int(got.min()) >= 0, f"{what}: an index outside 0..{n - 1}")
+    pick = np.random.RandomState(0).permutation(len(got))[:CSE_SAMPLE]
+    p = pixels[pick].astype(np.float64)
+    v = verts.double().cpu().numpy()
+    scores = -2.0 * p @ v.T + (v * v).sum(1)
+    slack = scores[np.arange(len(pick)), got[pick]] - scores.min(1)
+    limit = CSE_TIE * (1 + np.linalg.norm(p, axis=1))
+    check((slack <= limit).all(), f"{what}: a closest vertex {float(slack.max()):.3e} above "
+          "the float64 minimum")
+    return float(slack.max()), float((got[pick] == scores.argmin(1)).mean())
+
+
+def cse_phase(torch, report, dev):
+    """R50-CSE with tamed detection weights (DETECTION_TAME: boxes of real
+    size, not the whole frame) on one frame: 2 K1 + 2 K2 for the request
+    (counters 0 just before, read just after); CseResultExtractor on the
+    card (vertex embeddings of the SMPL mesh computed there once; each
+    instance's embedding resized to its box on the host and its pixels'
+    closest vertices looked up on the card in chunks), every lookup timed
+    (CUDA events around each call: the pixels' upload and the chunks) apart
+    from the host's resizes; then one lookup of a whole 480x640 frame's
+    pixels with its chunk size, device ms and peak memory. Gates:
+    lookup_gate on the extractor's pixels and on the whole-frame lookup."""
+    from densepose_tpu_torch.models import cse
+    from densepose_tpu_torch.ops.resize import resize_bilinear_np
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    from densepose_tpu_torch.visualizer import CseResultExtractor
+    cfg = path_config(CSE)
+    pred = DensePosePredictor(cfg, device=dev, params=tamed_params(cfg))
+    img = frames(9, 1)[0]
+    keys = {"pred_densepose_embedding", "pred_densepose_coarse_segm"}
+    pred.numpy_outputs(pred(img), keys=keys)
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    out = pred.numpy_outputs(pred(img), keys=keys)
+    launches = {k: fn.launches for k, fn in counters().items()}
+    count_launches(report, f"{CSE} CSE consumer, tamed weights", "float32", launches, ON_K2, 1)
+    n = out["num_instances"]
+    check(n >= 1, "cse: no detections")
+    extractor = CseResultExtractor(pred)
+    mesh = extractor.class_to_mesh[0]
+    t0 = time.perf_counter()
+    verts = extractor.vertices(mesh)
+    torch.cuda.synchronize()
+    verts_ms = (time.perf_counter() - t0) * 1e3
+    n_vert = verts.shape[0]
+
+    lookups, orig = [], cse.closest_vertices
+
+    def timed(pixels, mesh_embeddings, chunk_elements=cse.LOOKUP_CHUNK_ELEMENTS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        idx = orig(pixels, mesh_embeddings, chunk_elements)
+        end.record()
+        torch.cuda.synchronize()
+        lookups.append((pixels.shape[0], start.elapsed_time(end),
+                        (time.perf_counter() - t0) * 1e3))
+        return idx
+
+    cse.closest_vertices = timed
+    try:
+        extractor(out)  # warm-up
+        lookups.clear()
+        t0 = time.perf_counter()
+        results, boxes = extractor(out)
+        total_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        cse.closest_vertices = orig
+    check(len(results) == n and len(lookups) == n, f"cse: {len(results)} results and "
+          f"{len(lookups)} lookups for {n} detections")
+    pixels, got = [], []
+    for i, res in enumerate(results):
+        x, y, w, h = [int(q) for q in boxes[i]]
+        emb = np.transpose(out["pred_densepose_embedding"][i], (1, 2, 0)).astype(np.float32)
+        emb = resize_bilinear_np(emb, (max(h, 1), max(w, 1))).reshape(-1, emb.shape[-1])
+        m = res["mask"].reshape(-1)
+        check(res["closest_vertices"].shape == res["mask"].shape, "cse: result shapes")
+        pixels.append(emb[m])
+        got.append(res["closest_vertices"].reshape(-1)[m])
+    pixels, got = np.concatenate(pixels), np.concatenate(got)
+    check(len(got) >= CSE_SAMPLE, f"cse: only {len(got)} foreground pixels")
+    slack, agree = lookup_gate(pixels, verts, got, "cse extractor")
+    sizes = [int(p) for p, _, _ in lookups]
+    lookup_dev = sum(ms for _, ms, _ in lookups)
+    lookup_wall = sum(ms for _, _, ms in lookups)
+
+    # one whole frame's pixels: the size the chunks are for
+    emb0 = np.transpose(out["pred_densepose_embedding"][0], (1, 2, 0)).astype(np.float32)
+    whole = resize_bilinear_np(emb0, FRAME_HW).reshape(-1, emb0.shape[-1])
+    whole_dev = torch.from_numpy(whole).to(dev)
+    rows = max(1, cse.LOOKUP_CHUNK_ELEMENTS // n_vert)
+    cse.closest_vertices(whole_dev, verts)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    whole_ms = cuda_ms(lambda: cse.closest_vertices(whole_dev, verts), reps=3, warmup=0)
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    whole_idx = cse.closest_vertices(whole_dev, verts).cpu().numpy()
+    w_slack, w_agree = lookup_gate(whole, verts, whole_idx, "cse whole-frame lookup")
+    print(f"cse: {CSE} with tamed detection weights, one {FRAME_HW[0]}x{FRAME_HW[1]} frame: "
+          f"{n} detections, kernel launches {launches}; mesh {mesh} ({n_vert} vertices), vertex "
+          f"embeddings on the card in {verts_ms:.2f} ms (first call); extractor "
+          f"{total_ms:.2f} ms: {len(lookups)} lookups of {sum(sizes)} pixels (boxes "
+          f"{min(sizes)}..{max(sizes)} pixels) {lookup_dev:.3f} device ms ({lookup_wall:.2f} "
+          f"ms of host wall), host resizes and masks {total_ms - lookup_wall:.2f} ms; "
+          f"{CSE_SAMPLE} foreground pixels within {slack:.3e} of the float64 minimum (limit "
+          f"{CSE_TIE} (1 + |p|)), {agree:.4f} equal to its argmin")
+    print(f"cse: whole-frame lookup, {len(whole)} pixels x {n_vert} vertices in chunks of "
+          f"{rows} rows ({rows * n_vert * 4 / 2 ** 20:.1f} MiB of fp32 scores a chunk): "
+          f"{whole_ms:.3f} ms (CUDA events, the pixels on the card), peak memory above the "
+          f"inputs {peak_mib:.1f} MiB; {CSE_SAMPLE} pixels within {w_slack:.3e} of the float64 "
+          f"minimum, {w_agree:.4f} equal to its argmin")
+    del pred, whole_dev
+    torch.cuda.empty_cache()
 
 
 # geometry phase: four frame sizes, two of which share a bucket (480x640 and
@@ -1660,7 +1893,7 @@ def tta_phase(torch, report, dev, dtype):
                                                   pred.max_size)
     check((1, views * d, True) in held.k1, f"TTA {dtype}: no K1 call at the merge's "
           f"K = {views} x {d}, classed")
-    check(any(hw == top_levels["p2"] for _, hw, _ in held.k2),
+    check(any(hw == top_levels["p2"] for _, hw, *_ in held.k2),
           f"TTA {dtype}: no K2 call on the {top_h}x{top_w} view's p2 level")
     print(f"TTA {dtype}: one request, {held.summary()}")
     print(f"TTA {dtype}: {views} views of {FRAME_HW[0]}x{FRAME_HW[1]} frames (MIN_SIZES "
@@ -1805,8 +2038,20 @@ def main():
             consumer(torch, report, pred, name, per_request, dtype)
         if (name, dtype) == (FLAGSHIP, "float16"):
             half_drift(torch, dev, pred, dtype)
+        if (name, dtype) == (HRNET, "float32"):
+            top = range_report(torch, pred, frames(1, 1)[0], "HRNet-W32")
+            check(np.isfinite(top), "range: a non-finite activation in the HRNet request")
+        if name == HRNET:  # every launch of one more request against the plain versions
+            with HeldAgainstPlain(torch, f"{name} {dtype}") as held:
+                pred(frames(1, 1)[0])
+                torch.cuda.synchronize()
+            check(len(held.k1) == 2 and len(held.k2) == 2
+                  and sorted(k[3] for k in held.k2) == [1, 5],
+                  f"{name} {dtype}: held {held.k1} K1 and {held.k2} K2 calls")
+            print(f"held: one {name} {dtype} request, {held.summary()}")
         del pred
         torch.cuda.empty_cache()
+    cse_phase(torch, report, dev)
     geometry_phase(torch, report, dev)
     detection_bucket_phase(torch, report, dev)
     for dtype in ("float32", "float16"):
@@ -1819,6 +2064,10 @@ def main():
     reference_check(torch, dev, FLAGSHIP, False, extra=REF_TTA)
     reference_check(torch, dev, FLAGSHIP, False, extra=(("TPU.GEOMETRY_BUCKET_QUANT", 64),),
                     hw=(60, 80))
+    reference_check(torch, dev, HRNET, False)
+    reference_check(torch, dev, HRNET, False, "float16")
+    reference_check(torch, dev, CSE, False)
+    reference_check(torch, dev, CSE, False, "bfloat16")
 
     print(json.dumps({"kernels": list(report.values())}))
     print(f"nvidia-smi: {smi_line}")

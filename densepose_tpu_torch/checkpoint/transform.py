@@ -8,7 +8,10 @@
   bias (the port of ``densepose_tpu/ops/norms.py::fold_frozen_bn`` on OIHW
   kernels). The port always folds: its backbone convs carry a bias and no
   norm module.
-* ``fold_state``: reference state dict -> the port's module state dict.
+* ``fold_state``: reference state dict -> the port's module state dict,
+  folding each FrozenBN into its conv: detectron2's ``X.norm`` children and
+  HRNet's siblings (``conv1``/``bn1``, Sequential ``.0``/``.1``:
+  ``bn_base_for``).
 * ``params_from_jax``: the JAX package's param dict -> the port's module
   state dict, undoing the layout transforms of
   ``densepose_tpu/checkpoint/transform.py::torch_state_to_jax``.
@@ -70,11 +73,36 @@ def fold_frozen_bn(
     return w.astype(np.float32), b.astype(np.float32)
 
 
+def bn_base_for(conv_base: str) -> Optional[str]:
+    """The base name of the BatchNorm HRNet pairs with conv ``conv_base`` as a
+    sibling (upstream naming: ``conv{N}`` -> ``bn{N}``, a Sequential's ``.0``
+    -> ``.1``), or None (a copy of the JAX package's
+    ``models/hrnet.py::_bn_base_for``)."""
+    head, _, tail = conv_base.rpartition(".")
+    if tail.startswith("conv"):
+        return f"{head}.bn{tail[4:]}"
+    if tail == "0":
+        return f"{head}.1"
+    return None
+
+
+def _frozen_bn_of(base: str, spec: Spec) -> Optional[str]:
+    """The FrozenBN folded into conv ``base``: its ``.norm`` child, or its
+    HRNet sibling (``bn_base_for``) where the spec has that BN's statistics."""
+    if f"{base}.norm.running_mean" in spec:
+        return f"{base}.norm"
+    bn = bn_base_for(base)
+    return bn if bn is not None and f"{bn}.running_mean" in spec else None
+
+
 def fold_state(state: StateDict, spec: Spec) -> StateDict:
     """Reference state dict -> the port's module state dict: every conv with a
-    ``.norm.running_mean`` in the spec gets its FrozenBN folded into a weight
-    and a bias. Missing spec entries are zero-filled (norm scales and
-    variances one-filled), as the reference's strict=False load does."""
+    FrozenBN in the spec (a ``.norm`` child, or an HRNet sibling,
+    ``_frozen_bn_of``) gets it folded into a weight and a bias, in float64 as
+    the JAX package folds both (``torch_state_to_jax``, ``hrnet_fold_bn``), so
+    the folded weights are the JAX package's bits. Missing spec entries are
+    zero-filled (``.norm`` scales and variances one-filled), as the
+    reference's strict=False load and the JAX package's loader do."""
 
     def get(name: str, ps: ParamSpec) -> np.ndarray:
         if name in state:
@@ -86,15 +114,15 @@ def fold_state(state: StateDict, spec: Spec) -> StateDict:
             return np.ones(ps.shape, dtype=np.float32)
         return np.zeros(ps.shape, dtype=np.float32)
 
-    frozen_bn_convs = {name[: -len(".norm.running_mean")]
-                       for name in spec if name.endswith(".norm.running_mean")}
     out: StateDict = {}
     handled = set()
     for name, ps in spec.items():
         if name in handled:
             continue
-        base = name[: -len(".weight")] if name.endswith(".weight") else None
-        if base in frozen_bn_convs and ps.kind == "conv":
+        bn = _frozen_bn_of(name[: -len(".weight")], spec) \
+            if ps.kind == "conv" and name.endswith(".weight") else None
+        if bn is not None:
+            base = name[: -len(".weight")]
             bias_name = f"{base}.bias"
             b = None
             if bias_name in spec:
@@ -102,7 +130,7 @@ def fold_state(state: StateDict, spec: Spec) -> StateDict:
                 handled.add(bias_name)
             norm = {}
             for sfx in ("weight", "bias", "running_mean", "running_var"):
-                n = f"{base}.norm.{sfx}"
+                n = f"{bn}.{sfx}"
                 norm[sfx] = get(n, spec[n])
                 handled.add(n)
             out[name], out[bias_name] = fold_frozen_bn(
@@ -118,10 +146,14 @@ def params_from_jax(jax_params: Dict[str, np.ndarray]) -> StateDict:
 
     Inverts ``torch_state_to_jax``'s layouts: HWIO -> OIHW for convs, the
     spatially flipped forward-conv form (kh, kw, Cin, Cout) -> (Cin, Cout, kh,
-    kw) for the chart predictor's ConvTranspose2d kernels (the only 4-D
-    weights under ``densepose_predictor.``), (in, out) -> (out, in) for
-    linears. FrozenBN must already be folded (``TPU.FOLD_FROZEN_BN``); a
-    GroupNorm's ``.norm.weight``/``.norm.bias`` pass through as they are.
+    kw) for the predictors' ConvTranspose2d kernels (the only 4-D weights
+    under ``densepose_predictor.``), (in, out) -> (out, in) for linears. The
+    CSE embedders' 2-D tables (kind "vec", ``models/cse.py::embedder_spec``:
+    names under ``.embedder.``) pass through as they are, as every vector
+    does. FrozenBN must already be folded (``TPU.FOLD_FROZEN_BN``, and for
+    HRNet the JAX predictor's ``hrnet_fold_bn``): any BN statistic, of a
+    ``.norm`` child or an HRNet sibling, is refused. A GroupNorm's
+    ``.norm.weight``/``.norm.bias`` pass through as they are.
 
     The JAX predictor's params at a half compute dtype (``_cast_param``)
     keep it: float16 arrays come back float16. bfloat16 arrays (``ml_dtypes``
@@ -130,7 +162,7 @@ def params_from_jax(jax_params: Dict[str, np.ndarray]) -> StateDict:
     transform goes through float32, which holds both half types exactly."""
     out: StateDict = {}
     for name, a in jax_params.items():
-        if ".norm.running_" in name:
+        if name.endswith((".running_mean", ".running_var")):
             raise ValueError(f"{name}: unfolded FrozenBN; the port takes folded params")
         dtype = np.float16 if np.asarray(a).dtype == np.float16 else np.float32
         a = np.asarray(a, dtype=np.float32)
@@ -138,7 +170,7 @@ def params_from_jax(jax_params: Dict[str, np.ndarray]) -> StateDict:
             a = np.transpose(a, (2, 3, 0, 1))[:, :, ::-1, ::-1]
         elif a.ndim == 4:
             a = np.transpose(a, (3, 2, 0, 1))
-        elif a.ndim == 2:
+        elif a.ndim == 2 and ".embedder." not in name:
             a = a.T
         out[name] = np.ascontiguousarray(a, dtype=dtype)
     return out

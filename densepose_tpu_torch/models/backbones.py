@@ -1,6 +1,7 @@
 """Backbone dispatch: cfg.MODEL.BACKBONE.NAME -> (spec, module, strides)
-(port of densepose_tpu/models/backbones.py). The flagship's ResNet-FPN is the
-one backbone ported so far; the others are listed in ROADMAP.md."""
+(port of densepose_tpu/models/backbones.py): the ResNet-FPN (p2..p6) and
+HRNet + HRFPN (p1..p5), both at strides 4..64. The plain C4 ResNet and the
+RetinaNet FPN, which no zoo config uses, are not ported (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -10,8 +11,10 @@ import torch.nn as nn
 
 from ..checkpoint.spec import Spec
 from .fpn import FPN, fpn_out_strides, fpn_spec
+from .hrnet import HRFPN, hrfpn_out_strides, hrfpn_spec
 
-_BACKBONES = {"build_resnet_fpn_backbone": (fpn_spec, FPN, fpn_out_strides)}
+_BACKBONES = {"build_resnet_fpn_backbone": (fpn_spec, FPN, fpn_out_strides),
+              "build_hrfpn_backbone": (hrfpn_spec, HRFPN, hrfpn_out_strides)}
 
 
 def _entry(cfg):
@@ -31,3 +34,11 @@ def build_backbone(cfg) -> nn.Module:
 
 def feature_strides(cfg) -> Dict[str, int]:
     return _entry(cfg)[2](cfg)
+
+
+def backbone_out_channels(cfg) -> int:
+    """The width of every pyramid level, which the RPN and ROI heads take
+    (JAX roi_heads.py::_backbone_out_channels)."""
+    if cfg.MODEL.BACKBONE.NAME == "build_hrfpn_backbone":
+        return cfg.MODEL.HRNET.HRFPN.OUT_CHANNELS
+    return cfg.MODEL.FPN.OUT_CHANNELS

@@ -1,0 +1,263 @@
+"""HRNet-W32/40/48 + HRFPN backbone (port of densepose_tpu/models/hrnet.py,
+its plain path), NCHW.
+
+The reference declares ``build_hrfpn_backbone`` and its MODEL.HRNET keys but
+ships no implementation; the JAX package supplies HRNetV2p (Sun et al., CVPR
+2019) with the detectron2-DensePose / mmdetection HRFPN neck, under the
+upstream HRNet parameter names (``conv1``/``bn1``, ``layer1``,
+``transition{1..3}``, ``stage{2..4}.<m>.branches`` / ``fuse_layers``,
+``reduction_conv``, ``fpn_conv``). This module is that network.
+
+Every BatchNorm is inference-mode (FrozenBN) and is folded into its conv when
+the weights load (``checkpoint/transform.py::fold_state`` folds the sibling
+``bn{N}`` / ``.1`` modules), so every conv here carries a bias and no norm.
+
+Structure (branch widths Ci from MODEL.HRNET.STAGEk.NUM_CHANNELS):
+    stem: two 3x3/2 convs (64) -> 1/4 resolution
+    layer1: 4 bottleneck blocks 64 -> 256
+    stage2..4: 2, 3, 4 branches at 1/4 .. 1/32, NUM_MODULES modules each;
+    a module runs NUM_BLOCKS BasicBlocks per branch, then fuses every branch
+    into every other (a 1x1 conv and a nearest upsample from a coarser
+    branch, a chain of 3x3/2 convs from a finer one, summed, ReLU)
+    HRFPN: every branch bilinearly upsampled to 1/4, concatenated, a 1x1
+    reduction, an average-pool pyramid and a 3x3 conv per level -> p1..p5
+    (strides 4..64)
+
+Left out, as TPU-only or not yet ported: the width-packed branch convs
+(``hrnet_wpack_augment``: lane occupancy on the TPU), the packed stem conv
+(``conv2d_rgb_s2``, another summation order of the same conv), and the int8
+chains and their calibration walk (ROADMAP.md queue 1, item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..checkpoint.spec import ParamSpec, Spec
+from ..ops.resize import resize_bilinear
+
+_BN_SUFFIXES = ("weight", "bias", "running_mean", "running_var")
+STEM_WIDTH = 64     # the stem's two convs
+LAYER1_WIDTH = 256  # layer1's bottleneck output (64 inside)
+
+
+def _conv_bn_spec(spec: Spec, conv_name: str, bn_name: str, cin: int, cout: int, k: int):
+    spec[f"{conv_name}.weight"] = ParamSpec((cout, cin, k, k), "conv")
+    for s in _BN_SUFFIXES:
+        spec[f"{bn_name}.{s}"] = ParamSpec((cout,), "vec")
+
+
+def _stages(cfg):
+    """(branch widths, modules, blocks per branch) of stages 2, 3 and 4."""
+    h = cfg.MODEL.HRNET
+    return [(list(s.NUM_CHANNELS), s.NUM_MODULES, list(s.NUM_BLOCKS))
+            for s in (h.STAGE2, h.STAGE3, h.STAGE4)]
+
+
+def hrnet_spec(cfg, prefix: str = "backbone.bottom_up") -> Spec:
+    """The JAX package's order, so a seed draws the same weights."""
+    spec: Spec = {}
+    _conv_bn_spec(spec, f"{prefix}.conv1", f"{prefix}.bn1", 3, STEM_WIDTH, 3)
+    _conv_bn_spec(spec, f"{prefix}.conv2", f"{prefix}.bn2", STEM_WIDTH, STEM_WIDTH, 3)
+    for i in range(4):
+        b = f"{prefix}.layer1.{i}"
+        _conv_bn_spec(spec, f"{b}.conv1", f"{b}.bn1", STEM_WIDTH if i == 0 else LAYER1_WIDTH,
+                      64, 1)
+        _conv_bn_spec(spec, f"{b}.conv2", f"{b}.bn2", 64, 64, 3)
+        _conv_bn_spec(spec, f"{b}.conv3", f"{b}.bn3", 64, LAYER1_WIDTH, 1)
+        if i == 0:
+            _conv_bn_spec(spec, f"{b}.downsample.0", f"{b}.downsample.1", STEM_WIDTH,
+                          LAYER1_WIDTH, 1)
+    prev = [LAYER1_WIDTH]
+    for si, (chans, n_modules, n_blocks) in enumerate(_stages(cfg)):
+        t = f"{prefix}.transition{si + 1}"
+        for b, c in enumerate(chans):
+            if b >= len(prev):  # a new branch: a strided conv of the coarsest one
+                _conv_bn_spec(spec, f"{t}.{b}.0.0", f"{t}.{b}.0.1", prev[-1], c, 3)
+            elif prev[b] != c:
+                _conv_bn_spec(spec, f"{t}.{b}.0", f"{t}.{b}.1", prev[b], c, 3)
+        for m in range(n_modules):
+            mod = f"{prefix}.stage{si + 2}.{m}"
+            for b, c in enumerate(chans):
+                for blk in range(n_blocks[b]):
+                    bb = f"{mod}.branches.{b}.{blk}"
+                    _conv_bn_spec(spec, f"{bb}.conv1", f"{bb}.bn1", c, c, 3)
+                    _conv_bn_spec(spec, f"{bb}.conv2", f"{bb}.bn2", c, c, 3)
+            for i in range(len(chans)):
+                for j in range(len(chans)):
+                    f = f"{mod}.fuse_layers.{i}.{j}"
+                    if j > i:
+                        _conv_bn_spec(spec, f"{f}.0", f"{f}.1", chans[j], chans[i], 1)
+                    elif j < i:
+                        for k in range(i - j):
+                            cout = chans[i] if k == i - j - 1 else chans[j]
+                            _conv_bn_spec(spec, f"{f}.{k}.0", f"{f}.{k}.1", chans[j], cout, 3)
+        prev = chans
+    return spec
+
+
+def hrfpn_spec(cfg, prefix: str = "backbone") -> Spec:
+    spec = hrnet_spec(cfg, prefix=f"{prefix}.bottom_up")
+    out = cfg.MODEL.HRNET.HRFPN.OUT_CHANNELS
+    total = sum(cfg.MODEL.HRNET.STAGE4.NUM_CHANNELS)
+    spec[f"{prefix}.reduction_conv.weight"] = ParamSpec((out, total, 1, 1), "conv")
+    spec[f"{prefix}.reduction_conv.bias"] = ParamSpec((out,), "vec")
+    for i in range(5):
+        spec[f"{prefix}.fpn_conv.{i}.weight"] = ParamSpec((out, out, 3, 3), "conv")
+        spec[f"{prefix}.fpn_conv.{i}.bias"] = ParamSpec((out,), "vec")
+    return spec
+
+
+def hrfpn_out_strides(cfg) -> Dict[str, int]:
+    return {"p1": 4, "p2": 8, "p3": 16, "p4": 32, "p5": 64}
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+    """A conv with its BN folded in: bias, 'same' padding for odd k."""
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2)
+
+
+def _seq(*modules: nn.Module) -> nn.Module:
+    """A container whose children are named 0, 1, ... as a Sequential's; it
+    is not called, its owner runs the children."""
+    return nn.ModuleList(modules)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, cin: int, downsample: bool):
+        super().__init__()
+        self.conv1 = _conv(cin, 64, 1)
+        self.conv2 = _conv(64, 64, 3)
+        self.conv3 = _conv(64, LAYER1_WIDTH, 1)
+        self.downsample = _seq(_conv(cin, LAYER1_WIDTH, 1)) if downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.conv2(F.relu(self.conv1(x))))
+        sc = x if self.downsample is None else self.downsample[0](x)
+        return F.relu(self.conv3(out) + sc)
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv1 = _conv(c, c, 3)
+        self.conv2 = _conv(c, c, 3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.conv2(F.relu(self.conv1(x))) + x)
+
+
+class HRModule(nn.Module):
+    """One stage module: a BasicBlock chain per branch, then the full
+    cross-resolution fusion (JAX hrnet.py:486-512). Output branch i sums, in
+    input order j: branch j itself (j == i); a 1x1 conv then a nearest
+    upsample by 2^(j-i) (j > i); a chain of i-j 3x3/2 convs, ReLU on all but
+    the last (j < i); then a ReLU."""
+
+    def __init__(self, chans: List[int], n_blocks: List[int]):
+        super().__init__()
+        self.branches = nn.ModuleList(
+            nn.Sequential(*(BasicBlock(c) for _ in range(n))) for c, n in zip(chans, n_blocks))
+        n = len(chans)
+        self.fuse_layers = nn.ModuleList()
+        for i in range(n):
+            row = nn.ModuleList()
+            for j in range(n):
+                if j > i:
+                    row.append(_seq(_conv(chans[j], chans[i], 1)))
+                elif j < i:
+                    row.append(_seq(*(
+                        _seq(_conv(chans[j], chans[i] if k == i - j - 1 else chans[j], 3, 2))
+                        for k in range(i - j))))
+                else:
+                    row.append(nn.Identity())
+            self.fuse_layers.append(row)
+
+    def forward(self, feats: List[torch.Tensor]) -> List[torch.Tensor]:
+        outs = [branch(x) for branch, x in zip(self.branches, feats)]
+        fused = []
+        for i, row in enumerate(self.fuse_layers):
+            acc = None
+            for j, layer in enumerate(row):
+                y = outs[j]
+                if j > i:
+                    y = F.interpolate(layer[0](y), scale_factor=float(2 ** (j - i)),
+                                      mode="nearest")
+                elif j < i:
+                    for k, step in enumerate(layer):
+                        y = step[0](y)
+                        if k < len(layer) - 1:
+                            y = F.relu(y)
+                acc = y if acc is None else acc + y
+            fused.append(F.relu(acc))
+        return fused
+
+
+class HRNet(nn.Module):
+    """x: (N, 3, H, W) -> the four branch maps at 1/4, 1/8, 1/16, 1/32."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.conv1 = _conv(3, STEM_WIDTH, 3, 2)
+        self.conv2 = _conv(STEM_WIDTH, STEM_WIDTH, 3, 2)
+        self.layer1 = nn.Sequential(*(Bottleneck(STEM_WIDTH if i == 0 else LAYER1_WIDTH, i == 0)
+                                      for i in range(4)))
+        prev = [LAYER1_WIDTH]
+        for si, (chans, n_modules, n_blocks) in enumerate(_stages(cfg)):
+            transition = nn.ModuleList()
+            for b, c in enumerate(chans):
+                if b >= len(prev):
+                    transition.append(_seq(_seq(_conv(prev[-1], c, 3, 2))))
+                elif prev[b] != c:
+                    transition.append(_seq(_conv(prev[b], c, 3)))
+                else:
+                    transition.append(nn.Identity())
+            self.add_module(f"transition{si + 1}", transition)
+            self.add_module(f"stage{si + 2}", nn.Sequential(
+                *(HRModule(chans, n_blocks) for _ in range(n_modules))))
+            prev = chans
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = F.relu(self.conv2(F.relu(self.conv1(x))))
+        feats = [self.layer1(x)]
+        for s in (2, 3, 4):
+            new = []
+            for b, t in enumerate(getattr(self, f"transition{s - 1}")):
+                if isinstance(t, nn.Identity):
+                    new.append(feats[b])
+                elif b >= len(feats):  # a new branch, from the coarsest
+                    new.append(F.relu(t[0][0](feats[-1])))
+                else:
+                    new.append(F.relu(t[0](feats[b])))
+            feats = new
+            for module in getattr(self, f"stage{s}"):
+                feats = module(feats)
+        return feats
+
+
+class HRFPN(nn.Module):
+    """x: (N, 3, H, W), H and W multiples of 64 -> {"p1": ..., "p5": ...} NCHW
+    at strides 4..64 (JAX hrnet.py:536-585, its floating-point arm): branches
+    1..3 bilinearly upsampled by 2^i to 1/4 (torch's scale-factor rule),
+    concatenated, a 1x1 reduction, then per level i an average pool of 2^i
+    (no padding) and a 3x3 conv."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        out = cfg.MODEL.HRNET.HRFPN.OUT_CHANNELS
+        self.bottom_up = HRNet(cfg)
+        self.reduction_conv = nn.Conv2d(sum(cfg.MODEL.HRNET.STAGE4.NUM_CHANNELS), out, 1)
+        self.fpn_conv = nn.ModuleList(nn.Conv2d(out, out, 3, padding=1) for _ in range(5))
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        feats = self.bottom_up(x)
+        hw = tuple(feats[0].shape[-2:])
+        ups = [feats[0]] + [resize_bilinear(f, hw, scale=(float(2 ** i), float(2 ** i)))
+                            for i, f in enumerate(feats[1:], 1)]
+        red = self.reduction_conv(torch.cat(ups, dim=1))
+        return {f"p{i + 1}": conv(red if i == 0 else F.avg_pool2d(red, 2 ** i))
+                for i, conv in enumerate(self.fpn_conv)}

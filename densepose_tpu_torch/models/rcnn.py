@@ -7,9 +7,10 @@ FrozenBN folded (``backbone.bottom_up.stem.conv1.weight``,
 
 1. ``preprocess``: the uint8 resize with torch's scale-factor rule, rounded
    and clipped (the reference resizes the uint8 tensor), normalized and
-   zero-padded to a multiple of 32 in fp32, then cast once to the compute
-   dtype — bit-identical to the JAX package;
-2. the ResNet-FPN backbone;
+   zero-padded to a multiple of ``size_divisibility`` (32; HRFPN 64) in
+   fp32, then cast once to the compute dtype — bit-identical to the JAX
+   package;
+2. the backbone: ResNet-FPN or HRNet + HRFPN;
 3. ``rpn_forward`` (NMS through kernel K1);
 4. ``box_stage_forward`` (ROIAlign through K2, NMS through K1);
 5. the box postprocess (detector_postprocess, postprocessing.py:11-61) and
@@ -60,7 +61,6 @@ from .backbones import backbone_spec, build_backbone
 from .roi_heads import ROIHeads, box_stage_forward, densepose_stage_forward, roi_heads_spec
 from .rpn import RPNHead, rpn_forward, rpn_spec
 
-SIZE_DIVISIBILITY = 32  # FPN max stride (fpn.py:116)
 
 # TPU.COMPUTE_DTYPE -> the dtype of parameters and activations
 COMPUTE_DTYPES = {"float32": torch.float32, "float16": torch.float16,
@@ -74,8 +74,15 @@ def compute_resize(h: int, w: int, min_size: int, max_size: int) -> Tuple[float,
     return k, int(h * k), int(w * k)
 
 
-def pad_to_divisible(h: int, w: int) -> Tuple[int, int]:
-    d = SIZE_DIVISIBILITY
+def size_divisibility(cfg) -> int:
+    """What the network input is padded to a multiple of (JAX
+    rcnn.py::size_divisibility): the FPN's largest stride, 32 (fpn.py:116);
+    for HRFPN 64, so that the average-pool pyramid divides exactly down to
+    p5 (stride 64) and the decoder's chains of 2x upsamples line up with p1."""
+    return 64 if cfg.MODEL.BACKBONE.NAME == "build_hrfpn_backbone" else 32
+
+
+def pad_to_divisible(h: int, w: int, d: int) -> Tuple[int, int]:
     return (int(math.ceil(h / d) * d), int(math.ceil(w / d) * d))
 
 
@@ -103,6 +110,7 @@ class GeneralizedRCNN(nn.Module):
         _check_supported(cfg)
         self.cfg = cfg
         self.compute_dtype = COMPUTE_DTYPES[cfg.TPU.COMPUTE_DTYPE]
+        self.size_divisibility = size_divisibility(cfg)
         self.register_buffer("pixel_mean", torch.tensor(cfg.MODEL.PIXEL_MEAN,
                                                         dtype=torch.float32), persistent=False)
         self.register_buffer("pixel_std", torch.tensor(cfg.MODEL.PIXEL_STD,
@@ -147,7 +155,7 @@ class GeneralizedRCNN(nn.Module):
         config's test resolution."""
         y = self.resize_u8(image_u8, min_size, max_size)
         h1, w1 = y.shape[0], y.shape[1]
-        hp, wp = pad_to_divisible(h1, w1)
+        hp, wp = pad_to_divisible(h1, w1, self.size_divisibility)
         y = (y - self.pixel_mean) / self.pixel_std
         y = torch.nn.functional.pad(y.permute(2, 0, 1), (0, wp - w1, 0, hp - h1))
         return y[None].to(self.compute_dtype).contiguous(), (h1, w1), (hp, wp)
@@ -230,13 +238,14 @@ class GeneralizedRCNN(nn.Module):
         """Full inference from a geometry-bucket canvas (JAX rcnn.py:259-329):
         ``canvas_u8`` (HB, WB, 3) uint8 from ``bucket_canvas``, ``sizes`` =
         (h0, w0, h1, w1). The RPN's swapped clip and its anchor mask use the
-        minimal-pad extent ``pad_to_divisible(h1, w1)``, not the canvas; the
-        boxes rescale by w0 / w1 and h0 / h1 divided in fp32, as the JAX
-        package divides its traced sizes. Outputs as ``forward``'s."""
+        minimal-pad extent (``pad_to_divisible`` at the size divisibility),
+        not the canvas; the boxes rescale by w0 / w1 and h0 / h1 divided in
+        fp32, as the JAX package divides its traced sizes. Outputs as
+        ``forward``'s."""
         h0, w0, h1, w1 = sizes
         with record_function("preprocess"):
             x = self.preprocess_bucketed(canvas_u8, h1, w1)
-        hp, wp = pad_to_divisible(h1, w1)
+        hp, wp = pad_to_divisible(h1, w1, self.size_divisibility)
         scale = torch.from_numpy(np.float32([w0, h0]) / np.float32([w1, h1]))
         result, features, boxes_net = self._detect(x, (hp, wp), (hp, wp), (h0, w0), scale)
         return self._with_densepose(result, features, boxes_net)

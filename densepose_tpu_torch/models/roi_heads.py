@@ -1,8 +1,9 @@
-"""ROI heads: the box path and the chart DensePose path, static shapes (port
-of densepose_tpu/models/roi_heads.py), NCHW.
+"""ROI heads: the box path and the DensePose path, static shapes (port of
+densepose_tpu/models/roi_heads.py), NCHW.
 
 * FastRCNNConvFCHead (2 FC) + FastRCNNOutputLayers + fast_rcnn_inference:
-  7x7 ROIAlign over p2..p5 (kernel K2), the NCHW flatten into fc1, softmax
+  7x7 ROIAlign over the ROI_HEADS.IN_FEATURES levels (kernel K2; FPN's
+  p2..p5, HRFPN's p1..p5), the NCHW flatten into fc1, softmax
   in fp32, the reference's discarded clip, NMS (kernel K1), top-D.
 * The Panoptic-FPN style Decoder in its per-chain form (each chain upsamples
   on its own, the reference's order).
@@ -12,7 +13,9 @@ of densepose_tpu/models/roi_heads.py), NCHW.
 * DensePoseV1ConvXHead or DensePoseDeepLabHead (ASPP with GroupNorm, then
   GN convs), and the chart predictor's four separate deconv heads with a 2x
   bilinear upsample; with ``TPU.EMIT_CONFIDENCES`` the WC predictors'
-  confidence heads too.
+  confidence heads too. A CSE config (``DensePoseEmbeddingPredictor``)
+  takes the embedding predictor instead (``models/cse.py``: an embedding
+  and a coarse segmentation map) and holds the vertex embedders' tables.
 
 Boxes, scores and valid masks keep the JAX package's fixed slots.
 """
@@ -33,7 +36,8 @@ from ..ops.nms import batched_nms_mask, nms_mask
 from ..ops.norms import GroupNorm32
 from ..ops.resize import resize_bilinear
 from ..ops.roi_align import assign_boxes_to_levels, roi_align_multilevel, roi_align_single
-from .backbones import feature_strides
+from .backbones import backbone_out_channels, feature_strides
+from .cse import DensePoseEmbeddingPredictor, Embedder, embedder_spec, embedding_predictor_spec
 from .rpn import top_k
 
 _NEG = -1e30
@@ -55,8 +59,6 @@ def _check_supported(cfg) -> None:
                                       "sets it: GroupNorm, no NonLocal block")
         if h.DECODER_ON and h.DECODER_NORM:
             raise NotImplementedError("a normed decoder is not ported yet")
-        if h.PREDICTOR_NAME == "DensePoseEmbeddingPredictor":
-            raise NotImplementedError("CSE predictors are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -67,7 +69,7 @@ def box_head_spec(cfg, prefix: str = "roi_heads") -> Spec:
     spec: Spec = {}
     res = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
     fc_dim = cfg.MODEL.ROI_BOX_HEAD.FC_DIM
-    flat = cfg.MODEL.FPN.OUT_CHANNELS * res * res
+    flat = backbone_out_channels(cfg) * res * res
     for k in range(cfg.MODEL.ROI_BOX_HEAD.NUM_FC):
         linear_spec(spec, f"{prefix}.box_head.fc{k + 1}", flat if k == 0 else fc_dim, fc_dim)
     num_classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
@@ -93,7 +95,7 @@ def _decoder_chains(cfg):
 def decoder_spec(cfg, prefix: str = "roi_heads.decoder") -> Spec:
     spec: Spec = {}
     dims = cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_CONV_DIMS
-    in_ch = cfg.MODEL.FPN.OUT_CHANNELS
+    in_ch = backbone_out_channels(cfg)
     for f, idxs, _ in _decoder_chains(cfg):
         for k, idx in enumerate(idxs):
             conv_spec(spec, f"{prefix}.{f}.{idx}", in_ch if k == 0 else dims, dims, 3)
@@ -106,7 +108,7 @@ def _head_in_channels(cfg) -> int:
     """The DensePose head's input width: the decoder's classes, or the FPN
     levels' width for the legacy multi-level pooler (JAX roi_heads.py:120-122)."""
     h = cfg.MODEL.ROI_DENSEPOSE_HEAD
-    return h.DECODER_NUM_CLASSES if h.DECODER_ON else cfg.MODEL.FPN.OUT_CHANNELS
+    return h.DECODER_NUM_CLASSES if h.DECODER_ON else backbone_out_channels(cfg)
 
 
 def densepose_head_spec(cfg, prefix: str = "roi_heads.densepose_head") -> Spec:
@@ -154,7 +156,13 @@ def _predictor_heads(cfg) -> List[Tuple[str, int]]:
     return heads
 
 
+def _is_cse(cfg) -> bool:
+    return cfg.MODEL.ROI_DENSEPOSE_HEAD.PREDICTOR_NAME == "DensePoseEmbeddingPredictor"
+
+
 def densepose_predictor_spec(cfg, prefix: str = "roi_heads.densepose_predictor") -> Spec:
+    if _is_cse(cfg):
+        return embedding_predictor_spec(cfg, prefix)
     h = cfg.MODEL.ROI_DENSEPOSE_HEAD
     spec: Spec = {}
     for name, cout in _predictor_heads(cfg):
@@ -171,6 +179,8 @@ def roi_heads_spec(cfg, prefix: str = "roi_heads") -> Spec:
             spec.update(decoder_spec(cfg, f"{prefix}.decoder"))
         spec.update(densepose_head_spec(cfg, f"{prefix}.densepose_head"))
         spec.update(densepose_predictor_spec(cfg, f"{prefix}.densepose_predictor"))
+        if cfg.MODEL.ROI_DENSEPOSE_HEAD.CSE.EMBEDDERS:
+            spec.update(embedder_spec(cfg, f"{prefix}.embedder"))
     return spec
 
 
@@ -182,7 +192,7 @@ class FastRCNNConvFCHead(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         res = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
-        d = cfg.MODEL.FPN.OUT_CHANNELS * res * res
+        d = backbone_out_channels(cfg) * res * res
         fc_dim = cfg.MODEL.ROI_BOX_HEAD.FC_DIM
         self.num_fc = cfg.MODEL.ROI_BOX_HEAD.NUM_FC
         for k in range(self.num_fc):
@@ -211,7 +221,7 @@ class Decoder(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         dims = cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_CONV_DIMS
-        in_ch = cfg.MODEL.FPN.OUT_CHANNELS
+        in_ch = backbone_out_channels(cfg)
         self.chains = _decoder_chains(cfg)
         for f, idxs, _ in self.chains:
             self.add_module(f, nn.ModuleDict({
@@ -368,7 +378,12 @@ class ROIHeads(nn.Module):
             if cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_ON:
                 self.decoder = Decoder(cfg)
             self.densepose_head = _HEADS[cfg.MODEL.ROI_DENSEPOSE_HEAD.NAME](cfg)
-            self.densepose_predictor = DensePoseChartPredictor(cfg)
+            if _is_cse(cfg):
+                self.densepose_predictor = DensePoseEmbeddingPredictor(cfg)
+            else:
+                self.densepose_predictor = DensePoseChartPredictor(cfg)
+            if cfg.MODEL.ROI_DENSEPOSE_HEAD.CSE.EMBEDDERS:
+                self.embedder = Embedder(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -474,8 +489,9 @@ def _densepose_pooled(heads: ROIHeads, features: Dict[str, torch.Tensor],
 def densepose_stage_forward(heads: ROIHeads, features: Dict[str, torch.Tensor],
                             boxes: torch.Tensor, cfg) -> Dict[str, torch.Tensor]:
     """(Decoder ->) ROIAlign -> head -> predictor on the given boxes
-    (densepose roi_head.py:126-158). SIUV maps NCHW, (B, C, HEATMAP, HEATMAP)
-    each. Each step is a profiler range."""
+    (densepose roi_head.py:126-158). Maps NCHW, (B, C, HEATMAP, HEATMAP)
+    each: SIUV, or a CSE model's embedding and coarse segmentation. Each step
+    is a profiler range."""
     pooled = _densepose_pooled(heads, features, boxes, cfg)
     with record_function("densepose_head"):
         x = heads.densepose_head(pooled)

@@ -25,7 +25,7 @@ from ..checkpoint.spec import Spec, conv_spec
 from ..ops.anchors import anchors_for_levels
 from ..ops.boxes import apply_deltas, clip_boxes_wh_swapped, nonempty_boxes
 from ..ops.nms import nms_mask
-from .backbones import feature_strides
+from .backbones import backbone_out_channels, feature_strides
 
 _NEG = -1e30
 
@@ -46,7 +46,7 @@ def num_cell_anchors(cfg) -> int:
 
 
 def rpn_spec(cfg, prefix: str = "proposal_generator.rpn_head") -> Spec:
-    c = cfg.MODEL.FPN.OUT_CHANNELS
+    c = backbone_out_channels(cfg)
     a = num_cell_anchors(cfg)
     spec: Spec = {}
     conv_spec(spec, f"{prefix}.conv", c, c, 3, bias=True)
@@ -64,7 +64,7 @@ class RPNHead(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        c = cfg.MODEL.FPN.OUT_CHANNELS
+        c = backbone_out_channels(cfg)
         a = num_cell_anchors(cfg)
         self.conv = nn.Conv2d(c, c, 3, padding=1)
         self.objectness_logits = nn.Conv2d(c, a, 1)

@@ -64,8 +64,8 @@ import torch
 
 from .checkpoint.pkl_loader import align_state_dicts, load_checkpoint_file
 from .checkpoint.transform import fold_state, random_torch_state
-from .models.rcnn import (SIZE_DIVISIBILITY, GeneralizedRCNN, build_model, check_image,
-                          image_tensor)
+from .models.rcnn import (GeneralizedRCNN, build_model, check_image, image_tensor,
+                          size_divisibility)
 from .ops.resize import resize_bilinear_np
 
 logger = logging.getLogger(__name__)
@@ -106,9 +106,10 @@ class DensePosePredictor:
         self.cfg = cfg
         self.bucketed = bool(cfg.TPU.BUCKETED_DENSEPOSE) and cfg.MODEL.DENSEPOSE_ON
         self.geometry_quant = int(cfg.TPU.GEOMETRY_BUCKET_QUANT)
-        if self.geometry_quant % SIZE_DIVISIBILITY:
+        div = size_divisibility(cfg)
+        if self.geometry_quant % div:
             raise ValueError(f"TPU.GEOMETRY_BUCKET_QUANT {self.geometry_quant} must be a "
-                             f"multiple of the backbone size divisibility ({SIZE_DIVISIBILITY})")
+                             f"multiple of the backbone size divisibility ({div})")
         if self.geometry_quant and self.bucketed:
             raise ValueError("TPU.GEOMETRY_BUCKET_QUANT and TPU.BUCKETED_DENSEPOSE are "
                              "exclusive; TPU.SWITCHED_DENSEPOSE buckets the detection count "

@@ -24,6 +24,12 @@ that manages its own geometry (``TPU.BUCKETED_DENSEPOSE``,
 numbers on the same directory. A config with ``TEST.AUG.ENABLED`` runs
 multi-scale + flip test-time augmentation (``tta.py``).
 
+An HRNet config runs like any other. A CSE config
+(``DensePoseEmbeddingPredictor``) draws only ``--vis bbox``: the chart
+overlays read maps a CSE model does not make, and the CLI refuses them
+before it runs (the JAX CLI fails inside its visualizer); the CSE overlay is
+``visualizer.CseVisualizer``, from Python.
+
 Not ported yet, and refused with the ROADMAP.md item that lifts it: an
 exported ``.npz`` bundle (queue 1, item 9). Nor are batched video frames
 (item 10): ``--batch`` is accepted and a video runs frame by frame.
@@ -107,6 +113,16 @@ def load_predictor(model_path: str, weights: str, opts: List[str], device: str,
     return pred
 
 
+def check_vis(cfg, vis: str) -> None:
+    """A CSE model has no chart maps: only ``--vis bbox`` can draw it."""
+    if (cfg.MODEL.ROI_DENSEPOSE_HEAD.PREDICTOR_NAME == "DensePoseEmbeddingPredictor"
+            and vis != "bbox"):
+        raise ValueError(f"--vis {vis} draws chart maps (fine segmentation, U, V), which a "
+                         "CSE model (DensePoseEmbeddingPredictor) does not output; use --vis "
+                         "bbox, or visualizer.CseVisualizer from Python for its "
+                         "closest-vertex overlay")
+
+
 def image_names(dirpath: str) -> List[str]:
     """The images of a directory, sorted, without the ``*_pred`` outputs."""
     return sorted(f for f in os.listdir(dirpath)
@@ -150,6 +166,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     predictor = load_predictor(args.model, args.weights, args.opts,
                                device="cpu" if args.cpu else "cuda", fp32=args.fp32,
                                auto_bucket=auto_bucket)
+    check_vis(predictor.cfg, args.vis)
     if args.profile:
         from .utils.timing import TRACE_FILE, trace_device
         with trace_device(args.profile):

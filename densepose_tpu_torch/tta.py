@@ -15,7 +15,9 @@ predictor's model:
   every map; flipped views give their segmentation mirrored and part-permuted
   (``unflip_chart_segm``) and, only with the continuous U/V symmetry tables
   (``TPU.UV_SYMMETRY_PATH``, ``load_uv_symmetry``), their U/V
-  (``unflip_chart_uv``).
+  (``unflip_chart_uv``). A CSE model's flipped views give detections only:
+  an embedding has no left/right permutation, so, as in the JAX package,
+  its maps are the plain views' average.
 
 The reduce keeps two running sums (plain views, flipped views) and frees
 each view's maps as it adds them, in the JAX package's summation order, so
@@ -184,7 +186,7 @@ class TTAPredictor:
 
     def __init__(self, base, uv_symmetry=None):
         self.base = base
-        cfg = base.cfg
+        self.cfg = cfg = base.cfg
         aug = cfg.TEST.AUG
         self.min_sizes: List[int] = [int(s) for s in aug.MIN_SIZES]
         self.max_size = int(aug.MAX_SIZE)

@@ -1,5 +1,5 @@
-"""Host-side result extraction + overlay rendering (the port's copy of the
-chart half of densepose_tpu/visualizer.py; numpy, C and, for some steps, cv2).
+"""Host-side result extraction + overlay rendering (the port's copy of
+densepose_tpu/visualizer.py; numpy, C and, for some steps, cv2).
 
 * ``resample_fine_and_uv`` (the reference's visualizer.py:10-30):
   bilinear-resize coarse + fine segm logits to the box size, argmax, mask fine
@@ -10,14 +10,19 @@ chart half of densepose_tpu/visualizer.py; numpy, C and, for some steps, cv2).
   colormap and an alpha blend, through the native fused blends
   (``native/fastvis.c``) where the library builds;
 * ``End2EndVisualizer``: extract + overlay per frame, and ``fetch_keys``,
-  the maps an overlay reads, for ``numpy_outputs(keys=...)``.
+  the maps an overlay reads, for ``numpy_outputs(keys=...)``;
+* ``CseResultExtractor`` and ``CseVisualizer`` (:322-387) for CSE models:
+  per instance the embedding map resized to the box, masked by the coarse
+  segmentation's foreground, and each pixel's closest mesh vertex, looked up
+  on the predictor's device (``models/cse.py::closest_vertices``); the
+  overlay colours the vertex indices modulo 255.
 
 The outputs come from ``predictor.numpy_outputs``: trimmed to the valid
 detections, DensePose maps NCHW. ``cv2`` is imported only where it is used:
 building the colormap table from a cv2 colormap id, resizing a mask that is
 not box-sized, and drawing boxes. Given a (256, 3) colormap table and the
-native library, the chart overlays run without it (the GPU machine has no
-cv2). The CSE extractor and visualizer are not ported yet.
+native library, the chart and CSE overlays run without it (the GPU machine
+has no cv2).
 """
 
 from __future__ import annotations
@@ -326,6 +331,81 @@ class ScoredBboxVisualizer:
             cv2.putText(image_bgr, f"{float(score):.2f}", (x1, max(y1 - 3, 0)),
                         cv2.FONT_HERSHEY_SIMPLEX, 0.4, self.color, 1)
         return image_bgr
+
+
+class CseResultExtractor:
+    """Per-instance closest-vertex maps of a CSE model's outputs (JAX
+    visualizer.py:322-363): each detection's embedding and coarse
+    segmentation (NCHW, as ``numpy_outputs`` gives them) resized to its box
+    on the host (``ops/resize.py::resize_bilinear_np``, the JAX package's
+    resize bit for bit), masked where the coarse argmax is foreground, and
+    each pixel's nearest vertex of the class's mesh
+    (``DATASETS.CLASS_TO_MESH_NAME_MAPPING``) looked up on the predictor's
+    device (``closest_vertices``, in row chunks) against the mesh's vertex
+    embeddings, computed once per mesh and kept."""
+
+    def __init__(self, predictor):
+        self.predictor = predictor
+        self.class_to_mesh = {int(k): v for k, v in
+                              predictor.cfg.DATASETS.CLASS_TO_MESH_NAME_MAPPING.items()}
+        self.mesh_embeddings = {}
+
+    def vertices(self, mesh: str):
+        """The mesh's normalized vertex embeddings on the predictor's device."""
+        import torch
+        from .models.cse import vertex_embeddings
+        if mesh not in self.mesh_embeddings:
+            with torch.inference_mode():
+                self.mesh_embeddings[mesh] = vertex_embeddings(
+                    self.predictor.model.roi_heads.embedder, mesh)
+        return self.mesh_embeddings[mesh]
+
+    def __call__(self, outputs: Dict[str, np.ndarray]):
+        import torch
+        from .models.cse import closest_vertices
+        from .ops.resize import resize_bilinear_np
+
+        n = int(outputs.get("num_instances", len(outputs["pred_boxes"])))
+        boxes_xywh = np.asarray(outputs["pred_boxes"])[:n].copy()
+        boxes_xywh[:, 2:] -= boxes_xywh[:, :2]
+        classes = np.asarray(outputs["pred_classes"])[:n]
+        results = []
+        for i in range(n):
+            w, h = [max(int(q), 1) for q in boxes_xywh[i, 2:]]
+            emb = np.transpose(np.asarray(outputs["pred_densepose_embedding"][i]), (1, 2, 0))
+            segm = np.transpose(np.asarray(outputs["pred_densepose_coarse_segm"][i]), (1, 2, 0))
+            emb = resize_bilinear_np(emb.astype(np.float32), (h, w))
+            mask = resize_bilinear_np(segm.astype(np.float32), (h, w)).argmax(-1) > 0
+            mesh = self.class_to_mesh[int(classes[i])]
+            verts = self.vertices(mesh)
+            with torch.inference_mode():
+                idx = closest_vertices(torch.from_numpy(emb.reshape(-1, emb.shape[-1])), verts)
+            verts_hw = idx.cpu().numpy().reshape(h, w) * mask
+            results.append({"closest_vertices": verts_hw, "mask": mask, "mesh_name": mesh})
+        return results, boxes_xywh
+
+
+class CseVisualizer:
+    """Overlay of each instance's closest-vertex indices, colour-mapped modulo
+    255 (JAX visualizer.py:366-387). ``cmap``: a cv2 colormap id or a (256, 3)
+    uint8 table."""
+
+    def __init__(self, predictor, alpha=0.7, cmap=None, keep_bg=True):
+        self.extractor = CseResultExtractor(predictor)
+        self.mask_visualizer = MatrixVisualizer(cmap=cmap, val_scale=1.0, alpha=alpha)
+        self.keep_bg = keep_bg
+
+    def visualize(self, image_bgr: np.ndarray, outputs) -> np.ndarray:
+        results, boxes_xywh = self.extractor(outputs)
+        if not self.keep_bg:
+            self.mask_visualizer.fill(image_bgr, 0)
+        for res, box in zip(results, boxes_xywh):
+            matrix = (res["closest_vertices"] % 255).astype(np.uint8)
+            self.mask_visualizer.visualize(image_bgr, res["mask"].astype(np.uint8), matrix, box)
+        return image_bgr
+
+    def fetch_keys(self):
+        return {"pred_densepose_embedding", "pred_densepose_coarse_segm"}
 
 
 class End2EndVisualizer:

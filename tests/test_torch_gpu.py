@@ -32,7 +32,8 @@ import torch
 
 from densepose_tpu_torch.models.rcnn import image_tensor
 from densepose_tpu_torch.ops import cuda_build, nms, roi_align, roi_align_sparse
-from torch_cases import k1_edge_cases, k3_edge_cases  # tests/ is on the path (rootdir insertion)
+from torch_cases import (  # tests/ is on the path (rootdir insertion)
+    k1_edge_cases, k3_edge_cases, unit_variance_)
 
 torch.set_num_threads(2)
 
@@ -490,3 +491,104 @@ def test_single_view_tta_equals_base_on_card(cuda):
         assert out[k].dtype == torch.float32
         np.testing.assert_allclose(out[k].cpu().numpy(), v.float().cpu().numpy(), rtol=0,
                                    atol=SERVED_AGAIN_TOL, err_msg=k)
+
+
+def small_zoo_predictor(device, name, extra=()):
+    """A zoo model at full width on a small input, with random weights from
+    seed 0; HRNet's backbone rescaled to unit-variance outputs on a frame in
+    fp32 first (``torch_cases.unit_variance_``: the plain random init
+    overflows float16 at HRNet's depth)."""
+    from densepose_tpu_torch.model_zoo import get_config
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    cfg = get_config(name).clone()
+    cfg.defrost()
+    cfg.merge_from_list(["INPUT.MIN_SIZE_TEST", 128, "INPUT.MAX_SIZE_TEST", 192,
+                         "TEST.DETECTIONS_PER_IMAGE", 20, *extra])
+    if cfg.MODEL.BACKBONE.NAME != "build_hrfpn_backbone":
+        cfg.freeze()
+        return DensePosePredictor(cfg, seed=0, device=device)
+    dtype, cfg.TPU.COMPUTE_DTYPE = cfg.TPU.COMPUTE_DTYPE, "float32"
+    fp32 = DensePosePredictor(cfg.clone(), seed=0, device=device)
+    frame = (np.random.RandomState(18).rand(96, 136, 3) * 255).astype(np.uint8)
+    unit_variance_(fp32.model.backbone, lambda: fp32(frame))
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    cfg.freeze()
+    return DensePosePredictor(cfg, device=device, params={
+        k: v.cpu() for k, v in fp32.model.state_dict().items()})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+def test_hrnet_request_on_card(cuda, dtype, monkeypatch):
+    """HRNet-W32 + HRFPN on the card: 2 K1 and 2 K2 launches a request (the
+    box pooler over five levels p1..p5), each held against its plain version
+    (K1 exact, K2 bit-identical); the input padded to 64; outputs finite."""
+    pred = small_zoo_predictor(cuda, "densepose_rcnn_HRFPN_HRNet_w32_s1x",
+                               ("TPU.COMPUTE_DTYPE", dtype))
+    k1, k2 = nms.nms_keep_cuda, roi_align.roi_align_cuda
+    held = []
+
+    def held_k1(boxes, valid, thr, classes=None):
+        keep = k1(boxes, valid, thr, classes)
+        assert torch.equal(keep, nms.nms_keep_plain(boxes, valid, thr, classes))
+        held.append("K1")
+        return keep
+
+    def held_k2(feats, boxes, levels, scales, out_hw, ratio, aligned):
+        out = k2(feats, boxes, levels, scales, out_hw, ratio, aligned)
+        assert torch.equal(out, roi_align.roi_align_plain(feats, boxes, levels, scales, out_hw,
+                                                          ratio, aligned))
+        held.append(f"K2 x{len(feats)}")
+        return out
+
+    # the kernels count through their module's name, which is now the held
+    # wrapper's
+    held_k1.launches = held_k2.launches = 0
+    frame = (np.random.RandomState(16).rand(96, 136, 3) * 255).astype(np.uint8)
+    x, _, hw = pred.model.preprocess(image_tensor(frame, cuda))
+    assert hw == (128, 192) and x.shape[-2:] == (128, 192)
+    before = (k1.launches, k2.launches)
+    out = pred(frame)
+    torch.cuda.synchronize()
+    assert (k1.launches - before[0], k2.launches - before[1]) == (2, 2)
+    monkeypatch.setattr(nms, "nms_keep_cuda", held_k1)
+    monkeypatch.setattr(roi_align, "roi_align_cuda", held_k2)
+    pred(frame)
+    torch.cuda.synchronize()
+    assert sorted(held) == ["K1", "K1", "K2 x1", "K2 x5"]
+    assert int(out["num_instances"]) >= 1
+    assert out["pred_densepose_u"].dtype == getattr(torch, dtype)
+    assert all(bool(torch.isfinite(v).all()) for v in out.values() if v.is_floating_point())
+
+
+@pytest.mark.gpu
+def test_cse_request_and_lookup_on_card(cuda):
+    """R50-CSE on the card: 2 K1 + 2 K2, the embedding and coarse maps and no
+    chart maps; the closest-vertex lookup of one instance on the card, in
+    chunks, scores every pixel's vertex within 1e-5 (1 + |p|) of the float64
+    minimum of the same expression, with every index below the mesh's
+    vertex count."""
+    from densepose_tpu_torch.models.cse import closest_vertices
+    from densepose_tpu_torch.visualizer import CseResultExtractor
+    pred = small_zoo_predictor(cuda, "densepose_rcnn_R_50_FPN_s1x_cse")
+    frame = (np.random.RandomState(17).rand(96, 128, 3) * 255).astype(np.uint8)
+    before = (nms.nms_keep_cuda.launches, roi_align.roi_align_cuda.launches)
+    out = pred(frame)
+    torch.cuda.synchronize()
+    assert (nms.nms_keep_cuda.launches - before[0],
+            roi_align.roi_align_cuda.launches - before[1]) == (2, 2)
+    assert sorted(k for k in out if k.startswith("pred_densepose_")) == [
+        "pred_densepose_coarse_segm", "pred_densepose_embedding"]
+    res = pred.numpy_outputs(out)
+    assert res["pred_densepose_embedding"].shape[1:] == (16, 112, 112)
+    extractor = CseResultExtractor(pred)
+    results, _ = extractor(res)
+    verts = extractor.vertices("smpl_27554")
+    assert verts.is_cuda and verts.shape == (27554, 16)
+    assert all(r["closest_vertices"].max() < 27554 for r in results)
+    pixels = torch.from_numpy(res["pred_densepose_embedding"][0].reshape(16, -1).T.copy())
+    got = closest_vertices(pixels.to(cuda), verts, chunk_elements=1 << 22).cpu().numpy()
+    p, v = pixels.double().numpy(), verts.double().cpu().numpy()
+    scores = -2.0 * p @ v.T + (v * v).sum(1)
+    slack = scores[np.arange(len(p)), got] - scores.min(1)
+    assert (slack <= 1e-5 * (1 + np.linalg.norm(p, axis=1))).all(), slack.max()

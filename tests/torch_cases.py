@@ -87,3 +87,31 @@ def k3_edge_cases(image_hw, seed=0):
                                  rng.uniform(1, 0.4 * w, k), rng.uniform(1, 0.4 * h, k)),
                   levels(k)))
     return cases
+
+
+
+def unit_variance_(module, run):
+    """Rescales every Conv2d of ``module`` in place so that its output has
+    unit standard deviation on the input ``run()`` feeds the model: one pass
+    in which a hook divides each conv's weight and bias, and its output, by
+    the output's std, so the layers after it see what the rescaled weights
+    give (LSUV, Mishkin and Matas, ICLR 2016, in one pass; each conv must run
+    once in it). Random weights from ``random_torch_state`` grow HRNet-W32's
+    activations to ~1e6 through its fusion sums, past float16's 65504 (and
+    JAX's float16 HRFPN overflows on them too); a trained network's BatchNorm
+    keeps them near unit scale, as this does."""
+    import torch
+
+    def hook(m, args, out):
+        s = out.float().std()
+        m.weight.data.div_(s)
+        m.bias.data.div_(s)
+        return out / s
+
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
