@@ -40,6 +40,16 @@ toolkit. Phases, each of which fails the run:
    widened to float, the float kernel, the output rounded to T); and all six
    instantiations of K3 (and of K2) in ptxas, K3's with no stack frame or
    spills;
+   Then Q1 (the s8 implicit-GEMM convolution of the int8 serving mode) at
+   every link shape of the int8 paths (Q1_SITES: the head links at 8, 32 and
+   100 rows, the GN link, the merged 77-channel deconvolution, a stride-2 1x1,
+   a dilated 3x3, FPN and RPN 3x3 at p2, HRNet-W32's widths and W48's ragged
+   48, 96 and 720): the int32 sums and the s8, f32, f16 and bf16 outputs
+   bit-identical to the plain version (float64 sums, exact), two runs the
+   same bits, times beside the bound (bytes at 3.35 TB/s, int8 operations
+   at 1979 TOP/s) and two yardsticks the port never calls (the float16
+   cuDNN convolution of the same shape, library_ms; torch._int_mm on the
+   unfolded input where its shape rules admit the site);
 4. paths, each at full width with random weights from seed 0: a
    DensePosePredictor answers a warm-up request and then distinct synthetic
    frames; outputs finite and of the expected shapes; the kernels' launch
@@ -71,6 +81,19 @@ toolkit. Phases, each of which fails the run:
    float16 flagship's, the DensePose stage at float16 on an fp32 request's
    features (cast) and boxes drifts under 0.5 std of the fp32 u-logits, and
    the whole request at float16 is printed against the fp32 one;
+   - the int8 paths (INT8_PATHS, int8_path): the flagship with INT8_HEAD +
+     INT8_PREDICTOR in fp32 and at float16, "max serving" (all four
+     TPU.INT8_* groups), DL with INT8_HEAD (the GN chain) and HRNet-W32 with
+     INT8_BACKBONE + INT8_HEAD (backbone rescaled as above), each calibrated
+     by calibrate_int8 on 4 distinct frames before its warm-up: 2 K1 + 2 K2
+     and the Q1 launches its quantized convs make per request (one a conv,
+     the four chart deconvs one, the RPN conv one a level), the saturation
+     report, one more request with every K1, K2 and Q1 launch held against
+     its plain version, and against the fp request of the same model and
+     dtype the detections bit-identical where the groups are post-detection
+     (head, predictor) and the maps inside tests/test_int8.py's envelopes;
+     the flagship's calibration saved and loaded into a second predictor
+     gives the same int8 state and outputs bit for bit;
 5. consumer, right after the flagship's, DL's and the float16 flagship's
    path phase (raw SIUV maps; a label map; float16 maps), each through the
    predictor its path built, on 8 distinct
@@ -130,10 +153,15 @@ toolkit. Phases, each of which fails the run:
    tolerances of reference_check; a narrowed flagship under TTA (two
    scales, flips) and one with TPU.GEOMETRY_BUCKET_QUANT 64, in fp32; a
    narrowed HRNet (NARROW_HRNET) in fp32 and at float16, and a narrowed
-   R50-CSE in fp32 and at bfloat16.
+   R50-CSE in fp32 and at bfloat16; a narrowed int8 flagship (INT8_HEAD +
+   INT8_PREDICTOR) and a narrowed int8 HRNet (INT8_BACKBONE + INT8_HEAD),
+   calibrated on the card and loaded on the CPU: the int8 state
+   bit-identical, detections within 1e-3, maps within INT8_REF_RTOL
+   (reference_check_int8).
 
 Prints a ``{"kernels": [...]}`` line with one entry per kernel and compute
-dtype (K1 takes fp32 boxes at every dtype: one entry), the nvidia-smi line,
+dtype (K1 takes fp32 boxes and Q1 s8 activations at every dtype: one entry
+each), the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``. Exits non-zero,
 before that line, when there is no CUDA device or any phase fails.
 """
@@ -149,6 +177,7 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_PER_S = 67e12      # fp32 outside the tensor cores, H100 SXM data sheet
+H100_INT8_PER_S = 1979e12    # dense int8 tensor-core operations, H100 SXM data sheet
 FLAGSHIP = "densepose_rcnn_R_50_FPN_s1x"
 LEGACY = "densepose_rcnn_R_101_FPN_s1x_legacy"
 DEEPLAB = "densepose_rcnn_R_50_FPN_DL_s1x"
@@ -161,7 +190,7 @@ K2_TOL = 1e-5
 K3_TOL = 1e-5
 K3_K2_TOL = 2e-5  # K3 sums the taps in another order (tests/test_ops.py:625)
 SOURCES = {"nms_keep_cuda": "nms", "roi_align_cuda": "roi_align",
-           "roi_align_sparse_cuda": "roi_align_sparse"}
+           "roi_align_sparse_cuda": "roi_align_sparse", "conv_s8_cuda": "conv_s8"}
 HALF = ("float16", "bfloat16")  # TPU.COMPUTE_DTYPE's half types
 EPS = {"float16": 2.0 ** -10, "bfloat16": 2.0 ** -7}  # a unit in the last place at 1
 FP16_MAX = 65504.0
@@ -225,8 +254,10 @@ def ulp(dtype, t):
 
 def entry_name(kernel, dtype):
     """The kernels line's entry of a kernel at a compute dtype: K1 takes fp32
-    boxes at every dtype (one entry); K2 and K3 one entry a dtype."""
-    return kernel if dtype == "float32" or kernel == "nms_keep_cuda" else f"{kernel}[{dtype}]"
+    boxes and Q1 s8 activations at every dtype (one entry each); K2 and K3
+    one entry a dtype."""
+    one = ("nms_keep_cuda", "conv_s8_cuda")
+    return kernel if dtype == "float32" or kernel in one else f"{kernel}[{dtype}]"
 
 
 def path_dtype(extra):
@@ -782,6 +813,8 @@ def path_params(cfg, dev):
     fp32_cfg = cfg.clone()
     fp32_cfg.defrost()
     fp32_cfg.TPU.COMPUTE_DTYPE = "float32"
+    for key in INT8_FLAGS:  # the rescale runs the fp network
+        fp32_cfg.TPU[key] = False
     fp32 = DensePosePredictor(fp32_cfg, seed=0, device=dev)
     warm = frames(1, 1)[0]
     torch_cases().unit_variance_(fp32.model.backbone, lambda: fp32(warm))
@@ -790,9 +823,10 @@ def path_params(cfg, dev):
 
 def counters():
     """Each kernel wrapper, whose ``launches`` counts its kernel's launches."""
-    from densepose_tpu_torch.ops import nms, roi_align, roi_align_sparse
+    from densepose_tpu_torch.ops import conv_int8, nms, roi_align, roi_align_sparse
     return {"nms_keep_cuda": nms.nms_keep_cuda, "roi_align_cuda": roi_align.roi_align_cuda,
-            "roi_align_sparse_cuda": roi_align_sparse.roi_align_sparse_cuda}
+            "roi_align_sparse_cuda": roi_align_sparse.roi_align_sparse_cuda,
+            "conv_s8_cuda": conv_int8.conv_s8_cuda}
 
 
 def count_launches(report, tag, dtype, launches, per_request, n_req, what="requests"):
@@ -806,23 +840,25 @@ def count_launches(report, tag, dtype, launches, per_request, n_req, what="reque
 
 
 class HeldAgainstPlain:
-    """Within the block, each K1 and K2 launch a path makes is held against
-    its plain version on the same inputs, as kernel_checks holds its sites:
-    K1's keep flags exact, K2 bit-identical (ratio 0: within K2_TOL, or one
-    unit in the last place of a half dtype). The wrappers are swapped in the
-    modules that dispatch to them and restored on exit; the launches in the
-    block are counted on the held wrappers, apart, and not read."""
+    """Within the block, each K1, K2 and Q1 launch a path makes is held
+    against its plain version on the same inputs, as kernel_checks holds its
+    sites: K1's keep flags exact, K2 bit-identical (ratio 0: within K2_TOL, or
+    one unit in the last place of a half dtype), Q1 bit-identical. The
+    wrappers are swapped in the modules that dispatch to them and restored on
+    exit; the launches in the block are counted on the held wrappers, apart,
+    and not read."""
 
     def __init__(self, torch, what):
         self.torch, self.what = torch, what
-        # (P, K, classed); (M, first level (H, W), dtype, levels)
-        self.k1, self.k2 = [], []
+        # (P, K, classed); (M, first level (H, W), dtype, levels); (M, K, N, transposed)
+        self.k1, self.k2, self.q1 = [], [], []
 
     def __enter__(self):
-        from densepose_tpu_torch.ops import nms, roi_align
+        from densepose_tpu_torch.ops import conv_int8, nms, roi_align
         torch, what = self.torch, self.what
-        self.mods = (nms, roi_align)
-        self.orig = k1, k2 = nms.nms_keep_cuda, roi_align.roi_align_cuda
+        self.mods = (nms, roi_align, conv_int8)
+        self.orig = k1, k2, q1 = (nms.nms_keep_cuda, roi_align.roi_align_cuda,
+                                  conv_int8.conv_s8_cuda)
 
         def held_k1(boxes, valid, thr, classes=None):
             keep = k1(boxes, valid, thr, classes)
@@ -843,15 +879,25 @@ class HeldAgainstPlain:
             self.k2.append((boxes.shape[0], tuple(feats[0].shape[1:]), dtype, len(feats)))
             return out
 
+        def held_q1(qx, qw, qb, vec, **kw):
+            out = q1(qx, qw, qb, vec, **kw)
+            want = conv_int8.conv_s8_plain(qx, qw, qb, vec, **kw)
+            check(torch.equal(out, want), f"{what}: Q1 at {tuple(qx.shape)} x {tuple(qw.shape)} "
+                  f"{kw}: differs from the plain version")
+            self.q1.append((qx.numel() // qx.shape[-1], qw[0].numel(), qw.shape[0],
+                            kw.get("transposed", False)))
+            return out
+
         # a wrapper counts through its module's name, which is now the held
         # one's: the launches in the block land here and are not read
-        held_k1.launches = held_k2.launches = 0
+        held_k1.launches = held_k2.launches = held_q1.launches = 0
         nms.nms_keep_cuda, roi_align.roi_align_cuda = held_k1, held_k2
+        conv_int8.conv_s8_cuda = held_q1
         return self
 
     def __exit__(self, *exc):
-        (nms, roi_align), (k1, k2) = self.mods, self.orig
-        nms.nms_keep_cuda, roi_align.roi_align_cuda = k1, k2
+        (nms, roi_align, conv_int8), (k1, k2, q1) = self.mods, self.orig
+        nms.nms_keep_cuda, roi_align.roi_align_cuda, conv_int8.conv_s8_cuda = k1, k2, q1
         return False
 
     def summary(self):
@@ -861,12 +907,14 @@ class HeldAgainstPlain:
               f"{max((k[1] for k in self.k2), key=lambda hw: hw[0] * hw[1])}, M "
               f"{sorted({m for m, *_ in self.k2})}, levels "
               f"{sorted({k[3] for k in self.k2})})") if self.k2 else "no K2 call"
-        return f"{k1} and {k2} equal to their plain versions"
+        q1 = (f", {len(self.q1)} Q1 calls ({sum(t for *_, t in self.q1)} transposed, input "
+              f"pixels up to {max(m for m, *_ in self.q1)})") if self.q1 else ""
+        return f"{k1} and {k2}{q1} equal to their plain versions"
 
 
 # (zoo name, config changes, DENSEPOSE_TPU_SPARSE_POOLER set, launches per request)
-ON_K2 = {"nms_keep_cuda": 2, "roi_align_cuda": 2, "roi_align_sparse_cuda": 0}
-ON_K3 = {"nms_keep_cuda": 2, "roi_align_cuda": 0, "roi_align_sparse_cuda": 2}
+ON_K2 = {"nms_keep_cuda": 2, "roi_align_cuda": 2, "roi_align_sparse_cuda": 0, "conv_s8_cuda": 0}
+ON_K3 = {"nms_keep_cuda": 2, "roi_align_cuda": 0, "roi_align_sparse_cuda": 2, "conv_s8_cuda": 0}
 FP16 = (("TPU.COMPUTE_DTYPE", "float16"),)
 BF16 = (("TPU.COMPUTE_DTYPE", "bfloat16"),)
 PATHS = [
@@ -887,10 +935,12 @@ PATHS = [
 ]
 
 
-def drive_path(torch, report, dev, name, extra, sparse, per_request):
+def drive_path(torch, report, dev, name, extra, sparse, per_request, prepare=None):
     """One path at full width: a warm-up request, timed requests with the
     launch counters set to 0 just before and read just after, output checks,
-    then one profiled request. Returns the predictor."""
+    then one profiled request. ``prepare(pred)``, where given, runs after the
+    predictor is built and before the warm-up (the int8 paths calibrate
+    there). Returns the predictor."""
     from densepose_tpu_torch.predictor import DensePosePredictor
 
     cfg = path_config(name, extra)
@@ -902,6 +952,8 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request):
     print(f"path {tag}: built with random weights (seed 0"
           f"{'' if params is None else ', backbone at unit variance'}) in "
           f"{time.perf_counter() - t0:.1f} s")
+    if prepare is not None:
+        prepare(pred)
     warm, *timed = frames(1, 1 + TIMED_REQUESTS)
     if sparse:
         os.environ[SPARSE_POOLER] = "1"
@@ -1979,6 +2031,337 @@ def single_view_tta(torch, dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# int8 serving: kernel Q1 at its sites, then the int8 paths
+# ---------------------------------------------------------------------------
+
+INT8_FLAGS = ("INT8_HEAD", "INT8_PREDICTOR", "INT8_BACKBONE", "INT8_RPN")
+Q1 = "conv_s8_cuda"
+Q1_SOURCE = "densepose_tpu_torch/csrc/conv_s8.cu"
+# port-only: the JAX package's int8 convolutions are XLA's (no Pallas kernel)
+Q1_REPLACES = "densepose_tpu/ops/conv.py:273 (port-only; XLA's int8 conv in JAX)"
+Q1_OUTS = ("s32", "s8", "float32", "float16", "bfloat16")
+# (site, N, H, W, Cin, Cout, k, stride, padding, dilation, transposed, relu, the
+# site's own output): every link kind of the five int8 paths at 480x640 frames
+# (800x1088, HRFPN 832x1088), the head and predictor at 8, 32 and 100 rows
+Q1_SITES = [
+    ("head_first_100", 100, 28, 28, 256, 512, 3, 1, 1, 1, False, True, "s8"),
+    ("head_link_8", 8, 28, 28, 512, 512, 3, 1, 1, 1, False, True, "s8"),
+    ("head_link_32", 32, 28, 28, 512, 512, 3, 1, 1, 1, False, True, "s8"),
+    ("head_link_100", 100, 28, 28, 512, 512, 3, 1, 1, 1, False, True, "s8"),
+    ("head_last_100", 100, 28, 28, 512, 512, 3, 1, 1, 1, False, True, "float32"),
+    ("gn_link_100", 100, 28, 28, 512, 512, 3, 1, 1, 1, False, False, "float32"),
+    ("deconv_77_100", 100, 28, 28, 512, 77, 4, 2, 1, 1, True, False, "float32"),
+    ("deconv_77_8", 8, 28, 28, 512, 77, 4, 2, 1, 1, True, False, "float32"),
+    ("res3_conv1_s2", 1, 200, 272, 256, 128, 1, 2, 0, 1, False, True, "s8"),
+    ("res3_shortcut_s2", 1, 200, 272, 256, 512, 1, 2, 0, 1, False, False, "float32"),
+    ("res2_conv2", 1, 200, 272, 64, 64, 3, 1, 1, 1, False, True, "s8"),
+    ("res5_conv2_dilated", 1, 50, 68, 512, 512, 3, 1, 2, 2, False, True, "s8"),
+    ("fpn_output_p2", 1, 200, 272, 256, 256, 3, 1, 1, 1, False, False, "float32"),
+    ("rpn_conv_p2", 1, 200, 272, 256, 256, 3, 1, 1, 1, False, True, "float32"),
+    ("hrnet_w32_branch_32", 1, 208, 272, 32, 32, 3, 1, 1, 1, False, True, "s8"),
+    ("hrnet_w32_branch_256", 1, 26, 34, 256, 256, 3, 1, 1, 1, False, False, "float32"),
+    ("hrnet_w32_reduction_480", 1, 208, 272, 480, 256, 1, 1, 0, 1, False, False, "float32"),
+    ("hrnet_w48_branch_48", 1, 208, 272, 48, 48, 3, 1, 1, 1, False, True, "s8"),
+    ("hrnet_w48_branch_96", 1, 104, 136, 96, 96, 3, 1, 1, 1, False, False, "float32"),
+    ("hrnet_w48_reduction_720", 1, 208, 272, 720, 256, 1, 1, 0, 1, False, False, "float32"),
+]
+# the Q1 calls of one flagship INT8_HEAD + INT8_PREDICTOR request at 100
+# detections: the entry's ms, plain_ms, bound_ms and library_ms sum them
+Q1_REQUEST = (("head_first_100", 1), ("head_link_100", 6), ("head_last_100", 1),
+              ("deconv_77_100", 1))
+
+
+def q1_work(n, h, w, cin, cout, k, stride, pad, dil, transposed, out_bytes):
+    """(bytes, operations) Q1 must move and do at a site: each s8 input and
+    weight read once, each output written once with the int32 bias and f32
+    vector; 2 operations a product of the taps that meet the input (a
+    transposed conv's holes are no work)."""
+    import torch
+    from densepose_tpu_torch.ops.conv_int8 import out_size
+    qw_shape = torch.empty((cout, k, k, cin), device="meta")
+    ho, wo = out_size(h, w, qw_shape, stride, pad, dil, transposed)
+    taps = (k // stride) ** 2 if transposed else k * k
+    m = n * ho * wo
+    nbytes = n * h * w * cin + cout * k * k * cin + m * cout * out_bytes + cout * 8
+    return nbytes, 2.0 * m * cout * taps * cin
+
+
+def bound_int8(nbytes, ops):
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_INT8_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def q1_yardsticks(torch, F, site, qx, qw, reps):
+    """The two times Q1 is held beside at a site, neither called by the port:
+    (float16 cuDNN convolution of the same shape, channels-last, in ms;
+    torch._int_mm on the unfolded s8 input (the unfold not timed), in ms, or
+    None where its shape rules do not admit the site)."""
+    _, n, h, w, cin, cout, k, stride, pad, dil, transposed, *_ = site
+    x16 = qx.permute(0, 3, 1, 2).half().contiguous(memory_format=torch.channels_last)
+    if transposed:
+        w16 = qw.permute(3, 0, 1, 2).half().contiguous(memory_format=torch.channels_last)
+        lib = lambda: F.conv_transpose2d(x16, w16, stride=stride, padding=pad)
+    else:
+        w16 = qw.permute(0, 3, 1, 2).half().contiguous(memory_format=torch.channels_last)
+        lib = lambda: F.conv2d(x16, w16, stride=stride, padding=pad, dilation=dil)
+    lib_ms = cuda_ms(lib, reps)
+    kk = k * k * cin
+    if transposed or cout % 8 or kk % 8:
+        return lib_ms, None
+    if k == 1 and stride == 1:
+        a = qx.reshape(-1, cin)
+    else:
+        cols = F.unfold(x16.contiguous(), k, dilation=dil, padding=pad, stride=stride)
+        a = cols.transpose(1, 2).reshape(-1, kk).to(torch.int8).contiguous()
+        del cols
+    if a.shape[0] <= 16:
+        return lib_ms, None
+    b = qw.permute(3, 1, 2, 0).reshape(kk, cout).t().contiguous().t()  # column-major
+    torch._int_mm(a, b)
+    torch.cuda.synchronize()
+    return lib_ms, cuda_ms(lambda: torch._int_mm(a, b), reps)
+
+
+def q1_checks(torch, report, dev, ptxas):
+    """Q1 at every int8 site shape: the int32 sums and each epilogue output
+    (s8, f32, f16, bf16) bit-identical to the plain version's (float64 sums,
+    exact), two runs the same bits; times (CUDA events, device events) beside
+    the bound (bytes at 3.35 TB/s or operations at 1979 TOP/s int8) and the
+    two yardsticks."""
+    import torch.nn.functional as F
+    from densepose_tpu_torch.ops import conv_int8
+    g = torch.Generator(device=dev).manual_seed(0)
+    out_dtype = {"s32": "s32", "s8": "s8", "float32": torch.float32,
+                 "float16": torch.float16, "bfloat16": torch.bfloat16}
+    sites = {}
+    for site in Q1_SITES:
+        name, n, h, w, cin, cout, k, stride, pad, dil, transposed, relu, own = site
+        qx = torch.randint(-127, 128, (n, h, w, cin), generator=g, device=dev, dtype=torch.int8)
+        # weights of a trained layer's spread: most |q| small, some at 127
+        qw = (torch.randn((cout, k, k, cin), generator=g, device=dev) * 40).clamp(-127, 127)
+        qw = qw.round().to(torch.int8)
+        qb = torch.randint(-30000, 30000, (cout,), generator=g, device=dev, dtype=torch.int32)
+        geo = dict(stride=stride, padding=pad, dilation=dil, transposed=transposed, relu=relu)
+        acc = conv_int8.conv_s8_plain(qx, qw, qb, None, **geo, out_kind="s32")
+        # an epilogue scale that brings the sums to about +-150 (some clip at 127)
+        vec = 150.0 / (acc.float().abs().amax(dim=(0, 1, 2)) + 1.0)
+        worst = 0.0
+        for kind in Q1_OUTS:
+            want = conv_int8.conv_s8_plain(qx, qw, qb, vec, **geo, out_kind=out_dtype[kind])
+            got = conv_int8.conv_s8_cuda(qx, qw, qb, vec, **geo, out_kind=out_dtype[kind])
+            again = conv_int8.conv_s8_cuda(qx, qw, qb, vec, **geo, out_kind=out_dtype[kind])
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"Q1 {name} {kind}: two runs differ")
+            err = float((got.double() - want.double()).abs().max())
+            check(torch.equal(got, want), f"Q1 {name} {kind}: differs from the plain version "
+                  f"(max abs {err})")
+            worst = max(worst, err)
+        kw = dict(geo, out_kind=out_dtype[own])
+        launch = lambda: conv_int8.conv_s8_cuda(qx, qw, qb, vec, **kw)
+        big = n * h * w * cin > 10 ** 7
+        ms = cuda_ms(launch, reps=20 if big else 50)
+        dev_ms = device_ms(torch, launch)
+        plain_ms = cuda_ms(lambda: conv_int8.conv_s8_plain(qx, qw, qb, vec, **kw), reps=3,
+                           warmup=1)
+        lib_ms, int_mm_ms = q1_yardsticks(torch, F, site, qx, qw, 20 if big else 50)
+        out_bytes = {"s8": 1, "float32": 4}[own]
+        bound_ms, bound_by = bound_int8(*q1_work(n, h, w, cin, cout, k, stride, pad, dil,
+                                                 transposed, out_bytes))
+        sites[name] = {"site": name, "shape": [n, h, w, cin, cout, k, stride, pad, dil],
+                       "transposed": transposed, "out": own, "max_abs_err": worst, "ms": ms,
+                       "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib_ms, "int_mm_ms": int_mm_ms}
+        print(f"Q1 {Q1} {name}: {n}x{h}x{w}x{cin} -> {cout}, k{k} s{stride} p{pad} d{dil}"
+              f"{' transposed' if transposed else ''}: s32/s8/f32/f16/bf16 bit-identical to the "
+              f"plain version, two runs equal; {ms:.4f} ms [{dev_ms:.4f}] ({own} out), bound "
+              f"{bound_ms:.6f} ({bound_by}), plain {plain_ms:.4f}, float16 cuDNN {lib_ms:.4f}, "
+              f"_int_mm {'n/a' if int_mm_ms is None else f'{int_mm_ms:.4f}'}")
+        del qx, qw, acc
+        torch.cuda.empty_cache()
+    per_request = [(sites[s], c) for s, c in Q1_REQUEST]
+    report[Q1] = {
+        "name": Q1, "route": "cuda", "source": Q1_SOURCE, "replaces": Q1_REPLACES,
+        "check": "bit-identical (int32 sums, s8, f32, f16, bf16) at every site, two runs equal",
+        "launches": 0, "launches_per_path": {},
+        "max_abs_err": max(e["max_abs_err"] for e in sites.values()),
+        "ms": sum(e["ms"] * c for e, c in per_request),
+        "device_ms": sum(e["device_ms"] * c for e, c in per_request),
+        "plain_ms": sum(e["plain_ms"] * c for e, c in per_request),
+        "bound_ms": sum(e["bound_ms"] * c for e, c in per_request),
+        "bound_by": "operations",
+        "library_ms": sum(e["library_ms"] * c for e, c in per_request),
+        "int_mm_ms": sum(e["int_mm_ms"] * c for e, c in per_request if e["int_mm_ms"]),
+        "dtype": "int8", "sites": list(sites.values()), "ptxas": ptxas,
+    }
+    print(f"Q1 {Q1}: one flagship INT8_HEAD + INT8_PREDICTOR request's 9 calls at 100 rows: "
+          f"{report[Q1]['ms']:.4f} ms [{report[Q1]['device_ms']:.4f}], bound "
+          f"{report[Q1]['bound_ms']:.6f}, float16 cuDNN {report[Q1]['library_ms']:.4f}")
+
+
+def q1_per_request(pred):
+    """Q1 launches a request of a calibrated predictor: one a quantized conv,
+    but the four chart deconvs share one launch and the RPN conv takes one a
+    level."""
+    state = pred.int8_state()
+    n = sum(k.endswith(".qweight") for k in state)
+    if "roi_heads.densepose_predictor.in_scale" in state:
+        n -= 3
+    if "proposal_generator.rpn_head.conv.qweight" in state:
+        n += len(pred.cfg.MODEL.RPN.IN_FEATURES) - 1
+    return n
+
+
+INT8_HEAD_FLAGS = (("TPU.INT8_HEAD", True), ("TPU.INT8_PREDICTOR", True))
+INT8_ALL_FLAGS = INT8_HEAD_FLAGS + (("TPU.INT8_BACKBONE", True), ("TPU.INT8_RPN", True))
+# (zoo name, config changes, whether its detections are the fp request's)
+INT8_PATHS = [
+    (FLAGSHIP, INT8_HEAD_FLAGS, True),
+    (FLAGSHIP, INT8_HEAD_FLAGS + FP16, True),
+    (FLAGSHIP, INT8_ALL_FLAGS, False),  # "max serving"
+    (DEEPLAB, (("TPU.INT8_HEAD", True),), True),
+    (HRNET, (("TPU.INT8_BACKBONE", True), ("TPU.INT8_HEAD", True)), False),
+]
+CALIB_FRAMES = 4
+# tests/test_int8.py's envelopes of the int8 maps against the fp request's
+ENVELOPE_U = 0.15       # max |u8 - u| / max |u| (the V1ConvX head)
+ENVELOPE_DL_L2 = 0.08   # DeepLab GN chain: relative L2 of u
+ENVELOPE_DL_AGREE = 0.95  # DeepLab: fine-segm argmax agreement
+
+
+def int8_path(torch, report, dev, name, extra, post_detection):
+    """One int8 path at full width: the predictor calibrated by calibrate_int8
+    on CALIB_FRAMES distinct frames, then drive_path (warm-up, timed requests
+    with their launch counts, Q1's among them, profiled breakdown); the
+    saturation report; one request with every K1, K2 and Q1 launch held
+    against its plain version; against the same model's fp request (same
+    dtype): detections bit-identical where the int8 groups are
+    post-detection, and the maps inside tests/test_int8.py's envelopes; the
+    flagship's calibration saved and loaded into a second predictor, which
+    gives the same int8 state and outputs."""
+    import tempfile
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    dtype = path_dtype(extra)
+    tag = name + "".join(f", {k}={v}" for k, v in extra)
+    calib = frames(7, CALIB_FRAMES)
+    per_request = dict(ON_K2)
+
+    def prepare(pred):
+        t0 = time.perf_counter()
+        pred.calibrate_int8(calib)
+        torch.cuda.synchronize()
+        per_request[Q1] = q1_per_request(pred)
+        print(f"int8 {tag}: calibrate_int8 on {CALIB_FRAMES} frames in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms; {per_request[Q1]} Q1 launches a "
+              f"request, {sum(k.endswith('.in_scale') or '.in_scale_' in k for k in pred.int8_state())} "
+              f"scales")
+
+    pred = drive_path(torch, report, dev, name, extra, False, per_request, prepare)
+    frame = frames(1, 2)[1]
+    rep = pred.saturation_report([frame])
+    worst = sorted(rep.items(), key=lambda kv: -kv[1])[:3]
+    print(f"int8 {tag}: saturation_report on a timed frame: {len(rep)} sites, max "
+          f"{max(rep.values()):.3e}; worst " + ", ".join(f"{k} {v:.3e}" for k, v in worst))
+    with HeldAgainstPlain(torch, f"int8 {tag}") as held:
+        pred(frame)
+        torch.cuda.synchronize()
+    check(len(held.k1) == 2 and len(held.k2) == 2 and len(held.q1) == per_request[Q1],
+          f"int8 {tag}: held {len(held.k1)} K1, {len(held.k2)} K2, {len(held.q1)} Q1 calls")
+    print(f"held: one int8 {tag} request, {held.summary()}")
+    fp_cfg = path_config(name, [kv for kv in extra if kv[0].split(".")[-1] not in INT8_FLAGS])
+    fp = DensePosePredictor(fp_cfg, seed=0, device=dev, params=path_params(fp_cfg, dev))
+    got, want = pred.predict_numpy(frame), fp.predict_numpy(frame)
+    del fp
+    for k, v in got.items():
+        if isinstance(v, np.ndarray) and v.dtype.kind == "f":
+            check(np.isfinite(v).all(), f"int8 {tag}: non-finite {k}")
+    n = got["num_instances"]
+    line = f"int8 {tag} against the fp request: {n} detections (fp {want['num_instances']})"
+    if post_detection:
+        for k in ("num_instances", "pred_boxes", "scores", "pred_classes"):
+            check(np.array_equal(got[k], want[k]), f"int8 {tag}: {k} differs from the fp "
+                  "request's (the int8 groups are post-detection)")
+        u8 = got["pred_densepose_u"].astype(np.float64)
+        u = want["pred_densepose_u"].astype(np.float64)
+        rel = float(np.abs(u8 - u).max() / (np.abs(u).max() + 1e-9))
+        if name == DEEPLAB:
+            l2 = float(np.linalg.norm(u8 - u) / (np.linalg.norm(u) + 1e-9))
+            agree = float(np.mean(got["pred_densepose_fine_segm"].argmax(1)
+                                  == want["pred_densepose_fine_segm"].argmax(1)))
+            check(l2 < ENVELOPE_DL_L2 and agree > ENVELOPE_DL_AGREE,
+                  f"int8 {tag}: u relative L2 {l2}, fine-segm agreement {agree}")
+            line += f", detections bit-identical; u relative L2 {l2:.4f} (< {ENVELOPE_DL_L2}), " \
+                    f"fine-segm argmax agreement {agree:.4f} (> {ENVELOPE_DL_AGREE})"
+        else:
+            check(rel < ENVELOPE_U, f"int8 {tag}: u differs by {rel} of its largest magnitude")
+            line += f", detections bit-identical; u within {rel:.4f} of max |u| (< {ENVELOPE_U})"
+        line += f"; max |u| {float(np.abs(u).max()):.4f}"
+    print(line)
+    if (name, extra) == (FLAGSHIP, INT8_HEAD_FLAGS):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "flagship.calib.json")
+            pred.save_calibration(path)
+            again = DensePosePredictor(path_config(name, extra), seed=0, device=dev)
+            again.load_calibration(path)
+        sa, sb = pred.int8_state(), again.int8_state()
+        check(set(sa) == set(sb) and all(torch.equal(sa[k], sb[k]) for k in sa),
+              "int8: the loaded calibration's state differs from the saved one's")
+        a, b = pred.predict_numpy(frame), again.predict_numpy(frame)
+        same = all(np.array_equal(a[k], b[k]) for k in a)
+        check(same, "int8: save_calibration -> load_calibration gives other outputs")
+        print(f"int8 {tag}: save_calibration -> load_calibration into a second predictor: "
+              f"{len(sa)} int8 buffers and every output bit-identical")
+        del again
+    return pred
+
+
+def reference_check_int8(torch, dev, name, extra, hw=(64, 64)):
+    """A narrowed int8 model, card against CPU: the card calibrates, the CPU
+    predictor loads its scales; the quantized weights and scales bit-identical
+    on both; detections as reference_check holds them (1e-3), and the maps
+    within INT8_REF_RTOL of their largest magnitude (an fp conv summed in
+    another order before a quantization may round a value across an s8
+    boundary: tests/test_torch_int8.py's rule), with at most INT8_REF_SHARE
+    of them beyond 1e-3."""
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    changes = NARROW + (NARROW_HRNET if name == HRNET else []) + list(extra)
+    cfg = path_config(name, changes)
+    img = (np.random.RandomState(21).rand(*hw, 3) * 255).astype(np.uint8)
+    gpu = DensePosePredictor(cfg, seed=5, device=dev)
+    gpu.calibrate_int8([img])
+    cpu = DensePosePredictor(cfg, seed=5, device="cpu")
+    cpu.load_calibration(gpu.export_calibration())
+    sg, sc = gpu.int8_state(), cpu.int8_state()
+    check(set(sg) == set(sc) and all(torch.equal(sg[k].cpu(), sc[k]) for k in sg),
+          f"reference int8 {name}: quantized state differs card vs CPU")
+    a, b = gpu.predict_numpy(img), cpu.predict_numpy(img)
+    n = b["num_instances"]
+    check(a["num_instances"] == n >= 1, f"reference int8 {name}: {a['num_instances']} vs {n}")
+    order = [np.lexsort(r["pred_boxes"].T[::-1]) for r in (a, b)]
+    det_err, map_err, share = 0.0, 0.0, 0.0
+    for k in ("pred_boxes", "scores", "pred_classes"):
+        e = float(np.abs(a[k][order[0]].astype(np.float64) - b[k][order[1]]).max())
+        check(e <= (0 if k == "pred_classes" else 1e-3), f"reference int8 {name}: {k} by {e}")
+        det_err = max(det_err, e)
+    maps = sorted(k for k in b if k.startswith("pred_densepose_"))
+    for k in maps:
+        x, y = a[k][order[0]].astype(np.float64), b[k][order[1]].astype(np.float64)
+        e = np.abs(x - y)
+        top = float(np.abs(y).max()) + 1e-12
+        check(e.max() <= INT8_REF_RTOL * top, f"reference int8 {name}: {k} by {e.max()} of {top}")
+        map_err = max(map_err, float(e.max() / top))
+        share = max(share, float(np.mean(e > 1e-3)))
+    check(share <= INT8_REF_SHARE, f"reference int8 {name}: {share} of the maps beyond 1e-3")
+    print(f"reference: narrowed {name} with {', '.join(k for k, _ in extra)} on the card vs the "
+          f"CPU: {len(sg)} int8 buffers bit-identical, {n} detections within {det_err:.3e} "
+          f"(tol 1e-3), maps within {map_err:.3e} of their largest magnitude (tol "
+          f"{INT8_REF_RTOL}), {share:.4f} of them beyond 1e-3 (tol {INT8_REF_SHARE})")
+
+
+INT8_REF_RTOL = 2e-2
+INT8_REF_SHARE = 0.02
+
+
 def main():
     try:
         import torch
@@ -2018,14 +2401,18 @@ def main():
     check(len(ptxas["roi_align_sparse"]) == 6 and len(ptxas["roi_align"]) == 6,
           "build: K2 and K3 each have 6 instantiations (float, __half, __nv_bfloat16 x ratio "
           f"2, any ratio), got {len(ptxas['roi_align'])} and {len(ptxas['roi_align_sparse'])}")
-    for k in ptxas["roi_align_sparse"]:
+    for k in ptxas["roi_align_sparse"] + ptxas["conv_s8"]:
         check((k.get("stack"), k.get("spill_stores"), k.get("spill_loads")) == (0, 0, 0),
-              f"build: K3's {k['kernel']} has a stack frame or spills")
+              f"build: {k['kernel']} has a stack frame or spills")
+    check(len(ptxas["conv_s8"]) == 8, "build: Q1 has 8 instantiations (16- and 8-byte copies "
+          "x CTAs 64, 128 and 256 channels wide, 4-byte copies x 64 and 128), got "
+          f"{len(ptxas['conv_s8'])}")
 
     report = {}
     cfg = get_config(FLAGSHIP)
     dev = torch.device("cuda")
     kernel_checks(torch, cfg, report, dev)
+    q1_checks(torch, report, dev, ptxas["conv_s8"])
     for entry in report.values():
         entry["ptxas"] = ptxas[SOURCES[entry["name"].split("[")[0]]]
     for name, extra, sparse, per_request in PATHS:
@@ -2051,6 +2438,10 @@ def main():
             print(f"held: one {name} {dtype} request, {held.summary()}")
         del pred
         torch.cuda.empty_cache()
+    for name, extra, post_detection in INT8_PATHS:
+        pred = int8_path(torch, report, dev, name, extra, post_detection)
+        del pred
+        torch.cuda.empty_cache()
     cse_phase(torch, report, dev)
     geometry_phase(torch, report, dev)
     detection_bucket_phase(torch, report, dev)
@@ -2068,6 +2459,9 @@ def main():
     reference_check(torch, dev, HRNET, False, "float16")
     reference_check(torch, dev, CSE, False)
     reference_check(torch, dev, CSE, False, "bfloat16")
+    reference_check_int8(torch, dev, FLAGSHIP, INT8_HEAD_FLAGS)
+    reference_check_int8(torch, dev, HRNET, (("TPU.INT8_BACKBONE", True),
+                                             ("TPU.INT8_HEAD", True)))
 
     print(json.dumps({"kernels": list(report.values())}))
     print(f"nvidia-smi: {smi_line}")

@@ -159,11 +159,24 @@ def params_from_jax(jax_params: Dict[str, np.ndarray]) -> StateDict:
     keep it: float16 arrays come back float16. bfloat16 arrays (``ml_dtypes``
     on the host; numpy has no bfloat16) come back as float32 holding the same
     values, which the port's predictor casts to bfloat16 exactly. Every
-    transform goes through float32, which holds both half types exactly."""
+    transform goes through float32, which holds both half types exactly.
+
+    A calibrated dict's int8 entries (JAX predictor.py:296-315): a
+    ``.qweight`` stays int8 and goes from (kh, kw, Cin, Cout) to the port's
+    (Cout, kh, kw, Cin), a predictor deconvolution's also unflipped to
+    ConvTranspose2d's tap order (``ops/conv_int8.py``); ``.wscale`` (Cout,)
+    and the 0-dim ``.in_scale`` / ``.in_scale_<level>`` pass through as
+    float32."""
     out: StateDict = {}
     for name, a in jax_params.items():
         if name.endswith((".running_mean", ".running_var")):
             raise ValueError(f"{name}: unfolded FrozenBN; the port takes folded params")
+        if name.endswith(".qweight"):
+            q = np.transpose(np.asarray(a, dtype=np.int8), (3, 0, 1, 2))
+            if ".densepose_predictor." in name:
+                q = q[:, ::-1, ::-1, :]
+            out[name] = np.ascontiguousarray(q)
+            continue
         dtype = np.float16 if np.asarray(a).dtype == np.float16 else np.float32
         a = np.asarray(a, dtype=np.float32)
         if a.ndim == 4 and ".densepose_predictor." in name:

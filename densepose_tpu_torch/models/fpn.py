@@ -4,6 +4,13 @@ Lateral 1x1 and output 3x3 convs per level, a top-down exact 2x nearest
 upsample with sum fusion (fpn.py:125-166) and LastLevelMaxPool p6
 (fpn.py:187-199). DensePose configs use norm="" (bias convs) and
 fuse_type="sum".
+
+int8 serving (``TPU.INT8_BACKBONE``, JAX fpn.py:51-130): once calibrated, the
+3x3 output convs run through kernel Q1 on the top-down sums quantized at their
+scale, to f32 and then the compute dtype; the laterals stay fp. This holds at
+any ResNet depth: FPN int8 has no depth gate. ``fpn_int8_scale_sites`` and
+``FPN.int8_calibration`` are the site lists (FPN, then the RPN conv's per-level
+inputs) and the walk that records them.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..checkpoint.spec import Spec, conv_spec
+from ..ops.conv_int8 import act_stat, link, quantized, to_nchw, to_s8_nhwc
 from .resnet import ResNet, resnet_spec
 
 _STAGE_LOG2 = {"res2": 2, "res3": 3, "res4": 4, "res5": 5}
@@ -46,6 +54,17 @@ def fpn_out_strides(cfg) -> Dict[str, int]:
     return strides
 
 
+def fpn_int8_scale_sites(cfg, prefix: str = "backbone",
+                         rpn_prefix: str = "proposal_generator.rpn_head"):
+    """(FPN sites, RPN sites) in ``FPN.int8_calibration``'s order (JAX
+    ``fpn_int8_scale_sites``): the output convs' input scales top-down, then
+    the RPN conv's per-level input scales in RPN.IN_FEATURES order."""
+    fpn_sites = [f"{prefix}.fpn_output{_STAGE_LOG2[f]}.in_scale"
+                 for f in reversed(cfg.MODEL.FPN.IN_FEATURES)]
+    rpn_sites = [f"{rpn_prefix}.conv.in_scale_{f}" for f in cfg.MODEL.RPN.IN_FEATURES]
+    return fpn_sites, rpn_sites
+
+
 class FPN(nn.Module):
     """x: (N, 3, H, W) -> {"p2": ..., "p6": ...} NCHW."""
 
@@ -54,6 +73,7 @@ class FPN(nn.Module):
         if cfg.MODEL.FPN.NORM:
             raise NotImplementedError(f"FPN norm {cfg.MODEL.FPN.NORM!r} is not ported yet")
         self.in_features: List[str] = list(cfg.MODEL.FPN.IN_FEATURES)
+        self.int8 = bool(cfg.TPU.INT8_BACKBONE)
         self.bottom_up = ResNet(cfg)
         out_channels = cfg.MODEL.FPN.OUT_CHANNELS
         ch = _in_channels(cfg)
@@ -63,8 +83,17 @@ class FPN(nn.Module):
             self.add_module(f"fpn_output{stage}",
                             nn.Conv2d(out_channels, out_channels, 3, padding=1))
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def int8_active(self) -> bool:
+        """``TPU.INT8_BACKBONE`` with the output convs' calibration installed
+        (JAX ``fpn_int8_active``)."""
+        return self.int8 and quantized(getattr(self, f"fpn_output{_STAGE_LOG2[self.in_features[0]]}"))
+
+    def forward(self, x: torch.Tensor, stats: List[torch.Tensor] = None,
+                stat: str = "max") -> Dict[str, torch.Tensor]:
+        """``stats``: append each output conv's input statistic (the fp
+        calibration walk) instead of running int8."""
         bottom_up = self.bottom_up(x)
+        int8 = stats is None and self.int8_active()
         results: Dict[str, torch.Tensor] = {}
         prev = None
         for f in reversed(self.in_features):
@@ -73,7 +102,26 @@ class FPN(nn.Module):
             if prev is not None:
                 lateral = lateral + F.interpolate(prev, scale_factor=2.0, mode="nearest")
             prev = lateral
-            results[f"p{stage}"] = getattr(self, f"fpn_output{stage}")(prev)
+            out = getattr(self, f"fpn_output{stage}")
+            if stats is not None:
+                stats.append(act_stat(prev, stat, getattr(out, "in_scale", None)))
+            if int8:
+                y = link(out, to_s8_nhwc(prev, out.in_scale), out.in_scale)
+                results[f"p{stage}"] = to_nchw(y, prev.dtype)
+            else:
+                results[f"p{stage}"] = out(prev)
         top = _STAGE_LOG2[self.in_features[-1]]
         results[f"p{top + 1}"] = results[f"p{top}"][:, :, ::2, ::2]
         return dict(sorted(results.items()))
+
+    def int8_calibration(self, x: torch.Tensor, rpn_conv: nn.Module, rpn_features: List[str],
+                         stat: str = "max") -> torch.Tensor:
+        """The fp pass recording the output convs' input statistics, then the
+        RPN conv's per level (p6 from the pooled p5), in
+        ``fpn_int8_scale_sites`` order (JAX ``fpn_int8_calibration``). The
+        bottom-up runs as the model serves it."""
+        stats: List[torch.Tensor] = []
+        results = self.forward(x, stats, stat)
+        for f in rpn_features:
+            stats.append(act_stat(results[f], stat, getattr(rpn_conv, f"in_scale_{f}", None)))
+        return torch.stack(stats)

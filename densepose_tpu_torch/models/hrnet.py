@@ -23,10 +23,18 @@ Structure (branch widths Ci from MODEL.HRNET.STAGEk.NUM_CHANNELS):
     reduction, an average-pool pyramid and a 3x3 conv per level -> p1..p5
     (strides 4..64)
 
-Left out, as TPU-only or not yet ported: the width-packed branch convs
-(``hrnet_wpack_augment``: lane occupancy on the TPU), the packed stem conv
-(``conv2d_rgb_s2``, another summation order of the same conv), and the int8
-chains and their calibration walk (ROADMAP.md queue 1, item 7).
+int8 serving (``TPU.INT8_BACKBONE``, JAX hrnet.py:273-433, 536-668): once
+calibrated, layer1's bottlenecks, every branch's BasicBlock chain, the HRFPN
+reduction and p1's conv run through kernel Q1 (``ops/conv_int8.py``); the stem,
+transitions, fusions and the pooled levels' convs stay fp. As in the JAX
+package, layer1's identity shortcut adds the fp input x while a BasicBlock's
+adds its dequantized s8 input q * s_in. Passing ``calib`` (a list) to the
+forwards runs the fp walk instead and appends each site's statistic in
+``hrnet_int8_scale_sites`` order.
+
+Left out, as TPU-only: the width-packed branch convs (``hrnet_wpack_augment``:
+lane occupancy on the TPU; the int8 chain quantizes the plain convs) and the
+packed stem conv (``conv2d_rgb_s2``, another summation order of the same conv).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..checkpoint.spec import ParamSpec, Spec
+from ..ops.conv_int8 import act_stat, link, quant_act_s8, quantized, to_nchw, to_s8_nhwc
 from ..ops.resize import resize_bilinear
 
 _BN_SUFFIXES = ("weight", "bias", "running_mean", "running_var")
@@ -116,6 +125,51 @@ def hrfpn_out_strides(cfg) -> Dict[str, int]:
     return {"p1": 4, "p2": 8, "p3": 16, "p4": 32, "p5": 64}
 
 
+def _branch_blocks(cfg, prefix: str):
+    """The BasicBlock names of every branch, in stage / module / branch /
+    block order."""
+    for si, (chans, n_modules, n_blocks) in enumerate(_stages(cfg)):
+        for m in range(n_modules):
+            for b in range(len(chans)):
+                for blk in range(n_blocks[b]):
+                    yield f"{prefix}.stage{si + 2}.{m}.branches.{b}.{blk}"
+
+
+def hrnet_int8_scale_sites(cfg, prefix: str = "backbone.bottom_up",
+                           hrfpn_prefix: str = "backbone") -> List[str]:
+    """The activation-scale names in the calibration walk's order (JAX
+    ``hrnet_int8_scale_sites``): layer1's conv inputs, every branch
+    BasicBlock's conv1 and conv2 inputs, the HRFPN reduction's and p1 conv's."""
+    sites = [f"{prefix}.layer1.{i}.conv{k}.in_scale" for i in range(4) for k in (1, 2, 3)]
+    for bb in _branch_blocks(cfg, prefix):
+        sites += [f"{bb}.conv1.in_scale", f"{bb}.conv2.in_scale"]
+    return sites + [f"{hrfpn_prefix}.reduction_conv.in_scale",
+                    f"{hrfpn_prefix}.fpn_conv.0.in_scale"]
+
+
+def hrnet_int8_quant_bases(cfg, prefix: str = "backbone.bottom_up",
+                           hrfpn_prefix: str = "backbone") -> List[str]:
+    """The convs quantized in int8 mode (JAX ``hrnet_int8_quant_bases`` on
+    the plain path, where no width-packed ``.wp`` twin exists)."""
+    bases = []
+    for i in range(4):
+        b = f"{prefix}.layer1.{i}"
+        bases += [f"{b}.conv1", f"{b}.conv3", f"{b}.conv2"]
+        if i == 0:
+            bases.append(f"{b}.downsample.0")
+    for bb in _branch_blocks(cfg, prefix):
+        bases += [f"{bb}.conv1", f"{bb}.conv2"]
+    return bases + [f"{hrfpn_prefix}.reduction_conv", f"{hrfpn_prefix}.fpn_conv.0"]
+
+
+def _stat(calib, x: torch.Tensor, stat: str, conv: nn.Module) -> None:
+    calib.append(act_stat(x, stat, getattr(conv, "in_scale", None)))
+
+
+def _int8_ok(conv: nn.Module, calib) -> bool:
+    return calib is None and getattr(conv, "in_scale", None) is not None and quantized(conv)
+
+
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
     """A conv with its BN folded in: bias, 'same' padding for odd k."""
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2)
@@ -135,10 +189,30 @@ class Bottleneck(nn.Module):
         self.conv3 = _conv(64, LAYER1_WIDTH, 1)
         self.downsample = _seq(_conv(cin, LAYER1_WIDTH, 1)) if downsample else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.conv2(F.relu(self.conv1(x))))
+    def forward(self, x: torch.Tensor, calib=None, stat: str = "max") -> torch.Tensor:
+        if calib is not None:
+            _stat(calib, x, stat, self.conv1)
+        out = F.relu(self.conv1(x))
+        if calib is not None:
+            _stat(calib, out, stat, self.conv2)
+        out = F.relu(self.conv2(out))
+        if calib is not None:
+            _stat(calib, out, stat, self.conv3)
         sc = x if self.downsample is None else self.downsample[0](x)
         return F.relu(self.conv3(out) + sc)
+
+    def forward_int8(self, x: torch.Tensor) -> torch.Tensor:
+        """x (N, C, H, W) float -> the block through Q1 (JAX ``_layer1``'s int8
+        arm): the shortcut is the downsample's s8 link, or the fp x itself;
+        out in x's dtype."""
+        s1, s2, s3 = self.conv1.in_scale, self.conv2.in_scale, self.conv3.in_scale
+        q = to_s8_nhwc(x, s1)
+        q1 = link(self.conv1, q, s1, s2, relu=True)
+        q2 = link(self.conv2, q1, s2, s3, relu=True)
+        y = link(self.conv3, q2, s3)
+        sc = (link(self.downsample[0], q, s1) if self.downsample is not None
+              else x.permute(0, 2, 3, 1).float())
+        return to_nchw(F.relu(y + sc), x.dtype)
 
 
 class BasicBlock(nn.Module):
@@ -147,8 +221,37 @@ class BasicBlock(nn.Module):
         self.conv1 = _conv(c, c, 3)
         self.conv2 = _conv(c, c, 3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.conv2(F.relu(self.conv1(x))) + x)
+    def forward(self, x: torch.Tensor, calib=None, stat: str = "max") -> torch.Tensor:
+        if calib is not None:
+            _stat(calib, x, stat, self.conv1)
+        out = F.relu(self.conv1(x))
+        if calib is not None:
+            _stat(calib, out, stat, self.conv2)
+        return F.relu(self.conv2(out) + x)
+
+    def forward_int8(self, q: torch.Tensor, s_in: torch.Tensor) -> torch.Tensor:
+        """q (N, H, W, C) s8 at ``s_in`` -> f32 NHWC (JAX ``_basic_block_int8``):
+        the residual is q * s_in."""
+        q1 = link(self.conv1, q, s_in, self.conv2.in_scale, relu=True)
+        y = link(self.conv2, q1, self.conv2.in_scale)
+        return F.relu(y + q.float() * s_in)
+
+
+def run_branch(branch: nn.Sequential, y: torch.Tensor, calib=None,
+               stat: str = "max") -> torch.Tensor:
+    """A branch's BasicBlock chain (JAX ``_branch_chain``, plain path): the s8
+    chain once calibrated (each block requantizes its f32 input), else fp,
+    recording statistics when ``calib`` is given."""
+    if not _int8_ok(branch[0].conv1, calib):
+        for block in branch:
+            y = block(y, calib, stat)
+        return y
+    dtype = y.dtype
+    y = y.permute(0, 2, 3, 1)
+    for block in branch:
+        s_in = block.conv1.in_scale
+        y = block.forward_int8(quant_act_s8(y, s_in).contiguous(), s_in)
+    return to_nchw(y, dtype)
 
 
 class HRModule(nn.Module):
@@ -177,8 +280,9 @@ class HRModule(nn.Module):
                     row.append(nn.Identity())
             self.fuse_layers.append(row)
 
-    def forward(self, feats: List[torch.Tensor]) -> List[torch.Tensor]:
-        outs = [branch(x) for branch, x in zip(self.branches, feats)]
+    def forward(self, feats: List[torch.Tensor], calib=None,
+                stat: str = "max") -> List[torch.Tensor]:
+        outs = [run_branch(branch, x, calib, stat) for branch, x in zip(self.branches, feats)]
         fused = []
         for i, row in enumerate(self.fuse_layers):
             acc = None
@@ -221,9 +325,12 @@ class HRNet(nn.Module):
                 *(HRModule(chans, n_blocks) for _ in range(n_modules))))
             prev = chans
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, calib=None, stat: str = "max") -> List[torch.Tensor]:
         x = F.relu(self.conv2(F.relu(self.conv1(x))))
-        feats = [self.layer1(x)]
+        int8 = _int8_ok(self.layer1[0].conv1, calib)
+        for block in self.layer1:
+            x = block.forward_int8(x) if int8 else block(x, calib, stat)
+        feats = [x]
         for s in (2, 3, 4):
             new = []
             for b, t in enumerate(getattr(self, f"transition{s - 1}")):
@@ -235,7 +342,7 @@ class HRNet(nn.Module):
                     new.append(F.relu(t[0](feats[b])))
             feats = new
             for module in getattr(self, f"stage{s}"):
-                feats = module(feats)
+                feats = module(feats, calib, stat)
         return feats
 
 
@@ -253,11 +360,40 @@ class HRFPN(nn.Module):
         self.reduction_conv = nn.Conv2d(sum(cfg.MODEL.HRNET.STAGE4.NUM_CHANNELS), out, 1)
         self.fpn_conv = nn.ModuleList(nn.Conv2d(out, out, 3, padding=1) for _ in range(5))
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        feats = self.bottom_up(x)
+    def forward(self, x: torch.Tensor, calib=None, stat: str = "max") -> Dict[str, torch.Tensor]:
+        """In int8 mode the two full-resolution convs (the 1x1 reduction and
+        p1's 3x3) run through Q1 to the compute dtype; the pooled levels stay
+        fp. ``calib``: the fp walk, appending statistics."""
+        feats = self.bottom_up(x, calib, stat)
         hw = tuple(feats[0].shape[-2:])
         ups = [feats[0]] + [resize_bilinear(f, hw, scale=(float(2 ** i), float(2 ** i)))
                             for i, f in enumerate(feats[1:], 1)]
-        red = self.reduction_conv(torch.cat(ups, dim=1))
-        return {f"p{i + 1}": conv(red if i == 0 else F.avg_pool2d(red, 2 ** i))
-                for i, conv in enumerate(self.fpn_conv)}
+        cat = torch.cat(ups, dim=1)
+        if calib is not None:
+            _stat(calib, cat, stat, self.reduction_conv)
+        int8 = _int8_ok(self.reduction_conv, calib)
+        dtype = cat.dtype
+        if int8:
+            s_cat = self.reduction_conv.in_scale
+            red = to_nchw(link(self.reduction_conv, to_s8_nhwc(cat, s_cat), s_cat,
+                               out_dtype=dtype), dtype)
+        else:
+            red = self.reduction_conv(cat)
+        if calib is not None:
+            _stat(calib, red, stat, self.fpn_conv[0])
+        outs = {}
+        for i, conv in enumerate(self.fpn_conv):
+            if i == 0 and int8 and quantized(conv):
+                s_red = conv.in_scale
+                outs["p1"] = to_nchw(link(conv, to_s8_nhwc(red, s_red), s_red, out_dtype=dtype),
+                                     dtype)
+            else:
+                outs[f"p{i + 1}"] = conv(red if i == 0 else F.avg_pool2d(red, 2 ** i))
+        return outs
+
+    def int8_calibration(self, x: torch.Tensor, stat: str = "max") -> torch.Tensor:
+        """The fp walk's statistics in ``hrnet_int8_scale_sites`` order (JAX
+        ``hrnet_int8_calibration``); x is the preprocessed input."""
+        calib: List[torch.Tensor] = []
+        self.forward(x, calib, stat)
+        return torch.stack(calib)

@@ -20,6 +20,12 @@ FrozenBN folded (``backbone.bottom_up.stem.conv1.weight``,
 7. with ``TPU.DEVICE_POSTPROCESS``, ``device_postprocess``: the SIUV maps
    collapse into a label map and a UV map on the device.
 
+int8 serving (``TPU.INT8_HEAD`` / ``INT8_PREDICTOR`` / ``INT8_BACKBONE`` /
+``INT8_RPN``): the model's quantized convs run through kernel Q1 once their
+calibration is installed (buffers under the JAX package's names, put there by
+the predictor); ``forward_int8_calibration`` is the fp pass that records each
+quantization site's statistic, by group (JAX rcnn.py:331-377).
+
 ``forward_bucketed`` (``TPU.GEOMETRY_BUCKET_QUANT``) runs the same stages on
 a geometry-bucket canvas: the resized image at the top left of a canvas
 padded to a multiple of the quantum (``bucket_canvas``), normalized in fp32
@@ -58,7 +64,8 @@ from ..checkpoint.spec import Spec
 from ..ops.boxes import clip_boxes, nonempty_boxes
 from ..ops.resize import resize_image
 from .backbones import backbone_spec, build_backbone
-from .roi_heads import ROIHeads, box_stage_forward, densepose_stage_forward, roi_heads_spec
+from .roi_heads import (ROIHeads, box_stage_forward, densepose_stacked_calibration,
+                        densepose_stage_forward, roi_heads_spec)
 from .rpn import RPNHead, rpn_forward, rpn_spec
 
 
@@ -93,9 +100,6 @@ def _check_supported(cfg) -> None:
     if t.COMPUTE_DTYPE not in COMPUTE_DTYPES:
         raise ValueError(f"TPU.COMPUTE_DTYPE {t.COMPUTE_DTYPE!r}: expected one of "
                          f"{sorted(COMPUTE_DTYPES)}")
-    unported = [k for k in ("INT8_HEAD", "INT8_BACKBONE", "INT8_RPN", "INT8_PREDICTOR") if t[k]]
-    if unported:
-        raise NotImplementedError(f"TPU.{unported[0]} is not ported yet")
 
 
 class ProposalGenerator(nn.Module):
@@ -126,6 +130,42 @@ class GeneralizedRCNN(nn.Module):
         spec.update(rpn_spec(self.cfg))
         spec.update(roi_heads_spec(self.cfg))
         return spec
+
+    def resnet_prefix(self) -> Optional[str]:
+        """Param prefix of the ResNet bottom-up, or None for HRNet (the int8
+        backbone's bottleneck sites apply to ResNets only)."""
+        return "backbone.bottom_up" if self.cfg.MODEL.BACKBONE.NAME == \
+            "build_resnet_fpn_backbone" else None
+
+    def forward_int8_calibration(self, image_u8: torch.Tensor,
+                                 stat: str = "max") -> Dict[str, torch.Tensor]:
+        """One fp pass per enabled group recording each quantization site's
+        statistic (``stat``: "max" seeds the scales, "sat" measures
+        saturation; JAX ``forward_int8_calibration``): ``head`` (the DensePose
+        stacked convs' inputs, and the chart deconvs' with INT8_PREDICTOR,
+        on the request's own detections), ``backbone`` (ResNet's block sites),
+        ``fpn`` (FPN output convs, then the RPN conv per level) and ``hrnet``.
+        The backbone, FPN and detection stages run as the model serves them,
+        int8 where installed, as the JAX walks do."""
+        cfg, t = self.cfg, self.cfg.TPU
+        out = {}
+        if (t.INT8_HEAD or t.INT8_PREDICTOR) and cfg.MODEL.DENSEPOSE_ON:
+            _, features, boxes_net = self.forward_stage1(image_u8)
+            out["head"] = densepose_stacked_calibration(self.roi_heads, features, boxes_net,
+                                                        cfg, stat)
+        resnet = self.resnet_prefix() is not None
+        hrnet = cfg.MODEL.BACKBONE.NAME == "build_hrfpn_backbone"
+        if (t.INT8_BACKBONE and (resnet or hrnet)) or (t.INT8_RPN and resnet):
+            x, _, _ = self.preprocess(image_u8)
+            if t.INT8_BACKBONE and resnet:
+                out["backbone"] = self.backbone.bottom_up.int8_calibration(x, stat)
+            if resnet:
+                out["fpn"] = self.backbone.int8_calibration(
+                    x, self.proposal_generator.rpn_head.conv, list(cfg.MODEL.RPN.IN_FEATURES),
+                    stat)
+            if t.INT8_BACKBONE and hrnet:
+                out["hrnet"] = self.backbone.int8_calibration(x, stat)
+        return out
 
     def resized_size(self, h0: int, w0: int, min_size: Optional[int] = None,
                      max_size: Optional[int] = None) -> Tuple[float, int, int]:

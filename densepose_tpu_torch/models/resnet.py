@@ -5,6 +5,17 @@ with ``stride_in_1x1`` and res5 dilation. FrozenBN is folded into the convs
 at load time (checkpoint/transform.py), so every conv carries a bias and the
 blocks are conv -> ReLU chains on cuDNN. Module names mirror the reference
 state_dict (``stem.conv1``, ``res2.0.conv1``, ...).
+
+int8 serving (``TPU.INT8_BACKBONE``, JAX resnet.py:169-275): once calibrated
+scales and quantized weights are installed, res2..res5 run as an s8 chain
+through kernel Q1 (``ops/conv_int8.py``): conv1 and conv2 stay in the integer
+domain, conv3 and the shortcut dequantize to f32 for the residual add (an
+identity shortcut adds the dequantized s8 input, q * s_in, as the JAX
+package does), the ReLU runs in f32 and the next block requantizes; the stem
+stays fp. The port always folds FrozenBN, so the JAX package's refusal of
+unfolded BN never applies. ``resnet_int8_scale_sites`` and
+``ResNet.int8_calibration`` are the site list and the fp walk that records
+its statistics, in the same order.
 """
 
 from __future__ import annotations
@@ -16,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..checkpoint.spec import Spec, conv_spec
+from ..ops.conv_int8 import act_stat, link, quant_act_s8, quantized, to_nchw, to_s8_nhwc
 
 NUM_BLOCKS_PER_STAGE = {
     18: [2, 2, 2, 2],
@@ -52,6 +64,37 @@ def _check_supported(cfg) -> None:
     if any(cfg.MODEL.RESNETS.DEFORM_ON_PER_STAGE):
         raise NotImplementedError("deformable conv blocks are nonfunctional in the "
                                   "reference (resnet.py:255-259)")
+
+
+def _iter_blocks(cfg, prefix: str, num_stages: int = 4):
+    """(stage, block name, stride, dilation, has shortcut, next block name or
+    None, last of its stage) in forward order (JAX resnet.py::_iter_blocks)."""
+    r = cfg.MODEL.RESNETS
+    blocks = NUM_BLOCKS_PER_STAGE[r.DEPTH]
+    names = []
+    for stage_idx, (cin, _, cout) in enumerate(_stage_channels(cfg)[:num_stages]):
+        stage = f"res{stage_idx + 2}"
+        dilation = r.RES5_DILATION if stage_idx == 3 else 1
+        first_stride = 1 if stage_idx == 0 or (stage_idx == 3 and dilation == 2) else 2
+        for i in range(blocks[stage_idx]):
+            names.append((stage, f"{prefix}.{stage}.{i}", first_stride if i == 0 else 1,
+                          dilation, (cin if i == 0 else cout) != cout,
+                          i == blocks[stage_idx] - 1))
+    for j, (stage, name, stride, dil, sc, last) in enumerate(names):
+        yield stage, name, stride, dil, sc, names[j + 1][1] if j + 1 < len(names) else None, last
+
+
+def resnet_int8_scale_sites(cfg, prefix: str = "backbone.bottom_up"):
+    """The activation-scale names of the int8 backbone, in the order of
+    ``ResNet.int8_calibration``'s statistics (JAX
+    ``resnet_int8_scale_sites``): res2.0's conv1 input, then per block its
+    conv2 and conv3 inputs and the next block's conv1 input."""
+    sites = [f"{prefix}.res2.0.conv1.in_scale"]
+    for _, name, _, _, _, nxt, _ in _iter_blocks(cfg, prefix):
+        sites += [f"{name}.conv2.in_scale", f"{name}.conv3.in_scale"]
+        if nxt is not None:
+            sites.append(f"{nxt}.conv1.in_scale")
+    return sites
 
 
 def resnet_spec(cfg, prefix: str = "backbone.bottom_up") -> Spec:
@@ -92,6 +135,15 @@ class BottleneckBlock(nn.Module):
         shortcut = self.shortcut(x) if self.shortcut is not None else x
         return F.relu(out + shortcut)
 
+    def forward_int8(self, q: torch.Tensor, s_in: torch.Tensor) -> torch.Tensor:
+        """q (N, H, W, Cin) s8 at ``s_in`` -> the block's f32 NHWC output
+        (JAX ``_bottleneck_int8``)."""
+        q1 = link(self.conv1, q, s_in, self.conv2.in_scale, relu=True)
+        q2 = link(self.conv2, q1, self.conv2.in_scale, self.conv3.in_scale, relu=True)
+        y = link(self.conv3, q2, self.conv3.in_scale)
+        sc = link(self.shortcut, q, s_in) if self.shortcut is not None else q.float() * s_in
+        return F.relu(y + sc)
+
 
 class BasicStem(nn.Module):
     def __init__(self, cout: int):
@@ -109,6 +161,7 @@ class ResNet(nn.Module):
         super().__init__()
         _check_supported(cfg)
         r = cfg.MODEL.RESNETS
+        self.int8 = bool(cfg.TPU.INT8_BACKBONE)
         self.out_features = tuple(r.OUT_FEATURES)
         self.stem = BasicStem(r.STEM_OUT_CHANNELS)
         num_stages = max({"res2": 1, "res3": 2, "res4": 3, "res5": 4}[f]
@@ -126,11 +179,55 @@ class ResNet(nn.Module):
             self.add_module(name, stage)
             self.stage_names.append(name)
 
+    def blocks(self) -> List[Tuple[str, BottleneckBlock]]:
+        return [(name, b) for name in self.stage_names for b in getattr(self, name)]
+
+    def int8_active(self) -> bool:
+        """``TPU.INT8_BACKBONE`` with the calibration installed (JAX
+        ``int8_backbone_active``)."""
+        return self.int8 and quantized(self.res2[0].conv1)
+
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.stem(x)
+        if self.int8_active():
+            return self._int8_stages(x)
         outputs = {}
         for name in self.stage_names:
             x = getattr(self, name)(x)
             if name in self.out_features:
                 outputs[name] = x
         return outputs
+
+    def _int8_stages(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """res2..resN as the s8 chain from the fp stem's output (JAX
+        ``_resnet_int8_stages``); stage outputs in x's dtype, NCHW."""
+        blocks = self.blocks()
+        outputs = {}
+        s_in = blocks[0][1].conv1.in_scale
+        q = to_s8_nhwc(x, s_in)
+        for j, (stage, block) in enumerate(blocks):
+            y = block.forward_int8(q, s_in)
+            nxt = blocks[j + 1] if j + 1 < len(blocks) else None
+            if (nxt is None or nxt[0] != stage) and stage in self.out_features:
+                outputs[stage] = to_nchw(y, x.dtype)
+            if nxt is not None:
+                s_in = nxt[1].conv1.in_scale
+                q = quant_act_s8(y, s_in)
+        return outputs
+
+    def int8_calibration(self, x: torch.Tensor, stat: str = "max") -> torch.Tensor:
+        """The fp walk recording each site's statistic in
+        ``resnet_int8_scale_sites`` order (JAX ``resnet_int8_calibration``):
+        x is the preprocessed input."""
+        blocks = [b for _, b in self.blocks()]
+        x = self.stem(x)
+        stats = [act_stat(x, stat, getattr(blocks[0].conv1, "in_scale", None))]
+        for j, b in enumerate(blocks):
+            y1 = F.relu(b.conv1(x))
+            stats.append(act_stat(y1, stat, getattr(b.conv2, "in_scale", None)))
+            y2 = F.relu(b.conv2(y1))
+            stats.append(act_stat(y2, stat, getattr(b.conv3, "in_scale", None)))
+            x = F.relu(b.conv3(y2) + (b.shortcut(x) if b.shortcut is not None else x))
+            if j + 1 < len(blocks):
+                stats.append(act_stat(x, stat, getattr(blocks[j + 1].conv1, "in_scale", None)))
+        return torch.stack(stats)

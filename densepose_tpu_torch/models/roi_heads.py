@@ -13,7 +13,16 @@ densepose_tpu/models/roi_heads.py), NCHW.
 * DensePoseV1ConvXHead or DensePoseDeepLabHead (ASPP with GroupNorm, then
   GN convs), and the chart predictor's four separate deconv heads with a 2x
   bilinear upsample; with ``TPU.EMIT_CONFIDENCES`` the WC predictors'
-  confidence heads too. A CSE config (``DensePoseEmbeddingPredictor``)
+  confidence heads too.
+* int8 serving (JAX roi_heads.py:350-416, 469-471, 510-560): with
+  ``TPU.INT8_HEAD`` and calibrated scales installed, the stacked convs run as
+  an s8 chain through kernel Q1 (``ops/conv_int8.py``; DeepLab: each GN link
+  dequantizes to the compute dtype, one-pass GroupNorm, ReLU, requantizes);
+  uncalibrated, each conv quantizes dynamically (``conv2d_int8``). With
+  ``TPU.INT8_PREDICTOR`` the four chart deconvs run as ONE Q1 launch of the
+  concatenated 77 channels (channelwise bit-identical to four), the WC
+  confidence heads stay fp on the same input. ``densepose_stacked_calibration``
+  is the fp walk that records each site's input statistic. A CSE config (``DensePoseEmbeddingPredictor``)
   takes the embedding predictor instead (``models/cse.py``: an embedding
   and a coarse segmentation map) and holds the vertex embedders' tables.
 
@@ -32,8 +41,10 @@ from torch.profiler import record_function
 
 from ..checkpoint.spec import Spec, conv_spec, conv_transpose_spec, gn_spec, linear_spec
 from ..ops.boxes import apply_deltas
+from ..ops.conv_int8 import (act_stat, conv2d_int8, conv_s8, make_epilogue, link, quant_act_s8,
+                             quantized, to_nchw, to_s8_nhwc)
 from ..ops.nms import batched_nms_mask, nms_mask
-from ..ops.norms import GroupNorm32
+from ..ops.norms import GroupNorm32, group_norm_onepass
 from ..ops.resize import resize_bilinear
 from ..ops.roi_align import assign_boxes_to_levels, roi_align_multilevel, roi_align_single
 from .backbones import backbone_out_channels, feature_strides
@@ -242,11 +253,62 @@ class Decoder(nn.Module):
         return self.predictor(acc)
 
 
-class DensePoseV1ConvXHead(nn.Module):
+def stacked_int8_chain(convs: List[nn.Module], x: torch.Tensor, norm: bool) -> torch.Tensor:
+    """The stacked convs as a calibrated s8 chain (JAX
+    ``_stacked_int8_chain``): x (B, C, H, W) float -> the head's output in
+    x's dtype. Without a norm, activations stay s8 between links (s32 bias
+    and ReLU, one requantize each); with GN (DeepLab) each link dequantizes
+    to x's dtype, takes one-pass GroupNorm statistics and a ReLU, and
+    requantizes at the next link's scale."""
+    dtype = x.dtype
+    q = to_s8_nhwc(x, convs[0].in_scale)
+    for i, conv in enumerate(convs):
+        last = i == len(convs) - 1
+        if norm:
+            y = link(conv, q, conv.in_scale, out_dtype=dtype)
+            y = F.relu(group_norm_onepass(y, conv.norm.weight, conv.norm.bias, 32))
+            if last:
+                return to_nchw(y, dtype)
+            q = quant_act_s8(y, convs[i + 1].in_scale)
+        else:
+            out = link(conv, q, conv.in_scale, None if last else convs[i + 1].in_scale, relu=True)
+            if last:
+                return to_nchw(out, dtype)
+            q = out
+    raise AssertionError("unreachable")
+
+
+class StackedHead(nn.Module):
+    """The stacked ``body_conv_fcn{i}`` convs of both heads, and their int8
+    routing (``TPU.INT8_HEAD``): the calibrated chain once ``body_conv_fcn1``
+    holds a quantized weight, dynamic quantization before."""
+
     def __init__(self, cfg):
         super().__init__()
+        self.n = cfg.MODEL.ROI_DENSEPOSE_HEAD.NUM_STACKED_CONVS
+        self.int8 = bool(cfg.TPU.INT8_HEAD)
+
+    def convs(self) -> List[nn.Module]:
+        return [getattr(self, f"body_conv_fcn{i + 1}") for i in range(self.n)]
+
+    def stack(self, x: torch.Tensor, norm: bool = False) -> torch.Tensor:
+        convs = self.convs()
+        if self.int8 and quantized(convs[0]):
+            return stacked_int8_chain(convs, x, norm)
+        for conv in convs:
+            if self.int8:
+                x = conv2d_int8(x, conv.weight, conv.bias, padding=conv.padding)
+                x = conv.norm(x) if norm else x
+            else:
+                x = conv(x)
+            x = F.relu(x)
+        return x
+
+
+class DensePoseV1ConvXHead(StackedHead):
+    def __init__(self, cfg):
+        super().__init__(cfg)
         h = cfg.MODEL.ROI_DENSEPOSE_HEAD
-        self.n = h.NUM_STACKED_CONVS
         d = _head_in_channels(cfg)
         for i in range(self.n):
             self.add_module(f"body_conv_fcn{i + 1}",
@@ -255,9 +317,7 @@ class DensePoseV1ConvXHead(nn.Module):
             d = h.CONV_HEAD_DIM
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for i in range(self.n):
-            x = F.relu(getattr(self, f"body_conv_fcn{i + 1}")(x))
-        return x
+        return self.stack(x)
 
 
 class Conv2dNorm(nn.Conv2d):
@@ -312,15 +372,14 @@ class ASPP(nn.Module):
         return self.project(torch.cat(branches, dim=1))
 
 
-class DensePoseDeepLabHead(nn.Module):
+class DensePoseDeepLabHead(StackedHead):
     """ASPP, then the stacked convs with GroupNorm (deeplab.py:16-86; JAX
-    roi_heads.py:461-481)."""
+    roi_heads.py:461-481). In int8 mode the ASPP stays fp."""
 
     def __init__(self, cfg):
-        super().__init__()
+        super().__init__(cfg)
         h = cfg.MODEL.ROI_DENSEPOSE_HEAD
         k = h.CONV_HEAD_KERNEL
-        self.n = h.NUM_STACKED_CONVS
         d = _head_in_channels(cfg)
         self.ASPP = ASPP(d)
         for i in range(self.n):
@@ -330,10 +389,7 @@ class DensePoseDeepLabHead(nn.Module):
             d = h.CONV_HEAD_DIM
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.ASPP(x)
-        for i in range(self.n):
-            x = F.relu(getattr(self, f"body_conv_fcn{i + 1}")(x))
-        return x
+        return self.stack(self.ASPP(x), norm=True)
 
 
 _HEADS = {"DensePoseV1ConvXHead": DensePoseV1ConvXHead,
@@ -358,14 +414,51 @@ class DensePoseChartPredictor(nn.Module):
         self.outputs = list(zip(("coarse_segm", "fine_segm", "u", "v"), _CHART_HEADS))
         if cfg.TPU.EMIT_CONFIDENCES:
             self.outputs += [(name[:-len("_lowres")], name) for name, _ in heads[4:]]
+        self.int8 = bool(cfg.TPU.INT8_PREDICTOR)
 
-    def head(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        y = getattr(self, name)(x)
+    def upsample(self, y: torch.Tensor) -> torch.Tensor:
         out_hw = (int(y.shape[-2] * self.up), int(y.shape[-1] * self.up))
         return resize_bilinear(y, out_hw, scale=(self.up, self.up))
 
+    def head(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return self.upsample(getattr(self, name)(x))
+
+    def int8_ready(self) -> bool:
+        return (self.int8 and getattr(self, "in_scale", None) is not None
+                and all(quantized(getattr(self, n)) for n in _CHART_HEADS))
+
+    def merged_int8(self):
+        """The four chart deconvs' quantized weights, biases and epilogue
+        concatenated along the output channels (2 + 25 + 25 + 25), made once
+        per installed state."""
+        heads = [getattr(self, n) for n in _CHART_HEADS]
+        refs = [self.in_scale] + [t for h in heads for t in (h.qweight, h.wscale)]
+        hit = self.__dict__.get("_int8_merged")
+        if hit is None or any(a is not b for a, b in zip(hit[0], refs)):
+            qw = torch.cat([h.qweight for h in heads]).contiguous()
+            ep = make_epilogue(self.in_scale, torch.cat([h.wscale for h in heads]),
+                               torch.cat([h.bias for h in heads]))
+            hit = self.__dict__["_int8_merged"] = (refs, qw, ep)
+        return hit[1], hit[2]
+
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return {key: self.head(name, x) for key, name in self.outputs}
+        if not self.int8_ready():
+            return {key: self.head(name, x) for key, name in self.outputs}
+        # TPU.INT8_PREDICTOR: the chart deconvs as one calibrated s8 launch
+        qw, ep = self.merged_int8()
+        first = getattr(self, _CHART_HEADS[0])
+        y = conv_s8(to_s8_nhwc(x, self.in_scale), qw, ep.qb, ep.vec, stride=first.stride,
+                    padding=first.padding, transposed=True, out_kind=torch.float32)
+        y = to_nchw(y, x.dtype)
+        out, c = {}, 0
+        for key, name in self.outputs:
+            if name in _CHART_HEADS:
+                n = getattr(self, name).out_channels
+                out[key] = self.upsample(y[:, c:c + n])
+                c += n
+            else:  # the WC confidence heads stay fp on the same input
+                out[key] = self.head(name, x)
+        return out
 
 
 class ROIHeads(nn.Module):
@@ -497,3 +590,24 @@ def densepose_stage_forward(heads: ROIHeads, features: Dict[str, torch.Tensor],
         x = heads.densepose_head(pooled)
     with record_function("densepose_predictor"):
         return heads.densepose_predictor(x)
+
+
+def densepose_stacked_calibration(heads: ROIHeads, features: Dict[str, torch.Tensor],
+                                  boxes: torch.Tensor, cfg, stat: str = "max") -> torch.Tensor:
+    """The fp walk of decoder -> pooler -> stacked head convs (JAX
+    ``densepose_stacked_calibration``): each stacked conv's input statistic
+    (``ops/conv_int8.py::act_stat``, "max" or "sat"), and with
+    ``TPU.INT8_PREDICTOR`` the head output's (the chart deconvs' input) last.
+    DeepLab's walk takes two-pass GroupNorm, as the fp head does."""
+    x = _densepose_pooled(heads, features, boxes, cfg)
+    head = heads.densepose_head
+    norm = isinstance(head, DensePoseDeepLabHead)
+    if norm:
+        x = head.ASPP(x)  # ASPP stays fp in int8 mode; the chain starts at its projection
+    stats = []
+    for conv in head.convs():
+        stats.append(act_stat(x, stat, getattr(conv, "in_scale", None)))
+        x = F.relu(conv(x))
+    if cfg.TPU.INT8_PREDICTOR:
+        stats.append(act_stat(x, stat, getattr(heads.densepose_predictor, "in_scale", None)))
+    return torch.stack(stats)

@@ -11,6 +11,11 @@ On a geometry-bucket canvas (``anchor_valid_hw``, rpn.py:60-72 of the JAX
 package) anchors whose centre lies in the bucket's padding are masked out of
 every level's top-k, so the proposal pool is the one the minimally padded
 input would give.
+
+int8 serving (``TPU.INT8_RPN``, JAX rpn.py:94-110): once calibrated, the
+shared 3x3 conv runs through kernel Q1 with one input scale per level
+(``conv.in_scale_<level>``), ReLU on int32, to f32 and then the features'
+dtype; the 1x1 objectness and delta convs stay fp.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 from ..checkpoint.spec import Spec, conv_spec
 from ..ops.anchors import anchors_for_levels
 from ..ops.boxes import apply_deltas, clip_boxes_wh_swapped, nonempty_boxes
+from ..ops.conv_int8 import link, quantized, to_nchw, to_s8_nhwc
 from ..ops.nms import nms_mask
 from .backbones import backbone_out_channels, feature_strides
 
@@ -69,6 +75,7 @@ class RPNHead(nn.Module):
         self.conv = nn.Conv2d(c, c, 3, padding=1)
         self.objectness_logits = nn.Conv2d(c, a, 1)
         self.anchor_deltas = nn.Conv2d(c, a * 4, 1)
+        self.int8 = bool(cfg.TPU.INT8_RPN)
         self._anchors: Dict[tuple, List[torch.Tensor]] = {}
 
     def anchors(self, grid_sizes, strides, cfg, device) -> List[torch.Tensor]:
@@ -116,8 +123,13 @@ def rpn_forward(
 
     lvl_boxes, lvl_scores, lvl_valid = [], [], []
     max_k = max(min(a.shape[0], pre_topk) for a in anchors)
-    for feat, anc in zip(feats, anchors):
-        t = F.relu(head.conv(feat))
+    int8 = head.int8 and quantized(head.conv)
+    for fname, feat, anc in zip(in_features, feats, anchors):
+        if int8:
+            s_in = getattr(head.conv, f"in_scale_{fname}")
+            t = to_nchw(link(head.conv, to_s8_nhwc(feat, s_in), s_in, relu=True), feat.dtype)
+        else:
+            t = F.relu(head.conv(feat))
         # NCHW -> the JAX package's (y, x, a) order (rpn.py:117-127):
         # objectness (A, H, W) -> (H*W*A,); deltas channel a*4+d -> (H*W*A, 4)
         logits = head.objectness_logits(t)[0].permute(1, 2, 0).reshape(-1)

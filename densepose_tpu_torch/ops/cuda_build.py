@@ -30,7 +30,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = {"nms": "nms.cu", "roi_align": "roi_align.cu",
-           "roi_align_sparse": "roi_align_sparse.cu"}
+           "roi_align_sparse": "roi_align_sparse.cu", "conv_s8": "conv_s8.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -91,6 +91,25 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Built]:
 _MANGLED_TYPES = {"f": "float", "6__half": "__half", "13__nv_bfloat16": "__nv_bfloat16"}
 
 
+def _kernel_name(mangled: str) -> str:
+    """The ``*_kernel`` identifier of a mangled name, read component by
+    component of its nested name (length-prefixed, so the digits of an
+    anonymous namespace's hash do not cut it), with its template arguments,
+    if any: element types and integers."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while True:
+        m = re.match(r"\d+", mangled[pos:])
+        if not m:
+            return mangled
+        start = pos + m.end()
+        pos = start + int(m.group())
+        if mangled[start:pos].endswith("_kernel"):
+            t = re.match(r"I((?:f|6__half|13__nv_bfloat16|Li\d+E)+)E", mangled[pos:])
+            args = [_MANGLED_TYPES.get(a) or a[2:-1] for a in
+                    re.findall(r"f|6__half|13__nv_bfloat16|Li\d+E", t.group(1))] if t else []
+            return mangled[start:pos] + (f"<{', '.join(args)}>" if args else "")
+
+
 def ptxas_report(log: str) -> List[dict]:
     """Per kernel of a build log: registers, static shared memory, stack
     frame and spills, from ptxas -v. A kernel is named by the ``*_kernel``
@@ -100,13 +119,7 @@ def ptxas_report(log: str) -> List[dict]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = re.search(r"\d([a-z_]+_kernel)(?:I(f|6__half|13__nv_bfloat16)?Li(\d+)E)?",
-                             m.group(1))
-            if name:
-                kernel, elem, ratio = name.groups()
-                args = [a for a in (_MANGLED_TYPES.get(elem), ratio) if a]
-                kernel += f"<{', '.join(args)}>" if args else ""
-            cur = {"kernel": kernel if name else m.group(1)}
+            cur = {"kernel": _kernel_name(m.group(1))}
             out.append(cur)
             continue
         if cur is None:

@@ -46,6 +46,24 @@ bfloat16 maps cross to the host as their 2-byte payload and are widened to
 float32 exactly there (numpy has no bfloat16; the JAX package returns
 ``ml_dtypes.bfloat16`` arrays holding the same values).
 
+int8 serving (``TPU.INT8_HEAD`` / ``INT8_PREDICTOR`` / ``INT8_BACKBONE`` /
+``INT8_RPN``, JAX predictor.py:110-145, 164-502): ``calibrate_int8(frames)``
+records each quantization site's largest activation over the frames
+(``GeneralizedRCNN.forward_int8_calibration``), sets the static scales
+max / 127 and quantizes the site's convs per output channel; the state lives
+in the model as buffers under the JAX package's names
+(``roi_heads.densepose_head.body_conv_fcn1.qweight``, ``.wscale``,
+``.in_scale``; ``proposal_generator.rpn_head.conv.in_scale_p2`` ...;
+``int8_state`` lists them), and the quantized convs run through kernel Q1.
+``save_calibration`` / ``load_calibration`` keep only the activation scales,
+as ``{"format": "densepose-tpu-int8-calib", "scales": {...}}`` (the weights
+are quantized again on load, bit for bit), and a ``<weights>.calib.json``
+beside the weights loads when the predictor is built; a sidecar written by
+either package loads into the other. A request that finds an int8 mode
+without its scales calibrates on its own frame, loudly
+(``calibration_source`` says where the scales came from);
+``saturation_report`` measures each site's share of clipped values.
+
 Parity: TF32 is turned off for cuDNN convolutions and matmuls, which
 otherwise run float32 convolutions at about three decimal digits, and cuBLAS
 may not reduce float16 or bfloat16 products in reduced precision (the JAX
@@ -56,16 +74,23 @@ bits of its maps: cuDNN's transposed convolutions add with atomics.
 
 from __future__ import annotations
 
+import json
 import logging
-from typing import Dict, Optional
+import os
+import re
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .checkpoint.pkl_loader import align_state_dicts, load_checkpoint_file
 from .checkpoint.transform import fold_state, random_torch_state
+from .models.fpn import fpn_int8_scale_sites
+from .models.hrnet import hrnet_int8_quant_bases, hrnet_int8_scale_sites
 from .models.rcnn import (GeneralizedRCNN, build_model, check_image, image_tensor,
                           size_divisibility)
+from .models.resnet import resnet_int8_scale_sites
+from .ops.conv_int8 import is_int8_key, is_scale_key, quantize_weight_int8, set_buffer
 from .ops.resize import resize_bilinear_np
 
 logger = logging.getLogger(__name__)
@@ -120,10 +145,31 @@ class DensePosePredictor:
         self.compute_dtype = self.model.compute_dtype
         if params is None:
             params = load_params(cfg, weights_path, seed=seed, model=self.model)
+        int8 = {k: v for k, v in params.items() if is_int8_key(k)}
         self.model.load_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in
-                                    params.items()})
+                                    params.items() if k not in int8})
         cast_parameters(self.model, self.compute_dtype)
         self.model.to(self.device).eval()
+        self._int8_needed = int8_needed(cfg)
+        self._int8_ready = False
+        # where the installed scales came from: None | "explicit" | "sidecar"
+        # | "auto-single-frame" (saturation_report diagnoses the last)
+        self.calibration_source = None
+        if int8:  # a calibrated param dict (params_from_jax of the JAX package's)
+            self._install({k: torch.as_tensor(np.asarray(v)) for k, v in int8.items()})
+            self._int8_ready = not self._missing_scales(self._scale_names())
+            self.calibration_source = "explicit"
+        sidecar = f"{weights_path}.calib.json" if weights_path else None
+        if self._int8_needed and sidecar and os.path.exists(sidecar):
+            # a stale, partial or corrupt sidecar must not make the predictor
+            # unconstructible: warn and calibrate at the first request instead
+            # (an explicit load_calibration stays strict)
+            try:
+                self.load_calibration(sidecar)
+                self.calibration_source = "sidecar"
+            except ValueError as e:
+                logger.warning("ignoring calibration sidecar %s (%s); falling back to "
+                               "runtime auto-calibration", sidecar, e)
 
     def stage_input(self, image_bgr_u8: np.ndarray):
         """Upload a frame to the device ahead of ``__call__`` (e.g. from a
@@ -142,6 +188,8 @@ class DensePosePredictor:
         ``stage_input`` tensor. Returns tensors on the device: fixed-size
         slots + num_instances (under ``TPU.BUCKETED_DENSEPOSE`` the maps hold
         the bucket's rows)."""
+        if self._int8_needed and not self._int8_ready:
+            self._auto_calibrate(image_bgr_u8)
         image = image_tensor(image_bgr_u8, self.device)
         if self.geometry_quant:
             return self.model.forward_bucketed(*self.model.bucket_canvas(image,
@@ -197,8 +245,289 @@ class DensePosePredictor:
         images = np.asarray(images_bgr_u8)
         if images.ndim != 4 or images.shape[-1] != 3:
             raise ValueError(f"expected (B, H, W, 3) frames, got {images.shape}")
+        if self._int8_needed and not self._int8_ready:
+            self._auto_calibrate(images[0])
         outs = [self.model(image_tensor(image, self.device)) for image in images]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    # -- int8 calibration (JAX predictor.py:164-502) --------------------------
+
+    def int8_state(self) -> Dict[str, torch.Tensor]:
+        """The installed int8 state by its JAX param name: quantized weights
+        (``.qweight`` (Cout, kh, kw, Cin) int8, ``.wscale``) and activation
+        scales (0-dim float32)."""
+        return {k: v for k, v in self.model.named_buffers() if is_int8_key(k)}
+
+    def _scale_names(self) -> set:
+        return {k for k in self.int8_state() if is_scale_key(k)}
+
+    def _param_names(self) -> set:
+        return {k for k, _ in self.model.named_parameters()}
+
+    def _install(self, entries: Dict[str, torch.Tensor]) -> None:
+        """Each entry as a buffer on the module its name's prefix names."""
+        for name, value in entries.items():
+            path, attr = name.rsplit(".", 1)
+            set_buffer(self.model.get_submodule(path), attr, value.to(self.device))
+
+    @torch.inference_mode()
+    def calibrate_int8(self, frames) -> None:
+        """Static int8 scales from representative frames (post-training
+        calibration): one fp pass a frame records each site's largest
+        |activation|, the scales are max / 127 (at least 1e-8), and the
+        sites' convs are quantized per output channel. A request without
+        scales runs this on its own frame (``_auto_calibrate``); call it with
+        a calibration set for better coverage."""
+        if not self._int8_needed:
+            raise ValueError("no TPU.INT8_* mode is enabled")
+        cfg, t = self.cfg, self.cfg.TPU
+        mx: Dict[str, np.ndarray] = {}
+        for f in frames:
+            for k, v in self.model.forward_int8_calibration(image_tensor(f, self.device)).items():
+                v = v.float().cpu().numpy()
+                mx[k] = v if k not in mx else np.maximum(mx[k], v)
+        scales: Dict[str, float] = {}
+        bases: List[str] = []
+
+        def put(names, values):
+            if len(names) != len(values):
+                raise RuntimeError(f"{len(values)} statistics for {len(names)} sites")
+            for name, m in zip(names, values):
+                scales[name] = _scale_of(m)
+
+        if "head" in mx:
+            n = cfg.MODEL.ROI_DENSEPOSE_HEAD.NUM_STACKED_CONVS
+            head = self._group_sites("head", len(mx["head"]))
+            if t.INT8_HEAD:
+                put(head[:n], mx["head"][:n])
+                bases += [k[:-len(".in_scale")] for k in head[:n]]
+            if t.INT8_PREDICTOR and self._chart_predictor():
+                put(head[n:], mx["head"][n:])
+                bases += [f"{_PREDICTOR}.{h}" for h in _CHART_HEADS]
+        if "backbone" in mx:
+            put(self._group_sites("backbone", len(mx["backbone"])), mx["backbone"])
+            bases += self._resnet_bases()
+        if "hrnet" in mx:
+            put(self._group_sites("hrnet", len(mx["hrnet"])), mx["hrnet"])
+            bases += hrnet_int8_quant_bases(cfg)
+        if "fpn" in mx:
+            fpn_sites, rpn_sites = fpn_int8_scale_sites(cfg)
+            if len(mx["fpn"]) != len(fpn_sites) + len(rpn_sites):
+                raise RuntimeError(f"{len(mx['fpn'])} FPN statistics for "
+                                   f"{len(fpn_sites) + len(rpn_sites)} sites")
+            if t.INT8_BACKBONE:
+                put(fpn_sites, mx["fpn"][:len(fpn_sites)])
+                bases += [k[:-len(".in_scale")] for k in fpn_sites]
+            if t.INT8_RPN:
+                put(rpn_sites, mx["fpn"][len(fpn_sites):])
+                bases.append(_RPN_CONV)
+        self._quantize_install(scales, bases)
+        self.calibration_source = "explicit"
+
+    def _chart_predictor(self) -> bool:
+        names = self._param_names()
+        return all(f"{_PREDICTOR}.{h}.weight" in names for h in _CHART_HEADS)
+
+    def _resnet_bases(self) -> List[str]:
+        prefix = self.model.resnet_prefix()
+        pat = re.compile(re.escape(prefix) + r"\.res[2-5]\.\d+\.(conv[123]|shortcut)\.weight$")
+        return [k[:-len(".weight")] for k in self._param_names() if pat.match(k)]
+
+    def _group_sites(self, group: str, count: int) -> List[str]:
+        """The scale names of one calibration group, in the order of its
+        statistics (JAX ``_group_sites``)."""
+        cfg = self.cfg
+        if group == "head":
+            n = cfg.MODEL.ROI_DENSEPOSE_HEAD.NUM_STACKED_CONVS
+            names = [f"{_HEAD}.body_conv_fcn{i + 1}.in_scale" for i in range(n)]
+            if count == n + 1:  # TPU.INT8_PREDICTOR adds the deconvs' input
+                names.append(f"{_PREDICTOR}.in_scale")
+        elif group == "backbone":
+            names = resnet_int8_scale_sites(cfg, self.model.resnet_prefix())
+        elif group == "fpn":
+            fpn_sites, rpn_sites = fpn_int8_scale_sites(cfg)
+            names = fpn_sites + rpn_sites
+        elif group == "hrnet":
+            names = hrnet_int8_scale_sites(cfg)
+        else:
+            raise KeyError(group)
+        if len(names) != count:
+            raise RuntimeError(f"group {group}: {count} statistics for {len(names)} sites")
+        return names
+
+    @torch.inference_mode()
+    def saturation_report(self, frames) -> Dict[str, float]:
+        """Per installed quantization site, the largest share over ``frames``
+        of activations outside its clip range (|x| > 127 * scale), keyed by
+        the site's name without ``.in_scale``. Much above ~1e-3 on a
+        representative set: calibrate again with more frames."""
+        if not self._int8_ready:
+            raise ValueError("no int8 calibration installed")
+        agg: Dict[str, np.ndarray] = {}
+        for f in frames:
+            for g, v in self.model.forward_int8_calibration(image_tensor(f, self.device),
+                                                            stat="sat").items():
+                v = v.float().cpu().numpy()
+                agg[g] = v if g not in agg else np.maximum(agg[g], v)
+        installed = self._scale_names()
+        report = {}
+        for g, vec in agg.items():
+            for name, v in zip(self._group_sites(g, len(vec)), vec):
+                if name in installed:  # only sites actually quantized
+                    key = name[:-len(".in_scale")] if name.endswith(".in_scale") else name
+                    report[key] = float(v)
+        return report
+
+    @torch.inference_mode()
+    def _quantize_install(self, scales: Dict[str, float], bases: List[str]) -> None:
+        """Install the activation scales and quantize ``bases``'s conv
+        weights (``qweight``, ``wscale``); the tail of ``calibrate_int8`` and
+        ``load_calibration``."""
+        self._install({k: torch.tensor(np.float32(v)) for k, v in scales.items()})
+        for b in bases:
+            conv = self.model.get_submodule(b)
+            qw, sw = quantize_weight_int8(conv.weight,
+                                          transposed=isinstance(conv, torch.nn.ConvTranspose2d))
+            set_buffer(conv, "qweight", qw)
+            set_buffer(conv, "wscale", sw)
+        self._int8_ready = True
+
+    def _int8_quant_bases(self, present) -> List[str]:
+        """The convs to quantize, from which activation scales are in
+        ``present`` (a set of names): scales install a group at a time, so
+        presence names the group (JAX ``_int8_quant_bases``)."""
+        cfg = self.cfg
+        bases = []
+        n = cfg.MODEL.ROI_DENSEPOSE_HEAD.NUM_STACKED_CONVS
+        for i in range(n):
+            if f"{_HEAD}.body_conv_fcn{i + 1}.in_scale" in present:
+                bases.append(f"{_HEAD}.body_conv_fcn{i + 1}")
+        if f"{_PREDICTOR}.in_scale" in present:
+            bases += [f"{_PREDICTOR}.{h}" for h in _CHART_HEADS]
+        prefix = self.model.resnet_prefix()
+        if prefix is not None:
+            sites = resnet_int8_scale_sites(cfg, prefix)
+            if all(s in present for s in sites):
+                bases += self._resnet_bases()
+            fpn_sites, rpn_sites = fpn_int8_scale_sites(cfg)
+            if all(s in present for s in fpn_sites):
+                bases += [s[:-len(".in_scale")] for s in fpn_sites]
+            if all(s in present for s in rpn_sites):
+                bases.append(_RPN_CONV)
+        if cfg.MODEL.BACKBONE.NAME == "build_hrfpn_backbone":
+            if all(s in present for s in hrnet_int8_scale_sites(cfg)):
+                bases += hrnet_int8_quant_bases(cfg)
+        return bases
+
+    def _required_scale_keys(self) -> List[str]:
+        """The activation scales the enabled TPU.INT8_* modes use: exactly
+        what ``calibrate_int8`` installs for this config (JAX
+        ``_required_scale_keys``). FPN's are required at any ResNet depth."""
+        cfg, t = self.cfg, self.cfg.TPU
+        required = []
+        if t.INT8_HEAD and cfg.MODEL.DENSEPOSE_ON:
+            required += [f"{_HEAD}.body_conv_fcn{i + 1}.in_scale"
+                         for i in range(cfg.MODEL.ROI_DENSEPOSE_HEAD.NUM_STACKED_CONVS)]
+        if t.INT8_PREDICTOR and cfg.MODEL.DENSEPOSE_ON and self._chart_predictor():
+            required.append(f"{_PREDICTOR}.in_scale")
+        prefix = self.model.resnet_prefix()
+        if prefix is not None:
+            if t.INT8_BACKBONE:
+                required += resnet_int8_scale_sites(cfg, prefix)
+                required += fpn_int8_scale_sites(cfg)[0]
+            if t.INT8_RPN:
+                required += fpn_int8_scale_sites(cfg)[1]
+        if t.INT8_BACKBONE and cfg.MODEL.BACKBONE.NAME == "build_hrfpn_backbone":
+            required += hrnet_int8_scale_sites(cfg)
+        return required
+
+    def _missing_scales(self, present) -> List[str]:
+        return [k for k in self._required_scale_keys() if k not in present]
+
+    def _check_calibration_complete(self, present) -> None:
+        """Every enabled int8 mode must be covered whole: a partial group
+        would leave some of its convs on the fp path unnoticed."""
+        missing = self._missing_scales(present)
+        if missing:
+            raise ValueError(f"calibration is missing {len(missing)} scales required by the "
+                             f"enabled TPU.INT8_* modes, e.g. {missing[:3]}")
+
+    def export_calibration(self) -> Dict[str, float]:
+        """The installed activation scales of the enabled groups as {name:
+        float}: stray scales (of a mode this config does not enable) never
+        reach a sidecar."""
+        if not self._int8_ready:
+            raise ValueError("calibrate_int8 was never run")
+        allowed = set(self._required_scale_keys())
+        return {k: float(v) for k, v in self.int8_state().items()
+                if is_scale_key(k) and k in allowed}
+
+    def save_calibration(self, path: str) -> None:
+        """The activation scales as JSON, the JAX package's format: ship it as
+        ``<weights>.calib.json`` and a deployment loads it when it builds the
+        predictor, with no calibration pass (weights are quantized again on
+        load, deterministically)."""
+        with open(path, "w") as f:
+            json.dump({"format": CALIB_FORMAT, "scales": self.export_calibration()}, f, indent=1)
+
+    def load_calibration(self, source) -> None:
+        """Install scales saved by ``save_calibration`` (a path, or a {name:
+        float} dict) and quantize the weights: with the same scales, the state
+        ``calibrate_int8`` installs, bit for bit. Scales of groups this config
+        does not enable are ignored; a corrupt file, another format, a key
+        that is not an activation scale or an incomplete group raise
+        ValueError."""
+        if not self._int8_needed:
+            raise ValueError("no TPU.INT8_* mode is enabled")
+        if isinstance(source, str):
+            with open(source) as f:
+                try:
+                    data = json.load(f)
+                except json.JSONDecodeError as e:
+                    raise ValueError(f"corrupt calibration file {source}: {e}") from e
+            if not isinstance(data, dict):
+                raise ValueError(f"calibration file {source} is not a JSON object")
+            fmt = data.get("format")
+            if fmt is not None and fmt != CALIB_FORMAT:
+                raise ValueError(f"unrecognized calibration format: {fmt!r}")
+            scales = data.get("scales", data)
+            if not isinstance(scales, dict):
+                raise ValueError(f"calibration file {source}: 'scales' is not a dict")
+        else:
+            scales = dict(source)
+        enabled = set(self._required_scale_keys())
+        for k in scales:
+            if not is_scale_key(k):
+                raise ValueError(f"not an activation-scale key: {k}")
+        use = {k: max(float(v), 1e-8) for k, v in scales.items() if k in enabled}
+        if len(use) < len(scales):
+            logger.info("load_calibration: ignored %d scales for TPU.INT8_* modes this config "
+                        "does not enable", len(scales) - len(use))
+        present = self._scale_names() | set(use)
+        self._check_calibration_complete(present)
+        bases = self._int8_quant_bases(present)
+        if not bases:
+            raise ValueError("calibration contains no usable scales for this config")
+        names = self._param_names()
+        missing = [b for b in bases if f"{b}.weight" not in names]
+        if missing:
+            raise ValueError(f"calibration does not match this model: {missing[:3]}")
+        self._quantize_install(use, bases)
+        self.calibration_source = "explicit"
+
+    def _auto_calibrate(self, frame) -> None:
+        """The last resort when a request finds an int8 mode without scales:
+        calibrate on this one frame, loudly. A later frame with hotter
+        activations saturates at the clip boundary; calibrate on a
+        representative set (``calibrate_int8(frames)``) and check it with
+        ``saturation_report(frames)``."""
+        logger.warning(
+            "int8 auto-calibration is running on the FIRST FRAME ONLY; frames with hotter "
+            "activations will saturate at the clip boundary. Calibrate on a representative "
+            "set (predictor.calibrate_int8(frames)) and verify with "
+            "predictor.saturation_report(frames).")
+        self.calibrate_int8([frame])
+        self.calibration_source = "auto-single-frame"
 
     @staticmethod
     def start_fetch(outputs: Dict[str, torch.Tensor], keys=None) -> None:
@@ -270,6 +599,31 @@ class DensePosePredictor:
                 sel = take_rows(v, idx[idx < len(v)], copy)
                 result[k] = sel.transpose(0, 3, 1, 2) if k == "pred_densepose_uv" else sel
         return result
+
+
+CALIB_FORMAT = "densepose-tpu-int8-calib"
+_HEAD = "roi_heads.densepose_head"
+_PREDICTOR = "roi_heads.densepose_predictor"
+_RPN_CONV = "proposal_generator.rpn_head.conv"
+_CHART_HEADS = ("ann_index_lowres", "index_uv_lowres", "u_lowres", "v_lowres")
+
+
+def _scale_of(m) -> float:
+    """A site's scale from its largest |activation|: max(m / 127, 1e-8) in
+    Python floats, rounded to float32 (JAX predictor.py:197)."""
+    return float(np.float32(max(float(m) / 127.0, 1e-8)))
+
+
+def int8_needed(cfg) -> bool:
+    """Whether the config enables an int8 mode that has sites in its model
+    (JAX predictor.py:110-125): the head or predictor on a DensePose model;
+    the backbone on ResNet-FPN (FPN's output convs at any depth) or HRFPN;
+    the RPN on ResNet-FPN."""
+    t, backbone = cfg.TPU, cfg.MODEL.BACKBONE.NAME
+    return bool(((t.INT8_HEAD or t.INT8_PREDICTOR) and cfg.MODEL.DENSEPOSE_ON)
+                or (t.INT8_BACKBONE and backbone in ("build_resnet_fpn_backbone",
+                                                     "build_hrfpn_backbone"))
+                or (t.INT8_RPN and backbone == "build_resnet_fpn_backbone"))
 
 
 def cast_parameters(model: torch.nn.Module, dtype: torch.dtype) -> None:

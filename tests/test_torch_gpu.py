@@ -14,6 +14,13 @@ in another order, and 2e-5 of K2, at ratios 1, 2 and 8, M = 0, 1 and 3000,
 and on the edge cases of ``tests/torch_cases.py::k3_edge_cases``; two runs
 the same bits, one launch a call, and no stack frame or spills in ptxas.
 
+Q1 (the s8 implicit-GEMM convolution of the int8 serving mode) bit for bit
+against its plain version (float64 sums, exact) at ragged shapes: Cin not a
+multiple of 64 or of 16 (40, 20, 600), Cout 2 / 15 / 77, M tails, stride 2,
+dilation 2, the 4x4 / stride 2 transposed convolution, each epilogue output
+(int32 sums, s8, f32, f16, bf16); one launch a call; and a small int8
+flagship request with every Q1 launch held against the plain version.
+
 At a half dtype (float16, bfloat16): K2<T> bit-identical to K2 on the
 widened levels rounded to T (only its loads and its store change), and to
 its plain version at T; K3<T> within one unit in the last place of T, at the
@@ -31,7 +38,7 @@ import pytest
 import torch
 
 from densepose_tpu_torch.models.rcnn import image_tensor
-from densepose_tpu_torch.ops import cuda_build, nms, roi_align, roi_align_sparse
+from densepose_tpu_torch.ops import conv_int8, cuda_build, nms, roi_align, roi_align_sparse
 from torch_cases import (  # tests/ is on the path (rootdir insertion)
     k1_edge_cases, k3_edge_cases, unit_variance_)
 
@@ -592,3 +599,108 @@ def test_cse_request_and_lookup_on_card(cuda):
     scores = -2.0 * p @ v.T + (v * v).sum(1)
     slack = scores[np.arange(len(p)), got] - scores.min(1)
     assert (slack <= 1e-5 * (1 + np.linalg.norm(p, axis=1))).all(), slack.max()
+
+
+# (n, h, w, cin, cout, k, stride, padding, dilation, transposed): the int8
+# paths' link kinds at small sizes, with ragged channel counts and M tails
+Q1_SHAPES = [
+    (2, 9, 11, 64, 64, 3, 1, 1, 1, False),     # a head link, M = 198
+    (3, 7, 5, 40, 15, 3, 1, 1, 1, False),      # Cin 40 (8-byte copies), Cout 15
+    (1, 13, 17, 20, 77, 3, 1, 1, 1, False),    # Cin 20 (4-byte copies), Cout 77
+    (2, 15, 16, 96, 130, 1, 2, 0, 1, False),   # stride-2 1x1
+    (1, 12, 10, 48, 64, 3, 1, 2, 2, False),    # dilated 3x3 (RES5_DILATION 2)
+    (1, 6, 7, 600, 32, 1, 1, 0, 1, False),     # HRFPN reduction width
+    (3, 7, 7, 64, 77, 4, 2, 1, 1, True),       # the merged chart deconvolution
+    (2, 5, 6, 32, 2, 4, 2, 1, 1, True),        # Cout 2
+]
+
+
+def q1_inputs(shape, seed=0):
+    n, h, w, cin, cout, k, *_ = shape
+    g = torch.Generator().manual_seed(seed)
+    qx = torch.randint(-127, 128, (n, h, w, cin), generator=g, dtype=torch.int8)
+    qw = torch.randint(-127, 128, (cout, k, k, cin), generator=g, dtype=torch.int8)
+    qb = torch.randint(-20000, 20000, (cout,), generator=g, dtype=torch.int32)
+    vec = torch.rand(cout, generator=g) * 1e-3 + 1e-5
+    return qx, qw, qb, vec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", Q1_SHAPES, ids=lambda s: "x".join(map(str, s[:6])) + (
+    "T" if s[-1] else ""))
+@pytest.mark.parametrize("out_kind,relu", [("s32", True), ("s8", True), (torch.float32, False),
+                                           (torch.float16, False), (torch.bfloat16, True)],
+                         ids=["s32", "s8", "f32", "f16", "bf16"])
+def test_q1_matches_plain(cuda, shape, out_kind, relu):
+    *_, k, stride, padding, dilation, transposed = shape
+    qx, qw, qb, vec = q1_inputs(shape)
+    kw = dict(stride=stride, padding=padding, dilation=dilation, transposed=transposed,
+              relu=relu, out_kind=out_kind)
+    want = conv_int8.conv_s8_plain(qx, qw, qb, vec, **kw)
+    before = conv_int8.conv_s8_cuda.launches
+    got = conv_int8.conv_s8(qx.to(cuda), qw.to(cuda), qb.to(cuda), vec.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert conv_int8.conv_s8_cuda.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+    if out_kind == "s8":
+        assert 0 < int((want.abs() == 127).sum()) < want.numel()  # clamps some, not all
+
+
+@pytest.mark.gpu
+def test_q1_refuses(cuda):
+    qx, qw, qb, vec = q1_inputs((1, 4, 4, 64, 8, 3, 1, 1, 1, False))
+    with pytest.raises(ValueError, match="CUDA"):
+        conv_int8.conv_s8_cuda(qx, qw.to(cuda), None, None)
+    with pytest.raises(ValueError, match="epilogue"):
+        conv_int8.conv_s8_cuda(qx.to(cuda), qw.to(cuda), None, None, out_kind="s8")
+    odd = torch.zeros((1, 4, 4, 6), dtype=torch.int8, device=cuda)
+    with pytest.raises(RuntimeError, match="Q1 launch failed"):
+        conv_int8.conv_s8_cuda(odd, torch.zeros((8, 1, 1, 6), dtype=torch.int8, device=cuda),
+                               None, None)
+
+
+@pytest.mark.gpu
+def test_int8_request_on_card(cuda, monkeypatch):
+    """The flagship at full width with INT8_HEAD + INT8_PREDICTOR, calibrated on
+    one frame: detections bit-identical to the fp32 request's, 2 K1 + 2 K2 and
+    8 + 1 Q1 launches a request, every Q1 launch equal to its plain version,
+    maps finite; then all four int8 groups (70 Q1 launches)."""
+    frame = (np.random.RandomState(19).rand(96, 136, 3) * 255).astype(np.uint8)
+    fp = small_flagship_predictor(cuda)(frame)
+    pred = small_flagship_predictor(cuda, extra=("TPU.INT8_HEAD", True,
+                                                 "TPU.INT8_PREDICTOR", True))
+    pred.calibrate_int8([frame])
+    q1 = conv_int8.conv_s8_cuda
+    before = (nms.nms_keep_cuda.launches, roi_align.roi_align_cuda.launches, q1.launches)
+    out = pred(frame)
+    torch.cuda.synchronize()
+    assert (nms.nms_keep_cuda.launches - before[0], roi_align.roi_align_cuda.launches - before[1],
+            q1.launches - before[2]) == (2, 2, 9)
+    for k in ("pred_boxes", "scores", "pred_classes", "valid"):
+        assert torch.equal(out[k], fp[k]), k
+    held = []
+
+    def held_q1(qx, qw, qb, vec, **kw):
+        got = q1(qx, qw, qb, vec, **kw)
+        want = conv_int8.conv_s8_plain(qx, qw, qb, vec, **kw)
+        assert torch.equal(got, want), kw
+        held.append(kw["transposed"])
+        return got
+
+    held_q1.launches = 0
+    monkeypatch.setattr(conv_int8, "conv_s8_cuda", held_q1)
+    pred(frame)
+    torch.cuda.synchronize()
+    assert sorted(held) == [False] * 8 + [True]
+    monkeypatch.undo()
+    assert all(bool(torch.isfinite(v).all()) for v in out.values() if v.is_floating_point())
+    full = small_flagship_predictor(cuda, extra=(
+        "TPU.INT8_HEAD", True, "TPU.INT8_PREDICTOR", True, "TPU.INT8_BACKBONE", True,
+        "TPU.INT8_RPN", True))
+    full.calibrate_int8([frame])
+    before = q1.launches
+    out = full(frame)
+    torch.cuda.synchronize()
+    assert q1.launches - before == 52 + 4 + 5 + 8 + 1
+    assert all(bool(torch.isfinite(v).all()) for v in out.values() if v.is_floating_point())
