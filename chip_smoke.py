@@ -44,12 +44,16 @@ toolkit. Phases, each of which fails the run:
    every link shape of the int8 paths (Q1_SITES: the head links at 8, 32 and
    100 rows, the GN link, the merged 77-channel deconvolution, a stride-2 1x1,
    a dilated 3x3, FPN and RPN 3x3 at p2, HRNet-W32's widths and W48's ragged
-   48, 96 and 720): the int32 sums and the s8, f32, f16 and bf16 outputs
-   bit-identical to the plain version (float64 sums, exact), two runs the
-   same bits, times beside the bound (bytes at 3.35 TB/s, int8 operations
-   at 1979 TOP/s) and two yardsticks the port never calls (the float16
-   cuDNN convolution of the same shape, library_ms; torch._int_mm on the
-   unfolded input where its shape rules admit the site);
+   48, 96 and 720), with each of its two variants that takes the site (wgmma
+   on TMA tiles where conv_int8.wgmma_takes the shape; mma_sync everywhere):
+   the int32 sums and the s8, f32, f16 and bf16 outputs bit-identical to the
+   plain version (float64 sums, exact), two runs the same bits; the variant
+   conv_int8.q1_variant routes the site to (the head's sites, Q1_WGMMA_SITES,
+   must be wgmma), its times beside the other variant's in the same run, the
+   bound (bytes at 3.35 TB/s, int8 operations at 1979 TOP/s) and two
+   yardsticks the port never calls (the float16 cuDNN convolution of the same
+   shape, library_ms; torch._int_mm on the unfolded input where its shape
+   rules admit the site);
 4. paths, each at full width with random weights from seed 0: a
    DensePosePredictor answers a warm-up request and then distinct synthetic
    frames; outputs finite and of the expected shapes; the kernels' launch
@@ -82,14 +86,16 @@ toolkit. Phases, each of which fails the run:
    features (cast) and boxes drifts under 0.5 std of the fp32 u-logits, and
    the whole request at float16 is printed against the fp32 one;
    - the int8 paths (INT8_PATHS, int8_path): the flagship with INT8_HEAD +
-     INT8_PREDICTOR in fp32 and at float16, "max serving" (all four
+     INT8_PREDICTOR in fp32, at float16 and at bfloat16 (the JAX package's
+     headline serving configuration), "max serving" (all four
      TPU.INT8_* groups), DL with INT8_HEAD (the GN chain) and HRNet-W32 with
      INT8_BACKBONE + INT8_HEAD (backbone rescaled as above), each calibrated
      by calibrate_int8 on 4 distinct frames before its warm-up: 2 K1 + 2 K2
      and the Q1 launches its quantized convs make per request (one a conv,
-     the four chart deconvs one, the RPN conv one a level), the saturation
-     report, one more request with every K1, K2 and Q1 launch held against
-     its plain version, and against the fp request of the same model and
+     the four chart deconvs one, the RPN conv one a level), Q1's launches by
+     variant, the saturation report, one more request with every K1, K2 and
+     Q1 launch held against its plain version (the head's Q1 calls all on
+     the wgmma variant), and against the fp request of the same model and
      dtype the detections bit-identical where the groups are post-detection
      (head, predictor) and the maps inside tests/test_int8.py's envelopes;
      the flagship's calibration saved and loaded into a second predictor
@@ -884,13 +890,17 @@ class HeldAgainstPlain:
             want = conv_int8.conv_s8_plain(qx, qw, qb, vec, **kw)
             check(torch.equal(out, want), f"{what}: Q1 at {tuple(qx.shape)} x {tuple(qw.shape)} "
                   f"{kw}: differs from the plain version")
+            geo = {k: v for k, v in kw.items() if k in ("stride", "padding", "dilation",
+                                                         "transposed")}
             self.q1.append((qx.numel() // qx.shape[-1], qw[0].numel(), qw.shape[0],
+                            tuple(qx.shape[1:3]), conv_int8.q1_variant(qx.shape, qw.shape, **geo),
                             kw.get("transposed", False)))
             return out
 
         # a wrapper counts through its module's name, which is now the held
         # one's: the launches in the block land here and are not read
         held_k1.launches = held_k2.launches = held_q1.launches = 0
+        held_q1.variant_launches = dict.fromkeys(conv_int8.Q1_VARIANTS, 0)
         nms.nms_keep_cuda, roi_align.roi_align_cuda = held_k1, held_k2
         conv_int8.conv_s8_cuda = held_q1
         return self
@@ -908,7 +918,9 @@ class HeldAgainstPlain:
               f"{sorted({m for m, *_ in self.k2})}, levels "
               f"{sorted({k[3] for k in self.k2})})") if self.k2 else "no K2 call"
         q1 = (f", {len(self.q1)} Q1 calls ({sum(t for *_, t in self.q1)} transposed, input "
-              f"pixels up to {max(m for m, *_ in self.q1)})") if self.q1 else ""
+              f"pixels up to {max(m for m, *_ in self.q1)}; "
+              f"{sum(k[4] == 'wgmma' for k in self.q1)} wgmma, "
+              f"{sum(k[4] == 'mma_sync' for k in self.q1)} mma_sync)") if self.q1 else ""
         return f"{k1} and {k2}{q1} equal to their plain versions"
 
 
@@ -963,6 +975,8 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request, prepare=Non
         torch.cuda.reset_peak_memory_stats()
         for fn in counters().values():
             fn.launches = 0
+        q1 = counters()[Q1]
+        q1.variant_launches = dict.fromkeys(q1.variant_launches, 0)
         outs, lat = [], []
         for img in timed:
             t0 = time.perf_counter()
@@ -971,6 +985,7 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request, prepare=Non
             lat.append((time.perf_counter() - t0) * 1e3)
             outs.append(out)
         launches = {k: fn.launches for k, fn in counters().items()}
+        q1_variants = dict(q1.variant_launches)
         peak_mib = torch.cuda.max_memory_allocated() / 2**20
         breakdown(torch, pred, timed[0], float(np.median(lat)))
     finally:
@@ -979,6 +994,11 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request, prepare=Non
     n_req = len(timed)
     dtype = path_dtype(extra)
     count_launches(report, tag, dtype, launches, per_request, n_req)
+    if per_request.get(Q1):
+        check(sum(q1_variants.values()) == launches[Q1], f"{tag}: Q1's variant counts "
+              f"{q1_variants} do not add up to its {launches[Q1]} launches")
+        report[Q1]["variant_launches_per_path"][tag] = q1_variants
+        print(f"path {tag}: Q1 launches by variant over {n_req} requests: {q1_variants}")
     d = cfg.TEST.DETECTIONS_PER_IMAGE
     dp = cfg.MODEL.ROI_DENSEPOSE_HEAD
     heat = dp.POOLER_RESOLUTION * 2 * dp.UP_SCALE  # deconv stride 2, then the upsample
@@ -2070,6 +2090,9 @@ Q1_SITES = [
 # detections: the entry's ms, plain_ms, bound_ms and library_ms sum them
 Q1_REQUEST = (("head_first_100", 1), ("head_link_100", 6), ("head_last_100", 1),
               ("deconv_77_100", 1))
+# the head's sites, which q1_variant must route to the wgmma variant
+Q1_WGMMA_SITES = ("head_first_100", "head_link_8", "head_link_32", "head_link_100",
+                  "head_last_100", "gn_link_100")
 
 
 def q1_work(n, h, w, cin, cout, k, stride, pad, dil, transposed, out_bytes):
@@ -2124,11 +2147,14 @@ def q1_yardsticks(torch, F, site, qx, qw, reps):
 
 
 def q1_checks(torch, report, dev, ptxas):
-    """Q1 at every int8 site shape: the int32 sums and each epilogue output
-    (s8, f32, f16, bf16) bit-identical to the plain version's (float64 sums,
-    exact), two runs the same bits; times (CUDA events, device events) beside
-    the bound (bytes at 3.35 TB/s or operations at 1979 TOP/s int8) and the
-    two yardsticks."""
+    """Q1 at every int8 site shape, with each variant that takes the shape
+    (conv_int8.wgmma_takes): the int32 sums and each epilogue output (s8,
+    f32, f16, bf16) bit-identical to the plain version's (float64 sums,
+    exact), two runs the same bits; the variant conv_int8.q1_variant routes
+    the site to, and its times (CUDA events, device events) beside the
+    mma_sync variant's in the same run (the row's "before" where wgmma serves
+    it), the bound (bytes at 3.35 TB/s or operations at 1979 TOP/s int8) and
+    the two yardsticks."""
     import torch.nn.functional as F
     from densepose_tpu_torch.ops import conv_int8
     g = torch.Generator(device=dev).manual_seed(0)
@@ -2143,50 +2169,72 @@ def q1_checks(torch, report, dev, ptxas):
         qw = qw.round().to(torch.int8)
         qb = torch.randint(-30000, 30000, (cout,), generator=g, device=dev, dtype=torch.int32)
         geo = dict(stride=stride, padding=pad, dilation=dil, transposed=transposed, relu=relu)
+        shape_geo = {k_: v for k_, v in geo.items() if k_ != "relu"}
+        routed = conv_int8.q1_variant(qx.shape, qw.shape, **shape_geo)
+        variants = (("wgmma", "mma_sync") if conv_int8.wgmma_takes(qx.shape, qw.shape,
+                                                                   **shape_geo)
+                    else ("mma_sync",))
         acc = conv_int8.conv_s8_plain(qx, qw, qb, None, **geo, out_kind="s32")
         # an epilogue scale that brings the sums to about +-150 (some clip at 127)
         vec = 150.0 / (acc.float().abs().amax(dim=(0, 1, 2)) + 1.0)
         worst = 0.0
         for kind in Q1_OUTS:
             want = conv_int8.conv_s8_plain(qx, qw, qb, vec, **geo, out_kind=out_dtype[kind])
-            got = conv_int8.conv_s8_cuda(qx, qw, qb, vec, **geo, out_kind=out_dtype[kind])
-            again = conv_int8.conv_s8_cuda(qx, qw, qb, vec, **geo, out_kind=out_dtype[kind])
-            torch.cuda.synchronize()
-            check(torch.equal(got, again), f"Q1 {name} {kind}: two runs differ")
-            err = float((got.double() - want.double()).abs().max())
-            check(torch.equal(got, want), f"Q1 {name} {kind}: differs from the plain version "
-                  f"(max abs {err})")
-            worst = max(worst, err)
-        kw = dict(geo, out_kind=out_dtype[own])
-        launch = lambda: conv_int8.conv_s8_cuda(qx, qw, qb, vec, **kw)
+            for variant in variants:
+                kw = dict(geo, out_kind=out_dtype[kind], variant=variant)
+                got = conv_int8.conv_s8_cuda(qx, qw, qb, vec, **kw)
+                again = conv_int8.conv_s8_cuda(qx, qw, qb, vec, **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), f"Q1 {name} {kind} {variant}: two runs differ")
+                err = float((got.double() - want.double()).abs().max())
+                check(torch.equal(got, want), f"Q1 {name} {kind} {variant}: differs from the "
+                      f"plain version (max abs {err})")
+                worst = max(worst, err)
         big = n * h * w * cin > 10 ** 7
-        ms = cuda_ms(launch, reps=20 if big else 50)
-        dev_ms = device_ms(torch, launch)
+        times = {}
+        for variant in variants:
+            kw = dict(geo, out_kind=out_dtype[own], variant=variant)
+            launch = lambda: conv_int8.conv_s8_cuda(qx, qw, qb, vec, **kw)
+            times[variant] = (cuda_ms(launch, reps=20 if big else 50), device_ms(torch, launch))
+        kw = dict(geo, out_kind=out_dtype[own])
         plain_ms = cuda_ms(lambda: conv_int8.conv_s8_plain(qx, qw, qb, vec, **kw), reps=3,
                            warmup=1)
         lib_ms, int_mm_ms = q1_yardsticks(torch, F, site, qx, qw, 20 if big else 50)
         out_bytes = {"s8": 1, "float32": 4}[own]
         bound_ms, bound_by = bound_int8(*q1_work(n, h, w, cin, cout, k, stride, pad, dil,
                                                  transposed, out_bytes))
+        ms, dev_ms = times[routed]
         sites[name] = {"site": name, "shape": [n, h, w, cin, cout, k, stride, pad, dil],
-                       "transposed": transposed, "out": own, "max_abs_err": worst, "ms": ms,
-                       "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "library_ms": lib_ms, "int_mm_ms": int_mm_ms}
+                       "transposed": transposed, "out": own, "variant": routed,
+                       "max_abs_err": worst, "ms": ms, "device_ms": dev_ms,
+                       "ms_by_variant": {v: t[0] for v, t in times.items()},
+                       "device_ms_by_variant": {v: t[1] for v, t in times.items()},
+                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": lib_ms, "int_mm_ms": int_mm_ms}
+        others = "; ".join(f"{v} {t[0]:.4f} ms [{t[1]:.4f}]" for v, t in times.items()
+                           if v != routed)
         print(f"Q1 {Q1} {name}: {n}x{h}x{w}x{cin} -> {cout}, k{k} s{stride} p{pad} d{dil}"
-              f"{' transposed' if transposed else ''}: s32/s8/f32/f16/bf16 bit-identical to the "
-              f"plain version, two runs equal; {ms:.4f} ms [{dev_ms:.4f}] ({own} out), bound "
-              f"{bound_ms:.6f} ({bound_by}), plain {plain_ms:.4f}, float16 cuDNN {lib_ms:.4f}, "
-              f"_int_mm {'n/a' if int_mm_ms is None else f'{int_mm_ms:.4f}'}")
+              f"{' transposed' if transposed else ''}: {'/'.join(variants)} each s32/s8/f32/"
+              f"f16/bf16 bit-identical to the plain version, two runs equal; routed to "
+              f"{routed}: {ms:.4f} ms [{dev_ms:.4f}] ({own} out)"
+              f"{f' (before: {others})' if others else ''}, bound {bound_ms:.6f} "
+              f"({bound_by}), plain {plain_ms:.4f}, float16 cuDNN {lib_ms:.4f}, _int_mm "
+              f"{'n/a' if int_mm_ms is None else f'{int_mm_ms:.4f}'}")
         del qx, qw, acc
         torch.cuda.empty_cache()
+    for name in Q1_WGMMA_SITES:
+        check(sites[name]["variant"] == "wgmma", f"Q1 {name}: routed to "
+              f"{sites[name]['variant']}, not wgmma")
     per_request = [(sites[s], c) for s, c in Q1_REQUEST]
     report[Q1] = {
         "name": Q1, "route": "cuda", "source": Q1_SOURCE, "replaces": Q1_REPLACES,
-        "check": "bit-identical (int32 sums, s8, f32, f16, bf16) at every site, two runs equal",
-        "launches": 0, "launches_per_path": {},
+        "check": "bit-identical (int32 sums, s8, f32, f16, bf16) at every site, each variant "
+                 "that takes it, two runs equal",
+        "launches": 0, "launches_per_path": {}, "variant_launches_per_path": {},
         "max_abs_err": max(e["max_abs_err"] for e in sites.values()),
         "ms": sum(e["ms"] * c for e, c in per_request),
         "device_ms": sum(e["device_ms"] * c for e, c in per_request),
+        "before_ms": sum(e["ms_by_variant"]["mma_sync"] * c for e, c in per_request),
         "plain_ms": sum(e["plain_ms"] * c for e, c in per_request),
         "bound_ms": sum(e["bound_ms"] * c for e, c in per_request),
         "bound_by": "operations",
@@ -2194,9 +2242,11 @@ def q1_checks(torch, report, dev, ptxas):
         "int_mm_ms": sum(e["int_mm_ms"] * c for e, c in per_request if e["int_mm_ms"]),
         "dtype": "int8", "sites": list(sites.values()), "ptxas": ptxas,
     }
-    print(f"Q1 {Q1}: one flagship INT8_HEAD + INT8_PREDICTOR request's 9 calls at 100 rows: "
-          f"{report[Q1]['ms']:.4f} ms [{report[Q1]['device_ms']:.4f}], bound "
-          f"{report[Q1]['bound_ms']:.6f}, float16 cuDNN {report[Q1]['library_ms']:.4f}")
+    print(f"Q1 {Q1}: one flagship INT8_HEAD + INT8_PREDICTOR request's 9 calls at 100 rows "
+          f"({', '.join(sorted({e['variant'] for e, _ in per_request}))}): "
+          f"{report[Q1]['ms']:.4f} ms [{report[Q1]['device_ms']:.4f}] (mma_sync "
+          f"{report[Q1]['before_ms']:.4f}), bound {report[Q1]['bound_ms']:.6f}, float16 cuDNN "
+          f"{report[Q1]['library_ms']:.4f}")
 
 
 def q1_per_request(pred):
@@ -2218,6 +2268,8 @@ INT8_ALL_FLAGS = INT8_HEAD_FLAGS + (("TPU.INT8_BACKBONE", True), ("TPU.INT8_RPN"
 INT8_PATHS = [
     (FLAGSHIP, INT8_HEAD_FLAGS, True),
     (FLAGSHIP, INT8_HEAD_FLAGS + FP16, True),
+    # the JAX package's headline serving configuration (bench.py:11-17)
+    (FLAGSHIP, INT8_HEAD_FLAGS + BF16, True),
     (FLAGSHIP, INT8_ALL_FLAGS, False),  # "max serving"
     (DEEPLAB, (("TPU.INT8_HEAD", True),), True),
     (HRNET, (("TPU.INT8_BACKBONE", True), ("TPU.INT8_HEAD", True)), False),
@@ -2267,6 +2319,13 @@ def int8_path(torch, report, dev, name, extra, post_detection):
         torch.cuda.synchronize()
     check(len(held.k1) == 2 and len(held.k2) == 2 and len(held.q1) == per_request[Q1],
           f"int8 {tag}: held {len(held.k1)} K1, {len(held.k2)} K2, {len(held.q1)} Q1 calls")
+    # the DensePose head's links and the predictor's deconvolution: the pooler's
+    # resolution (28x28 at full width)
+    res = path_config(name, extra).MODEL.ROI_DENSEPOSE_HEAD.POOLER_RESOLUTION
+    head = [k[4] for k in held.q1 if k[3] == (res, res)]
+    check(bool(head) == any(k.endswith("INT8_HEAD") for k, _ in extra)
+          and all(v == "wgmma" for v in head),
+          f"int8 {tag}: the head's Q1 calls were served by {head}, not all by wgmma")
     print(f"held: one int8 {tag} request, {held.summary()}")
     fp_cfg = path_config(name, [kv for kv in extra if kv[0].split(".")[-1] not in INT8_FLAGS])
     fp = DensePosePredictor(fp_cfg, seed=0, device=dev, params=path_params(fp_cfg, dev))
@@ -2404,8 +2463,9 @@ def main():
     for k in ptxas["roi_align_sparse"] + ptxas["conv_s8"]:
         check((k.get("stack"), k.get("spill_stores"), k.get("spill_loads")) == (0, 0, 0),
               f"build: {k['kernel']} has a stack frame or spills")
-    check(len(ptxas["conv_s8"]) == 8, "build: Q1 has 8 instantiations (16- and 8-byte copies "
-          "x CTAs 64, 128 and 256 channels wide, 4-byte copies x 64 and 128), got "
+    check(len(ptxas["conv_s8"]) == 16, "build: Q1 has 16 instantiations (wgmma: tiles 64, 80, "
+          "128 and 256 channels wide x 64- and 128-channel K chunks; mma_sync: 16- and 8-byte "
+          "copies x CTAs 64, 128 and 256 channels wide, 4-byte copies x 64 and 128), got "
           f"{len(ptxas['conv_s8'])}")
 
     report = {}

@@ -10,7 +10,8 @@ s8 input (``out_scale``) or to float.
 
 The convolution is kernel Q1 (``csrc/conv_s8.cu``: an implicit GEMM on the
 int8 tensor cores, the transposed convolution as a gather over its parity
-classes) for CUDA tensors, and ``conv_s8_plain`` for CPU tensors: the sums in
+classes; two variants, ``q1_variant`` says which serves a shape) for CUDA
+tensors, and ``conv_s8_plain`` for CPU tensors: the sums in
 float64 through ``F.conv2d`` / ``F.conv_transpose2d``, exact because every
 partial sum is an integer below 127^2 * K <= 1.4e8 (K <= 512 * 16 for the
 deconvolution) << 2^53, then the same epilogue in float32 torch ops. PyTorch
@@ -162,11 +163,76 @@ def conv_s8_plain(qx: torch.Tensor, qw: torch.Tensor, qb: Optional[torch.Tensor]
     return _epilogue_plain(acc, qb, vec, relu, out_kind).contiguous()
 
 
+# Q1's two variants, by their C code (csrc/conv_s8.cu::Variant)
+Q1_VARIANTS = {"mma_sync": 0, "wgmma": 1}
+WGMMA_MAX_CORNER = 127   # a rank-4 im2col map's box corners lie in [-128, 127]
+WGMMA_MAX_OFFSET = 254   # and its tap offsets in [0, 254]
+WGMMA_MAX_M_TILES = 65535  # M tiles of 128 rows (the grid's y extent)
+
+
+def wgmma_takes(x_shape, w_shape, *, stride: IntPair = 1, padding: IntPair = 0,
+                dilation: IntPair = 1, transposed: bool = False) -> bool:
+    """Whether Q1's wgmma variant can describe the convolution of an
+    (N, H, W, Cin) s8 input by (Cout, kh, kw, Cin) s8 weights: the
+    preconditions ``csrc/conv_s8.cu::plan_wgmma`` checks (besides 16-byte
+    aligned tensors, which a fresh contiguous tensor is). Cin a multiple of
+    16 (TMA's global strides); the im2col box's corners in [-128, 127] and
+    its tap offsets in [0, 254]; a forward conv's stride at most 8 (the
+    traversal stride); a transposed conv's output a whole number of strides
+    on each axis (every parity class walks the same box), dilation 1."""
+    n, h, w, cin = (int(v) for v in x_shape)
+    kh, kw = int(w_shape[1]), int(w_shape[2])
+    (sh, sw), (ph, pw), (dh, dw) = _pair(stride), _pair(padding), _pair(dilation)
+    if cin % 16 or kh * kw > 64:
+        return False
+    if transposed:
+        ho, wo = (h - 1) * sh - 2 * ph + kh, (w - 1) * sw - 2 * pw + kw
+        if (dh, dw) != (1, 1) or ho % sh or wo % sw:
+            return False
+        m = n * (ho // sh) * (wo // sw)
+        axes = []
+        for k, s, p, size, out in ((kh, sh, ph, h, ho), (kw, sw, pw, w, wo)):
+            offs = [(q + p - t) // s for q in range(s) for t in range(k) if (q + p - t) % s == 0]
+            if not offs:
+                return False
+            lo = min(offs)
+            axes.append((lo, out // s - size + lo, max(offs) - lo))
+    else:
+        ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+        wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+        m = n * ho * wo
+        axes = []
+        for k, s, p, d, size, out in ((kh, sh, ph, dh, h, ho), (kw, sw, pw, dw, w, wo)):
+            lower, upper = -p, p - (k - 1) * d
+            span = size - 1 + upper - lower
+            if s > 8 or span < 0 or span // s + 1 != out:
+                return False
+            axes.append((lower, upper, (k - 1) * d))
+    ok = all(-WGMMA_MAX_CORNER - 1 <= c <= WGMMA_MAX_CORNER for lo, up, _ in axes
+             for c in (lo, up))
+    return ok and all(off <= WGMMA_MAX_OFFSET for *_, off in axes) and \
+        0 < m and (m + 127) // 128 <= WGMMA_MAX_M_TILES
+
+
+def q1_variant(x_shape, w_shape, *, stride: IntPair = 1, padding: IntPair = 0,
+               dilation: IntPair = 1, transposed: bool = False) -> str:
+    """Which of Q1's variants serves a convolution, a fixed rule on its
+    shapes: "wgmma" (wgmma on TMA tiles: an im2col tensor map for the
+    activations) wherever ``wgmma_takes`` the shape, else "mma_sync" (the
+    first design, cp.async and mma.sync: Cin 40 and 600, and any Cin not a
+    multiple of 16). The rule has no exception by size: on an H100 the
+    wgmma variant took less device time than mma_sync at every site shape
+    ``chip_smoke.py`` times, from the head links (3.4x) to HRNet's
+    32-channel branches (PERF.md section 6)."""
+    geo = dict(stride=stride, padding=padding, dilation=dilation, transposed=transposed)
+    return "wgmma" if wgmma_takes(x_shape, w_shape, **geo) else "mma_sync"
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """Q1's library, built on first use, with its C signature set once."""
     lib = library("conv_s8")
-    lib.dp_conv_s8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+    lib.dp_conv_s8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
     lib.dp_conv_s8.restype = ctypes.c_int
     return lib
 
@@ -174,15 +240,22 @@ def _lib() -> ctypes.CDLL:
 def conv_s8_cuda(qx: torch.Tensor, qw: torch.Tensor, qb: Optional[torch.Tensor],
                  vec: Optional[torch.Tensor], *, stride: IntPair = 1, padding: IntPair = 0,
                  dilation: IntPair = 1, transposed: bool = False, relu: bool = False,
-                 out_kind="s32") -> torch.Tensor:
-    """Kernel Q1 on CUDA tensors, ``conv_s8_plain``'s contract: one launch,
-    counted in ``conv_s8_cuda.launches``. Cin must be a multiple of 4 and
-    kh * kw at most 64. Raises on any other input or a failed launch."""
+                 out_kind="s32", variant: Optional[str] = None) -> torch.Tensor:
+    """Kernel Q1 on CUDA tensors, ``conv_s8_plain``'s contract: one launch
+    of the variant ``q1_variant`` picks for the shapes (or ``variant``, to
+    time or test one), counted in ``conv_s8_cuda.launches`` and in
+    ``conv_s8_cuda.variant_launches[variant]``. kh * kw at most 64; Cin a
+    multiple of 4 (mma_sync) or ``wgmma_takes``'s shapes (wgmma). Raises on
+    any other input or a failed launch; no variant stands in for another."""
     if qx.dim() != 4 or qw.dim() != 4 or qx.shape[3] != qw.shape[3]:
         raise ValueError(f"Q1 takes qx (N, H, W, Cin) and qw (Cout, kh, kw, Cin), got "
                          f"{tuple(qx.shape)} and {tuple(qw.shape)}")
     if out_kind not in OUT_KINDS:
         raise ValueError(f"Q1 has no output {out_kind!r}")
+    geo = dict(stride=stride, padding=padding, dilation=dilation, transposed=transposed)
+    variant = variant or q1_variant(qx.shape, qw.shape, **geo)
+    if variant not in Q1_VARIANTS:
+        raise ValueError(f"Q1 has no variant {variant!r}")
     cout = qw.shape[0]
     tensors = [("qx", qx, torch.int8), ("qw", qw, torch.int8)]
     if qb is not None:
@@ -210,15 +283,17 @@ def conv_s8_cuda(qx: torch.Tensor, qw: torch.Tensor, qb: Optional[torch.Tensor],
             qx.data_ptr(), qw.data_ptr(), qb.data_ptr() if qb is not None else None,
             vec.data_ptr() if out_kind != "s32" else None, out.data_ptr(),
             n, h, w, cin, ho, wo, cout, qw.shape[1], qw.shape[2], sh, sw, ph, pw, dh, dw,
-            int(transposed), int(relu), OUT_KINDS[out_kind],
+            int(transposed), int(relu), OUT_KINDS[out_kind], Q1_VARIANTS[variant],
             torch.cuda.current_stream(qx.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"Q1 launch failed: cudaError {err}")
+        raise RuntimeError(f"Q1 launch failed: cudaError {err} ({variant})")
     conv_s8_cuda.launches += 1
+    conv_s8_cuda.variant_launches[variant] += 1
     return out
 
 
 conv_s8_cuda.launches = 0
+conv_s8_cuda.variant_launches = dict.fromkeys(Q1_VARIANTS, 0)
 
 
 def conv_s8(qx, qw, qb, vec, **kw) -> torch.Tensor:

@@ -14,12 +14,16 @@ in another order, and 2e-5 of K2, at ratios 1, 2 and 8, M = 0, 1 and 3000,
 and on the edge cases of ``tests/torch_cases.py::k3_edge_cases``; two runs
 the same bits, one launch a call, and no stack frame or spills in ptxas.
 
-Q1 (the s8 implicit-GEMM convolution of the int8 serving mode) bit for bit
-against its plain version (float64 sums, exact) at ragged shapes: Cin not a
-multiple of 64 or of 16 (40, 20, 600), Cout 2 / 15 / 77, M tails, stride 2,
-dilation 2, the 4x4 / stride 2 transposed convolution, each epilogue output
-(int32 sums, s8, f32, f16, bf16); one launch a call; and a small int8
-flagship request with every Q1 launch held against the plain version.
+Q1 (the s8 implicit-GEMM convolution of the int8 serving mode), each of its
+two variants at every shape it takes, bit for bit against its plain version
+(float64 sums, exact) and two runs the same bits, at ragged shapes: Cin not a
+multiple of 64 or of 16 (40, 20, 600, 720), Cout 2 / 15 / 77, M tails,
+stride 2, dilation 2, the 4x4 / stride 2 transposed convolution, each
+epilogue output (int32 sums, s8, f32, f16, bf16) with and without ReLU; one
+launch a call, counted under its variant; a head link routed to the wgmma
+variant; shapes that break the wgmma variant's preconditions refused when
+forced to it; and a small int8 flagship request with every Q1 launch held
+against the plain version, its head on the wgmma variant.
 
 At a half dtype (float16, bfloat16): K2<T> bit-identical to K2 on the
 widened levels rounded to T (only its loads and its store change), and to
@@ -612,7 +616,15 @@ Q1_SHAPES = [
     (1, 6, 7, 600, 32, 1, 1, 0, 1, False),     # HRFPN reduction width
     (3, 7, 7, 64, 77, 4, 2, 1, 1, True),       # the merged chart deconvolution
     (2, 5, 6, 32, 2, 4, 2, 1, 1, True),        # Cout 2
+    (1, 9, 13, 16, 24, 3, 2, 1, 1, False),     # Cin 16, a stride-2 3x3
+    (2, 6, 5, 720, 40, 1, 1, 0, 1, False),     # Cin 720: a ragged 128-channel chunk
+    (3, 14, 14, 128, 256, 3, 1, 1, 1, False),  # 128 x 256 tiles, an M tail across images
 ]
+# each shape with each variant that takes it (wgmma: conv_int8.wgmma_takes)
+Q1_CASES = [(shape, variant) for shape in Q1_SHAPES for variant in ("mma_sync", "wgmma")
+            if variant == "mma_sync" or conv_int8.wgmma_takes(
+                shape[:4], (shape[4], shape[5], shape[5], shape[3]), stride=shape[6],
+                padding=shape[7], dilation=shape[8], transposed=shape[9])]
 
 
 def q1_inputs(shape, seed=0):
@@ -626,25 +638,43 @@ def q1_inputs(shape, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", Q1_SHAPES, ids=lambda s: "x".join(map(str, s[:6])) + (
-    "T" if s[-1] else ""))
-@pytest.mark.parametrize("out_kind,relu", [("s32", True), ("s8", True), (torch.float32, False),
-                                           (torch.float16, False), (torch.bfloat16, True)],
+@pytest.mark.parametrize("shape,variant", Q1_CASES, ids=lambda c: c if isinstance(c, str) else
+                         "x".join(map(str, c[:6])) + ("T" if c[-1] else ""))
+@pytest.mark.parametrize("out_kind", ["s32", "s8", torch.float32, torch.float16, torch.bfloat16],
                          ids=["s32", "s8", "f32", "f16", "bf16"])
-def test_q1_matches_plain(cuda, shape, out_kind, relu):
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "linear"])
+def test_q1_matches_plain(cuda, shape, variant, out_kind, relu):
     *_, k, stride, padding, dilation, transposed = shape
     qx, qw, qb, vec = q1_inputs(shape)
     kw = dict(stride=stride, padding=padding, dilation=dilation, transposed=transposed,
               relu=relu, out_kind=out_kind)
     want = conv_int8.conv_s8_plain(qx, qw, qb, vec, **kw)
-    before = conv_int8.conv_s8_cuda.launches
+    q1 = conv_int8.conv_s8_cuda
+    before, by_variant = q1.launches, dict(q1.variant_launches)
+    got = q1(qx.to(cuda), qw.to(cuda), qb.to(cuda), vec.to(cuda), **kw, variant=variant)
+    again = q1(qx.to(cuda), qw.to(cuda), qb.to(cuda), vec.to(cuda), **kw, variant=variant)
+    torch.cuda.synchronize()
+    assert q1.launches == before + 2
+    assert q1.variant_launches[variant] == by_variant[variant] + 2
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+    if out_kind == "s8" and relu:
+        assert 0 < int((want.abs() == 127).sum()) < want.numel()  # clamps some, not all
+
+
+@pytest.mark.gpu
+def test_q1_routes_head_links_to_wgmma(cuda):
+    """A head link (8 rows of 28x28x512, 3x3 -> 512) through the router:
+    one launch of the wgmma variant, bit-identical to the plain version."""
+    qx, qw, qb, vec = q1_inputs((8, 28, 28, 512, 512, 3, 1, 1, 1, False), seed=3)
+    kw = dict(padding=1, relu=True, out_kind="s8")
+    assert conv_int8.q1_variant(qx.shape, qw.shape, padding=1) == "wgmma"
+    q1 = conv_int8.conv_s8_cuda
+    by_variant = dict(q1.variant_launches)
     got = conv_int8.conv_s8(qx.to(cuda), qw.to(cuda), qb.to(cuda), vec.to(cuda), **kw)
     torch.cuda.synchronize()
-    assert conv_int8.conv_s8_cuda.launches == before + 1
-    assert got.dtype == want.dtype and got.shape == want.shape
-    assert torch.equal(got.cpu(), want)
-    if out_kind == "s8":
-        assert 0 < int((want.abs() == 127).sum()) < want.numel()  # clamps some, not all
+    assert q1.variant_launches == dict(by_variant, wgmma=by_variant["wgmma"] + 1)
+    assert torch.equal(got.cpu(), conv_int8.conv_s8_plain(qx, qw, qb, vec, **kw))
 
 
 @pytest.mark.gpu
@@ -654,10 +684,39 @@ def test_q1_refuses(cuda):
         conv_int8.conv_s8_cuda(qx, qw.to(cuda), None, None)
     with pytest.raises(ValueError, match="epilogue"):
         conv_int8.conv_s8_cuda(qx.to(cuda), qw.to(cuda), None, None, out_kind="s8")
+    with pytest.raises(ValueError, match="variant"):
+        conv_int8.conv_s8_cuda(qx.to(cuda), qw.to(cuda), None, None, variant="cudnn")
     odd = torch.zeros((1, 4, 4, 6), dtype=torch.int8, device=cuda)
     with pytest.raises(RuntimeError, match="Q1 launch failed"):
         conv_int8.conv_s8_cuda(odd, torch.zeros((8, 1, 1, 6), dtype=torch.int8, device=cuda),
                                None, None)
+    # shapes that break the wgmma variant's preconditions, forced to it: the
+    # C side refuses them and nothing runs in their place
+    before = dict(conv_int8.conv_s8_cuda.variant_launches)
+    s8 = dict(dtype=torch.int8, device=cuda)
+    refused = [
+        # Cin 40: TMA's global strides must be multiples of 16 bytes
+        ((1, 5, 5, 40), (8, 3, 3, 40), dict(padding=1)),
+        # a 3x3 / stride 2 transposed conv: an odd output, classes of two sizes
+        ((1, 5, 5, 64), (8, 3, 3, 64), dict(stride=2, padding=1, transposed=True)),
+        # stride 9: past the im2col box's traversal stride of 8
+        ((1, 19, 19, 16), (8, 1, 1, 16), dict(stride=9)),
+    ]
+    for x_shape, w_shape, geo in refused:
+        assert not conv_int8.wgmma_takes(x_shape, w_shape, **geo)
+        assert conv_int8.q1_variant(x_shape, w_shape, **geo) == "mma_sync"
+        with pytest.raises(RuntimeError, match="Q1 launch failed"):
+            conv_int8.conv_s8_cuda(torch.zeros(x_shape, **s8), torch.zeros(w_shape, **s8), None,
+                                   None, **geo, variant="wgmma")
+    # an input 8 bytes past a 16-byte boundary (a view into a larger buffer)
+    buf = torch.zeros(8 + 2 * 5 * 5 * 64, **s8)
+    shifted = buf[8:].view(2, 5, 5, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 8
+    with pytest.raises(RuntimeError, match="Q1 launch failed"):
+        conv_int8.conv_s8_cuda(shifted, torch.zeros((8, 3, 3, 64), **s8), None, None, padding=1,
+                               variant="wgmma")
+    torch.cuda.synchronize()
+    assert conv_int8.conv_s8_cuda.variant_launches == before
 
 
 @pytest.mark.gpu
@@ -673,10 +732,13 @@ def test_int8_request_on_card(cuda, monkeypatch):
     pred.calibrate_int8([frame])
     q1 = conv_int8.conv_s8_cuda
     before = (nms.nms_keep_cuda.launches, roi_align.roi_align_cuda.launches, q1.launches)
+    by_variant = dict(q1.variant_launches)
     out = pred(frame)
     torch.cuda.synchronize()
     assert (nms.nms_keep_cuda.launches - before[0], roi_align.roi_align_cuda.launches - before[1],
             q1.launches - before[2]) == (2, 2, 9)
+    # the head's 8 links and the merged deconvolution, all on the wgmma variant
+    assert q1.variant_launches == dict(by_variant, wgmma=by_variant["wgmma"] + 9)
     for k in ("pred_boxes", "scores", "pred_classes", "valid"):
         assert torch.equal(out[k], fp[k]), k
     held = []
@@ -689,6 +751,7 @@ def test_int8_request_on_card(cuda, monkeypatch):
         return got
 
     held_q1.launches = 0
+    held_q1.variant_launches = dict.fromkeys(conv_int8.Q1_VARIANTS, 0)
     monkeypatch.setattr(conv_int8, "conv_s8_cuda", held_q1)
     pred(frame)
     torch.cuda.synchronize()
