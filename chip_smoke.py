@@ -163,7 +163,29 @@ toolkit. Phases, each of which fails the run:
    INT8_PREDICTOR) and a narrowed int8 HRNet (INT8_BACKBONE + INT8_HEAD),
    calibrated on the card and loaded on the CPU: the int8 state
    bit-identical, detections within 1e-3, maps within INT8_REF_RTOL
-   (reference_check_int8).
+   (reference_check_int8);
+11. deploy: each kernel's host time a call through its operator
+   (torch.ops.densepose_tpu_torch, ops/library.py: what an exported program
+   calls) and through its wrapper directly (what eager requests call), at a
+   flagship site, both routes giving the same output (dispatch_costs);
+   flagship bundles in fp32 and float16 written by export.export_bundle and
+   loaded through run.load_predictor, their detections bit-identical to a
+   predictor built in memory from the same weights and the maps within
+   SERVED_AGAIN_TOL (cuDNN's atomics), and an int8 sidecar written by
+   export.calibrate_bundle on 4 frames and loaded with the bundle: the int8
+   state and every output bit-identical to an in-memory calibration's
+   (bundle_phase); the flagship, the int8 flagship (INT8_HEAD +
+   INT8_PREDICTOR) and R101 legacy with DENSEPOSE_TPU_SPARSE_POOLER set
+   exported as programs (aot_export_bytes) at 480x640, written, loaded
+   (aot_load) and run on 3 frames with the launch counters set to 0 just
+   before and read just after (2 K1 and 2 K2, or 2 K3, and 9 Q1 on int8, a
+   request, and no plain version called), against eager: detections
+   bit-identical, maps within SERVED_AGAIN_TOL; export seconds, .pt2 size,
+   load seconds and the latency of both (aot_program); then evaluate.evaluate
+   over 8 square synthetic frames whose ground truth is the card's own
+   predictions (boxes, and points sampled from the extracted labels and UV,
+   tests/torch_cases.py::self_annotations), with cuDNN deterministic for the
+   phase: box AP and GPS AP 100 (evaluate_phase).
 
 Prints a ``{"kernels": [...]}`` line with one entry per kernel and compute
 dtype (K1 takes fp32 boxes and Q1 s8 activations at every dtype: one entry
@@ -2421,6 +2443,352 @@ INT8_REF_RTOL = 2e-2
 INT8_REF_SHARE = 0.02
 
 
+# -- deploy: bundles, the AOT program, the operators' dispatch, evaluation ------
+
+HOST_REPS = 200   # calls a round of the host-time loops
+HOST_ROUNDS = 5   # rounds of each route, interleaved; the best is kept
+DISPATCH_ADDS_US = 5.0  # what the dispatcher may add to a call routed through it
+AOT_TIMED = 3     # requests of each of the program and the eager predictor
+EVAL_FRAMES = 8
+# square frames: on a landscape frame the RPN's swapped (W, H) clip (a
+# reference quirk) keeps proposals below the image, which the final clip
+# flattens to zero-height boxes that no box AP can match
+EVAL_HW = (640, 640)
+
+
+def host_us(torch, calls):
+    """Host microseconds a call of each of ``calls`` ({route: fn}): rounds of
+    HOST_REPS calls with no synchronization inside (the card runs behind),
+    the routes interleaved, the best round of each kept."""
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    best = dict.fromkeys(calls, float("inf"))
+    for _ in range(HOST_ROUNDS):
+        for route, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_REPS):
+                fn()
+            best[route] = min(best[route], (time.perf_counter() - t0) / HOST_REPS * 1e6)
+    torch.cuda.synchronize()
+    return best
+
+
+def dispatch_costs(torch, dev):
+    """Each kernel's host time a call through its operator
+    (torch.ops.densepose_tpu_torch, what an exported program calls) against
+    a direct call of its wrapper (what the model's eager calls make: the
+    dispatcher adds more than DISPATCH_ADDS_US to some calls, PERF.md), at a
+    flagship site: K1 at the RPN, K2 and K3 at the box pooler, Q1 at a head
+    link of 100 rows; both routes' outputs equal."""
+    from densepose_tpu_torch.ops import conv_int8, nms, roi_align, roi_align_sparse
+    cfg = path_config(FLAGSHIP)
+    (hp, wp), levels = main_path_shapes(cfg)
+    rng = np.random.RandomState(3)
+    ops = torch.ops.densepose_tpu_torch
+    b = torch.from_numpy(np.stack([clustered_boxes(rng, 1000, (hp, wp)) for _ in range(5)])).to(dev)
+    v = torch.ones((5, 1000), dtype=torch.bool, device=dev)
+    feats = [torch.randn(256, h, w, device=dev) for f, (h, w) in levels.items() if f != "p6"]
+    rois = torch.from_numpy(clustered_boxes(rng, 1000, (hp, wp))).to(dev)
+    lv = torch.from_numpy(rng.randint(0, 4, 1000).astype(np.int32)).to(dev)
+    scales = [1 / 4, 1 / 8, 1 / 16, 1 / 32]
+    qx = torch.randint(-127, 128, (100, 28, 28, 512), dtype=torch.int8, device=dev)
+    qw = torch.randint(-127, 128, (512, 3, 3, 512), dtype=torch.int8, device=dev)
+    qb = torch.randint(-500, 500, (512,), dtype=torch.int32, device=dev)
+    vec = torch.full((512,), 1e-4, device=dev)
+    q1_kw = dict(stride=(1, 1), padding=(1, 1), dilation=(1, 1), transposed=False, relu=True,
+                 out_kind="s8")
+    sites = {
+        "nms_keep_cuda": (lambda: nms.nms_keep_cuda(b, v, 0.7, None),
+                          lambda: ops.nms_keep(b, v, 0.7, None)),
+        "roi_align_cuda": (lambda: roi_align.roi_align_cuda(feats, rois, lv, scales, (7, 7), 2,
+                                                            True),
+                           lambda: ops.roi_align(feats, rois, lv, scales, [7, 7], 2, True)),
+        "roi_align_sparse_cuda": (
+            lambda: roi_align_sparse.roi_align_sparse_cuda(feats, rois, lv, scales, (7, 7), 2,
+                                                           True),
+            lambda: ops.roi_align_sparse(feats, rois, lv, scales, [7, 7], 2, True)),
+        Q1: (lambda: conv_int8.conv_s8_cuda(qx, qw, qb, vec, **q1_kw),
+             lambda: ops.conv_s8(qx, qw, qb, vec, [1, 1], [1, 1], [1, 1], False, True,
+                                 torch.int8)),
+    }
+    costs = {}
+    for name, (direct, dispatched) in sites.items():
+        check(torch.equal(direct(), dispatched()), f"dispatch: {name}'s operator differs from "
+              "its wrapper")
+        us = host_us(torch, {"direct": direct, "dispatcher": dispatched})
+        costs[name] = us
+        added = us["dispatcher"] - us["direct"]
+        print(f"dispatch: {name} host us a call, dispatcher {us['dispatcher']:.2f} / direct "
+              f"{us['direct']:.2f} (adds {added:.2f}; best of {HOST_ROUNDS} rounds of "
+              f"{HOST_REPS} calls)")
+    worst = max(c["dispatcher"] - c["direct"] for c in costs.values())
+    print(f"dispatch: eager calls take the direct route, exported programs the operators; the "
+          f"dispatcher adds up to {worst:.2f} us a call (route limit {DISPATCH_ADDS_US})")
+    return costs
+
+
+def device_profile(torch, fn):
+    """One call of ``fn`` under torch.profiler: (device busy ms, profiled
+    wall ms, device events, device ms by kernel name), or None when the
+    profiler sees no device activity. The device mirrors of the model's
+    stage ranges (which an exported program does not have) are left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and e.name not in STAGES + TTA_STAGES]
+    if not device:
+        return None
+    by_kernel, busy_us, end = {}, 0.0, float("-inf")
+    for e in device:
+        name = short_kernel_name(e.name)
+        by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in device):
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    return busy_us / 1e3, wall_ms, len(device), by_kernel
+
+
+class CountPlain:
+    """Within the block, every call of a kernel's plain version is counted
+    (the operators' CPU kernels look them up in their modules): a program on
+    the card must make none."""
+
+    NAMES = (("nms", "nms_keep_plain"), ("roi_align", "roi_align_plain"),
+             ("roi_align_sparse", "roi_align_sparse_plain"), ("conv_int8", "conv_s8_plain"))
+
+    def __enter__(self):
+        import importlib
+        self.calls, self.orig = 0, []
+        for mod, name in self.NAMES:
+            module = importlib.import_module(f"densepose_tpu_torch.ops.{mod}")
+            fn = getattr(module, name)
+            self.orig.append((module, name, fn))
+
+            def counted(*a, _fn=fn, **kw):
+                self.calls += 1
+                return _fn(*a, **kw)
+            setattr(module, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.orig:
+            setattr(module, name, fn)
+        return False
+
+
+def bundle_phase(torch, dev, tmp):
+    """Flagship bundles (fp32 and float16) written by export_bundle and loaded
+    through run.load_predictor on the card, against predictors built in
+    memory from the same weights; then an int8 sidecar calibrated on
+    CALIB_FRAMES frames with calibrate_bundle and loaded with the bundle.
+    Returns (fp32 bundle, the int8 predictor loaded from it)."""
+    from densepose_tpu_torch import export, run
+    from densepose_tpu_torch.checkpoint.transform import fold_state, random_torch_state
+    from densepose_tpu_torch.models.rcnn import build_model
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    img = frames(5, 1)[0]
+    bundles = {}
+    for fp16 in (False, True):
+        cfg = path_config(FLAGSHIP, FP16 if fp16 else ())
+        t0 = time.perf_counter()
+        bundle = export.export_bundle(cfg, "", fp16, tmp, FLAGSHIP)
+        secs = time.perf_counter() - t0
+        loaded = run.load_predictor(bundle, "", [], device=str(dev))
+        # the weights the bundle stores: seed 0's, rounded to float16 with --fp16
+        spec = build_model(cfg).spec()
+        state = {k: v.astype(np.float16 if fp16 else np.float32)
+                 for k, v in random_torch_state(spec, seed=0).items()}
+        built = DensePosePredictor(cfg, device=dev, params=fold_state(state, spec))
+        a, b = loaded.predict_numpy(img), built.predict_numpy(img)
+        dets = [k for k in a if not k.startswith("pred_densepose_")]
+        check(same_outputs({k: a[k] for k in dets}, {k: b[k] for k in dets}),
+              f"bundle fp{16 if fp16 else 32}: detections differ from the in-memory predictor's")
+        err, _ = served_again(a, b, f"bundle fp{16 if fp16 else 32}")
+        check(loaded.cfg.TPU.COMPUTE_DTYPE == cfg.TPU.COMPUTE_DTYPE,
+              f"bundle: loaded at {loaded.cfg.TPU.COMPUTE_DTYPE}, exported at "
+              f"{cfg.TPU.COMPUTE_DTYPE}")
+        print(f"bundle fp{16 if fp16 else 32}: export_bundle {secs:.2f} s, "
+              f"{os.path.getsize(bundle) / 2**20:.1f} MiB; loaded through load_predictor on the "
+              f"card: {a['num_instances']} detections bit-identical to the in-memory predictor's, "
+              f"maps within {err:.3e} (SERVED_AGAIN_TOL {SERVED_AGAIN_TOL}: cuDNN's transposed "
+              "convolutions add with atomics)")
+        bundles[fp16] = bundle
+        del loaded, built
+    bundle = bundles[False]
+    opts = ["TPU.INT8_HEAD", "True", "TPU.INT8_PREDICTOR", "True"]
+    cfg8 = path_config(FLAGSHIP, INT8_HEAD_FLAGS)
+    calib = frames(7, CALIB_FRAMES)
+    t0 = time.perf_counter()
+    sidecar = export.calibrate_bundle(cfg8, bundle, calib, str(dev))
+    secs = time.perf_counter() - t0
+    loaded = run.load_predictor(bundle, "", opts, device=str(dev))
+    check(loaded.calibration_source == "sidecar", "bundle int8: the sidecar did not load")
+    built = DensePosePredictor(cfg8, seed=0, device=dev)
+    built.calibrate_int8(calib)
+    sa, sb = loaded.int8_state(), built.int8_state()
+    check(set(sa) == set(sb) and all(torch.equal(sa[k], sb[k]) for k in sa),
+          "bundle int8: the sidecar's state differs from an in-memory calibration's")
+    a, b = loaded.predict_numpy(img), built.predict_numpy(img)
+    check(same_outputs(a, b), "bundle int8: outputs differ from the in-memory calibration's")
+    print(f"bundle int8: calibrate_bundle on {CALIB_FRAMES} frames {secs:.2f} s -> "
+          f"{os.path.basename(sidecar)}; reloaded with the bundle: {len(sa)} int8 buffers and "
+          f"every output bit-identical to an in-memory calibration's")
+    del built
+    return bundle, loaded
+
+
+def aot_program(torch, report, dev, tmp, tag, pred, per_request, sparse=False):
+    """``pred``'s request at FRAME_HW exported (aot_export_bytes), written,
+    loaded (aot_load) and run on AOT_TIMED frames with the launch counters set
+    to 0 just before and read just after (``per_request`` a request, and no
+    plain version); against the eager request on the same frames: counts,
+    classes and validity exact, boxes and scores exact, maps within
+    SERVED_AGAIN_TOL; the latency of both."""
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    if sparse:
+        os.environ[SPARSE_POOLER] = "1"
+    try:
+        t0 = time.perf_counter()
+        data = pred.aot_export_bytes(FRAME_HW)
+        export_s = time.perf_counter() - t0
+        path = os.path.join(tmp, f"{tag.split(' ')[0]}_{FRAME_HW[0]}x{FRAME_HW[1]}.pt2")
+        with open(path, "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        with open(path, "rb") as f:
+            program = DensePosePredictor.aot_load(f.read())
+        load_s = time.perf_counter() - t0
+        consts = program.program.constants.values()
+        on_host = sum(t.device.type == "cpu" for t in consts if isinstance(t, torch.Tensor))
+        warm, *timed = frames(11, 1 + AOT_TIMED)
+        program(warm)
+        pred(warm)
+        torch.cuda.synchronize()
+        for fn in counters().values():
+            fn.launches = 0
+        outs, lat = [], []
+        with CountPlain() as plain:
+            for img in timed:
+                t0 = time.perf_counter()
+                outs.append(program(img))
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: fn.launches for k, fn in counters().items()}
+        check(plain.calls == 0, f"aot {tag}: the program called a plain version {plain.calls} "
+              "times")
+        eager_lat, err = [], 0.0
+        for img, out in zip(timed, outs):
+            t0 = time.perf_counter()
+            want = pred(img)
+            torch.cuda.synchronize()
+            eager_lat.append((time.perf_counter() - t0) * 1e3)
+            check(sorted(out) == sorted(want), f"aot {tag}: keys {sorted(out)}")
+            a, b = pred.numpy_outputs(out), pred.numpy_outputs(want)
+            check(a["num_instances"] >= 1, f"aot {tag}: no detections")
+            e, _ = served_again(a, b, f"aot {tag}")
+            err = max(err, e)
+        # a request of each under the profiler, twice (the profiler's own
+        # first use slows the first): device work against host time
+        for _ in range(2):
+            prof = {"program": device_profile(torch, lambda: program(timed[0])),
+                    "eager": device_profile(torch, lambda: pred(timed[0]))}
+    finally:
+        os.environ.pop(SPARSE_POOLER, None)
+    if None in prof.values():
+        print(f"aot {tag}: device profile not measured (the profiler saw no device activity)")
+    else:
+        (pb, pw, pn, pk), (eb, ew, en, ek) = prof["program"], prof["eager"]
+        delta = sorted(set(pk) | set(ek), key=lambda k: -abs(pk.get(k, 0.0) - ek.get(k, 0.0)))
+        print(f"aot {tag}: profiled request, program against eager: device busy {pb:.3f} / "
+              f"{eb:.3f} ms of {pw:.3f} / {ew:.3f} ms wall, {pn} / {en} device events; "
+              "largest differences by kernel (ms): " + "; ".join(
+                  f"{k} {pk.get(k, 0.0):.3f} / {ek.get(k, 0.0):.3f}" for k in delta[:4]))
+    count_launches(report, f"aot {tag}", path_dtype(()), launches, per_request, AOT_TIMED,
+                   "program requests")
+    print(f"aot {tag}: aot_export_bytes {export_s:.2f} s, {os.path.getsize(path) / 2**20:.1f} "
+          f"MiB .pt2 ({len(consts)} constants, {on_host} on the host), aot_load {load_s:.2f} s; "
+          f"{AOT_TIMED} requests of the program "
+          f"{', '.join(f'{x:.2f}' for x in lat)} ms (median {np.median(lat):.2f}) against eager "
+          f"{', '.join(f'{x:.2f}' for x in eager_lat)} (median {np.median(eager_lat):.2f}); "
+          f"launches {launches}, no plain version; detections bit-identical to eager, maps "
+          f"within {err:.3e} (SERVED_AGAIN_TOL {SERVED_AGAIN_TOL})")
+    os.remove(path)
+
+
+def evaluate_phase(torch, dev):
+    """evaluate() over EVAL_FRAMES synthetic EVAL_HW frames held in memory, on the
+    flagship with tamed detection weights (DETECTION_TAME): the ground truth
+    is the card's own predictions (boxes, and points sampled from the
+    extracted labels and UV, tests/torch_cases.py::self_annotations), so box
+    AP and GPS AP must both be 100. cuDNN runs deterministic algorithms for
+    the phase, so that the evaluated requests give the ground truth's maps
+    bit for bit (its transposed convolutions otherwise add with atomics)."""
+    from densepose_tpu_torch.evaluate import evaluate
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    from densepose_tpu_torch.visualizer import DensePoseResultExtractor
+    cfg = path_config(FLAGSHIP)
+    pred = DensePosePredictor(cfg, device=dev, params=tamed_params(cfg))
+    rng = np.random.RandomState(13)
+    imgs = [synthetic_frame(rng, EVAL_HW) for _ in range(EVAL_FRAMES)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        extractor = DensePoseResultExtractor()
+        preds = []
+        for i, img in enumerate(imgs):
+            out = pred.predict_numpy(img)
+            preds.append((i, out, extractor(out)))
+        anns = torch_cases().self_annotations(preds)
+        coco = {"images": [{"id": i, "file_name": f"frame{i}", "height": EVAL_HW[0],
+                            "width": EVAL_HW[1]} for i in range(EVAL_FRAMES)],
+                "annotations": anns}
+        t0 = time.perf_counter()
+        res = evaluate(pred, coco, lambda im: imgs[im["id"]])
+        secs = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    n = sum(out["num_instances"] for _, out, _ in preds)
+    points = sum(len(a["dp_x"]) for a in anns)
+    print(f"evaluate: {EVAL_FRAMES} frames, {n} detections, {points} ground-truth points "
+          f"({sum(not a['dp_x'] for a in anns)} detections without foreground, ignore regions) "
+          f"in {secs:.2f} s: " + json.dumps(res))
+    check(res["bbox"]["AP"] == 100.0 and res["densepose_gps"]["AP"] == 100.0,
+          f"evaluate: box AP {res['bbox']['AP']}, GPS AP {res['densepose_gps']['AP']} on the "
+          "card's own predictions, expected 100")
+
+
+def deploy_phase(torch, report, dev):
+    """Bundles, the AOT programs, the operators' host time and evaluation."""
+    import shutil
+    import tempfile
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    dispatch_costs(torch, dev)
+    tmp = tempfile.mkdtemp(prefix="densepose-deploy-")
+    try:
+        bundle, int8_pred = bundle_phase(torch, dev, tmp)
+        from densepose_tpu_torch import run
+        aot_program(torch, report, dev, tmp, "flagship", run.load_predictor(
+            bundle, "", [], device=str(dev)), ON_K2)
+        aot_program(torch, report, dev, tmp, "flagship int8", int8_pred,
+                    dict(ON_K2, **{Q1: q1_per_request(int8_pred)}))
+        del int8_pred
+        legacy = DensePosePredictor(path_config(LEGACY), seed=0, device=dev)
+        aot_program(torch, report, dev, tmp, f"legacy with {SPARSE_POOLER}=1", legacy, ON_K3,
+                    sparse=True)
+        del legacy
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    evaluate_phase(torch, dev)
+
+
 def main():
     try:
         import torch
@@ -2471,8 +2839,13 @@ def main():
     report = {}
     cfg = get_config(FLAGSHIP)
     dev = torch.device("cuda")
+
+    def lap(what):
+        print(f"time: {what} done {time.perf_counter() - t0:.1f} s after the build started")
+
     kernel_checks(torch, cfg, report, dev)
     q1_checks(torch, report, dev, ptxas["conv_s8"])
+    lap("kernel checks")
     for entry in report.values():
         entry["ptxas"] = ptxas[SOURCES[entry["name"].split("[")[0]]]
     for name, extra, sparse, per_request in PATHS:
@@ -2498,16 +2871,19 @@ def main():
             print(f"held: one {name} {dtype} request, {held.summary()}")
         del pred
         torch.cuda.empty_cache()
+    lap("paths")
     for name, extra, post_detection in INT8_PATHS:
         pred = int8_path(torch, report, dev, name, extra, post_detection)
         del pred
         torch.cuda.empty_cache()
+    lap("int8 paths")
     cse_phase(torch, report, dev)
     geometry_phase(torch, report, dev)
     detection_bucket_phase(torch, report, dev)
     for dtype in ("float32", "float16"):
         tta_phase(torch, report, dev, dtype)
     single_view_tta(torch, dev)
+    lap("CSE, geometry, bucket and TTA phases")
     reference_check(torch, dev, FLAGSHIP, False)
     reference_check(torch, dev, LEGACY, True)
     reference_check(torch, dev, FLAGSHIP, False, "float16")
@@ -2522,6 +2898,9 @@ def main():
     reference_check_int8(torch, dev, FLAGSHIP, INT8_HEAD_FLAGS)
     reference_check_int8(torch, dev, HRNET, (("TPU.INT8_BACKBONE", True),
                                              ("TPU.INT8_HEAD", True)))
+    lap("reference checks")
+    deploy_phase(torch, report, dev)
+    lap("deploy phase")
 
     print(json.dumps({"kernels": list(report.values())}))
     print(f"nvidia-smi: {smi_line}")

@@ -1,5 +1,6 @@
-"""Checkpoint loading: detectron2-zoo / Caffe2 ``.pkl`` files -> flat
-name->ndarray state dicts, byte-compatible with the reference loader.
+"""Checkpoint loading: detectron2-zoo / Caffe2 ``.pkl`` files and exported
+``.npz`` bundles -> flat name->ndarray state dicts, byte-compatible with the
+reference loader.
 
 The PyTorch port's copy of densepose_tpu/checkpoint/pkl_loader.py.
 Reproduces the full load stack of the reference's
@@ -44,6 +45,11 @@ def load_checkpoint_file(filename: str) -> Tuple[StateDict, bool]:
             data = data["blobs"]
         data = {k: np.asarray(v) for k, v in data.items() if not k.endswith("_momentum")}
         return data, True
+    if filename.endswith(".npz"):
+        # an exported bundle (``python -m densepose_tpu_torch.export``, or the
+        # JAX package's export.py): torch-layout names, float32 or float16
+        with np.load(filename, allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}, False
     if filename.endswith((".pt", ".pth", ".pyth")):
         # torch-format checkpoints (detection_checkpoint.py:64-90)
         import torch

@@ -16,7 +16,10 @@ FrozenBN folded (``backbone.bottom_up.stem.conv1.weight``,
 5. the box postprocess (detector_postprocess, postprocessing.py:11-61) and
    ``pack_detections``;
 6. the DensePose stage on a detection-count bucket picked on the host
-   (one device-to-host sync), zero-padded back to D slots;
+   (one device-to-host sync), zero-padded back to D slots; while
+   ``torch.export`` traces, the bucket is picked on the device by nested
+   ``torch.cond`` (``forward_densepose_cond``), as the JAX package's
+   ``lax.switch``;
 7. with ``TPU.DEVICE_POSTPROCESS``, ``device_postprocess``: the SIUV maps
    collapse into a label map and a UV map on the device.
 
@@ -211,7 +214,7 @@ class GeneralizedRCNN(nn.Module):
         with record_function("preprocess"):
             x, (h1, w1), (hp, wp) = self.preprocess(image_u8, min_size, max_size)
         # detector_postprocess's rescale: w0 / w1 in double, then rounded to fp32
-        scale = torch.tensor([w0 / w1, h0 / h1], dtype=torch.float32)
+        scale = torch.tensor([w0 / w1, h0 / h1], dtype=torch.float32, device=image_u8.device)
         return self._detect(x, (hp, wp), None, (h0, w0), scale)
 
     def _detect(self, x: torch.Tensor, clip_hw: Tuple[int, int], anchor_valid_hw,
@@ -234,7 +237,7 @@ class GeneralizedRCNN(nn.Module):
         with record_function("postprocess"):
             # detector_postprocess: rescale to the original resolution, drop
             # empty boxes, clip with the correct (H, W) order
-            boxes = boxes_net * scale_xy.repeat(2).to(boxes_net.device)
+            boxes = boxes_net * scale_xy.repeat(2)
             valid = dvalid & nonempty_boxes(boxes)
             boxes = clip_boxes(boxes, (h0, w0))
             result = {
@@ -286,7 +289,8 @@ class GeneralizedRCNN(nn.Module):
         with record_function("preprocess"):
             x = self.preprocess_bucketed(canvas_u8, h1, w1)
         hp, wp = pad_to_divisible(h1, w1, self.size_divisibility)
-        scale = torch.from_numpy(np.float32([w0, h0]) / np.float32([w1, h1]))
+        scale = torch.as_tensor(np.float32([w0, h0]) / np.float32([w1, h1]),
+                                device=canvas_u8.device)
         result, features, boxes_net = self._detect(x, (hp, wp), (hp, wp), (h0, w0), scale)
         return self._with_densepose(result, features, boxes_net)
 
@@ -327,6 +331,31 @@ class GeneralizedRCNN(nn.Module):
             return {k: torch.cat([v, v.new_zeros((d - b,) + tuple(v.shape[1:]))])
                     for k, v in dp.items()}
 
+    def forward_densepose_cond(self, features: Dict[str, torch.Tensor], boxes_net: torch.Tensor,
+                               num_valid: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``forward_densepose_switched`` as an exported program holds it:
+        nested ``torch.cond`` on the count (the JAX package's ``lax.switch``,
+        rcnn.py:375-407) over every bucket's branch, each padded to D slots,
+        so that one program serves any count. Run eagerly, the program reads
+        the count on the host once, as ``forward_densepose_switched`` does."""
+        d = boxes_net.shape[0]
+        names = sorted(features)
+        buckets = [b for b in (8, 32) if b < d] + [d]
+
+        def branch(b):
+            def run(boxes, *maps):
+                dp = self.forward_densepose_switched(dict(zip(names, maps)), boxes, b)
+                return {k: v.contiguous() for k, v in dp.items()}
+            return run
+
+        def switch(i):  # the buckets from the i-th on
+            if i == len(buckets) - 1:
+                return branch(buckets[i])
+            return lambda *ops: torch.cond(num_valid > buckets[i], switch(i + 1),
+                                           branch(buckets[i]), ops)
+
+        return switch(0)(boxes_net, *[features[k] for k in names])
+
     def forward(self, image_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Full single-image inference: fixed-size slots + num_instances,
         DensePose maps NCHW (D, C, HEATMAP, HEATMAP)."""
@@ -336,7 +365,9 @@ class GeneralizedRCNN(nn.Module):
         """Stage 1's result with the DensePose stage (switched on the count,
         and collapsed by the device postprocess, as the config says)."""
         if self.cfg.MODEL.DENSEPOSE_ON:
-            if self.cfg.TPU.SWITCHED_DENSEPOSE:
+            if self.cfg.TPU.SWITCHED_DENSEPOSE and torch.compiler.is_exporting():
+                dp = self.forward_densepose_cond(features, boxes_net, result["num_instances"])
+            elif self.cfg.TPU.SWITCHED_DENSEPOSE:
                 # the one device-to-host sync of the request
                 dp = self.forward_densepose_switched(features, boxes_net,
                                                      int(result["num_instances"]))

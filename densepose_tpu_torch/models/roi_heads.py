@@ -430,15 +430,18 @@ class DensePoseChartPredictor(nn.Module):
     def merged_int8(self):
         """The four chart deconvs' quantized weights, biases and epilogue
         concatenated along the output channels (2 + 25 + 25 + 25), made once
-        per installed state."""
+        per installed state (while ``torch.export`` traces, in the program)."""
         heads = [getattr(self, n) for n in _CHART_HEADS]
         refs = [self.in_scale] + [t for h in heads for t in (h.qweight, h.wscale)]
-        hit = self.__dict__.get("_int8_merged")
+        exporting = torch.compiler.is_exporting()
+        hit = None if exporting else self.__dict__.get("_int8_merged")
         if hit is None or any(a is not b for a, b in zip(hit[0], refs)):
             qw = torch.cat([h.qweight for h in heads]).contiguous()
             ep = make_epilogue(self.in_scale, torch.cat([h.wscale for h in heads]),
                                torch.cat([h.bias for h in heads]))
-            hit = self.__dict__["_int8_merged"] = (refs, qw, ep)
+            hit = (refs, qw, ep)
+            if not exporting:
+                self.__dict__["_int8_merged"] = hit
         return hit[1], hit[2]
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -1,3 +1,6 @@
-"""Tensor ops of the port. ``nms`` and ``roi_align`` launch the CUDA kernels
-K1 and K2 for CUDA tensors and run their plain PyTorch versions for CPU
-tensors."""
+"""Tensor ops of the port. The kernels K1 (``nms``), K2 (``roi_align``), K3
+(``roi_align_sparse``) and Q1 (``conv_int8``) are PyTorch operators
+(``library``): each launches its CUDA kernel for CUDA tensors and runs its
+plain PyTorch version for CPU tensors."""
+
+from . import library  # noqa: F401  (registers the operators)

@@ -19,8 +19,10 @@ def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` rounded once, on CPU and CUDA tensors alike. PyTorch's CUDA
     division by a Python scalar multiplies by the rounded reciprocal instead,
     which differs in the last bit for about half the quotients (by 7, 10, 28
-    ...); a 0-dim tensor divisor takes the true division."""
-    return x / x.new_tensor(c)
+    ...); a 0-dim tensor divisor takes the true division. The divisor is
+    made by an operator, not as a tensor constant, so that an exported
+    program can hold it inside a ``torch.cond`` branch."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def clip_boxes(boxes: torch.Tensor, size_hw) -> torch.Tensor:

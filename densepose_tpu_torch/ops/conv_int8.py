@@ -275,7 +275,7 @@ def conv_s8_cuda(qx: torch.Tensor, qw: torch.Tensor, qb: Optional[torch.Tensor],
     (sh, sw), (ph, pw), (dh, dw) = _pair(stride), _pair(padding), _pair(dilation)
     ho, wo = out_size(h, w, qw, stride, padding, dilation, transposed)
     out = torch.empty((n, ho, wo, cout), device=qx.device,
-                      dtype=_OUT_DTYPES.get(out_kind, out_kind))
+                      dtype=out_dtype_of(out_kind))
     if out.numel() == 0:
         return out
     with torch.cuda.device(qx.device):
@@ -296,13 +296,37 @@ conv_s8_cuda.launches = 0
 conv_s8_cuda.variant_launches = dict.fromkeys(Q1_VARIANTS, 0)
 
 
-def conv_s8(qx, qw, qb, vec, **kw) -> torch.Tensor:
-    """Q1 for CUDA tensors, its plain version for CPU tensors."""
+def conv_s8(qx: torch.Tensor, qw: torch.Tensor, qb: Optional[torch.Tensor],
+            vec: Optional[torch.Tensor], *, stride: IntPair = 1, padding: IntPair = 0,
+            dilation: IntPair = 1, transposed: bool = False, relu: bool = False,
+            out_kind="s32") -> torch.Tensor:
+    """``conv_s8_plain``'s contract: Q1 for CUDA tensors, its plain version
+    for CPU tensors; while ``torch.export`` traces, through the operator
+    ``densepose_tpu_torch::conv_s8`` (``ops/library.py``)."""
+    if torch.compiler.is_exporting():
+        if out_kind not in OUT_KINDS:
+            raise ValueError(f"Q1 has no output {out_kind!r}")
+        return torch.ops.densepose_tpu_torch.conv_s8(
+            qx, qw, qb, vec, list(_pair(stride)), list(_pair(padding)), list(_pair(dilation)),
+            bool(transposed), bool(relu), out_dtype_of(out_kind))
+    kw = dict(stride=stride, padding=padding, dilation=dilation, transposed=transposed,
+              relu=relu, out_kind=out_kind)
     if qx.is_cuda:
         return conv_s8_cuda(qx, qw, qb, vec, **kw)
     if qx.device.type != "cpu":
         raise ValueError(f"no int8 convolution for device {qx.device}")
     return conv_s8_plain(qx, qw, qb, vec, **kw)
+
+
+def out_dtype_of(out_kind) -> torch.dtype:
+    """The dtype of Q1's output of kind ``out_kind``: int32 for "s32", int8
+    for "s8", else the float dtype itself."""
+    return _OUT_DTYPES.get(out_kind, out_kind)
+
+
+def out_kind_of(dtype: torch.dtype):
+    """The inverse of ``out_dtype_of``."""
+    return {v: k for k, v in _OUT_DTYPES.items()}.get(dtype, dtype)
 
 
 def conv2d_int8_chain(qx: torch.Tensor, sx, qw: torch.Tensor, wscale: torch.Tensor,
@@ -389,13 +413,18 @@ def link(conv, qx: torch.Tensor, sx: torch.Tensor, out_scale: Optional[torch.Ten
     scale ``sx`` -> NHWC s8 at ``out_scale``, or float32 (``out_dtype``).
     Stride, padding and dilation are the module's; a ConvTranspose2d runs as
     ``conv_transpose2d_int8_chain``. The epilogue's vectors are made on the
-    first call for each (sx, out_scale) and kept on the module."""
-    cache = conv.__dict__.setdefault("_int8_epilogues", {})
-    key = (id(sx), id(out_scale))
-    hit = cache.get(key)
-    if hit is None or hit[0] is not sx or hit[1] is not out_scale:
-        hit = cache[key] = (sx, out_scale, make_epilogue(sx, conv.wscale, conv.bias, out_scale))
-    ep = hit[2]
+    first call for each (sx, out_scale) and kept on the module; while
+    ``torch.export`` traces, they are made in the program instead."""
+    if torch.compiler.is_exporting():
+        ep = make_epilogue(sx, conv.wscale, conv.bias, out_scale)
+    else:
+        cache = conv.__dict__.setdefault("_int8_epilogues", {})
+        key = (id(sx), id(out_scale))
+        hit = cache.get(key)
+        if hit is None or hit[0] is not sx or hit[1] is not out_scale:
+            hit = cache[key] = (sx, out_scale,
+                                make_epilogue(sx, conv.wscale, conv.bias, out_scale))
+        ep = hit[2]
     transposed = isinstance(conv, torch.nn.ConvTranspose2d)
     kind = "s8" if out_scale is not None else (out_dtype or torch.float32)
     return conv_s8(qx, conv.qweight, ep.qb, ep.vec, stride=conv.stride, padding=conv.padding,

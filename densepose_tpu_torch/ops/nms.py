@@ -40,7 +40,7 @@ def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: floa
     suppress = (iou > iou_threshold) & earlier & valid[..., None, :] & valid[..., :, None]
     if classes is not None:
         suppress &= classes[..., :, None] == classes[..., None, :]
-    keep = valid
+    keep = valid.clone()  # the result never aliases an input (an operator's contract)
     while True:
         new_keep = valid & ~(suppress & keep[..., None, :]).any(dim=-1)
         if torch.equal(new_keep, keep):
@@ -138,13 +138,19 @@ nms_keep_cuda.launches = 0
 def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
              classes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Keep mask of score-sorted (P, K, 4) boxes: K1 for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. While ``torch.export`` traces, the call
+    goes through the operator ``densepose_tpu_torch::nms_keep``
+    (``ops/library.py``); eager calls go to the wrapper directly, which
+    costs less host time (PERF.md)."""
+    args = (boxes.contiguous(), valid.contiguous(), float(iou_threshold),
+            None if classes is None else classes.int().contiguous())
+    if torch.compiler.is_exporting():
+        return torch.ops.densepose_tpu_torch.nms_keep(*args)
     if boxes.is_cuda:
-        return nms_keep_cuda(boxes.contiguous(), valid.contiguous(), iou_threshold,
-                             None if classes is None else classes.int().contiguous())
+        return nms_keep_cuda(*args)
     if boxes.device.type != "cpu":
         raise ValueError(f"no NMS kernel for device {boxes.device}")
-    return nms_keep_plain(boxes, valid, iou_threshold, classes)
+    return nms_keep_plain(*args)
 
 
 def _sorted_keep(boxes, scores, valid, iou_threshold, classes=None):

@@ -311,15 +311,19 @@ def roi_align_multilevel(
 
 
 def _roi_align_gather(feats, boxes, levels, scales, output_size, sampling_ratio, aligned):
-    """K2 for CUDA tensors, its plain version for CPU tensors."""
+    """K2 for CUDA tensors, its plain version for CPU tensors; while
+    ``torch.export`` traces, through the operator
+    ``densepose_tpu_torch::roi_align`` (``ops/library.py``)."""
+    args = ([f.contiguous() for f in feats], boxes.float().contiguous(),
+            levels.int().contiguous(), [float(s) for s in scales], list(output_size),
+            int(sampling_ratio), bool(aligned))
+    if torch.compiler.is_exporting():
+        return torch.ops.densepose_tpu_torch.roi_align(*args)
     if boxes.is_cuda:
-        return roi_align_cuda([f.contiguous() for f in feats], boxes.float().contiguous(),
-                              levels.int().contiguous(), scales, output_size,
-                              sampling_ratio, aligned)
+        return roi_align_cuda(*args)
     if boxes.device.type != "cpu":
         raise ValueError(f"no ROIAlign kernel for device {boxes.device}")
-    return roi_align_plain(feats, boxes, levels, scales, output_size, sampling_ratio,
-                           aligned)
+    return roi_align_plain(*args)
 
 
 def roi_align_single(

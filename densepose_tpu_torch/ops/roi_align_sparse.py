@@ -261,15 +261,19 @@ def roi_align_sparse(
     aligned: bool,
 ) -> torch.Tensor:
     """The skip-flag pooler: K3 for CUDA tensors, its plain version for CPU
-    tensors. Returns (M, C, oh, ow) in the levels' dtype."""
+    tensors; while ``torch.export`` traces, through the operator
+    ``densepose_tpu_torch::roi_align_sparse`` (``ops/library.py``). Returns
+    (M, C, oh, ow) in the levels' dtype."""
     if sampling_ratio <= 0:
         raise ValueError("the skip-flag pooler takes a fixed sampling_ratio > 0, as the JAX "
                          "package's does; ratio 0 takes the gather (roi_align_multilevel)")
+    args = ([f.contiguous() for f in feats], boxes.float().contiguous(),
+            levels.int().contiguous(), [float(s) for s in scales], list(output_size),
+            int(sampling_ratio), bool(aligned))
+    if torch.compiler.is_exporting():
+        return torch.ops.densepose_tpu_torch.roi_align_sparse(*args)
     if boxes.is_cuda:
-        return roi_align_sparse_cuda([f.contiguous() for f in feats],
-                                     boxes.float().contiguous(), levels.int().contiguous(),
-                                     scales, output_size, sampling_ratio, aligned)
+        return roi_align_sparse_cuda(*args)
     if boxes.device.type != "cpu":
         raise ValueError(f"no ROIAlign kernel for device {boxes.device}")
-    return roi_align_sparse_plain(feats, boxes, levels, scales, output_size,
-                                  sampling_ratio, aligned)
+    return roi_align_sparse_plain(*args)

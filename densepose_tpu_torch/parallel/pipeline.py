@@ -17,7 +17,7 @@ pipelined one:
 each overlay to a callback. ``run_video`` wraps it between
 ``cv2.VideoCapture`` and ``cv2.VideoWriter``. The port serves one frame at
 a time on one device, so it has no batched mode: the JAX package's groups of
-frames pay off only across devices (ROADMAP.md queue 1, item 10).
+frames pay off only across devices (ROADMAP.md queue 1, items 3-4).
 """
 
 from __future__ import annotations

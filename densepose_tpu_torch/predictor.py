@@ -1,7 +1,7 @@
 """DensePosePredictor for the PyTorch port (port of densepose_tpu/predictor.py).
 
-``DensePosePredictor(cfg)`` builds the model, loads a detectron2 ``.pkl``
-(or random weights from a seed), and serves ``predictor(image_bgr_u8) ->
+``DensePosePredictor(cfg)`` builds the model, loads a detectron2 ``.pkl`` or
+an exported ``.npz`` bundle (or random weights from a seed), and serves ``predictor(image_bgr_u8) ->
 outputs`` on one CUDA device; ``device="cpu"`` runs the same path on the CPU
 with the kernels' plain versions (the tests do). A requested CUDA device that
 is absent raises. Outputs are fixed-size slots + ``num_instances``;
@@ -64,6 +64,12 @@ without its scales calibrates on its own frame, loudly
 (``calibration_source`` says where the scales came from);
 ``saturation_report`` measures each site's share of clipped values.
 
+The AOT program (JAX predictor.py:622-646): ``aot_export_bytes((H, W))``
+serializes the request at one input size as a ``torch.export`` program with
+the weights inside, and ``aot_load(data)`` returns a callable of the frame
+alone that runs it, with no model build (``export.py --aot`` writes it as
+``<bundle>_<h>x<w>.pt2``).
+
 Parity: TF32 is turned off for cuDNN convolutions and matmuls, which
 otherwise run float32 convolutions at about three decimal digits, and cuBLAS
 may not reduce float16 or bfloat16 products in reduced precision (the JAX
@@ -74,6 +80,7 @@ bits of its maps: cuDNN's transposed convolutions add with atomics.
 
 from __future__ import annotations
 
+import io
 import json
 import logging
 import os
@@ -124,10 +131,7 @@ class DensePosePredictor:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA device requested but none is available; pass "
                                "device='cpu' to run on the CPU")
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        set_backend_flags()
         self.cfg = cfg
         self.bucketed = bool(cfg.TPU.BUCKETED_DENSEPOSE) and cfg.MODEL.DENSEPOSE_ON
         self.geometry_quant = int(cfg.TPU.GEOMETRY_BUCKET_QUANT)
@@ -529,6 +533,53 @@ class DensePosePredictor:
         self.calibrate_int8([frame])
         self.calibration_source = "auto-single-frame"
 
+    # -- the AOT program (JAX predictor.py:622-646) ----------------------------
+
+    def aot_export_bytes(self, shape_hw) -> bytes:
+        """The request at one input size (H, W) as a ``torch.export`` program,
+        serialized by ``torch.export.save``: ``GeneralizedRCNN.forward`` on an
+        (H, W, 3) uint8 frame on this predictor's device, with the weights
+        (and an int8 calibration) inside. The kernels are recorded as the
+        operators of ``ops/library.py``; the switched DensePose stage as nested
+        ``torch.cond`` over its buckets; ``DENSEPOSE_TPU_SPARSE_POOLER`` as it
+        is set now. ``aot_load`` runs it in another process with no model
+        build. An int8 mode must be calibrated first (``calibrate_int8`` or a
+        sidecar)."""
+        if self._int8_needed and not self._int8_ready:
+            raise ValueError("calibrate the int8 modes (calibrate_int8, or a .calib.json "
+                             "sidecar) before exporting the program")
+        h, w = (int(v) for v in shape_hw)
+        example = torch.zeros((h, w, 3), dtype=torch.uint8, device=self.device)
+        with torch.no_grad():
+            # an eager request first fills the per-geometry caches (the RPN's
+            # anchors) on the device: the program then holds them there as
+            # constants, and copies nothing from the host in mid-request
+            self.model(example)
+            program = torch.export.export(self.model, (example,))
+        buf = io.BytesIO()
+        torch.export.save(program, buf)
+        return buf.getvalue()
+
+    @staticmethod
+    def aot_load(data: bytes):
+        """bytes of ``aot_export_bytes`` -> a callable ``run(image_bgr_u8)`` of
+        the frame alone (numpy or a tensor, of the exported size), returning
+        the outputs of ``__call__`` on the program's device; its ``program``
+        is the loaded ``ExportedProgram``. The weights are inside the program
+        (the JAX package's callable takes them as an argument). Registers the port's operators and sets the backend flags
+        a ``DensePosePredictor`` sets."""
+        from . import ops  # noqa: F401  (registers the operators the program calls)
+        set_backend_flags()
+        program = torch.export.load(io.BytesIO(data))
+        module = program.module()
+        device = next(iter(program.state_dict.values())).device
+
+        def run(image_bgr_u8) -> Dict[str, torch.Tensor]:
+            with torch.no_grad():
+                return module(image_tensor(image_bgr_u8, device))
+        run.program = program  # the ExportedProgram, to inspect
+        return run
+
     @staticmethod
     def start_fetch(outputs: Dict[str, torch.Tensor], keys=None) -> None:
         """Start the device-to-host copies that ``numpy_outputs(outputs,
@@ -624,6 +675,16 @@ def int8_needed(cfg) -> bool:
                 or (t.INT8_BACKBONE and backbone in ("build_resnet_fpn_backbone",
                                                      "build_hrfpn_backbone"))
                 or (t.INT8_RPN and backbone == "build_resnet_fpn_backbone"))
+
+
+def set_backend_flags() -> None:
+    """The process-wide numerics a predictor serves with: no TF32 in cuDNN
+    convolutions or cuBLAS matmuls, and no reduced-precision reductions of
+    float16 / bfloat16 products."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def cast_parameters(model: torch.nn.Module, dtype: torch.dtype) -> None:

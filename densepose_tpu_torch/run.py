@@ -1,7 +1,7 @@
 """Run CLI of the PyTorch port, with the contract of the JAX package's run.py
 (the reference's run.py): ``<input>`` becomes ``<input>_pred.<ext>``.
 
-    python -m densepose_tpu_torch.run <zoo-name|config.yaml> <image|dir|video> [--cpu]
+    python -m densepose_tpu_torch.run <zoo-name|config.yaml|bundle.npz> <image|dir|video> [--cpu]
 
 ``<model>`` is a model-zoo name (``densepose_rcnn_R_50_FPN_s1x``; its
 published checkpoint is used when it is cached, else random weights with a
@@ -30,14 +30,19 @@ overlays read maps a CSE model does not make, and the CLI refuses them
 before it runs (the JAX CLI fails inside its visualizer); the CSE overlay is
 ``visualizer.CseVisualizer``, from Python.
 
-Not ported yet, and refused with the ROADMAP.md item that lifts it: an
-exported ``.npz`` bundle (queue 1, item 9). Nor are batched video frames
-(item 10): ``--batch`` is accepted and a video runs frame by frame.
+``<model>`` may also be an exported ``.npz`` bundle (``python -m
+densepose_tpu_torch.export``, or the JAX package's export.py): its
+``.config.json`` gives the config (``--fp32`` and ``--opts`` apply on top of
+it) and its ``.calib.json``, where there is one, the int8 scales.
+
+Batched video frames are not ported: ``--batch`` is accepted and a video runs
+frame by frame.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 from typing import List, Optional
@@ -79,13 +84,23 @@ def load_predictor(model_path: str, weights: str, opts: List[str], device: str,
     ``TTAPredictor`` when the config has ``TEST.AUG.ENABLED``.
     ``auto_bucket``: the input is a mixed-size directory
     (``maybe_auto_bucket``)."""
-    from .config import get_cfg
+    from .config import CfgNode, get_cfg
     from .predictor import DensePosePredictor
 
     if model_path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{model_path}: exported .npz bundles are not ported yet (ROADMAP.md queue 1, "
-            "item 9: export and evaluation); pass a zoo name or a YAML config")
+        # an exported bundle: its config.json, then --fp32, then --opts, as the
+        # JAX CLI merges them (run.py:72-81); the weights are the bundle's
+        cfg = get_cfg()
+        with open(model_path + ".config.json") as f:
+            cfg.merge_from_other_cfg(CfgNode(json.load(f)))
+        if fp32:
+            cfg.TPU.COMPUTE_DTYPE = "float32"
+        if opts:
+            cfg.merge_from_list(opts)
+        if auto_bucket:
+            maybe_auto_bucket(cfg, opts)
+        cfg.freeze()
+        return wrap_tta(DensePosePredictor(cfg, weights_path=model_path, device=device))
     if not os.path.exists(model_path) and not model_path.endswith((".yaml", ".yml")):
         from . import model_zoo
         from .utils.file_io import get_local_path
@@ -106,10 +121,14 @@ def load_predictor(model_path: str, weights: str, opts: List[str], device: str,
     if auto_bucket:
         maybe_auto_bucket(cfg, opts)
     cfg.freeze()
-    pred = DensePosePredictor(cfg, weights_path=weights or None, device=device)
-    if cfg.TEST.AUG.ENABLED:
+    return wrap_tta(DensePosePredictor(cfg, weights_path=weights or None, device=device))
+
+
+def wrap_tta(pred):
+    """``pred`` in a ``TTAPredictor`` when its config has ``TEST.AUG.ENABLED``."""
+    if pred.cfg.TEST.AUG.ENABLED:
         from .tta import TTAPredictor
-        pred = TTAPredictor(pred)
+        return TTAPredictor(pred)
     return pred
 
 
@@ -132,7 +151,8 @@ def image_names(dirpath: str) -> List[str]:
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="Run DensePose inference on image/video")
-    parser.add_argument("model", type=str, help="Model-zoo name or config YAML")
+    parser.add_argument("model", type=str,
+                        help="Model-zoo name, config YAML or exported .npz bundle")
     parser.add_argument("input", type=str, help="Input image, directory of images, or video")
     parser.add_argument("--weights", type=str, default="",
                         help="Checkpoint .pkl (default: the zoo name's, if cached)")
@@ -211,7 +231,7 @@ def _dispatch(args, predictor, visualizer) -> None:
     save_path = os.path.splitext(save_path)[0] + ".mp4"
     if args.batch > 1:
         print(f"note: --batch {args.batch}: the port runs frame by frame on one device; "
-              "batched video is not ported yet (ROADMAP.md queue 1, item 10)", file=sys.stderr)
+              "batched video is not ported yet (ROADMAP.md queue 1)", file=sys.stderr)
     run_video(predictor, visualizer, args.input, save_path)
 
 

@@ -277,10 +277,13 @@ def test_directory_skips_its_outputs(tmp_path, capsys):
 
 @pytest.mark.parametrize("what", ["npz"])
 def test_refuses_what_is_not_ported(tmp_path, what):
+    """Exported bundles are ported now (tests/test_torch_export.py runs one
+    through the CLI); a bundle path with no bundle there is refused before
+    anything runs, naming the missing config."""
     img_path = tmp_path / "in.jpg"
     cv2.imwrite(str(img_path), image(3))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run.main([str(tmp_path / "model.npz"), str(img_path), "--cpu"])
+    with pytest.raises(FileNotFoundError, match=r"model\.npz\.config\.json"):
+        run.main([str(tmp_path / f"model.{what}"), str(img_path), "--cpu"])
     assert not (tmp_path / "in_pred.jpg").exists()
 
 

@@ -25,6 +25,14 @@ variant; shapes that break the wgmma variant's preconditions refused when
 forced to it; and a small int8 flagship request with every Q1 launch held
 against the plain version, its head on the wgmma variant.
 
+The four kernels as operators (``ops/library.py``): each through
+``torch.ops.densepose_tpu_torch`` on CUDA tensors, one launch of its kernel a
+call, against its plain version as above, and ``torch.library.opcheck`` on
+the card; and a small flagship request exported as a program
+(``aot_export_bytes`` / ``aot_load``) against the eager request: detections
+exact, maps within SERVED_AGAIN_TOL (cuDNN's transposed convolutions add
+with atomics), the program's K1 and K2 launches counted.
+
 At a half dtype (float16, bfloat16): K2<T> bit-identical to K2 on the
 widened levels rounded to T (only its loads and its store change), and to
 its plain version at T; K3<T> within one unit in the last place of T, at the
@@ -44,7 +52,7 @@ import torch
 from densepose_tpu_torch.models.rcnn import image_tensor
 from densepose_tpu_torch.ops import conv_int8, cuda_build, nms, roi_align, roi_align_sparse
 from torch_cases import (  # tests/ is on the path (rootdir insertion)
-    k1_edge_cases, k3_edge_cases, unit_variance_)
+    k1_edge_cases, k3_edge_cases, op_args, op_cases, unit_variance_)
 
 torch.set_num_threads(2)
 
@@ -767,3 +775,58 @@ def test_int8_request_on_card(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert q1.launches - before == 52 + 4 + 5 + 8 + 1
     assert all(bool(torch.isfinite(v).all()) for v in out.values() if v.is_floating_point())
+
+
+# -- the kernels as operators, and the exported program ------------------------
+
+OP_WRAPPERS = {"nms_keep": (nms, "nms_keep_cuda"), "roi_align": (roi_align, "roi_align_cuda"),
+               "roi_align_sparse": (roi_align_sparse, "roi_align_sparse_cuda"),
+               "conv_s8": (conv_int8, "conv_s8_cuda")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(op_cases())))
+def test_operators_on_card(cuda, case):
+    """Each operator on CUDA tensors launches its kernel once and agrees with
+    the operator on the same CPU tensors (the plain version): K1 and Q1
+    exactly, K2 bit for bit at ratio 2 and within 1e-5 at ratio 0, K3 within
+    1e-5; then ``opcheck`` on the card."""
+    name, args = op_cases()[case]
+    op = getattr(torch.ops.densepose_tpu_torch, name)
+    module, wrapper = OP_WRAPPERS[name]
+    before = getattr(module, wrapper).launches
+    got = op(*op_args(args, cuda))
+    torch.cuda.synchronize()
+    assert getattr(module, wrapper).launches == before + 1
+    want = op(*op_args(args, "cpu"))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if name == "roi_align_sparse" or (name == "roi_align" and args[5] == 0):
+        assert float((got.cpu() - want).abs().max()) <= 1e-5
+    else:
+        assert torch.equal(got.cpu(), want)
+    torch.library.opcheck(op, op_args(args, cuda))
+
+
+@pytest.mark.gpu
+def test_aot_program_on_card(cuda):
+    """A small flagship request as an exported program, loaded from its bytes:
+    the program launches K1 twice and K2 twice, and agrees with the eager
+    request."""
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    pred = small_flagship_predictor(cuda)
+    frame = (np.random.RandomState(20).rand(96, 136, 3) * 255).astype(np.uint8)
+    program = DensePosePredictor.aot_load(pred.aot_export_bytes(frame.shape[:2]))
+    want = pred(frame)
+    before = (nms.nms_keep_cuda.launches, roi_align.roi_align_cuda.launches)
+    got = program(frame)
+    torch.cuda.synchronize()
+    assert (nms.nms_keep_cuda.launches - before[0],
+            roi_align.roi_align_cuda.launches - before[1]) == (2, 2)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].device == v.device and got[k].dtype == v.dtype, k
+        if k.startswith("pred_densepose_"):
+            np.testing.assert_allclose(got[k].cpu().numpy(), v.cpu().numpy(), rtol=0,
+                                       atol=SERVED_AGAIN_TOL, err_msg=k)
+        else:
+            assert torch.equal(got[k], v), k

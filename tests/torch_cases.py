@@ -115,3 +115,77 @@ def unit_variance_(module, run):
     finally:
         for h in handles:
             h.remove()
+
+
+def self_annotations(predictions, points=12, seed=0):
+    """COCO DensePose annotations whose ground truth is a model's own
+    predictions: ``predictions`` holds, per image, (image id, numpy outputs of
+    ``predict_numpy``, the extractor's (results, boxes_xywh)). Each detection
+    becomes an annotation with its box, and up to ``points`` of its
+    foreground pixels (drawn with ``seed``) as dp_x / dp_y at the pixel's
+    centre on the box grid (0..255), with the label and U, V there as
+    dp_I / dp_U / dp_V; a detection with no foreground gets no points (an
+    ignore region). The same predictions then score box AP 100 and GPS AP
+    100 (evaluate.py's metrics). Returns the annotations list."""
+    rng = np.random.RandomState(seed)
+    anns = []
+    for image_id, outputs, (results, boxes_xywh) in predictions:
+        for box, res in zip(boxes_xywh, results):
+            labels, uv = res["labels"], res["uv"]
+            iy, ix = np.nonzero(labels > 0)
+            pick = rng.permutation(len(iy))[:points]
+            iy, ix = iy[pick], ix[pick]
+            h, w = labels.shape
+            anns.append({"id": len(anns), "image_id": image_id, "category_id": 1,
+                         "bbox": [float(v) for v in box],
+                         "dp_x": ((ix + 0.5) / w * 255.0).tolist(),
+                         "dp_y": ((iy + 0.5) / h * 255.0).tolist(),
+                         "dp_I": labels[iy, ix].astype(int).tolist(),
+                         "dp_U": uv[0, iy, ix].astype(float).tolist(),
+                         "dp_V": uv[1, iy, ix].astype(float).tolist()})
+    return anns
+
+
+def op_cases(seed=0):
+    """Each of the port's operators (``torch.ops.densepose_tpu_torch.*``) at a
+    small shape, as (operator name, arguments): arrays stand for tensors, a
+    list of arrays for a tensor list, and a string for a dtype
+    (``op_args`` makes them tensors). K1 plain and classed; K2 at ratio 2
+    and at ratio 0 (adaptive); K3 at ratio 2; Q1 a 3x3 link to s8 with ReLU
+    and a 4x4 stride-2 transposed convolution to float32."""
+    rng = np.random.RandomState(seed)
+    xy = rng.rand(2, 130, 2).astype(np.float32) * 40
+    boxes = np.concatenate([xy, xy + 4 + rng.rand(2, 130, 2).astype(np.float32) * 20], -1)
+    valid = rng.rand(2, 130) > 0.2
+    classes = rng.randint(0, 3, (2, 130)).astype(np.int32)
+    feats = [rng.randn(8, 32, 40).astype(np.float32), rng.randn(8, 16, 20).astype(np.float32)]
+    rois = np.array([[1, 2, 30, 20], [5, 5, 60, 50], [0, 0, 8, 9], [40, 3, 150, 120]],
+                    np.float32)
+    levels = np.array([0, 1, 1, 0], np.int32)
+    scales = [0.25, 0.125]
+    qx = rng.randint(-127, 128, (1, 12, 14, 32)).astype(np.int8)
+    qw = rng.randint(-127, 128, (24, 3, 3, 32)).astype(np.int8)
+    qwt = rng.randint(-127, 128, (24, 4, 4, 32)).astype(np.int8)
+    qb = rng.randint(-500, 500, (24,)).astype(np.int32)
+    vec = (rng.rand(24) * 1e-3).astype(np.float32)
+    return [("nms_keep", (boxes, valid, 0.5, None)),
+            ("nms_keep", (boxes, valid, 0.5, classes)),
+            ("roi_align", (feats, rois, levels, scales, [7, 7], 2, True)),
+            ("roi_align", (feats, rois, levels, scales, [7, 7], 0, False)),
+            ("roi_align_sparse", (feats, rois, levels, scales, [7, 7], 2, True)),
+            ("conv_s8", (qx, qw, qb, vec, [1, 1], [1, 1], [1, 1], False, True, "int8")),
+            ("conv_s8", (qx, qwt, None, vec, [2, 2], [1, 1], [1, 1], True, False, "float32"))]
+
+
+def op_args(args, device="cpu"):
+    """``op_cases``'s arguments as the operator takes them: tensors on
+    ``device``, and torch dtypes."""
+    import torch
+
+    def conv(a):
+        if isinstance(a, np.ndarray):
+            return torch.from_numpy(a).to(device)
+        if isinstance(a, list) and a and isinstance(a[0], np.ndarray):
+            return [torch.from_numpy(x).to(device) for x in a]
+        return getattr(torch, a) if isinstance(a, str) else a
+    return tuple(conv(a) for a in args)
