@@ -100,6 +100,39 @@ toolkit. Phases, each of which fails the run:
      (head, predictor) and the maps inside tests/test_int8.py's envelopes;
      the flagship's calibration saved and loaded into a second predictor
      gives the same int8 state and outputs bit for bit;
+4b. batch (batch_phase): batched frames through predict_batch, one batched
+   forward (the poolers with a frame index per box): the fp32 and float16
+   flagship at B = 1, 2, 4 and 8 on distinct frames, each B a warm-up, two
+   timed batches with the launch counters set to 0 just before and read
+   just after (2 K1 + 2 K2 a batch, not a frame, and no plain version
+   called: CountPlain) and one profiled batch, printed beside the
+   frame-by-frame loop on other frames (ms a batch and a frame, frames/s,
+   device-busy ms a frame, idle share, peak memory, with the nvidia-smi
+   line); at B = 4 one batch with every K1 and K2 launch held against its
+   plain version (in fp32 each call then timed at its batched site, beside
+   its plain version and its bound: batched_sites on the kernels line),
+   each frame against forward_batch of that frame alone and against the
+   frame-by-frame request (on DETECTION_TAME weights, tamed_predictor:
+   random weights tie every score; hold_frames: rows paired by class, box and
+   score within BATCH_BOX_TOL / BATCH_SCORE_TOL, at most BATCH_MOVED_ROWS
+   rows a frame without a partner (none in fp32), every paired row's maps
+   within served_again's bound in fp32 and BATCH_MAP_REL_L2 at a half
+   dtype or int8, the rows compared printed with two planted faults' readings;
+   where cuDNN's batch-size-dependent algorithms move one past them, held
+   again with cuDNN off); in fp32, data_parallel_forward with two replicas on this
+   card against forward_batch of each shard, and the batched streaming
+   loop (stream at batch 4 over 9 frames, the tail padded: each frame
+   bit-exact to numpy_outputs_batch of blocking copies of its batch, the
+   overlays uint8 of the frame's shape, ms a frame beside batch 1's); the
+   int8 flagship (INT8_HEAD + INT8_PREDICTOR) at B = 4 and max serving at
+   B = 2, calibrated on 4 frames: as many Q1 launches a batch as a request
+   (not B times), one batch with every K1, K2 and Q1 launch held against
+   its plain version (the head's links on wgmma; the head link's time at
+   B = 4 kept); R101 legacy with DENSEPOSE_TPU_SPARSE_POOLER at B = 2: 2 K1
+   + 2 K3 a batch, every launch held (K3 within K3_TOL, relative above 1),
+   each K3 call timed; each of these against forward_batch of its frames
+   alone, its DensePose stage given each frame's own features and boxes,
+   and its box-stage decisions given each frame's own box-head outputs;
 5. consumer, right after the flagship's, DL's and the float16 flagship's
    path phase (raw SIUV maps; a label map; float16 maps), each through the
    predictor its path built, on 8 distinct
@@ -111,7 +144,10 @@ toolkit. Phases, each of which fails the run:
    outputs bit-exact to numpy_outputs of blocking copies of the same outputs,
    2 K1 + 2 K2 launches per streamed frame, the overlays uint8 of the
    frame's shape; the frame served again, alone (a serial predict_numpy +
-   visualize loop) and in pairs (predict_batch, batch 2), equal to the
+   visualize loop) and in pairs (predict_batch, batch 2: the raw maps of
+   every slot, through the device postprocess where the path has one, on
+   the path's configuration with DETECTION_TAME weights, held as
+   hold_frames holds a batch), equal to the
    streamed one within SERVED_AGAIN_TOL (detections exact; labels and
    overlay pixels may differ at argmax near-ties, in at most TIE_SHARE of
    them); it prints ms per frame of both loops, host ms per frame of
@@ -373,19 +409,22 @@ def nms_work(boxes, valid, keep, thr, classes):
     return nbytes, 13 * tests
 
 
-def roi_align_work(feats, boxes, levels, scales, out_hw, ratio, aligned):
+def roi_align_work(feats, boxes, levels, scales, out_hw, ratio, aligned, frames=None):
     """Bytes and operations ROIAlign needs on these inputs: every feature
-    pixel some in-bound sample taps, read once, plus boxes, levels and the
-    output, at the levels' element size; 12 operations per in-bound sample
-    and channel, 1 per output. At ratio 0 the samples are each box's adaptive
-    ones."""
+    pixel some in-bound sample taps, read once, plus boxes, levels (and the
+    frame index) and the output, at the levels' element size; 12 operations
+    per in-bound sample and channel, 1 per output. At ratio 0 the samples are
+    each box's adaptive ones. Levels of N frames with ``frames``: a pixel is
+    one of its frame's."""
     import torch
     from densepose_tpu_torch.ops.roi_align import box_samples
-    c = feats[0].shape[0]
-    hs = torch.tensor([f.shape[1] for f in feats], device=boxes.device)
-    ws = torch.tensor([f.shape[2] for f in feats], device=boxes.device)
-    offs = torch.cumsum(hs * ws, 0) - hs * ws
+    c = feats[0].shape[-3]
+    n = feats[0].shape[0] if feats[0].dim() == 4 else 1
+    hs = torch.tensor([f.shape[-2] for f in feats], device=boxes.device)
+    ws = torch.tensor([f.shape[-1] for f in feats], device=boxes.device)
+    offs = torch.cumsum(n * hs * ws, 0) - n * hs * ws
     lv = levels.long()
+    base = offs[lv] + (0 if frames is None else frames.long() * hs[lv] * ws[lv])
     sc = torch.tensor(scales, dtype=torch.float32, device=boxes.device)[lv]
     (ylo, yhi, _, yok), (xlo, xhi, _, xok), _, _ = box_samples(
         boxes, sc, hs[lv].float(), ws[lv].float(), out_hw, ratio, aligned)
@@ -393,13 +432,13 @@ def roi_align_work(feats, boxes, levels, scales, out_hw, ratio, aligned):
     taps = []
     for y in (ylo, yhi):
         for x in (xlo, xhi):
-            flat = offs[lv][:, None, None] + y[:, :, None] * ws[lv][:, None, None] + x[:, None, :]
+            flat = base[:, None, None] + y[:, :, None] * ws[lv][:, None, None] + x[:, None, :]
             taps.append(flat.reshape(-1)[ok])
     pixels = torch.unique(torch.cat(taps)).numel()
     m = boxes.shape[0]
     out = m * out_hw[0] * out_hw[1] * c
     esize = feats[0].element_size()
-    nbytes = pixels * c * esize + m * 20 + out * esize
+    nbytes = pixels * c * esize + m * (20 if frames is None else 24) + out * esize
     return nbytes, 12 * int(ok.sum()) * c + out
 
 
@@ -868,25 +907,35 @@ def count_launches(report, tag, dtype, launches, per_request, n_req, what="reque
 
 
 class HeldAgainstPlain:
-    """Within the block, each K1, K2 and Q1 launch a path makes is held
+    """Within the block, each K1, K2, K3 and Q1 launch a path makes is held
     against its plain version on the same inputs, as kernel_checks holds its
     sites: K1's keep flags exact, K2 bit-identical (ratio 0: within K2_TOL, or
-    one unit in the last place of a half dtype), Q1 bit-identical. The
-    wrappers are swapped in the modules that dispatch to them and restored on
-    exit; the launches in the block are counted on the held wrappers, apart,
-    and not read."""
+    one unit in the last place of a half dtype), K3 within K3_TOL of the
+    output's largest magnitude above 1 (one unit in the last place of a half
+    dtype), Q1 bit-identical; a batch's poolers
+    with their frame index. The wrappers are swapped in the modules that
+    dispatch to them and restored on exit; the launches in the block are
+    counted on the held wrappers, apart, and not read. ``keep``: also keep
+    each call's arguments (``calls``), to time the kernels at those sites."""
 
-    def __init__(self, torch, what):
-        self.torch, self.what = torch, what
-        # (P, K, classed); (M, first level (H, W), dtype, levels); (M, K, N, transposed)
-        self.k1, self.k2, self.q1 = [], [], []
+    def __init__(self, torch, what, keep=False):
+        self.torch, self.what, self.keep = torch, what, keep
+        # (P, K, classed); (M, first level (H, W), dtype, levels, frames) for K2
+        # and K3; (M, K, N, (H, W), variant, transposed)
+        self.k1, self.k2, self.k3, self.q1 = [], [], [], []
+        self.calls = {"k1": [], "k2": [], "k3": [], "q1": []}
 
     def __enter__(self):
-        from densepose_tpu_torch.ops import conv_int8, nms, roi_align
+        from densepose_tpu_torch.ops import conv_int8, nms, roi_align, roi_align_sparse
         torch, what = self.torch, self.what
-        self.mods = (nms, roi_align, conv_int8)
-        self.orig = k1, k2, q1 = (nms.nms_keep_cuda, roi_align.roi_align_cuda,
-                                  conv_int8.conv_s8_cuda)
+        self.mods = (nms, roi_align, roi_align_sparse, conv_int8)
+        self.orig = k1, k2, k3, q1 = (nms.nms_keep_cuda, roi_align.roi_align_cuda,
+                                      roi_align_sparse.roi_align_sparse_cuda,
+                                      conv_int8.conv_s8_cuda)
+
+        def kept(kind, *args, **kw):
+            if self.keep:
+                self.calls[kind].append((args, kw))
 
         def held_k1(boxes, valid, thr, classes=None):
             keep = k1(boxes, valid, thr, classes)
@@ -894,17 +943,40 @@ class HeldAgainstPlain:
             check(torch.equal(keep, want), f"{what}: K1 at P={boxes.shape[0]} K={boxes.shape[1]}: "
                   f"{int((keep != want).sum())} keep flags differ from the plain version")
             self.k1.append((boxes.shape[0], boxes.shape[1], classes is not None))
+            kept("k1", boxes, valid, thr, classes)
             return keep
 
-        def held_k2(feats, boxes, levels, scales, out_hw, ratio, aligned):
-            out = k2(feats, boxes, levels, scales, out_hw, ratio, aligned)
-            want = roi_align.roi_align_plain(feats, boxes, levels, scales, out_hw, ratio, aligned)
+        def pooler_site(feats, boxes, frames):
+            n = 1 if feats[0].dim() == 3 else feats[0].shape[0]
+            return (boxes.shape[0], tuple(feats[0].shape[-2:]), str(feats[0].dtype).split(".")[-1],
+                    len(feats), n if frames is not None else 1)
+
+        def held_k2(feats, boxes, levels, scales, out_hw, ratio, aligned, frames=None):
+            out = k2(feats, boxes, levels, scales, out_hw, ratio, aligned, frames)
+            want = roi_align.roi_align_plain(feats, boxes, levels, scales, out_hw, ratio, aligned,
+                                             frames)
             err = float((out.float() - want.float()).abs().max()) if out.numel() else 0.0
             dtype = str(feats[0].dtype).split(".")[-1]
             check(torch.equal(out, want) if ratio else err <= max(K2_TOL, ulp(dtype, want)),
                   f"{what}: K2 at M={boxes.shape[0]} on {tuple(feats[0].shape)} {dtype}: max abs "
                   f"error {err} against the plain version")
-            self.k2.append((boxes.shape[0], tuple(feats[0].shape[1:]), dtype, len(feats)))
+            self.k2.append(pooler_site(feats, boxes, frames))
+            kept("k2", feats, boxes, levels, scales, out_hw, ratio, aligned, frames)
+            return out
+
+        def held_k3(feats, boxes, levels, scales, out_hw, ratio, aligned, frames=None):
+            out = k3(feats, boxes, levels, scales, out_hw, ratio, aligned, frames)
+            want = roi_align_sparse.roi_align_sparse_plain(feats, boxes, levels, scales, out_hw,
+                                                           ratio, aligned, frames)
+            err = float((out.float() - want.float()).abs().max()) if out.numel() else 0.0
+            top = float(want.float().abs().max()) if want.numel() else 0.0
+            dtype = str(feats[0].dtype).split(".")[-1]
+            # the two sum in other orders: K3_TOL at unit scale, relative above
+            check(err <= max(K3_TOL * max(1.0, top), ulp(dtype, want)), f"{what}: K3 at "
+                  f"M={boxes.shape[0]} on {tuple(feats[0].shape)} {dtype}: max abs error {err} "
+                  f"against the plain version (largest magnitude {top:.3e})")
+            self.k3.append(pooler_site(feats, boxes, frames))
+            kept("k3", feats, boxes, levels, scales, out_hw, ratio, aligned, frames)
             return out
 
         def held_q1(qx, qw, qb, vec, **kw):
@@ -917,19 +989,22 @@ class HeldAgainstPlain:
             self.q1.append((qx.numel() // qx.shape[-1], qw[0].numel(), qw.shape[0],
                             tuple(qx.shape[1:3]), conv_int8.q1_variant(qx.shape, qw.shape, **geo),
                             kw.get("transposed", False)))
+            kept("q1", qx, qw, qb, vec, **kw)
             return out
 
         # a wrapper counts through its module's name, which is now the held
         # one's: the launches in the block land here and are not read
-        held_k1.launches = held_k2.launches = held_q1.launches = 0
+        held_k1.launches = held_k2.launches = held_k3.launches = held_q1.launches = 0
         held_q1.variant_launches = dict.fromkeys(conv_int8.Q1_VARIANTS, 0)
         nms.nms_keep_cuda, roi_align.roi_align_cuda = held_k1, held_k2
+        roi_align_sparse.roi_align_sparse_cuda = held_k3
         conv_int8.conv_s8_cuda = held_q1
         return self
 
     def __exit__(self, *exc):
-        (nms, roi_align, conv_int8), (k1, k2, q1) = self.mods, self.orig
+        (nms, roi_align, roi_align_sparse, conv_int8), (k1, k2, k3, q1) = self.mods, self.orig
         nms.nms_keep_cuda, roi_align.roi_align_cuda, conv_int8.conv_s8_cuda = k1, k2, q1
+        roi_align_sparse.roi_align_sparse_cuda = k3
         return False
 
     def summary(self):
@@ -938,12 +1013,16 @@ class HeldAgainstPlain:
         k2 = (f"{len(self.k2)} K2 calls (first levels up to "
               f"{max((k[1] for k in self.k2), key=lambda hw: hw[0] * hw[1])}, M "
               f"{sorted({m for m, *_ in self.k2})}, levels "
-              f"{sorted({k[3] for k in self.k2})})") if self.k2 else "no K2 call"
+              f"{sorted({k[3] for k in self.k2})}, frames "
+              f"{sorted({k[4] for k in self.k2})})") if self.k2 else "no K2 call"
+        if self.k3:
+            k2 += (f", {len(self.k3)} K3 calls (M {sorted({m for m, *_ in self.k3})}, frames "
+                   f"{sorted({k[4] for k in self.k3})})")
         q1 = (f", {len(self.q1)} Q1 calls ({sum(t for *_, t in self.q1)} transposed, input "
               f"pixels up to {max(m for m, *_ in self.q1)}; "
               f"{sum(k[4] == 'wgmma' for k in self.q1)} wgmma, "
               f"{sum(k[4] == 'mma_sync' for k in self.q1)} mma_sync)") if self.q1 else ""
-        return f"{k1} and {k2}{q1} equal to their plain versions"
+        return f"{k1} and {k2}{q1} equal to their plain versions (K3 within its bound)"
 
 
 # (zoo name, config changes, DENSEPOSE_TPU_SPARSE_POOLER set, launches per request)
@@ -1110,7 +1189,8 @@ def breakdown(torch, pred, img, latency_ms, stages_of=STAGES, top_stages=TOP_KER
     range, and the device's idle share, both over the profiled request's wall
     time and over ``latency_ms`` (an unprofiled request's); for the RPN and
     box-stage ranges also the three device kernels that take the most time.
-    Prints "not measured" when the profiler sees no device activity.
+    Prints "not measured" when the profiler sees no device activity; returns
+    the device's busy ms (None where not measured).
     ``stages_of``: the ranges to split by (TTA's four for a TTA request: the
     model's own ranges nest inside them); ``top_stages``: those to list the
     top kernels of.
@@ -1171,6 +1251,7 @@ def breakdown(torch, pred, img, latency_ms, stages_of=STAGES, top_stages=TOP_KER
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
         print(f"breakdown {stage}: top device kernels (ms of {stages[stage]:.3f}): "
               + "; ".join(f"{name} {ms:.3f}" for name, ms in top))
+    return busy_ms
 
 
 # the consumer phase: the paths it streams, each right after its path phase
@@ -1207,13 +1288,19 @@ class RecordingVisualizer:
 
 class KeepOutputs:
     """Wraps a predictor for the streaming loop and keeps every output dict
-    its ``__call__`` serves; everything else goes to the predictor."""
+    its ``__call__`` and ``predict_batch`` serve; everything else goes to the
+    predictor."""
 
     def __init__(self, pred):
         self.pred, self.outs = pred, []
 
     def __call__(self, image):
         out = self.pred(image)
+        self.outs.append(out)
+        return out
+
+    def predict_batch(self, images):
+        out = self.pred.predict_batch(images)
         self.outs.append(out)
         return out
 
@@ -1287,6 +1374,7 @@ def consumer(torch, report, pred, name, per_request, dtype="float32"):
     per frame of extraction + blend, bytes fetched per frame with fetch_keys
     and without, and the differences of the frames served again."""
     from densepose_tpu_torch import native
+    from densepose_tpu_torch.models.rcnn import device_postprocess
     from densepose_tpu_torch.parallel.pipeline import stream
     from densepose_tpu_torch.predictor import fetch_subset
     from densepose_tpu_torch.visualizer import End2EndVisualizer
@@ -1347,29 +1435,720 @@ def consumer(torch, report, pred, name, per_request, dtype="float32"):
         e, sh = served_again(rec.outs[i], pred.numpy_outputs(pred(img), keys=fetch),
                              f"consumer {name} frame {i} served again")
         again_err, again_share = max(again_err, e), max(again_share, sh)
-    # batch 2: predict_batch over pairs of the frames
-    for i in range(0, len(imgs), 2):
-        out = pred.predict_batch(np.stack(imgs[i:i + 2]))
-        for j in range(len(imgs[i:i + 2])):
-            e, sh = served_again(rec.outs[i + j],
-                                 pred.numpy_outputs({k: v[j] for k, v in out.items()},
-                                                    keys=fetch),
-                                 f"consumer {name} frame {i + j} in a batch of 2")
-            again_err, again_share = max(again_err, e), max(again_share, sh)
+    # batch 2: predict_batch over pairs of the frames, on the path's
+    # configuration with DETECTION_TAME weights (tamed_predictor); a batch
+    # returns the raw maps of every slot (the JAX contract), which the path's
+    # device postprocess, where it has one, collapses as a request does
+    tamed = tamed_predictor(pred)
+
+    def in_pairs():
+        got = []
+        for i in range(0, len(imgs), 2):
+            out = tamed.predict_batch(np.stack(imgs[i:i + 2]))
+            for j in range(len(imgs[i:i + 2])):
+                one = frame_of(out, j)
+                if tamed.cfg.TPU.DEVICE_POSTPROCESS:
+                    maps = {k: v for k, v in one.items() if k.startswith("pred_densepose_")}
+                    one = {k: v for k, v in one.items() if k not in maps}
+                    one.update(device_postprocess(maps))
+                got.append(tamed.numpy_outputs(one, keys=fetch))
+        return got
+
+    # against the frames served alone, as the batch phase holds a batch
+    pairs = hold_frames(
+        torch, in_pairs, lambda: [tamed.numpy_outputs(tamed(img), keys=fetch) for img in imgs],
+        f"consumer {name}: frames in batches of 2", dtype)
+    del tamed
     n, rec_ms = [o["num_instances"] for o in rec.outs], rec.ms
     del rec
     print(f"consumer {name}: {len(imgs)} streamed {FRAME_HW[0]}x{FRAME_HW[1]} frames bit-exact "
-          f"to a synchronous fetch of the same outputs; served again alone and in batches of "
-          f"2 within {SERVED_AGAIN_TOL} (max abs difference of the maps {again_err:.3e}, label "
-          f"pixels differing {again_share:.2e}, serial overlay pixels differing "
-          f"{pixel_share:.2e}, limit {TIE_SHARE}); num_instances {n}; kernel launches "
-          f"{launches}")
+          f"to a synchronous fetch of the same outputs; served again alone within "
+          f"{SERVED_AGAIN_TOL} (max abs difference of the maps {again_err:.3e}, label pixels "
+          f"differing {again_share:.2e}, serial overlay pixels differing {pixel_share:.2e}, "
+          f"limit {TIE_SHARE}); in batches of 2 against the frames alone: "
+          f"{held_text(pairs, dtype)}; num_instances {n}; kernel launches {launches}")
     print(f"consumer {name}: streaming loop {stream_ms:.2f} ms per frame (steady state "
           f"{steady_s * 1e3 / max(t_frames, 1):.2f} over {t_frames} frames) vs serial "
           f"predict_numpy + visualize {serial_ms:.2f} ms per frame; host extraction + blend "
           f"{np.mean(rec_ms):.2f} ms per frame (median {np.median(rec_ms):.2f}); bytes fetched "
           f"per frame {fetched / len(imgs):.0f} with fetch_keys, {full / len(imgs):.0f} "
           f"without")
+
+
+# the batch phase: batched frames on one card (predict_batch as one batched
+# forward, the poolers with a frame index per box), data_parallel_forward and
+# the batched streaming loop
+BATCH_SIZES = (1, 2, 4, 8)
+BATCH_HELD = 4           # the batch size held against the plain versions and timed per call
+BATCH_TIMED = 2          # timed batches at each size
+BATCH_STREAM_FRAMES = 9  # the batched loop's frames at batch 4: a tail of one, padded
+OUT_BYTES = {"s8": 1, "s32": 4}  # Q1's output kinds that are not a dtype
+
+
+def zero_counters():
+    for fn in counters().values():
+        fn.launches = 0
+    q1 = counters()[Q1]
+    q1.variant_launches = dict.fromkeys(q1.variant_launches, 0)
+
+
+def frame_of(out, i):
+    """Frame ``i`` of a batch's outputs: the outputs of a request."""
+    return {k: v[i] for k, v in out.items()}
+
+
+# A batch's frame against the same frame served otherwise (hold_frames).
+# cuBLAS picks the box head's GEMM tiles by the rows it is given (B * 1000
+# against 1000), so a batch's box logits differ from a frame's in the last
+# bits even where cuDNN computes each frame alone, and at float16 they round
+# to it. Rows are paired by class, box (each coordinate within BATCH_BOX_TOL
+# of 1 + the box's larger side: the box gap) and score (within
+# BATCH_SCORE_TOL), the nearest box first; near ties may trade places. In
+# fp32 and with int8 every row pairs; at float16 the RPN's and the box
+# stage's near ties let another proposal take a slot, anywhere in the list,
+# so a frame may hold at most BATCH_MOVED_ROWS rows without a partner (the
+# largest score margin of such a row above the cutoff, the D-th score, is
+# printed). Every paired row's maps are compared: in fp32 each within
+# SERVED_AGAIN_TOL + BATCH_MAP_RTOL of the map's largest magnitude
+# (SERVED_AGAIN_TOL alone is not reached: the boxes' last-bit moves move the
+# maps by up to ~4e-3 at magnitudes ~1e3); with int8 (a moved box's pooled
+# values quantize to other steps) and at float16 within a relative L2
+# distance of BATCH_MAP_REL_L2; label maps in all but TIE_SHARE of their
+# pixels. Each limit sits between the largest reading of sound runs and the
+# smallest reading of a planted fault (PERF.md §6): each frame against its
+# neighbour (``apart``), the DensePose boxes moved by one pooling sample
+# (hold_densepose_stage), a box moved by one pixel (at float16 a box moves
+# by up to 3% of its size; the box stage is held bit for bit on the same
+# head outputs, hold_box_decisions).
+BATCH_BOX_TOL = {"float32": 1e-5, "int8": 1e-5, "float16": 3e-2}
+BATCH_SCORE_TOL = {"float32": 1e-6, "int8": 1e-6, "float16": 1e-3}
+BATCH_MAP_RTOL = 1e-4
+BATCH_MAP_REL_L2 = {"int8": 1e-2, "float16": 5e-3}
+BATCH_MOVED_ROWS = {"float32": 0, "int8": 0, "float16": 20}
+
+
+def box_gaps(x, y):
+    """Each coordinate's difference of boxes ``x`` and ``y`` (n, 4) over 1 +
+    the larger side of ``y``, the largest a box."""
+    x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+    side = np.maximum(y[..., 2] - y[..., 0], y[..., 3] - y[..., 1])
+    return np.abs(x - y).max(-1) / (1 + np.maximum(side, 0))
+
+
+def pair_rows(a, b, kind):
+    """Each valid detection of ``a`` (host outputs of one frame) with its
+    row in ``b``: the same row where it agrees, else the unused row of the
+    same class whose box and score agree (BATCH_BOX_TOL, BATCH_SCORE_TOL)
+    with the smallest box gap; -1 where none does."""
+    tol_box, tol_score = BATCH_BOX_TOL[kind], BATCH_SCORE_TOL[kind]
+    ba, bb = (np.asarray(x["pred_boxes"], np.float64) for x in (a, b))
+    sa, sb = (np.asarray(x["scores"], np.float64) for x in (a, b))
+    ca, cb = np.asarray(a["pred_classes"]), np.asarray(b["pred_classes"])
+    # agree[i, j]: row i of a and row j of b may be one detection
+    gaps = box_gaps(ba[:, None], bb[None]).reshape(len(ba), len(bb))
+    agree = ((ca[:, None] == cb[None]) & (np.abs(sa[:, None] - sb[None]) <= tol_score)
+             & (gaps <= tol_box))
+    perm, used = [], np.zeros(len(bb), bool)
+    for i in range(len(ba)):
+        free = agree[i] & ~used
+        j = i if i < len(bb) and free[i] else (
+            int(np.where(free, gaps[i], np.inf).argmin()) if free.any() else -1)
+        perm.append(j)
+        if j >= 0:
+            used[j] = True
+    return np.asarray(perm, np.int64)
+
+
+def as_f32(x):
+    """``x`` as a float32 array (a view where it is one): a batch's maps are
+    ~400 MB a frame, compared in float32 with no float64 copies."""
+    x = np.asarray(x)
+    return x if x.dtype == np.float32 else x.astype(np.float32)
+
+
+def rel_l2(x, y):
+    x, y = as_f32(x), as_f32(y)
+    return float(np.linalg.norm(x - y) / max(float(np.linalg.norm(y)), 1e-30)) if x.size else 0.0
+
+
+def batch_agrees(a, b, what, kind):
+    """One frame's host outputs from a batch (``a``) against the frame served
+    otherwise (``b``), as the comment above BATCH_BOX_TOL says. Returns the
+    readings: rows compared, rows without a partner (``moved``), the largest
+    score margin above the cutoff of a row without a partner, each paired
+    row's box gap (``gaps``), rows paired out of order, the largest box gap
+    (BATCH_BOX_TOL's measure) and score difference, the largest absolute
+    map difference, that over the map's largest magnitude (``map_scaled``),
+    the largest relative L2 distance of a map, the share of label pixels
+    that differ."""
+    check(sorted(a) == sorted(b), f"{what}: keys {sorted(a)} vs {sorted(b)}")
+    check(np.array_equal(a["image_size"], b["image_size"]), f"{what}: image_size differs")
+    perm = pair_rows(a, b, kind)
+    paired = perm >= 0
+    ia, ib = np.nonzero(paired)[0], perm[paired]
+    sa, sb = (np.asarray(x["scores"], np.float64) for x in (a, b))
+    moved = max(len(sa), len(sb)) - len(ia)
+    cutoff = max(sa.min(), sb.min()) if len(sa) and len(sb) else 0.0
+    margin = sa[~paired] - cutoff
+    check(moved <= BATCH_MOVED_ROWS[kind], f"{what}: {moved} of {len(sa)} / {len(sb)} "
+          f"detections without a partner (limit {BATCH_MOVED_ROWS[kind]})")
+    gaps = box_gaps(np.asarray(a["pred_boxes"])[ia], np.asarray(b["pred_boxes"])[ib])
+    out = {"rows": len(ia), "moved": moved, "gaps": gaps,
+           "margin": float(margin.max()) if margin.size else 0.0,
+           "swapped": int((ia != ib).sum()), "box": float(gaps.max()) if gaps.size else 0.0,
+           "score": float(np.abs(sa[ia] - sb[ib]).max()) if len(ia) else 0.0,
+           "map_abs": 0.0, "map_scaled": 0.0, "map_rel": 0.0, "share": 0.0}
+    labels = "pred_densepose_labels"
+    for k in a:
+        if not k.startswith("pred_densepose_"):
+            continue
+        x, y = np.asarray(a[k])[ia], np.asarray(b[k])[ib]
+        check(x.dtype == y.dtype and x.shape == y.shape,
+              f"{what}: {k} {x.dtype} {x.shape} vs {y.dtype} {y.shape}")
+        if k == labels:
+            out["share"] = share = float((x != y).mean()) if x.size else 0.0
+            check(share <= TIE_SHARE, f"{what}: {share:.2e} of the label pixels differ")
+            continue
+        x, y = as_f32(x), as_f32(y)
+        if k == "pred_densepose_uv":  # (n, 2, H, W), gathered at the labels
+            tie_free = np.broadcast_to(
+                (np.asarray(a[labels])[ia] == np.asarray(b[labels])[ib])[:, None], x.shape)
+            x, y = x[tie_free], y[tie_free]
+        e = float(np.abs(x - y).max()) if x.size else 0.0
+        top = float(np.abs(y).max()) if y.size else 0.0
+        r = rel_l2(x, y)
+        if kind == "float32":
+            check(e <= SERVED_AGAIN_TOL + BATCH_MAP_RTOL * top, f"{what}: {k} differs by "
+                  f"{e:.3e} (largest magnitude {top:.3e})")
+        else:
+            check(r <= BATCH_MAP_REL_L2[kind], f"{what}: {k} at a relative L2 distance of "
+                  f"{r:.3e} (limit {BATCH_MAP_REL_L2[kind]})")
+        out["map_abs"], out["map_rel"] = max(out["map_abs"], e), max(out["map_rel"], r)
+        out["map_scaled"] = max(out["map_scaled"], e / max(top, 1e-30))
+    check(out["box"] <= BATCH_BOX_TOL[kind] and out["score"] <= BATCH_SCORE_TOL[kind],
+          f"{what}: paired boxes differ by {out['box']:.3e}, scores by {out['score']:.3e}")
+    return out
+
+
+def apart(a, b, kind):
+    """The planted fault of a frame served as its neighbour: frame i's
+    outputs against frame i + 1's. Returns the fewest rows without a partner
+    (pair_rows), the smallest relative L2 distance of a float map and the
+    smallest share of differing label pixels (on the rows both hold) over
+    the frames; None where there is no such map."""
+    moved, rel, share = [], [], []
+    for i, x in enumerate(a):
+        y = b[(i + 1) % len(b)]
+        moved.append(max(len(x["scores"]), len(y["scores"])) - int((pair_rows(x, y, kind)
+                                                                     >= 0).sum()))
+        for k in x:
+            if k.startswith("pred_densepose_"):
+                m = min(len(x[k]), len(y[k]))
+                if k == "pred_densepose_labels":
+                    share.append(float((x[k][:m] != y[k][:m]).mean()))
+                else:
+                    rel.append(rel_l2(x[k][:m], y[k][:m]))
+    return {"moved": min(moved), "rel": min(rel) if rel else None,
+            "share": min(share) if share else None}
+
+
+def hold_frames(torch, got, want, what, kind="float32"):
+    """Each frame of a batch (``got()``: the batch's host outputs per frame)
+    against the same frames served otherwise (``want()``), by batch_agrees
+    (``kind``: the dtype, or int8). Where cuDNN's batch-size-dependent
+    algorithms move a detection or a map past these bounds, both are served
+    again with cuDNN off (each frame's convolutions alone), where they must
+    hold. Returns the readings over the frames (the largest of each; rows,
+    moved rows and swaps summed, the largest count of moved rows in a frame
+    as ``moved_frame``), the neighbouring frame's fault readings (``apart``)
+    and whether cuDNN had to be off (``cudnn_off``)."""
+
+    def compare(a, b):
+        each = [batch_agrees(x, y, f"{what}, frame {i}", kind)
+                for i, (x, y) in enumerate(zip(a, b))]
+        out = {k: (sum if k in ("rows", "moved", "swapped") else max)(e[k] for e in each)
+               for k in each[0] if k != "gaps"}
+        out["moved_frame"] = max(e["moved"] for e in each)
+        out["frames"] = len(each)
+        out["apart"] = apart(a, b, kind)
+        return out
+
+    try:
+        return dict(compare(got(), want()), cudnn_off=False)
+    except RuntimeError as e:
+        print(f"{what}: with cuDNN's batch-size-dependent algorithms, {e}; held again with "
+              "cuDNN off")
+    with torch.backends.cudnn.flags(enabled=False):
+        a, b = got(), want()
+    return dict(compare(a, b), cudnn_off=True)
+
+
+def held_text(r, kind):
+    """What hold_frames compared, and its readings, for a printed line."""
+    limit = (f"SERVED_AGAIN_TOL + {BATCH_MAP_RTOL} of the map's largest magnitude"
+             if kind == "float32" else f"relative L2 {BATCH_MAP_REL_L2[kind]}")
+    maps = ("maps not compared (no row paired)" if not r["rows"] else
+            f"maps at most {r['map_abs']:.3e} apart ({r['map_scaled']:.3e} of the map's largest "
+            f"magnitude, relative L2 {r['map_rel']:.3e}; limit {limit}), label pixels "
+            f"differing {r['share']:.2e}")
+    f = r["apart"]
+    return (f"{r['rows']} rows of {r['frames']} frames compared"
+            f"{' (cuDNN off)' if r['cudnn_off'] else ''}: classes exact, box gaps at most "
+            f"{r['box']:.3e} (limit {BATCH_BOX_TOL[kind]}), scores within {r['score']:.3e} "
+            f"(limit {BATCH_SCORE_TOL[kind]}), {r['swapped']} rows paired out of order, "
+            f"{r['moved']} rows without a partner (at most {r['moved_frame']} a frame, limit "
+            f"{BATCH_MOVED_ROWS[kind]}; the largest score margin of one above the cutoff "
+            f"{r['margin']:.3e}); {maps}; planted fault, each frame against its neighbour: at "
+            f"least {f['moved']} rows without a partner, maps at relative L2 "
+            f"{fmt(f['rel'], '.3e')}, label pixels differing {fmt(f['share'], '.3e')}")
+
+
+def hold_box_decisions(torch, pred, imgs, what):
+    """The batch's box-stage decisions given each frame's own box-head
+    outputs: each frame's request alone up to its box head (preprocess,
+    backbone, RPN, ``box_head_forward``), then ``box_stage_decisions`` once
+    for the frames together (one class-aware NMS launch over B problems, a
+    top-D per frame) against it for each frame alone: boxes, scores,
+    classes and validity equal bit for bit."""
+    from densepose_tpu_torch.models.rcnn import image_tensor
+    from densepose_tpu_torch.models.roi_heads import box_head_forward, box_stage_decisions
+    from densepose_tpu_torch.models.rpn import rpn_forward_batch
+    model, cfg = pred.model, pred.cfg
+    with torch.inference_mode():
+        inputs = []
+        for img in imgs:
+            x, _, hw = model.preprocess(image_tensor(img, pred.device))
+            feats = model.backbone(x)
+            props, _, pvalid = rpn_forward_batch(model.proposal_generator.rpn_head, feats, hw,
+                                                 cfg)
+            inputs.append(box_head_forward(model.roi_heads, feats, props, cfg) + (props, pvalid))
+        got = box_stage_decisions(*(torch.cat(t) for t in zip(*inputs)), cfg)
+        for i, one in enumerate(inputs):
+            want = box_stage_decisions(*one, cfg)
+            for name, g, w in zip(("boxes", "scores", "classes", "valid"), got, want):
+                check(torch.equal(g[i], w[0]), f"{what}, frame {i}: the batch's {name} differ "
+                      "from the frame's given the same box-head outputs")
+    print(f"{what}: the box stage's decisions for {len(imgs)} frames at once equal each "
+          "frame's alone given the same box-head outputs, bit for bit")
+
+
+def hold_densepose_stage(torch, pred, imgs, what, dtype="float32"):
+    """The batched DensePose stage given the frames' own inputs: each frame's
+    features and detection boxes from its request alone (``forward_stage1``),
+    stacked, through ``forward_densepose_batch`` (one pooler launch with the
+    frame index, the head over B * D rows) against ``forward_densepose`` of
+    each frame: every map within SERVED_AGAIN_TOL plus BUCKET_RTOL (and, at a
+    half dtype, 4 units in its last place) of the map's largest magnitude,
+    the bound of the detection-bucket phase (cuDNN picks its algorithms by
+    the rows). Also reads a planted fault: each frame's maps on its valid
+    rows with the boxes moved right by one pooling sample (a box's width
+    over POOLER_RESOLUTION * POOLER_SAMPLING_RATIO) against the maps as
+    served. Returns the largest difference over that bound's scale, and of
+    the fault over the frames the smallest: largest difference over that
+    bound's scale, over the map's largest magnitude, and relative L2
+    distance."""
+    from densepose_tpu_torch.models.rcnn import image_tensor
+    rtol = BUCKET_RTOL + 4 * EPS.get(dtype, 0.0)
+    h = pred.cfg.MODEL.ROI_DENSEPOSE_HEAD
+    step = h.POOLER_RESOLUTION * max(h.POOLER_SAMPLING_RATIO, 1)
+    worst, faults = 0.0, []
+    with torch.inference_mode():
+        singles = [pred.model.forward_stage1(image_tensor(img, pred.device)) for img in imgs]
+        feats = {k: torch.cat([s[1][k] for s in singles]) for k in singles[0][1]}
+        got = pred.model.forward_densepose_batch(feats, torch.stack([s[2] for s in singles]))
+        for i, (result, f, boxes) in enumerate(singles):
+            served = pred.model.forward_densepose(f, boxes)
+            for k, v in served.items():
+                top = float(v.float().abs().max())
+                e = float((got[k][i].float() - v.float()).abs().max())
+                check(e <= SERVED_AGAIN_TOL + rtol * top, f"{what}, frame {i}: {k} differs by "
+                      f"{e:.3e} (largest magnitude {top:.3e})")
+                worst = max(worst, e / (SERVED_AGAIN_TOL + rtol * top))
+            shift = (boxes[:, 2] - boxes[:, 0]) / step
+            moved = pred.model.forward_densepose(
+                f, boxes + torch.stack([shift, 0 * shift, shift, 0 * shift], 1))
+            valid = result["valid"]
+            fault = [0.0, 0.0, 0.0]
+            for k, v in served.items():
+                x, y = moved[k][valid].float(), v[valid].float()
+                top = float(y.abs().max())
+                e = float((x - y).abs().max())
+                fault = [max(fault[0], e / (SERVED_AGAIN_TOL + rtol * top)),
+                         max(fault[1], e / top), max(fault[2], rel_l2(x.cpu(), y.cpu()))]
+            faults.append(fault)
+    return (worst,) + tuple(min(f[j] for f in faults) for j in range(3))
+
+
+def stage_text(stage, dtype="float32"):
+    """hold_densepose_stage's readings for a printed line."""
+    worst, ratio, scaled, rel = stage
+    return (f"the batched DensePose stage given each frame's own features and boxes: every "
+            f"map within {worst:.3f} of its bound (SERVED_AGAIN_TOL + "
+            f"{BUCKET_RTOL + 4 * EPS.get(dtype, 0.0):.3g} of its largest magnitude); planted "
+            f"fault, the boxes moved by one pooling sample: at least {ratio:.3g} times that "
+            f"bound, {scaled:.3e} of the map's largest magnitude, relative L2 {rel:.3e}")
+
+
+def batch_site(torch, report, kind, dtype, args, kw, site):
+    """One kernel call kept from a batch, timed (CUDA events around
+    back-to-back calls) beside its plain version and its bound for this
+    call's work; added to the kernel's ``batched_sites`` on the kernels
+    line."""
+    from densepose_tpu_torch.ops import conv_int8, nms, roi_align, roi_align_sparse
+    name = {"k1": "nms_keep_cuda", "k2": "roi_align_cuda", "k3": "roi_align_sparse_cuda",
+            "q1": Q1}[kind]
+    kernel = counters()[name]
+    plain = {"k1": nms.nms_keep_plain, "k2": roi_align.roi_align_plain,
+             "k3": roi_align_sparse.roi_align_sparse_plain, "q1": conv_int8.conv_s8_plain}[kind]
+    ms = cuda_ms(lambda: kernel(*args, **kw), reps=20)
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=2, warmup=1)
+    if kind == "k1":
+        boxes, valid, thr, classes = args
+        b_ms, by = bound(*nms_work(boxes, valid, plain(*args), thr, classes))
+        shape = f"P={boxes.shape[0]} K={boxes.shape[1]}"
+    elif kind == "q1":
+        qx, qw = args[:2]
+        out = kw["out_kind"]
+        out_bytes = OUT_BYTES[out] if isinstance(out, str) else \
+            torch.empty((), dtype=out).element_size()
+        st, pad, dil = (int(np.atleast_1d(kw[k])[0]) for k in ("stride", "padding", "dilation"))
+        b_ms, by = bound_int8(*q1_work(*qx.shape, qw.shape[0], qw.shape[1], st, pad, dil,
+                                       kw["transposed"], out_bytes))
+        shape = f"{tuple(qx.shape)} x {tuple(qw.shape)}"
+    else:
+        b_ms, by = bound(*roi_align_work(*args))
+        shape = f"M={args[1].shape[0]} levels={len(args[0])} frames={args[0][0].shape[0]}"
+    entry = {"site": site, "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": by}
+    report[entry_name(name, dtype)].setdefault("batched_sites", []).append(entry)
+    print(f"batch site {name} [{dtype}] {site} {shape}: {ms:.4f} ms a call, plain {plain_ms:.4f}, "
+          f"bound {b_ms:.6f} ({by})")
+
+
+def batch_run(torch, report, pred, tag, dtype, b, per_batch, seed):
+    """``predict_batch`` at batch size ``b``: a warm-up batch, BATCH_TIMED
+    timed batches of distinct frames with the launch counters set to 0 just
+    before and read just after (``per_batch`` launches a batch, and no plain
+    version called), the outputs' shapes and values checked, and one
+    profiled batch (the device's busy time and idle share). Returns the
+    numbers and the timed batches' frames and outputs."""
+    imgs = frames(seed, b * (2 + BATCH_TIMED))
+    groups = [np.stack(imgs[i * b:(i + 1) * b]) for i in range(2 + BATCH_TIMED)]
+    warm, *timed, profiled = groups
+    pred.predict_batch(warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    lat, outs = [], []
+    with CountPlain() as plain:
+        for g in timed:
+            t0 = time.perf_counter()
+            out = pred.predict_batch(g)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out)
+        launches = {k: fn.launches for k, fn in counters().items()}
+    check(plain.calls == 0, f"batch {tag} B={b}: {plain.calls} plain-version calls")
+    count_launches(report, f"{tag} batch {b}", dtype, launches, per_batch, len(timed), "batches")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ms = float(np.median(lat))
+    cfg = pred.cfg
+    d, dp = cfg.TEST.DETECTIONS_PER_IMAGE, cfg.MODEL.ROI_DENSEPOSE_HEAD
+    heat = dp.POOLER_RESOLUTION * 2 * dp.UP_SCALE
+    for out in outs:
+        check(sorted(k for k in out if k.startswith("pred_densepose_"))
+              == sorted(f"pred_densepose_{k}" for k in ("coarse_segm", "fine_segm", "u", "v")),
+              f"batch {tag} B={b}: maps {sorted(out)} (a batch returns the raw maps)")
+        check(out["det_packed"].shape == (b, d + 1, 7) and out["num_instances"].shape == (b,),
+              f"batch {tag} B={b}: det_packed {tuple(out['det_packed'].shape)}")
+        check(out["pred_densepose_u"].shape == (b, d, dp.NUM_PATCHES + 1, heat, heat)
+              and out["pred_densepose_u"].dtype == getattr(torch, dtype),
+              f"batch {tag} B={b}: u {tuple(out['pred_densepose_u'].shape)} "
+              f"{out['pred_densepose_u'].dtype}")
+        check(bool((out["num_instances"] >= 1).all()), f"batch {tag} B={b}: a frame without "
+              "detections")
+        check(all(bool(torch.isfinite(v).all()) for v in out.values() if v.is_floating_point()),
+              f"batch {tag} B={b}: non-finite outputs")
+    busy = breakdown(torch, lambda g: pred.predict_batch(g), profiled, ms)
+    row = {"b": b, "ms": ms, "ms_frame": ms / b, "fps": 1e3 * b / ms, "peak_mib": peak,
+           "busy_frame": None if busy is None else busy / b,
+           "idle": None if busy is None else 1 - busy / ms, "launches": launches}
+    return row, timed, outs
+
+
+def per_frame_loop(torch, pred, imgs):
+    """The frame-by-frame loop on the same frames (``__call__``, switched
+    DensePose stage): median ms per frame, device-busy ms per frame of one
+    profiled request, idle share, peak memory."""
+    pred(imgs[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for img in imgs:
+        t0 = time.perf_counter()
+        pred(img)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ms = float(np.median(lat))
+    busy = breakdown(torch, pred, imgs[-1], ms)
+    return {"ms_frame": ms, "fps": 1e3 / ms, "busy_frame": busy,
+            "idle": None if busy is None else 1 - busy / ms, "peak_mib": peak}
+
+
+def fmt(v, spec=".3f"):
+    return "not measured" if v is None else format(v, spec)
+
+
+def batch_flagship(torch, report, dev, extra, smi):
+    """The flagship at batch sizes BATCH_SIZES (2 K1 + 2 K2 a batch), beside
+    the frame-by-frame loop on the same frames; at BATCH_HELD one batch with
+    every launch held against its plain version (each call's time kept for
+    the kernels line in fp32), each frame against ``forward_batch`` of that
+    frame alone and against the frame-by-frame request, and, in fp32,
+    ``data_parallel_forward`` with two replicas on this card and the batched
+    streaming loop."""
+    from densepose_tpu_torch.models.rcnn import image_tensor
+    from densepose_tpu_torch.parallel.mesh import data_parallel_forward
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    dtype = path_dtype(extra)
+    tag = f"{FLAGSHIP} {dtype}"
+    pred = DensePosePredictor(path_config(FLAGSHIP, extra), seed=0, device=dev)
+    rows = {}
+    for b in BATCH_SIZES:
+        rows[b], timed, outs = batch_run(torch, report, pred, tag, dtype, b, ON_K2, 40 + b)
+        if b == BATCH_HELD:
+            held_imgs = timed[0]
+        del timed, outs
+    loop = per_frame_loop(torch, pred, frames(48, 8))
+    with HeldAgainstPlain(torch, f"batch {tag}", keep=dtype == "float32") as held:
+        pred.predict_batch(held_imgs)
+        torch.cuda.synchronize()
+    check(len(held.k1) == 2 and len(held.k2) == 2
+          and all(k[4] == BATCH_HELD for k in held.k2),
+          f"batch {tag}: held {held.k1} K1 and {held.k2} K2 calls")
+    print(f"held: one {tag} batch of {BATCH_HELD}, {held.summary()}")
+    if held.keep:
+        for (args, kw), site in zip(held.calls["k1"], ("rpn", "box_stage")):
+            batch_site(torch, report, "k1", dtype, args, kw, f"{site} at B={BATCH_HELD}")
+        for (args, kw), site in zip(held.calls["k2"], ("box_pooler", "densepose_pooler")):
+            batch_site(torch, report, "k2", dtype, args, kw, f"{site} at B={BATCH_HELD}")
+    del held
+    tamed = tamed_predictor(pred)
+    pnp = tamed.numpy_outputs
+    with torch.inference_mode():
+        alone = lambda: [pnp(frame_of(tamed.model.forward_batch(
+            image_tensor(img, dev)[None]), 0)) for img in held_imgs]
+        batched = lambda: [pnp(frame_of(out, i)) for out in [tamed.predict_batch(held_imgs)]
+                           for i in range(BATCH_HELD)]
+        held_alone = hold_frames(torch, batched, alone, f"batch {tag}: a batch of "
+                                 f"{BATCH_HELD} against forward_batch of each frame alone", dtype)
+        held_call = hold_frames(torch, batched,
+                                lambda: [tamed.predict_numpy(img) for img in held_imgs],
+                                f"batch {tag}: the valid rows against the frame-by-frame "
+                                "requests", dtype)
+    stage = hold_densepose_stage(torch, tamed, held_imgs, f"batch {tag}: the DensePose stage "
+                                 "given each frame's features and boxes", dtype)
+    hold_box_decisions(torch, tamed, held_imgs, f"batch {tag}")
+    del tamed
+    pnp = pred.numpy_outputs
+    for what, held in (("forward_batch of each frame alone", held_alone),
+                       ("the frame-by-frame request (switched stage) on the valid rows",
+                        held_call)):
+        print(f"batch {tag}: a batch of {BATCH_HELD} against {what}: {held_text(held, dtype)}")
+    print(f"batch {tag}: {stage_text(stage, dtype)}")
+    if dtype == "float32":
+        dp = data_parallel_forward(pred.model, [dev, dev])
+        zero_counters()
+        got = dp(torch.from_numpy(held_imgs).to(dev))
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters().items()}
+        check(launches["nms_keep_cuda"] == 4 and launches["roi_align_cuda"] == 4,
+              f"data_parallel_forward: launches {launches}, expected 2 K1 + 2 K2 a shard")
+        half = BATCH_HELD // 2
+        with torch.inference_mode():
+            shards = [pred.model.forward_batch(torch.from_numpy(held_imgs[i:i + half]).to(dev))
+                      for i in (0, half)]
+        err3 = 0.0
+        for i in range(BATCH_HELD):
+            err3 = max(err3, served_again(pnp(frame_of(got, i)),
+                                          pnp(frame_of(shards[i // half], i % half)),
+                                          f"data_parallel_forward frame {i}")[0])
+        print(f"batch {tag}: data_parallel_forward over two replicas on {dev} (a correctness "
+              f"check: one card), {BATCH_HELD} frames in shards of {half}: launches {launches}, "
+              f"each frame against forward_batch of its shard: detections exact, maps within "
+              f"{err3:.3e}")
+        del dp, got, shards
+        batch_consumer(torch, report, pred, tag)
+    for b, r in rows.items():
+        print(f"batch {tag} B={b}: {r['ms']:.2f} ms a batch, {r['ms_frame']:.2f} ms a frame, "
+              f"{r['fps']:.2f} frames/s, device busy {fmt(r['busy_frame'])} ms a frame, idle "
+              f"share {fmt(r['idle'], '.4f')}, peak memory {r['peak_mib']:.1f} MiB; launches "
+              f"{r['launches']} over {BATCH_TIMED} batches; nvidia-smi: {smi}")
+    print(f"batch {tag}: frame-by-frame loop {loop['ms_frame']:.2f} ms a frame, "
+          f"{loop['fps']:.2f} frames/s, device busy {fmt(loop['busy_frame'])} ms a frame, idle "
+          f"share {fmt(loop['idle'], '.4f')}, peak memory {loop['peak_mib']:.1f} MiB; "
+          f"nvidia-smi: {smi}")
+
+
+def batch_consumer(torch, report, pred, tag):
+    """The batched streaming loop: ``stream(..., batch=4)`` over
+    BATCH_STREAM_FRAMES frames (the tail group padded with its last frame),
+    each frame's outputs bit-exact to ``numpy_outputs_batch`` of blocking
+    copies of the same batch, 2 K1 + 2 K2 a batch, the overlays uint8 of the
+    frame's shape; ms a frame beside the frame-by-frame loop's."""
+    from densepose_tpu_torch.parallel.pipeline import stream
+    from densepose_tpu_torch.predictor import fetch_subset
+    from densepose_tpu_torch.visualizer import End2EndVisualizer
+    imgs = frames(9, BATCH_STREAM_FRAMES)
+    vis = End2EndVisualizer(alpha=0.7, keep_bg=False, cmap=chip_colormap())
+    fetch = vis.fetch_keys()
+    runs = {}
+    for batch in (1, BATCH_HELD):
+        rec, overlays, kept = RecordingVisualizer(vis), [], KeepOutputs(pred)
+        zero_counters()
+        t0 = time.perf_counter()
+        t_frames, steady = stream(kept, rec, [f.copy() for f in imgs], overlays.append,
+                                  batch=batch)
+        torch.cuda.synchronize()
+        runs[batch] = ((time.perf_counter() - t0) * 1e3 / len(imgs),
+                       steady * 1e3 / max(t_frames, 1))
+        launches = {k: fn.launches for k, fn in counters().items()}
+        groups = -(-len(imgs) // batch)
+        check(len(kept.outs) == groups and launches["nms_keep_cuda"] == 2 * groups
+              and launches["roi_align_cuda"] == 2 * groups,
+              f"batch consumer {tag} batch {batch}: {len(kept.outs)} dispatches, {launches}")
+        check(len(overlays) == len(rec.outs) == len(imgs), f"batch consumer {tag}: "
+              f"{len(overlays)} overlays for {len(imgs)} frames")
+        for i, (img, ov) in enumerate(zip(imgs, overlays)):
+            check(ov.dtype == np.uint8 and ov.shape == img.shape, f"batch consumer {tag} "
+                  f"frame {i}: overlay {ov.dtype} {ov.shape}")
+        if batch > 1:
+            for g, out in enumerate(kept.outs):
+                count = min(batch, len(imgs) - g * batch)
+                blocking = {k: v.cpu() for k, v in fetch_subset(out, fetch).items()}
+                for j, want in enumerate(pred.numpy_outputs_batch(blocking, keys=fetch,
+                                                                  count=count)):
+                    check(same_outputs(rec.outs[g * batch + j], want),
+                          f"batch consumer {tag} frame {g * batch + j}: the streamed fetch "
+                          "differs from a blocking copy of the same batch")
+        del kept
+    print(f"batch consumer {tag}: stream at batch {BATCH_HELD} over {len(imgs)} frames (the "
+          f"tail padded): each frame bit-exact to a blocking copy of its batch; "
+          f"{runs[BATCH_HELD][0]:.2f} ms a frame "
+          f"(steady state {runs[BATCH_HELD][1]:.2f}) against {runs[1][0]:.2f} ({runs[1][1]:.2f}) "
+          f"at batch 1")
+
+
+def batch_int8(torch, report, dev, extra, b, smi):
+    """An int8 flagship calibrated on CALIB_FRAMES frames at batch ``b``: the
+    Q1 launches a batch one request's (not ``b`` times), one batch with every
+    K1, K2 and Q1 launch held against its plain version (the head's links on
+    the wgmma variant, each call's time kept for the kernels line at
+    BATCH_HELD), each frame against ``forward_batch`` alone."""
+    from densepose_tpu_torch.models.rcnn import image_tensor
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    tag = FLAGSHIP + "".join(f", {k}={v}" for k, v in extra)
+    pred = DensePosePredictor(path_config(FLAGSHIP, extra), seed=0, device=dev)
+    pred.calibrate_int8(frames(7, CALIB_FRAMES))
+    per_batch = dict(ON_K2, **{Q1: q1_per_request(pred)})
+    row, timed, outs = batch_run(torch, report, pred, tag, "float32", b, per_batch, 60 + b)
+    with HeldAgainstPlain(torch, f"batch int8 {tag}", keep=b == BATCH_HELD) as held:
+        pred.predict_batch(timed[0])
+        torch.cuda.synchronize()
+    check(len(held.k1) == 2 and len(held.k2) == 2 and len(held.q1) == per_batch[Q1],
+          f"batch int8 {tag}: held {len(held.k1)} K1, {len(held.k2)} K2, {len(held.q1)} Q1")
+    res = pred.cfg.MODEL.ROI_DENSEPOSE_HEAD.POOLER_RESOLUTION
+    rows = b * pred.cfg.TEST.DETECTIONS_PER_IMAGE  # the head's and predictor's links
+    head = [k[0] == rows * res * res and k[3] == (res, res) for k in held.q1]
+    check(sum(head) == pred.cfg.MODEL.ROI_DENSEPOSE_HEAD.NUM_STACKED_CONVS + 1
+          and all(k[4] == "wgmma" for k, h in zip(held.q1, head) if h),
+          f"batch int8 {tag}: the head's links at {rows} rows {held.q1}")
+    print(f"held: one int8 {tag} batch of {b}, {held.summary()}")
+    if held.keep:
+        (args, kw), = [c for c, h in zip(held.calls["q1"], head) if h][:1]
+        batch_site(torch, report, "q1", "float32", args, kw, f"head link at B={b}")
+    del held
+    tamed = tamed_predictor(pred)
+    tamed.calibrate_int8(frames(7, CALIB_FRAMES))
+    pnp = tamed.numpy_outputs
+    with torch.inference_mode():
+        held = hold_frames(
+            torch, lambda: [pnp(frame_of(out, i)) for out in [tamed.predict_batch(timed[0])]
+                            for i in range(b)],
+            lambda: [pnp(frame_of(tamed.model.forward_batch(image_tensor(img, dev)[None]), 0))
+                     for img in timed[0]],
+            f"batch int8 {tag}: a batch of {b} against each frame alone", "int8")
+    stage = hold_densepose_stage(torch, tamed, timed[0], f"batch int8 {tag}: the DensePose "
+                                 "stage given each frame's features and boxes")
+    hold_box_decisions(torch, tamed, timed[0], f"batch int8 {tag}")
+    del tamed
+    print(f"batch int8 {tag} B={b}: {row['ms']:.2f} ms a batch, {row['ms_frame']:.2f} ms a "
+          f"frame, {row['fps']:.2f} frames/s, device busy {fmt(row['busy_frame'])} ms a frame, "
+          f"idle share {fmt(row['idle'], '.4f')}, peak memory {row['peak_mib']:.1f} MiB; "
+          f"{per_batch[Q1]} Q1 launches a batch; each frame against forward_batch alone: "
+          f"{held_text(held, 'int8')}; {stage_text(stage)}; nvidia-smi: {smi}")
+
+
+def batch_legacy(torch, report, dev, b, smi):
+    """R101 legacy with DENSEPOSE_TPU_SPARSE_POOLER at batch ``b``: 2 K1 and
+    2 K3 launches a batch (K3 takes every frame's boxes in one launch), one
+    batch with every launch held against its plain version (each K3 call's
+    time kept for the kernels line), each frame against ``forward_batch``
+    alone."""
+    from densepose_tpu_torch.models.rcnn import image_tensor
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    tag = f"{LEGACY} with {SPARSE_POOLER}=1"
+    pred = DensePosePredictor(path_config(LEGACY), seed=0, device=dev)
+    os.environ[SPARSE_POOLER] = "1"
+    try:
+        row, timed, outs = batch_run(torch, report, pred, tag, "float32", b, ON_K3, 70 + b)
+        with HeldAgainstPlain(torch, f"batch {tag}", keep=True) as held:
+            pred.predict_batch(timed[0])
+            torch.cuda.synchronize()
+        check(len(held.k1) == 2 and not held.k2 and len(held.k3) == 2
+              and all(k[4] == b for k in held.k3),
+              f"batch {tag}: held {held.k1} K1, {held.k2} K2 and {held.k3} K3 calls")
+        print(f"held: one {tag} batch of {b}, {held.summary()}")
+        for (args, kw), site in zip(held.calls["k3"], ("box_pooler", "legacy_densepose_pooler")):
+            batch_site(torch, report, "k3", "float32", args, kw, f"{site} at B={b}")
+        del held
+        tamed = tamed_predictor(pred)
+        pnp = tamed.numpy_outputs
+        with torch.inference_mode():
+            held = hold_frames(
+                torch, lambda: [pnp(frame_of(out, i)) for out in
+                                [tamed.predict_batch(timed[0])] for i in range(b)],
+                lambda: [pnp(frame_of(tamed.model.forward_batch(image_tensor(img, dev)[None]),
+                                      0)) for img in timed[0]],
+                f"batch {tag}: a batch of {b} against each frame alone")
+        stage = hold_densepose_stage(torch, tamed, timed[0], f"batch {tag}: the DensePose "
+                                     "stage given each frame's features and boxes")
+        hold_box_decisions(torch, tamed, timed[0], f"batch {tag}")
+        del tamed
+    finally:
+        os.environ.pop(SPARSE_POOLER, None)
+    print(f"batch {tag} B={b}: {row['ms']:.2f} ms a batch, {row['ms_frame']:.2f} ms a frame, "
+          f"{row['fps']:.2f} frames/s, device busy {fmt(row['busy_frame'])} ms a frame, idle "
+          f"share {fmt(row['idle'], '.4f')}, peak memory {row['peak_mib']:.1f} MiB; 2 K3 a "
+          f"batch; each frame against forward_batch alone: {held_text(held, 'float32')}; "
+          f"{stage_text(stage)}; nvidia-smi: {smi}")
+
+
+def batch_phase(torch, report, dev, smi):
+    """Batched frames on this card: the fp32 and float16 flagship at every
+    batch size, the int8 flagship at BATCH_HELD and max serving at 2, R101
+    legacy on K3 at 2; the seconds each part took."""
+    t0 = time.perf_counter()
+    parts = [(f"flagship {path_dtype(extra)}", batch_flagship, (extra, smi))
+             for extra in ((), FP16)]
+    parts += [("int8 flagship", batch_int8, (INT8_HEAD_FLAGS, BATCH_HELD, smi)),
+              ("int8 max serving", batch_int8, (INT8_ALL_FLAGS, 2, smi)),
+              ("R101 legacy on K3", batch_legacy, (2, smi))]
+    for what, run, args in parts:
+        run(torch, report, dev, *args)
+        torch.cuda.empty_cache()
+        print(f"time: batch {what} done {time.perf_counter() - t0:.1f} s into the batch phase")
 
 
 # the flagship narrowed to toy widths (tests/test_torch_pipeline.py's)
@@ -1590,6 +2369,17 @@ def tamed_params(cfg, seed=0):
             if k.startswith(prefix + "."):
                 params[k] = params[k] * np.float32(f)
     return params
+
+
+def tamed_predictor(pred):
+    """A predictor of ``pred``'s config on its device with DETECTION_TAME
+    weights, for the batch holds (hold_frames and the stages): on random
+    weights every detection scores ~1, the top 100 within ~3e-5 of each
+    other, so at float16 the top-100 set is a draw among near-tied
+    proposals, and R101 legacy's detections and maps do not depend on the
+    frame, so a fault could not show."""
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    return DensePosePredictor(pred.cfg, device=pred.device, params=tamed_params(pred.cfg))
 
 
 
@@ -2877,6 +3667,8 @@ def main():
         del pred
         torch.cuda.empty_cache()
     lap("int8 paths")
+    batch_phase(torch, report, dev, smi_line)
+    lap("batch phase")
     cse_phase(torch, report, dev)
     geometry_phase(torch, report, dev)
     detection_bucket_phase(torch, report, dev)

@@ -41,6 +41,13 @@
 // levels are handled in one launch through a table of per-level base
 // pointers and sizes; a box's level comes from `levels`.
 //
+// Batched frames: each level may hold N frames, (N, C, H, W) contiguous, and
+// `frames` (M,) int32 names each box's frame, so one launch pools the boxes
+// of every frame of a batch; the CTA of a box offsets its level's base by
+// the per-frame stride times its frame, the stride being C * H * W. Without
+// `frames` every box reads frame 0, which is the single-frame (C, H, W) call.
+// A box whose frame is not in [0, N) gets zeros, as one whose level is not.
+//
 // No tensor cores, at any element type: the fp32 sum must match the plain
 // version's bit for bit (and parity keeps TF32 off); the
 // separable Wy @ feat @ Wx^T form multiplies mostly zeros at these box sizes
@@ -81,8 +88,8 @@ constexpr int kTableBytes = 48 * 1024;  // static limit of dynamic shared memory
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads) roi_align_kernel(
     LevelTable lv, const float* __restrict__ boxes, const int32_t* __restrict__ levels,
-    T* __restrict__ out, int c, int oh, int ow, int ratio, int slab, float offset,
-    int aligned) {
+    const int32_t* __restrict__ frames, int n_frames, T* __restrict__ out, int c, int oh,
+    int ow, int ratio, int slab, float offset, int aligned) {
   extern __shared__ AxisTap tables[];  // oh x gmax for y, then ow x gmax for x
   const int b = blockIdx.x;
   const int c0 = blockIdx.y * slab;
@@ -90,7 +97,8 @@ __global__ void __launch_bounds__(kThreads) roi_align_kernel(
   const int n = min(slab, c - c0) * hw;
   T* o = out + (static_cast<size_t>(b) * c + c0) * hw;
   const int l = levels[b];
-  if (l < 0 || l >= lv.n) {
+  const int fr = frames != nullptr ? frames[b] : 0;
+  if (l < 0 || l >= lv.n || fr < 0 || fr >= n_frames) {
     for (int e = threadIdx.x; e < n; e += blockDim.x) o[e] = narrow<T>(0.f);
     return;
   }
@@ -115,7 +123,8 @@ __global__ void __launch_bounds__(kThreads) roi_align_kernel(
   int ch = e / hw, oy = (e - ch * hw) / ow;
   int ox = e - ch * hw - oy * ow;
   const size_t plane = static_cast<size_t>(h) * w;
-  const T* f0 = static_cast<const T*>(lv.feat[l]) + static_cast<size_t>(c0) * plane;
+  const T* f0 = static_cast<const T*>(lv.feat[l]) +
+                (static_cast<size_t>(fr) * c + c0) * plane;
   for (; e < n; e += step) {
     const T* f = f0 + ch * plane;
     float acc = 0.f;
@@ -157,12 +166,13 @@ __global__ void __launch_bounds__(kThreads) roi_align_kernel(
 
 template <typename T>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const LevelTable& lv,
-                   const void* boxes, const void* levels, void* out, int c, int oh, int ow,
-                   int ratio, int slab, int aligned) {
+                   const void* boxes, const void* levels, const void* frames, int n_frames,
+                   void* out, int c, int oh, int ow, int ratio, int slab, int aligned) {
   auto kernel = ratio == 2 ? roi_align_kernel<T, 2> : roi_align_kernel<T, 0>;  // zoo: 2
   kernel<<<grid, kThreads, smem, stream>>>(
       lv, static_cast<const float*>(boxes), static_cast<const int32_t*>(levels),
-      static_cast<T*>(out), c, oh, ow, ratio, slab, aligned ? 0.5f : 0.f, aligned);
+      static_cast<const int32_t*>(frames), n_frames, static_cast<T*>(out), c, oh, ow, ratio,
+      slab, aligned ? 0.5f : 0.f, aligned);
   return cudaGetLastError();
 }
 
@@ -175,17 +185,18 @@ int dp_roi_align_max_levels() { return kMaxLevels; }
 // Table entries (oh + ow) x samples per bin that one CTA's shared memory holds.
 int dp_roi_align_max_table_entries() { return kTableBytes / sizeof(AxisTap); }
 
-// feats: host array of n_levels device pointers to contiguous (C, H, W)
-// levels of the element type `dtype` (a DtypeCode); hs, ws, scales: host
-// arrays per level. boxes (m, 4) f32, levels (m,) i32, out (m, c, oh, ow) of
-// the levels' type, written. ratio 0 is the adaptive count. Returns the
+// feats: host array of n_levels device pointers to contiguous
+// (n_frames, C, H, W) levels of the element type `dtype` (a DtypeCode); hs,
+// ws, scales: host arrays per level. boxes (m, 4) f32, levels (m,) i32,
+// frames (m,) i32 or null (every box on frame 0), out (m, c, oh, ow) of the
+// levels' type, written. ratio 0 is the adaptive count. Returns the
 // cudaError_t of the launch.
 int dp_roi_align(const void* const* feats, const int* hs, const int* ws,
                  const float* scales, int n_levels, const void* boxes,
-                 const void* levels, void* out, int m, int c, int oh, int ow,
-                 int ratio, int aligned, int dtype, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || ratio < 0 || dtype < kFloat32 ||
-      dtype > kBFloat16)
+                 const void* levels, const void* frames, void* out, int n_frames, int m,
+                 int c, int oh, int ow, int ratio, int aligned, int dtype, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || n_frames < 1 || ratio < 0 ||
+      dtype < kFloat32 || dtype > kBFloat16)
     return cudaErrorInvalidValue;
   const int gmax = ratio > 0 ? ratio : kAdaptiveCap;
   const size_t smem = static_cast<size_t>(oh + ow) * gmax * sizeof(AxisTap);
@@ -200,14 +211,14 @@ int dp_roi_align(const void* const* feats, const int* hs, const int* ws,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat16:
-      return launch<__half>(grid, smem, s, lv, boxes, levels, out, c, oh, ow, ratio, slab,
-                            aligned);
+      return launch<__half>(grid, smem, s, lv, boxes, levels, frames, n_frames, out, c, oh,
+                            ow, ratio, slab, aligned);
     case kBFloat16:
-      return launch<__nv_bfloat16>(grid, smem, s, lv, boxes, levels, out, c, oh, ow, ratio,
-                                   slab, aligned);
+      return launch<__nv_bfloat16>(grid, smem, s, lv, boxes, levels, frames, n_frames, out,
+                                   c, oh, ow, ratio, slab, aligned);
     default:
-      return launch<float>(grid, smem, s, lv, boxes, levels, out, c, oh, ow, ratio, slab,
-                           aligned);
+      return launch<float>(grid, smem, s, lv, boxes, levels, frames, n_frames, out, c, oh,
+                           ow, ratio, slab, aligned);
   }
 }
 

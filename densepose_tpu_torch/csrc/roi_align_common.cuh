@@ -49,8 +49,9 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Per-level base pointers of contiguous (C, H, W) maps of one element type,
-// their sizes and scales: every level in one launch.
+// Per-level base pointers of contiguous (N, C, H, W) maps of one element type
+// (N frames, N = 1 for one frame), their sizes and scales: every level in one
+// launch. Frame f of level l starts f * C * h[l] * w[l] elements past feat[l].
 struct LevelTable {
   const void* feat[kMaxLevels];
   int h[kMaxLevels];

@@ -57,6 +57,12 @@
 // 32-bit and stepped with carries, as in K2: no division per output. The only atomics are the integer ORs of U's
 // bitmap, so two runs give the same bits.
 //
+// Batched frames, as in K2: levels (N, C, H, W) contiguous and `frames`
+// (M,) int32, each box's frame. A CTA's tables are its own box's, so the
+// frame enters only as the offset of the box's level by frame * C * H * W:
+// one launch pools every frame's boxes, with no sort by frame (the plain
+// version keeps the JAX schedule per frame, its sort key (frame, level, x)).
+//
 // Numerics: built with --fmad=false and written with the _rn intrinsics.
 // The weights are exactly the plain version's _axis_weights (each a sum over
 // the sub-samples, in order, of 1 - lerp and lerp where the column matches,
@@ -142,8 +148,8 @@ __device__ __forceinline__ int axis_row(const AxisTap* t, int ratio, int* col, f
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads) roi_align_sparse_kernel(
     LevelTable lv, const float* __restrict__ boxes, const int32_t* __restrict__ levels,
-    T* __restrict__ out, int c, int oh, int ow, int ratio, int slab, int max_w,
-    float offset, int aligned) {
+    const int32_t* __restrict__ frames, int n_frames, T* __restrict__ out, int c, int oh,
+    int ow, int ratio, int slab, int max_w, float offset, int aligned) {
   extern __shared__ int smem[];
   const int g = G > 0 ? G : ratio;
   const int g2 = 2 * g;
@@ -153,7 +159,8 @@ __global__ void __launch_bounds__(kThreads) roi_align_sparse_kernel(
   const int n_ch = min(slab, c - c0);
   T* o = out + (static_cast<size_t>(b) * c + c0) * hw;
   const int l = levels[b];
-  if (l < 0 || l >= lv.n) {
+  const int fr = frames != nullptr ? frames[b] : 0;
+  if (l < 0 || l >= lv.n || fr < 0 || fr >= n_frames) {
     for (int e = threadIdx.x; e < n_ch * hw; e += blockDim.x) o[e] = narrow<T>(0.f);
     return;
   }
@@ -217,7 +224,8 @@ __global__ void __launch_bounds__(kThreads) roi_align_sparse_kernel(
   // so its loads (kCh per Y tap) are in flight together.
   const int step = blockDim.x;
   const size_t plane = static_cast<size_t>(h) * w;
-  const T* f0 = static_cast<const T*>(lv.feat[l]) + static_cast<size_t>(c0) * plane;
+  const T* f0 = static_cast<const T*>(lv.feat[l]) +
+                (static_cast<size_t>(fr) * c + c0) * plane;
   const int groups = (n_ch + kCh - 1) / kCh;
   const int n1 = groups * oh * nu;
   if (n1 > 0) {
@@ -326,8 +334,8 @@ __global__ void __launch_bounds__(kThreads) roi_align_sparse_kernel(
 // Sizes the launch for element type T and launches it.
 template <typename T>
 cudaError_t launch(const LevelTable& lv, int max_w, const void* boxes, const void* levels,
-                   void* out, int m, int c, int oh, int ow, int ratio, int aligned,
-                   cudaStream_t stream) {
+                   const void* frames, int n_frames, void* out, int m, int c, int oh, int ow,
+                   int ratio, int aligned, cudaStream_t stream) {
   const int max_u = 2 * ratio * ow < max_w ? 2 * ratio * ow : max_w;
   const size_t per_ch = static_cast<size_t>(oh) * max_u * sizeof(T);
   const int fit = static_cast<int>(kSlabBytes / per_ch);
@@ -347,7 +355,8 @@ cudaError_t launch(const LevelTable& lv, int max_w, const void* boxes, const voi
   const dim3 grid(m, n_slabs);
   kernel<<<grid, kThreads, smem, stream>>>(
       lv, static_cast<const float*>(boxes), static_cast<const int32_t*>(levels),
-      static_cast<T*>(out), c, oh, ow, ratio, slab, max_w, aligned ? 0.5f : 0.f, aligned);
+      static_cast<const int32_t*>(frames), n_frames, static_cast<T*>(out), c, oh, ow, ratio,
+      slab, max_w, aligned ? 0.5f : 0.f, aligned);
   return cudaGetLastError();
 }
 
@@ -358,18 +367,21 @@ extern "C" {
 int dp_roi_align_sparse_max_levels() { return kMaxLevels; }
 int dp_roi_align_sparse_max_ratio() { return kMaxRatio; }
 
-// feats: host array of n_levels device pointers to contiguous (C, H, W)
-// levels of the element type `dtype` (a DtypeCode); hs, ws, scales: host
-// arrays per level. boxes (m, 4) f32 and levels (m,) i32 in the caller's
-// order; out (m, c, oh, ow) of the levels' type, written (zeros for a box
-// whose level is not in [0, n_levels)). Returns the cudaError_t of the
-// launch, or cudaErrorInvalidValue for inputs the kernel does not take.
+// feats: host array of n_levels device pointers to contiguous
+// (n_frames, C, H, W) levels of the element type `dtype` (a DtypeCode); hs,
+// ws, scales: host arrays per level. boxes (m, 4) f32, levels (m,) i32 and
+// frames (m,) i32 or null (every box on frame 0) in the caller's order; out
+// (m, c, oh, ow) of the levels' type, written (zeros for a box whose level
+// is not in [0, n_levels) or whose frame is not in [0, n_frames)). Returns
+// the cudaError_t of the launch, or cudaErrorInvalidValue for inputs the
+// kernel does not take.
 int dp_roi_align_sparse(const void* const* feats, const int* hs, const int* ws,
                         const float* scales, int n_levels, const void* boxes,
-                        const void* levels, void* out, int m, int c, int oh, int ow,
-                        int ratio, int aligned, int dtype, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || ratio <= 0 || ratio > kMaxRatio || oh <= 0 ||
-      ow <= 0 || dtype < kFloat32 || dtype > kBFloat16)
+                        const void* levels, const void* frames, void* out, int n_frames,
+                        int m, int c, int oh, int ow, int ratio, int aligned, int dtype,
+                        void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || n_frames < 1 || ratio <= 0 ||
+      ratio > kMaxRatio || oh <= 0 || ow <= 0 || dtype < kFloat32 || dtype > kBFloat16)
     return cudaErrorInvalidValue;
   if (static_cast<long long>(m) * c == 0) return cudaSuccess;
   int max_w = 1;
@@ -378,12 +390,14 @@ int dp_roi_align_sparse(const void* const* feats, const int* hs, const int* ws,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat16:
-      return launch<__half>(lv, max_w, boxes, levels, out, m, c, oh, ow, ratio, aligned, s);
+      return launch<__half>(lv, max_w, boxes, levels, frames, n_frames, out, m, c, oh, ow,
+                            ratio, aligned, s);
     case kBFloat16:
-      return launch<__nv_bfloat16>(lv, max_w, boxes, levels, out, m, c, oh, ow, ratio,
-                                   aligned, s);
+      return launch<__nv_bfloat16>(lv, max_w, boxes, levels, frames, n_frames, out, m, c, oh,
+                                   ow, ratio, aligned, s);
     default:
-      return launch<float>(lv, max_w, boxes, levels, out, m, c, oh, ow, ratio, aligned, s);
+      return launch<float>(lv, max_w, boxes, levels, frames, n_frames, out, m, c, oh, ow,
+                           ratio, aligned, s);
   }
 }
 

@@ -29,6 +29,17 @@ calibration is installed (buffers under the JAX package's names, put there by
 the predictor); ``forward_int8_calibration`` is the fp pass that records each
 quantization site's statistic, by group (JAX rcnn.py:331-377).
 
+``forward_batch`` runs B same-shaped frames as one batched forward, the JAX
+package's ``predict_batch`` (``jax.vmap`` of ``forward`` with its defaults,
+predictor.py:612-616): the B frames preprocessed together, the backbone and
+every head at batch B (the RPN's and the box stage's NMS one K1 launch each,
+the poolers one K2 or K3 launch each, with a frame index per box), the box
+postprocess per frame, and the monolithic DensePose stage on all D slots of
+every frame (B * D rows), whatever ``TPU.SWITCHED_DENSEPOSE`` and
+``TPU.DEVICE_POSTPROCESS`` say: raw maps, fixed shapes, and no value read on
+the host. Frame i's outputs are ``forward`` of frame i with the switched
+stage and the device postprocess off.
+
 ``forward_bucketed`` (``TPU.GEOMETRY_BUCKET_QUANT``) runs the same stages on
 a geometry-bucket canvas: the resized image at the top left of a canvas
 padded to a multiple of the quantum (``bucket_canvas``), normalized in fp32
@@ -67,9 +78,9 @@ from ..checkpoint.spec import Spec
 from ..ops.boxes import clip_boxes, nonempty_boxes
 from ..ops.resize import resize_image
 from .backbones import backbone_spec, build_backbone
-from .roi_heads import (ROIHeads, box_stage_forward, densepose_stacked_calibration,
-                        densepose_stage_forward, roi_heads_spec)
-from .rpn import RPNHead, rpn_forward, rpn_spec
+from .roi_heads import (ROIHeads, box_stage_forward_batch, densepose_stacked_calibration,
+                        densepose_stage_forward, frame_index, roi_heads_spec)
+from .rpn import RPNHead, rpn_forward_batch, rpn_spec
 
 
 # TPU.COMPUTE_DTYPE -> the dtype of parameters and activations
@@ -180,8 +191,10 @@ class GeneralizedRCNN(nn.Module):
     def resize_u8(self, image_u8: torch.Tensor, min_size: Optional[int] = None,
                   max_size: Optional[int] = None) -> torch.Tensor:
         """The reference's uint8 resize, in network channel order, as fp32
-        holding integers: (h1, w1, 3)."""
-        k, h1, w1 = self.resized_size(image_u8.shape[0], image_u8.shape[1], min_size, max_size)
+        holding integers: (h1, w1, 3), or (B, h1, w1, 3) of (B, H0, W0, 3)
+        frames."""
+        k, h1, w1 = self.resized_size(image_u8.shape[-3], image_u8.shape[-2], min_size,
+                                      max_size)
         x = image_u8
         if self.cfg.INPUT.FORMAT == "RGB":  # defaults.py:81-83
             x = x.flip(-1)
@@ -196,12 +209,19 @@ class GeneralizedRCNN(nn.Module):
         size, (Hp, Wp)). Everything up to the cast runs in fp32, as in the JAX
         package (rcnn.py:143-155). ``min_size`` / ``max_size`` override the
         config's test resolution."""
-        y = self.resize_u8(image_u8, min_size, max_size)
-        h1, w1 = y.shape[0], y.shape[1]
+        return self.preprocess_batch(image_u8[None], min_size, max_size)
+
+    def preprocess_batch(self, images_u8: torch.Tensor, min_size: Optional[int] = None,
+                         max_size: Optional[int] = None):
+        """``preprocess`` of B same-shaped frames (B, H0, W0, 3) uint8 at once,
+        one resize table for all: (B, 3, Hp, Wp) in the compute dtype, whose
+        frame i is bitwise ``preprocess`` of frame i, (h1, w1) and (Hp, Wp)."""
+        y = self.resize_u8(images_u8, min_size, max_size)
+        h1, w1 = y.shape[1], y.shape[2]
         hp, wp = pad_to_divisible(h1, w1, self.size_divisibility)
         y = (y - self.pixel_mean) / self.pixel_std
-        y = torch.nn.functional.pad(y.permute(2, 0, 1), (0, wp - w1, 0, hp - h1))
-        return y[None].to(self.compute_dtype).contiguous(), (h1, w1), (hp, wp)
+        y = torch.nn.functional.pad(y.permute(0, 3, 1, 2), (0, wp - w1, 0, hp - h1))
+        return y.to(self.compute_dtype).contiguous(), (h1, w1), (hp, wp)
 
     def forward_stage1(self, image_u8: torch.Tensor, min_size: Optional[int] = None,
                        max_size: Optional[int] = None):
@@ -214,24 +234,34 @@ class GeneralizedRCNN(nn.Module):
         with record_function("preprocess"):
             x, (h1, w1), (hp, wp) = self.preprocess(image_u8, min_size, max_size)
         # detector_postprocess's rescale: w0 / w1 in double, then rounded to fp32
-        scale = torch.tensor([w0 / w1, h0 / h1], dtype=torch.float32, device=image_u8.device)
+        scale = device_values([w0 / w1, h0 / h1], torch.float32, image_u8.device)
         return self._detect(x, (hp, wp), None, (h0, w0), scale)
 
     def _detect(self, x: torch.Tensor, clip_hw: Tuple[int, int], anchor_valid_hw,
                 orig_hw: Tuple[int, int], scale_xy: torch.Tensor):
         """Backbone -> RPN -> box stage -> box postprocess on a normalized
-        input ``x``; the RPN clips to ``clip_hw`` and masks anchors beyond
-        ``anchor_valid_hw`` (or none); the boxes go back to the original
-        resolution by the fp32 factors ``scale_xy`` (x, y)."""
+        input ``x`` (1, 3, Hp, Wp); the RPN clips to ``clip_hw`` and masks
+        anchors beyond ``anchor_valid_hw`` (or none); the boxes go back to the
+        original resolution by the fp32 factors ``scale_xy`` (x, y). Returns
+        the frame's result, the (batch-1) features and its boxes_net (D, 4)."""
+        result, features, boxes_net = self._detect_batch(x, clip_hw, anchor_valid_hw,
+                                                         orig_hw, scale_xy)
+        return {k: v[0] for k, v in result.items()}, features, boxes_net[0]
+
+    def _detect_batch(self, x: torch.Tensor, clip_hw: Tuple[int, int], anchor_valid_hw,
+                      orig_hw: Tuple[int, int], scale_xy: torch.Tensor):
+        """``_detect`` of B frames of one size, x (B, 3, Hp, Wp): every
+        result (B, ...), the features (B, C, H, W) per level and boxes_net
+        (B, D, 4)."""
         cfg = self.cfg
         h0, w0 = orig_hw
         with record_function("backbone"):
             features = self.backbone(x)
         with record_function("rpn"):
-            proposals, _, pvalid = rpn_forward(self.proposal_generator.rpn_head, features,
-                                               clip_hw, cfg, anchor_valid_hw)
+            proposals, _, pvalid = rpn_forward_batch(self.proposal_generator.rpn_head,
+                                                     features, clip_hw, cfg, anchor_valid_hw)
         with record_function("box_stage"):
-            boxes_net, scores, classes, dvalid = box_stage_forward(
+            boxes_net, scores, classes, dvalid = box_stage_forward_batch(
                 self.roi_heads, features, proposals, pvalid, cfg)
 
         with record_function("postprocess"):
@@ -240,13 +270,14 @@ class GeneralizedRCNN(nn.Module):
             boxes = boxes_net * scale_xy.repeat(2)
             valid = dvalid & nonempty_boxes(boxes)
             boxes = clip_boxes(boxes, (h0, w0))
+            size = device_values([h0, w0], torch.int32, boxes.device)
             result = {
-                "image_size": torch.tensor([h0, w0], dtype=torch.int32, device=boxes.device),
+                "image_size": size.expand(x.shape[0], 2),
                 "pred_boxes": boxes,
                 "scores": scores,
                 "pred_classes": classes,
                 "valid": valid,
-                "num_instances": valid.sum().int(),
+                "num_instances": valid.sum(-1).int(),
             }
             result["det_packed"] = self.pack_detections(result)
         return result, features, boxes_net
@@ -296,19 +327,21 @@ class GeneralizedRCNN(nn.Module):
 
     @staticmethod
     def pack_detections(result: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """One (D+1, 7) f32 array with every small detection output. Rows
-        0..D-1: [x1, y1, x2, y2, score, class, valid]; the last row:
-        [num_instances, H, W, 0, 0, 0, 0]. Every value is exact in f32."""
+        """One (D+1, 7) f32 array with every small detection output (of a
+        batch's results, (B, D+1, 7)). Rows 0..D-1: [x1, y1, x2, y2, score,
+        class, valid]; the last row: [num_instances, H, W, 0, 0, 0, 0]. Every
+        value is exact in f32."""
         packed = torch.cat([
             result["pred_boxes"].float(),
-            result["scores"].float()[:, None],
-            result["pred_classes"].float()[:, None],
-            result["valid"].float()[:, None],
-        ], dim=1)
-        header = torch.cat([result["num_instances"].float()[None],
+            result["scores"].float()[..., None],
+            result["pred_classes"].float()[..., None],
+            result["valid"].float()[..., None],
+        ], dim=-1)
+        lead = packed.shape[:-2]
+        header = torch.cat([result["num_instances"].float()[..., None],
                             result["image_size"].float(),
-                            packed.new_zeros((4,))])
-        return torch.cat([packed, header[None]], dim=0)
+                            packed.new_zeros(lead + (4,))], dim=-1)
+        return torch.cat([packed, header[..., None, :]], dim=-2)
 
     def forward_densepose(self, features: Dict[str, torch.Tensor],
                           boxes_net: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -360,6 +393,33 @@ class GeneralizedRCNN(nn.Module):
         """Full single-image inference: fixed-size slots + num_instances,
         DensePose maps NCHW (D, C, HEATMAP, HEATMAP)."""
         return self._with_densepose(*self.forward_stage1(image_u8))
+
+    def forward_batch(self, images_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """B same-shaped frames (B, H0, W0, 3) uint8 BGR on the model's device
+        as one batched forward (the JAX package's vmapped ``forward``): every
+        output (B, ...) (``image_size`` (B, 2), ``num_instances`` (B,),
+        ``det_packed`` (B, D+1, 7), the raw DensePose maps (B, D, C, HEATMAP,
+        HEATMAP)). The DensePose stage is the monolithic one on all D slots,
+        with no device postprocess; nothing is read on the host."""
+        b, h0, w0 = (int(v) for v in images_u8.shape[:3])
+        with record_function("preprocess"):
+            x, (h1, w1), (hp, wp) = self.preprocess_batch(images_u8)
+        scale = device_values([w0 / w1, h0 / h1], torch.float32, images_u8.device)
+        result, features, boxes_net = self._detect_batch(x, (hp, wp), None, (h0, w0), scale)
+        if self.cfg.MODEL.DENSEPOSE_ON:
+            result.update(self.forward_densepose_batch(features, boxes_net))
+        return result
+
+    def forward_densepose_batch(self, features: Dict[str, torch.Tensor],
+                                boxes_net: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The DensePose stage on every slot of B frames: boxes_net (B, D, 4)
+        in B frames' features, as B * D rows (one pooler launch, the head and
+        predictor over B * D); maps (B, D, C, HEATMAP, HEATMAP)."""
+        b, d = boxes_net.shape[:2]
+        dp = densepose_stage_forward(self.roi_heads, features, boxes_net.reshape(-1, 4),
+                                     self.cfg, frame_index(b, d, boxes_net.device))
+        return {f"pred_densepose_{k}": v.reshape((b, d) + tuple(v.shape[1:]))
+                for k, v in dp.items()}
 
     def _with_densepose(self, result, features, boxes_net) -> Dict[str, torch.Tensor]:
         """Stage 1's result with the DensePose stage (switched on the count,
@@ -438,3 +498,25 @@ def image_tensor(image_bgr_u8, device) -> torch.Tensor:
                              f"{tuple(image_bgr_u8.shape)}")
         return image_bgr_u8.to(device)
     return torch.from_numpy(check_image(image_bgr_u8)).to(device)
+
+
+def batch_tensor(images_bgr_u8, device) -> torch.Tensor:
+    """(B, H, W, 3) uint8 frames, numpy or a tensor -> a contiguous uint8
+    tensor on ``device``; ValueError otherwise. Host frames go to a CUDA
+    device through pinned memory, without waiting for its queued work."""
+    images = images_bgr_u8 if isinstance(images_bgr_u8, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(np.asarray(images_bgr_u8)))
+    if images.dim() != 4 or images.shape[-1] != 3 or images.dtype != torch.uint8:
+        raise ValueError(f"expected (B, H, W, 3) uint8 frames, got {images.dtype} "
+                         f"{tuple(images.shape)}")
+    if torch.device(device).type == "cuda" and images.device.type == "cpu":
+        return images.contiguous().pin_memory().to(device, non_blocking=True)
+    return images.to(device).contiguous()
+
+
+def device_values(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A 1-D tensor of Python numbers made on ``device`` (each rounded to
+    ``dtype`` as ``torch.tensor`` rounds it), with no copy from the host: a
+    copy from pageable memory waits for the device's queued work, a host
+    sync in the middle of a request."""
+    return torch.stack([torch.full((), v, dtype=dtype, device=device) for v in values])

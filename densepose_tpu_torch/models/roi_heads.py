@@ -26,13 +26,16 @@ densepose_tpu/models/roi_heads.py), NCHW.
   takes the embedding predictor instead (``models/cse.py``: an embedding
   and a coarse segmentation map) and holds the vertex embedders' tables.
 
-Boxes, scores and valid masks keep the JAX package's fixed slots.
+Boxes, scores and valid masks keep the JAX package's fixed slots. Every
+stage also runs B frames at once (``box_stage_forward_batch``,
+``densepose_stage_forward`` with a frame index): the poolers take the B
+frames' maps and each box's frame, one launch for all of them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -493,42 +496,94 @@ def box_stage_forward(
     proposal_valid: torch.Tensor,
     cfg,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Box head + fast_rcnn inference. Returns (boxes (D, 4) f32, scores (D,),
-    classes (D,) int32, valid (D,)), D = TEST.DETECTIONS_PER_IMAGE,
-    score-descending."""
+    """Box head + fast_rcnn inference of one frame (batch-1 features).
+    Returns (boxes (D, 4) f32, scores (D,), classes (D,) int32, valid (D,)),
+    D = TEST.DETECTIONS_PER_IMAGE, score-descending."""
+    out = box_stage_forward_batch(heads, features, proposals[None], proposal_valid[None], cfg)
+    return tuple(t[0] for t in out)
+
+
+def frame_index(b: int, rows: int, device) -> Optional[torch.Tensor]:
+    """Each of b frames' ``rows`` boxes, frame-major: the (b * rows,) int32
+    frame index of the poolers, or None for one frame."""
+    if b == 1:
+        return None
+    return torch.arange(b, dtype=torch.int32, device=device).repeat_interleave(rows)
+
+
+def box_stage_forward_batch(
+    heads: ROIHeads,
+    features: Dict[str, torch.Tensor],
+    proposals: torch.Tensor,
+    proposal_valid: torch.Tensor,
+    cfg,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``box_stage_forward`` of B frames: features (B, C, H, W) per level,
+    proposals (B, R, 4), proposal_valid (B, R). Returns (boxes (B, D, 4),
+    scores (B, D), classes (B, D), valid (B, D)), frame i's rows those of
+    frame i alone. One pooler launch for the B * R proposals (each with its
+    frame), the FCs over B * R rows, one classed NMS launch over B problems
+    of R * classes boxes, a top-D per frame."""
+    scores_logits, deltas = box_head_forward(heads, features, proposals, cfg)
+    return box_stage_decisions(scores_logits, deltas, proposals, proposal_valid, cfg)
+
+
+def box_head_forward(heads: ROIHeads, features: Dict[str, torch.Tensor],
+                     proposals: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The box head on B frames' proposals (B, R, 4): one pooler launch for
+    the B * R proposals, each with its frame, and the FCs over B * R rows.
+    Returns (class logits (B * R, classes + 1), box deltas (B * R, 4 * regs))
+    in the compute dtype."""
     in_features: List[str] = list(cfg.MODEL.ROI_HEADS.IN_FEATURES)
     res = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
     aligned = cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE == "ROIAlignV2"
+    nb, r = proposals.shape[:2]
+    flat_props = proposals.reshape(-1, 4)
+    scales, min_lvl, max_lvl = _fpn_pooling(cfg, in_features)
+    levels = assign_boxes_to_levels(flat_props, min_lvl, max_lvl)
+    frames = frame_index(nb, r, proposals.device)
+    # K2 reads each (N, C, H, W) level in place
+    pooled = roi_align_multilevel([features[f] for f in in_features],
+                                  flat_props, levels, scales, (res, res),
+                                  cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO, aligned, frames)
+    # (B * R, C, res, res) is torch's Flatten order into fc1
+    x = heads.box_head(pooled.reshape(nb * r, -1))
+    return heads.box_predictor.cls_score(x), heads.box_predictor.bbox_pred(x)
+
+
+def box_stage_decisions(
+    scores_logits: torch.Tensor,
+    deltas: torch.Tensor,
+    proposals: torch.Tensor,
+    proposal_valid: torch.Tensor,
+    cfg,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fast_rcnn_inference of B frames from the box head's outputs
+    (``box_head_forward``): the fp32 softmax and decode, one class-aware NMS
+    launch over B problems of R * classes boxes, a top-D per frame. Returns
+    ``box_stage_forward_batch``'s (boxes, scores, classes, valid)."""
     num_classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
     topk = cfg.TEST.DETECTIONS_PER_IMAGE
-
-    scales, min_lvl, max_lvl = _fpn_pooling(cfg, in_features)
-    levels = assign_boxes_to_levels(proposals, min_lvl, max_lvl)
-    # K2 reads each (C, H, W) level of the batch-1 features in place
-    pooled = roi_align_multilevel([features[f][0] for f in in_features], proposals,
-                                  levels, scales, (res, res),
-                                  cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO, aligned)
-    r = pooled.shape[0]
-    # (R, C, res, res) is torch's Flatten order into fc1
-    x = heads.box_head(pooled.reshape(r, -1))
-    scores_logits = heads.box_predictor.cls_score(x)
-    deltas = heads.box_predictor.bbox_pred(x)
+    nb, r = proposals.shape[:2]
+    flat_props = proposals.reshape(-1, 4)
 
     probs = torch.softmax(scores_logits.float(), dim=-1)
-    boxes = apply_deltas(deltas, proposals, tuple(cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS))
+    boxes = apply_deltas(deltas, flat_props, tuple(cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS))
     # fast_rcnn.py:86-141: the reference's clip_boxes result is discarded
     # there, so detection boxes are NOT clipped at this stage.
     fg_scores = probs[:, :-1]
     nreg = 1 if cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG else num_classes
-    boxes = boxes.reshape(r, nreg, 4).expand(r, num_classes, 4)
+    boxes = boxes.reshape(nb * r, nreg, 4).expand(nb * r, num_classes, 4)
 
     finite = torch.isfinite(boxes).all(dim=2).all(dim=1) & torch.isfinite(probs).all(dim=1)
-    valid = proposal_valid & finite
+    valid = proposal_valid.reshape(-1) & finite
 
-    flat_scores = fg_scores.reshape(-1)
-    flat_boxes = boxes.reshape(-1, 4)
-    flat_cls = torch.arange(num_classes, dtype=torch.int32, device=x.device).repeat(r)
-    flat_valid = (valid.repeat_interleave(num_classes)
+    # each frame's (proposal, class) pairs, proposal-major
+    flat_scores = fg_scores.reshape(nb, r * num_classes)
+    flat_boxes = boxes.reshape(nb, r * num_classes, 4)
+    flat_cls = torch.arange(num_classes, dtype=torch.int32,
+                            device=probs.device).repeat(r).expand(nb, r * num_classes)
+    flat_valid = (valid.reshape(nb, r).repeat_interleave(num_classes, dim=1)
                   & (flat_scores > cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST))
 
     nms_thresh = cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST
@@ -538,17 +593,17 @@ def box_stage_forward(
         keep = batched_nms_mask(flat_boxes, flat_scores, flat_cls, flat_valid, nms_thresh)
 
     sel_scores = torch.where(keep & flat_valid, flat_scores, torch.full_like(flat_scores, _NEG))
-    k_out = min(topk, sel_scores.shape[0])
+    k_out = min(topk, sel_scores.shape[1])
     out_scores, out_idx = top_k(sel_scores, k_out)
-    out_boxes = flat_boxes[out_idx]
-    out_cls = flat_cls[out_idx]
+    out_boxes = torch.take_along_dim(flat_boxes, out_idx[..., None], dim=1)
+    out_cls = torch.take_along_dim(flat_cls, out_idx, dim=1)
     out_valid = out_scores > _NEG / 2
     if k_out < topk:
         padn = topk - k_out
-        out_boxes = torch.cat([out_boxes, out_boxes.new_zeros((padn, 4))])
-        out_scores = torch.cat([out_scores, out_scores.new_full((padn,), _NEG)])
-        out_cls = torch.cat([out_cls, out_cls.new_zeros((padn,))])
-        out_valid = torch.cat([out_valid, out_valid.new_zeros((padn,))])
+        out_boxes = torch.cat([out_boxes, out_boxes.new_zeros((nb, padn, 4))], dim=1)
+        out_scores = torch.cat([out_scores, out_scores.new_full((nb, padn), _NEG)], dim=1)
+        out_cls = torch.cat([out_cls, out_cls.new_zeros((nb, padn))], dim=1)
+        out_valid = torch.cat([out_valid, out_valid.new_zeros((nb, padn))], dim=1)
     out_scores = torch.where(out_valid, out_scores, torch.zeros_like(out_scores))
     return out_boxes, out_scores, out_cls, out_valid
 
@@ -561,10 +616,12 @@ def _fpn_pooling(cfg, in_features: List[str]):
 
 
 def _densepose_pooled(heads: ROIHeads, features: Dict[str, torch.Tensor],
-                      boxes: torch.Tensor, cfg) -> torch.Tensor:
-    """The DensePose head's input, (B, C, res, res): single-level ROIAlign (K2)
-    of the (1, C, H, W) decoder map, or for the legacy configs multi-level
-    ROIAlign over the FPN levels (JAX roi_heads.py:633-643)."""
+                      boxes: torch.Tensor, cfg,
+                      frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The DensePose head's input, (M, C, res, res): single-level ROIAlign
+    (K2) of the decoder map, or for the legacy configs multi-level ROIAlign
+    over the FPN levels (JAX roi_heads.py:633-643). ``frames``: each box's
+    frame in features of N frames (the batched forward), None for one."""
     h = cfg.MODEL.ROI_DENSEPOSE_HEAD
     res = h.POOLER_RESOLUTION
     aligned = h.POOLER_TYPE == "ROIAlignV2"
@@ -574,21 +631,25 @@ def _densepose_pooled(heads: ROIHeads, features: Dict[str, torch.Tensor],
         with record_function("decoder"):
             sem = heads.decoder(features)
         with record_function("densepose_pooler"):
-            return roi_align_single(sem[0], boxes, scales[0], (res, res),
-                                    h.POOLER_SAMPLING_RATIO, aligned)
+            return roi_align_single(sem, boxes, scales[0], (res, res),
+                                    h.POOLER_SAMPLING_RATIO, aligned, frames)
     with record_function("densepose_pooler"):
         levels = assign_boxes_to_levels(boxes, min_lvl, max_lvl)
-        return roi_align_multilevel([features[f][0] for f in in_features], boxes, levels,
-                                    scales, (res, res), h.POOLER_SAMPLING_RATIO, aligned)
+        return roi_align_multilevel([features[f] for f in in_features],
+                                    boxes, levels, scales, (res, res), h.POOLER_SAMPLING_RATIO,
+                                    aligned, frames)
 
 
 def densepose_stage_forward(heads: ROIHeads, features: Dict[str, torch.Tensor],
-                            boxes: torch.Tensor, cfg) -> Dict[str, torch.Tensor]:
+                            boxes: torch.Tensor, cfg,
+                            frames: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """(Decoder ->) ROIAlign -> head -> predictor on the given boxes
-    (densepose roi_head.py:126-158). Maps NCHW, (B, C, HEATMAP, HEATMAP)
+    (densepose roi_head.py:126-158). Maps NCHW, (M, C, HEATMAP, HEATMAP)
     each: SIUV, or a CSE model's embedding and coarse segmentation. Each step
-    is a profiler range."""
-    pooled = _densepose_pooled(heads, features, boxes, cfg)
+    is a profiler range. ``frames``: boxes (M, 4) of N frames' features,
+    each with its frame (the batched forward's B * D rows), or None for one
+    frame."""
+    pooled = _densepose_pooled(heads, features, boxes, cfg, frames)
     with record_function("densepose_head"):
         x = heads.densepose_head(pooled)
     with record_function("densepose_predictor"):

@@ -5,7 +5,8 @@ decode of those k boxes, the reference's swapped (W, H) clip (rpn.py:320),
 then per-level NMS at RPN.NMS_THRESH as ONE launch of kernel K1 with the
 levels as its problems (levels padded to a common K with invalid slots),
 then the global top POST_NMS_TOPK_TEST -> (K, 4) proposals + valid mask,
-exactly the slots of the JAX package.
+exactly the slots of the JAX package. ``rpn_forward_batch`` runs B frames of
+one size at once: one K1 launch over the B x L problems, (B, K, 4) out.
 
 On a geometry-bucket canvas (``anchor_valid_hw``, rpn.py:60-72 of the JAX
 package) anchors whose centre lies in the bucket's padding are masked out of
@@ -102,13 +103,30 @@ def rpn_forward(
     """features: NCHW maps (batch 1) for cfg.MODEL.RPN.IN_FEATURES;
     image_size_hw: (H_pad, W_pad) of the network input. Returns (proposals
     (K, 4) f32, objectness (K,), valid (K,) bool), K = POST_NMS_TOPK_TEST,
-    sorted by objectness descending.
+    sorted by objectness descending: ``rpn_forward_batch``'s one frame.
 
     ``anchor_valid_hw``: (H, W) bound of a geometry-bucket canvas's minimal-pad
     extent. Anchors whose centre is not below it get the objectness ``_NEG``
     (after the fp32 cast: -1e30 overflows float16) before the top-k, and those
     that still enter a level's top-k (a level with fewer unmasked anchors than
     PRE_NMS_TOPK_TEST) are dropped from ``valid``."""
+    boxes, scores, valid = rpn_forward_batch(head, features, image_size_hw, cfg,
+                                             anchor_valid_hw)
+    return boxes[0], scores[0], valid[0]
+
+
+def rpn_forward_batch(
+    head: RPNHead,
+    features: Dict[str, torch.Tensor],
+    image_size_hw: Tuple[int, int],
+    cfg,
+    anchor_valid_hw: Optional[Tuple[int, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``rpn_forward`` of B frames at once: features (B, C, H, W) per level,
+    one input size for all. Returns (proposals (B, K, 4), objectness (B, K),
+    valid (B, K)); frame i's rows are what ``rpn_forward`` gives frame i
+    alone. The per-level NMS of every frame is one K1 launch over B x L
+    problems; the top-k run along each frame's own axis."""
     in_features: List[str] = list(cfg.MODEL.RPN.IN_FEATURES)
     pre_topk = cfg.MODEL.RPN.PRE_NMS_TOPK_TEST
     post_topk = cfg.MODEL.RPN.POST_NMS_TOPK_TEST
@@ -118,6 +136,7 @@ def rpn_forward(
     strides_map = feature_strides(cfg)
     feats = [features[f] for f in in_features]
     device = feats[0].device
+    nb = feats[0].shape[0]
     anchors = head.anchors([(f.shape[-2], f.shape[-1]) for f in feats],
                            [strides_map[f] for f in in_features], cfg, device)
 
@@ -130,11 +149,12 @@ def rpn_forward(
             t = to_nchw(link(head.conv, to_s8_nhwc(feat, s_in), s_in, relu=True), feat.dtype)
         else:
             t = F.relu(head.conv(feat))
-        # NCHW -> the JAX package's (y, x, a) order (rpn.py:117-127):
-        # objectness (A, H, W) -> (H*W*A,); deltas channel a*4+d -> (H*W*A, 4)
-        logits = head.objectness_logits(t)[0].permute(1, 2, 0).reshape(-1)
-        deltas = head.anchor_deltas(t)[0].permute(1, 2, 0).reshape(-1, 4)
-        hwa = logits.shape[0]
+        # NCHW -> the JAX package's (y, x, a) order (rpn.py:117-127), per
+        # frame: objectness (A, H, W) -> (H*W*A,); deltas channel a*4+d ->
+        # (H*W*A, 4)
+        logits = head.objectness_logits(t).permute(0, 2, 3, 1).reshape(nb, -1)
+        deltas = head.anchor_deltas(t).permute(0, 2, 3, 1).reshape(nb, -1, 4)
+        hwa = logits.shape[1]
         k = min(hwa, pre_topk)
         logits = logits.float()
         if anchor_valid_hw is not None:
@@ -142,23 +162,25 @@ def rpn_forward(
             cx = (anc[:, 0] + anc[:, 2]) * 0.5
             cy = (anc[:, 1] + anc[:, 3]) * 0.5
             logits = torch.where((cx < vw) & (cy < vh), logits, torch.full_like(logits, _NEG))
-        top_scores, top_idx = top_k(logits, k)
-        boxes = apply_deltas(deltas[top_idx], anc[top_idx], weights)
+        top_scores, top_idx = top_k(logits, k)  # (B, k)
+        boxes = apply_deltas(torch.take_along_dim(deltas, top_idx[..., None], dim=1)
+                             .reshape(-1, 4), anc[top_idx].reshape(-1, 4),
+                             weights).reshape(nb, k, 4)
 
         pad = max_k - k
         if pad:
-            boxes = torch.cat([boxes, boxes.new_zeros((pad, 4))])
-            top_scores = torch.cat([top_scores, top_scores.new_full((pad,), _NEG)])
-        valid = torch.arange(max_k, device=device) < k
+            boxes = torch.cat([boxes, boxes.new_zeros((nb, pad, 4))], dim=1)
+            top_scores = torch.cat([top_scores, top_scores.new_full((nb, pad), _NEG)], dim=1)
+        valid = (torch.arange(max_k, device=device) < k).expand(nb, max_k)
         if anchor_valid_hw is not None:
-            valid &= top_scores > _NEG / 2
+            valid = valid & (top_scores > _NEG / 2)
         lvl_boxes.append(boxes)
         lvl_scores.append(top_scores)
         lvl_valid.append(valid)
 
-    boxes = torch.stack(lvl_boxes)     # (L, K, 4)
-    scores = torch.stack(lvl_scores)   # (L, K)
-    valid = torch.stack(lvl_valid)     # (L, K)
+    boxes = torch.stack(lvl_boxes, dim=1)     # (B, L, K, 4)
+    scores = torch.stack(lvl_scores, dim=1)   # (B, L, K)
+    valid = torch.stack(lvl_valid, dim=1)     # (B, L, K)
 
     # validity: finite boxes and scores (proposal_utils.py:102-110)
     valid = valid & torch.isfinite(boxes).all(-1) & torch.isfinite(scores)
@@ -167,18 +189,19 @@ def rpn_forward(
     valid = valid & nonempty_boxes(boxes, float(cfg.MODEL.PROPOSAL_GENERATOR.MIN_SIZE))
 
     # per-level NMS == the reference's level-offset batched NMS; one K1 launch
+    # over every (frame, level) problem
     keep = nms_mask(boxes, scores, valid, cfg.MODEL.RPN.NMS_THRESH)
 
-    flat_boxes = boxes.reshape(-1, 4)
+    flat_boxes = boxes.reshape(nb, -1, 4)
     flat_scores = torch.where(keep & valid, scores,
-                              torch.full_like(scores, _NEG)).reshape(-1)
-    k_out = min(post_topk, flat_scores.shape[0])
+                              torch.full_like(scores, _NEG)).reshape(nb, -1)
+    k_out = min(post_topk, flat_scores.shape[1])
     out_scores, out_idx = top_k(flat_scores, k_out)
-    out_boxes = flat_boxes[out_idx]
+    out_boxes = torch.take_along_dim(flat_boxes, out_idx[..., None], dim=1)
     out_valid = out_scores > _NEG / 2
     if k_out < post_topk:
         padn = post_topk - k_out
-        out_boxes = torch.cat([out_boxes, out_boxes.new_zeros((padn, 4))])
-        out_scores = torch.cat([out_scores, out_scores.new_full((padn,), _NEG)])
-        out_valid = torch.cat([out_valid, out_valid.new_zeros((padn,))])
+        out_boxes = torch.cat([out_boxes, out_boxes.new_zeros((nb, padn, 4))], dim=1)
+        out_scores = torch.cat([out_scores, out_scores.new_full((nb, padn), _NEG)], dim=1)
+        out_valid = torch.cat([out_valid, out_valid.new_zeros((nb, padn))], dim=1)
     return out_boxes, out_scores, out_valid

@@ -46,7 +46,8 @@ _LIB = torch.library.Library(NAMESPACE, "DEF")
 _LIB.define("nms_keep(Tensor boxes, Tensor valid, float iou_threshold, Tensor? classes) "
             "-> Tensor")
 _ROI_ALIGN_ARGS = ("(Tensor[] feats, Tensor boxes, Tensor levels, float[] scales, "
-                   "int[2] output_size, int sampling_ratio, bool aligned) -> Tensor")
+                   "int[2] output_size, int sampling_ratio, bool aligned, "
+                   "Tensor? frames=None) -> Tensor")
 _LIB.define("roi_align" + _ROI_ALIGN_ARGS)
 _LIB.define("roi_align_sparse" + _ROI_ALIGN_ARGS)
 _LIB.define("conv_s8(Tensor qx, Tensor qw, Tensor? qb, Tensor? vec, int[2] stride, "
@@ -79,31 +80,35 @@ _register("nms_keep", _nms_cpu, _nms_cuda, _nms_fake)
 
 # -- K2 and K3 -----------------------------------------------------------------
 
-def _roi_align_cpu(feats, boxes, levels, scales, output_size, sampling_ratio, aligned):
+def _roi_align_cpu(feats, boxes, levels, scales, output_size, sampling_ratio, aligned,
+                   frames=None):
     return roi_align.roi_align_plain(feats, boxes, levels, scales, tuple(output_size),
-                                     sampling_ratio, aligned)
+                                     sampling_ratio, aligned, frames)
 
 
-def _roi_align_cuda(feats, boxes, levels, scales, output_size, sampling_ratio, aligned):
+def _roi_align_cuda(feats, boxes, levels, scales, output_size, sampling_ratio, aligned,
+                    frames=None):
     return roi_align.roi_align_cuda(feats, boxes, levels, scales, tuple(output_size),
-                                    sampling_ratio, aligned)
+                                    sampling_ratio, aligned, frames)
 
 
 def _roi_align_sparse_cpu(feats, boxes, levels, scales, output_size, sampling_ratio,
-                          aligned):
+                          aligned, frames=None):
     return roi_align_sparse.roi_align_sparse_plain(feats, boxes, levels, scales,
-                                                   tuple(output_size), sampling_ratio, aligned)
+                                                   tuple(output_size), sampling_ratio, aligned,
+                                                   frames)
 
 
 def _roi_align_sparse_cuda(feats, boxes, levels, scales, output_size, sampling_ratio,
-                           aligned):
+                           aligned, frames=None):
     return roi_align_sparse.roi_align_sparse_cuda(feats, boxes, levels, scales,
-                                                  tuple(output_size), sampling_ratio, aligned)
+                                                  tuple(output_size), sampling_ratio, aligned,
+                                                  frames)
 
 
 def _roi_align_fake(feats: List[torch.Tensor], boxes, levels, scales, output_size,
-                    sampling_ratio, aligned):
-    return feats[0].new_empty((boxes.shape[0], feats[0].shape[0], *output_size))
+                    sampling_ratio, aligned, frames: Optional[torch.Tensor] = None):
+    return feats[0].new_empty((boxes.shape[0], feats[0].shape[-3], *output_size))
 
 
 _register("roi_align", _roi_align_cpu, _roi_align_cuda, _roi_align_fake)

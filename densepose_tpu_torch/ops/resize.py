@@ -20,6 +20,7 @@ with ratio = 1/scale_factor when a scale is given, else H_in / H_out.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -52,27 +53,35 @@ def resize_image(
     out_hw: Tuple[int, int],
     scale: Optional[Tuple[float, float]] = None,
 ) -> torch.Tensor:
-    """(H, W, C) uint8 or float image -> (H_out, W_out, C) float32.
+    """(..., H, W, C) uint8 or float images -> (..., H_out, W_out, C) float32
+    (a batch of same-shaped frames shares the tables).
 
     H pass then W pass, each ``a * w0 + b * w1`` as two rounded products and
     one rounded sum (separate elementwise kernels, so nothing is fused into an
     FMA): bit-identical to the JAX package's preprocess resize."""
-    h_in, w_in = image.shape[0], image.shape[1]
+    h_in, w_in = image.shape[-3], image.shape[-2]
     h_out, w_out = out_hw
     sh, sw = scale if scale is not None else (None, None)
     dev = image.device
 
-    i0, i1, w0, w1 = _axis_weights(h_in, h_out, sh)
-    ya = image.index_select(0, torch.from_numpy(i0).to(dev)).float()
-    yb = image.index_select(0, torch.from_numpy(i1).to(dev)).float()
-    y = (ya * torch.from_numpy(w0).to(dev)[:, None, None]
-         + yb * torch.from_numpy(w1).to(dev)[:, None, None])
+    i0, i1, w0, w1 = _device_weights(h_in, h_out, sh, dev)
+    ya = image.index_select(-3, i0).float()
+    yb = image.index_select(-3, i1).float()
+    y = ya * w0[:, None, None] + yb * w1[:, None, None]
 
-    j0, j1, v0, v1 = _axis_weights(w_in, w_out, sw)
-    ya = y.index_select(1, torch.from_numpy(j0).to(dev))
-    yb = y.index_select(1, torch.from_numpy(j1).to(dev))
-    return (ya * torch.from_numpy(v0).to(dev)[None, :, None]
-            + yb * torch.from_numpy(v1).to(dev)[None, :, None])
+    j0, j1, v0, v1 = _device_weights(w_in, w_out, sw, dev)
+    ya = y.index_select(-2, j0)
+    yb = y.index_select(-2, j1)
+    return ya * v0[None, :, None] + yb * v1[None, :, None]
+
+
+@functools.lru_cache(maxsize=64)
+def _device_weights(in_size: int, out_size: int, scale: Optional[float], device):
+    """``_axis_weights`` as tensors on ``device``, made once per geometry: a
+    copy from pageable host memory waits for the device's queued work, so a
+    request that made them anew would stall its host until the previous
+    request finished."""
+    return tuple(torch.from_numpy(a).to(device) for a in _axis_weights(in_size, out_size, scale))
 
 
 def resize_bilinear_np(x: np.ndarray, out_hw: Tuple[int, int],

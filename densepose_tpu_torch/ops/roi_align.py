@@ -15,6 +15,15 @@ XYXY in input-image coordinates, levels (M,) int32, output (M, C, oh, ow).
 (The JAX package takes (H, W, C) levels and returns (M, oh, ow, C); the tests
 permute explicitly.)
 
+Batched frames (``models/rcnn.py::forward_batch``): the levels may be
+(N, C, H, W), one map a frame, with ``frames`` (M,) int32 naming each box's
+frame, so that one call pools the boxes of every frame; a box pools exactly
+what the call on its own frame's (C, H, W) levels gives it. Without
+``frames`` the levels hold one frame, (C, H, W) or (1, C, H, W), as before.
+The kernels do not read the index on the host (that would wait for the
+device); a frame outside [0, N) pools zeros there, and the plain version
+raises on it for CPU tensors.
+
 Dtypes: the levels are float32, float16 or bfloat16 (TPU.COMPUTE_DTYPE), all
 of one dtype, and the output has theirs. Boxes, sample weights and sums are
 float32; each output is rounded to the levels' dtype once, at the end, as the
@@ -38,7 +47,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -129,6 +138,19 @@ def box_samples(boxes, scale_b, h_b, w_b, output_size, sampling_ratio, aligned):
     return ys, xs, g, count
 
 
+def frame_count(feats: List[torch.Tensor], frames=None) -> int:
+    """The frames N that every level holds: (C, H, W) levels hold one,
+    (N, C, H, W) levels N. N > 1 needs a frame index. Raises ValueError."""
+    ns = {f.shape[0] if f.dim() == 4 else 1 for f in feats}
+    if len(ns) != 1 or any(f.dim() not in (3, 4) for f in feats):
+        raise ValueError(f"levels must all be (C, H, W) or all (N, C, H, W) with one N, got "
+                         f"{[tuple(f.shape) for f in feats]}")
+    n = ns.pop()
+    if n > 1 and frames is None:
+        raise ValueError(f"levels of {n} frames need a frame index per box")
+    return n
+
+
 def roi_align_plain(
     feats: List[torch.Tensor],
     boxes: torch.Tensor,
@@ -137,22 +159,32 @@ def roi_align_plain(
     output_size: Tuple[int, int],
     sampling_ratio: int,
     aligned: bool,
+    frames: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of K2: each box gathers its taps from its
-    level of the flattened (C, H, W) pyramid, widens them to fp32 and sums
+    level of its frame in the flattened pyramid, widens them to fp32 and sums
     them in fp32, in the JAX package's order, then divides by its sample
     count and rounds to the levels' dtype."""
     out_h, out_w = output_size
-    c = feats[0].shape[0]
+    n = frame_count(feats, frames)
+    feats = [f if f.dim() == 4 else f[None] for f in feats]
+    c = feats[0].shape[1]
     dev = boxes.device
-    flat = torch.cat([f.reshape(c, -1) for f in feats], dim=1)
-    hs = np.array([f.shape[1] for f in feats], dtype=np.int64)
-    ws = np.array([f.shape[2] for f in feats], dtype=np.int64)
-    offs = np.concatenate([[0], np.cumsum(hs * ws)[:-1]])
+    # per level (C, N * H * W), frame-major within the level
+    flat = torch.cat([f.transpose(0, 1).reshape(c, -1) for f in feats], dim=1)
+    hs = np.array([f.shape[2] for f in feats], dtype=np.int64)
+    ws = np.array([f.shape[3] for f in feats], dtype=np.int64)
+    offs = np.concatenate([[0], np.cumsum(n * hs * ws)[:-1]])
     levels = levels.long()
     h_b = torch.from_numpy(hs).to(dev)[levels]
     w_b = torch.from_numpy(ws).to(dev)[levels]
     off_b = torch.from_numpy(offs).to(dev)[levels]
+    if frames is not None:
+        frames = frames.long()
+        if dev.type == "cpu" and len(frames) and not 0 <= int(frames.min()) <= \
+                int(frames.max()) < n:
+            raise ValueError(f"a frame index outside [0, {n})")
+        off_b = off_b + frames * h_b * w_b
     scale_b = torch.tensor(scales, dtype=torch.float32, device=dev)[levels]
 
     ys, xs, g, count = box_samples(boxes.float(), scale_b, h_b.float(), w_b.float(),
@@ -188,10 +220,10 @@ def roi_align_plain(
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 # the C signature of K2's and K3's entry points: per-level pointers, heights,
-# widths, scales; the level count; boxes, levels, out; m, c, oh, ow, ratio,
-# aligned, the dtype code; the stream
-ENTRY_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+# widths, scales; the level count; boxes, levels, frames (or null), out; the
+# frame count, m, c, oh, ow, ratio, aligned, the dtype code; the stream
+ENTRY_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+                  + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -205,32 +237,37 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def check_cuda_inputs(feats, boxes, levels, scales) -> None:
+def check_cuda_inputs(feats, boxes, levels, scales, frames=None) -> int:
     """What the ROIAlign kernels (K2, K3) take: per level a contiguous
-    (C, H, W) CUDA tensor of float32, float16 or bfloat16, the same dtype for
-    all, and a scale; boxes (M, 4) float32 and levels (M,) int32,
-    contiguous, all on one device. Raises ValueError."""
+    (C, H, W) or (N, C, H, W) CUDA tensor of float32, float16 or bfloat16,
+    the same dtype and N for all, and a scale; boxes (M, 4) float32, levels
+    (M,) int32 and, where N > 1, frames (M,) int32, contiguous, all on one
+    device (the frames' values are not read: that would wait for the
+    device). Returns N. Raises ValueError."""
     n = len(feats)
     if n < 1 or len(scales) != n:
         raise ValueError(f"need one scale per level, got {n} levels and "
                          f"{len(scales)} scales")
+    n_frames = frame_count(feats, frames)
     dev = boxes.device
-    c, dtype = feats[0].shape[0], feats[0].dtype
+    c, dtype = feats[0].shape[-3], feats[0].dtype
     if dtype not in DTYPE_CODES:
         raise ValueError(f"levels must be float32, float16 or bfloat16, got {dtype}")
     for i, f in enumerate(feats):
         if (not f.is_cuda or f.device != dev or f.dtype != dtype
-                or f.dim() != 3 or f.shape[0] != c or not f.is_contiguous()):
-            raise ValueError(f"level {i} must be a contiguous ({c}, H, W) {dtype} "
-                             f"CUDA tensor on {dev}, got {f.dtype} {tuple(f.shape)}")
+                or f.shape[-3] != c or not f.is_contiguous()):
+            raise ValueError(f"level {i} must be a contiguous ({c}, H, W) or (N, {c}, H, W) "
+                             f"{dtype} CUDA tensor on {dev}, got {f.dtype} {tuple(f.shape)}")
     if (not boxes.is_cuda or boxes.dtype != torch.float32 or boxes.dim() != 2
             or boxes.shape[1] != 4 or not boxes.is_contiguous()):
         raise ValueError(f"boxes must be contiguous (M, 4) float32 on CUDA, got "
                          f"{boxes.dtype} {tuple(boxes.shape)}")
     m = boxes.shape[0]
-    if (levels.device != dev or levels.dtype != torch.int32
-            or tuple(levels.shape) != (m,) or not levels.is_contiguous()):
-        raise ValueError(f"levels must be contiguous ({m},) int32 on {dev}")
+    for name, t in (("levels", levels), ("frames", frames)):
+        if t is not None and (t.device != dev or t.dtype != torch.int32
+                              or tuple(t.shape) != (m,) or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous ({m},) int32 on {dev}")
+    return n_frames
 
 
 def level_args(feats, scales):
@@ -238,8 +275,8 @@ def level_args(feats, scales):
     device pointers, heights, widths and scales, and the level count."""
     n = len(feats)
     return ((ctypes.c_void_p * n)(*[f.data_ptr() for f in feats]),
-            (ctypes.c_int * n)(*[f.shape[1] for f in feats]),
-            (ctypes.c_int * n)(*[f.shape[2] for f in feats]),
+            (ctypes.c_int * n)(*[f.shape[-2] for f in feats]),
+            (ctypes.c_int * n)(*[f.shape[-1] for f in feats]),
             (ctypes.c_float * n)(*[float(s) for s in scales]), n)
 
 
@@ -251,16 +288,17 @@ def roi_align_cuda(
     output_size: Tuple[int, int],
     sampling_ratio: int,
     aligned: bool,
+    frames: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Kernel K2 on CUDA tensors: feats per level (C, H, W) contiguous, all
-    float32, float16 or bfloat16; boxes (M, 4) f32, levels (M,) i32, all on
-    one device; sampling_ratio 0 is the adaptive count. Returns (M, C, oh, ow)
-    in the levels' dtype. Raises if the inputs do not fit or the launch
-    fails."""
-    check_cuda_inputs(feats, boxes, levels, scales)
+    """Kernel K2 on CUDA tensors, one launch: feats per level (C, H, W), or
+    (N, C, H, W) with ``frames`` (M,) i32, contiguous, all float32, float16
+    or bfloat16; boxes (M, 4) f32, levels (M,) i32, all on one device;
+    sampling_ratio 0 is the adaptive count. Returns (M, C, oh, ow) in the
+    levels' dtype. Raises if the inputs do not fit or the launch fails."""
+    n_frames = check_cuda_inputs(feats, boxes, levels, scales, frames)
     if sampling_ratio < 0:
         raise ValueError(f"K2 takes a sampling_ratio >= 0, got {sampling_ratio}")
-    n, m, c = len(feats), boxes.shape[0], feats[0].shape[0]
+    n, m, c = len(feats), boxes.shape[0], feats[0].shape[-3]
     dev = boxes.device
     lib = _lib()
     if n > lib.dp_roi_align_max_levels():
@@ -274,8 +312,8 @@ def roi_align_cuda(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dp_roi_align(*level_args(feats, scales), boxes.data_ptr(),
-                               levels.data_ptr(), out.data_ptr(), m, c, oh, ow,
-                               int(sampling_ratio), int(bool(aligned)),
+                               levels.data_ptr(), frame_ptr(frames), out.data_ptr(), n_frames,
+                               m, c, oh, ow, int(sampling_ratio), int(bool(aligned)),
                                DTYPE_CODES[out.dtype], stream)
     if err != 0:
         raise RuntimeError(f"roi_align_cuda launch failed: cudaError {err}")
@@ -286,6 +324,11 @@ def roi_align_cuda(
 roi_align_cuda.launches = 0
 
 
+def frame_ptr(frames: Optional[torch.Tensor]):
+    """The kernels' frame-index argument: its device pointer, or null."""
+    return None if frames is None else frames.data_ptr()
+
+
 def roi_align_multilevel(
     feats: List[torch.Tensor],
     boxes: torch.Tensor,
@@ -294,9 +337,11 @@ def roi_align_multilevel(
     output_size: Tuple[int, int],
     sampling_ratio: int,
     aligned: bool,
+    frames: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Pool each box from its assigned level. Returns (M, C, oh, ow) in the
-    levels' dtype.
+    """Pool each box from its assigned level (of its frame, where the
+    levels are (N, C, H, W) and ``frames`` names it). Returns (M, C, oh, ow)
+    in the levels' dtype.
 
     K2 for CUDA tensors and the plain version for CPU tensors; with
     ``DENSEPOSE_TPU_SPARSE_POOLER`` set and a fixed ratio, the skip-flag
@@ -305,18 +350,28 @@ def roi_align_multilevel(
     if sampling_ratio > 0 and os.environ.get("DENSEPOSE_TPU_SPARSE_POOLER"):
         from .roi_align_sparse import roi_align_sparse
         return roi_align_sparse(feats, boxes, levels, scales, output_size, sampling_ratio,
-                                aligned)
+                                aligned, frames)
     return _roi_align_gather(feats, boxes, levels, scales, output_size, sampling_ratio,
-                             aligned)
+                             aligned, frames)
 
 
-def _roi_align_gather(feats, boxes, levels, scales, output_size, sampling_ratio, aligned):
+def call_args(feats, boxes, levels, scales, output_size, sampling_ratio, aligned, frames):
+    """The ROIAlign kernels' positional arguments as their wrappers and
+    operators take them: contiguous tensors of the kernels' dtypes, plain
+    Python lists, and the frame index (or None) last."""
+    return ([f.contiguous() for f in feats], boxes.float().contiguous(),
+            levels.int().contiguous(), [float(s) for s in scales], list(output_size),
+            int(sampling_ratio), bool(aligned),
+            None if frames is None else frames.int().contiguous())
+
+
+def _roi_align_gather(feats, boxes, levels, scales, output_size, sampling_ratio, aligned,
+                      frames=None):
     """K2 for CUDA tensors, its plain version for CPU tensors; while
     ``torch.export`` traces, through the operator
     ``densepose_tpu_torch::roi_align`` (``ops/library.py``)."""
-    args = ([f.contiguous() for f in feats], boxes.float().contiguous(),
-            levels.int().contiguous(), [float(s) for s in scales], list(output_size),
-            int(sampling_ratio), bool(aligned))
+    args = call_args(feats, boxes, levels, scales, output_size, sampling_ratio, aligned,
+                     frames)
     if torch.compiler.is_exporting():
         return torch.ops.densepose_tpu_torch.roi_align(*args)
     if boxes.is_cuda:
@@ -333,10 +388,12 @@ def roi_align_single(
     output_size: Tuple[int, int],
     sampling_ratio: int,
     aligned: bool,
+    frames: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Single-level ROIAlign (the decoder-path DensePose pooler) of one
-    (C, H, W) map: always K2 (or its plain version), as the JAX package's
-    ``roi_align_single`` never reads the sparse-pooler switch."""
+    (C, H, W) map, or of (N, C, H, W) maps with ``frames``: always K2 (or its
+    plain version), as the JAX package's ``roi_align_single`` never reads the
+    sparse-pooler switch."""
     levels = torch.zeros((boxes.shape[0],), dtype=torch.int32, device=boxes.device)
     return _roi_align_gather([feat], boxes, levels, [scale], output_size, sampling_ratio,
-                             aligned)
+                             aligned, frames)

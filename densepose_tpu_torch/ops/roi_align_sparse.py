@@ -21,6 +21,10 @@ taps per axis and divide by the ratio. The schedule is the JAX package's:
 
 Layouts are the port's: (C, H, W) levels, boxes (M, 4) XYXY in input-image
 coordinates, levels (M,) int, output (M, C, oh, ow) in the levels' dtype.
+Batched frames, as in ``ops/roi_align.py``: (N, C, H, W) levels and a frame
+index (M,) int32. The schedule then sorts by the key (frame, level, x) and
+cuts each frame's boxes into chunks of their own, so each box is pooled as
+the call on its own frame pools it.
 
 At a half dtype (float16 or bfloat16, TPU.COMPUTE_DTYPE) both versions round
 where the Pallas kernel does (roi_align_kernel.py:288, :291, :174-176,
@@ -29,9 +33,9 @@ where the Pallas kernel does (roi_align_kernel.py:288, :291, :174-176,
 partials sum in fp32, and the output is rounded to the dtype once.
 
 For CUDA tensors the pooling is kernel K3 (``csrc/roi_align_sparse.cu``), one
-launch per call: each box contracts only the nonzero entries of its own rows
-(``sparse_axis_rows``), so on the card the sort and the flags would skip
-nothing, and the kernel has neither. For CPU tensors it is
+launch per call, every frame's boxes in it: each box contracts only the
+nonzero entries of its own rows (``sparse_axis_rows``), so on the card the
+sort and the flags would skip nothing, and the kernel has neither. For CPU tensors it is
 ``roi_align_sparse_plain``, which keeps the JAX schedule: it builds the dense
 weight rows and runs the per-(chunk, tile) contraction in PyTorch.
 """
@@ -40,14 +44,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from .boxes import true_div
 from .cuda_build import library
-from .roi_align import (DTYPE_CODES, ENTRY_ARGTYPES, _axis_samples, _roi_geometry,
-                        check_cuda_inputs, level_args)
+from .roi_align import (DTYPE_CODES, ENTRY_ARGTYPES, _axis_samples, _roi_geometry, call_args,
+                        check_cuda_inputs, frame_count, frame_ptr, level_args)
 
 CHUNK = 128  # boxes per chunk (roi_align_kernel.py:155, CHUNK_S)
 TILE = 8     # feature columns per tile (roi_align_kernel.py:156, TW_S)
@@ -174,11 +178,35 @@ def roi_align_sparse_plain(
     output_size: Tuple[int, int],
     sampling_ratio: int,
     aligned: bool,
+    frames: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of K3: per level and active (chunk, tile)
     pair, rows = Wy . feat_tile in fp32, rounded to the levels' dtype, then
     out += Wx_tile . rows in fp32; inactive pairs are skipped. Returns
-    (M, C, oh, ow) in the caller's order, rounded to the levels' dtype."""
+    (M, C, oh, ow) in the caller's order, rounded to the levels' dtype.
+    With (N, C, H, W) levels and ``frames``, frame by frame (the sort key
+    (frame, level, x), each frame's boxes in chunks of their own), reading
+    the frame index on the host."""
+    n = frame_count(feats, frames)
+    feats = [f if f.dim() == 4 else f[None] for f in feats]
+    if frames is None:
+        return _sparse_plain_frame([f[0] for f in feats], boxes, levels, scales, output_size,
+                                   sampling_ratio, aligned)
+    fr = frames.long().cpu()
+    if len(fr) and not 0 <= int(fr.min()) <= int(fr.max()) < n:
+        raise ValueError(f"a frame index outside [0, {n})")
+    out = torch.empty((boxes.shape[0], feats[0].shape[1], *output_size),
+                      dtype=feats[0].dtype, device=boxes.device)
+    for i in range(n):
+        sel = (fr == i).nonzero()[:, 0].to(boxes.device)
+        if len(sel):
+            out[sel] = _sparse_plain_frame([f[i] for f in feats], boxes[sel], levels[sel],
+                                           scales, output_size, sampling_ratio, aligned)
+    return out
+
+
+def _sparse_plain_frame(feats, boxes, levels, scales, output_size, sampling_ratio, aligned):
+    """``roi_align_sparse_plain`` of one frame's (C, H, W) levels."""
     out_h, out_w = output_size
     m = boxes.shape[0]
     c = feats[0].shape[0]
@@ -216,22 +244,24 @@ def roi_align_sparse_cuda(
     output_size: Tuple[int, int],
     sampling_ratio: int,
     aligned: bool,
+    frames: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Kernel K3 on CUDA tensors, in one launch: feats per level (C, H, W)
-    contiguous, all float32, float16 or bfloat16; boxes (M, 4) f32, levels
-    (M,) i32, all on one device. Returns (M, C, oh, ow) in the levels' dtype,
-    in the caller's order; a box whose level is not in [0, len(feats)) gets
-    zeros. No sort and no flag table: on the card the flags skip nothing
-    (``csrc/roi_align_sparse.cu``). Raises if the inputs do not fit or the
-    launch fails."""
-    check_cuda_inputs(feats, boxes, levels, scales)
+    """Kernel K3 on CUDA tensors, in one launch: feats per level (C, H, W),
+    or (N, C, H, W) with ``frames`` (M,) i32, contiguous, all float32,
+    float16 or bfloat16; boxes (M, 4) f32, levels (M,) i32, all on one
+    device. Returns (M, C, oh, ow) in the levels' dtype, in the caller's
+    order; a box whose level is not in [0, len(feats)), or whose frame is
+    not in [0, N), gets zeros. No sort and no flag table: on the card the
+    flags skip nothing (``csrc/roi_align_sparse.cu``). Raises if the inputs
+    do not fit or the launch fails."""
+    n_frames = check_cuda_inputs(feats, boxes, levels, scales, frames)
     lib = _lib()
     if len(feats) > lib.dp_roi_align_sparse_max_levels():
         raise ValueError(f"K3 takes at most {lib.dp_roi_align_sparse_max_levels()} levels")
     if not 0 < sampling_ratio <= lib.dp_roi_align_sparse_max_ratio():
         raise ValueError(f"K3 takes a fixed sampling_ratio in 1.."
                          f"{lib.dp_roi_align_sparse_max_ratio()}, got {sampling_ratio}")
-    m, c = boxes.shape[0], feats[0].shape[0]
+    m, c = boxes.shape[0], feats[0].shape[-3]
     oh, ow = output_size
     out = torch.empty((m, c, oh, ow), dtype=feats[0].dtype, device=boxes.device)
     if out.numel() == 0:
@@ -239,9 +269,9 @@ def roi_align_sparse_cuda(
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = lib.dp_roi_align_sparse(*level_args(feats, scales), boxes.data_ptr(),
-                                      levels.data_ptr(), out.data_ptr(), m, c, oh, ow,
-                                      int(sampling_ratio), int(bool(aligned)),
-                                      DTYPE_CODES[out.dtype], stream)
+                                      levels.data_ptr(), frame_ptr(frames), out.data_ptr(),
+                                      n_frames, m, c, oh, ow, int(sampling_ratio),
+                                      int(bool(aligned)), DTYPE_CODES[out.dtype], stream)
     if err != 0:
         raise RuntimeError(f"roi_align_sparse_cuda launch failed: cudaError {err}")
     roi_align_sparse_cuda.launches += 1
@@ -259,17 +289,18 @@ def roi_align_sparse(
     output_size: Tuple[int, int],
     sampling_ratio: int,
     aligned: bool,
+    frames: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The skip-flag pooler: K3 for CUDA tensors, its plain version for CPU
     tensors; while ``torch.export`` traces, through the operator
     ``densepose_tpu_torch::roi_align_sparse`` (``ops/library.py``). Returns
-    (M, C, oh, ow) in the levels' dtype."""
+    (M, C, oh, ow) in the levels' dtype; ``frames`` as in
+    ``roi_align_multilevel``."""
     if sampling_ratio <= 0:
         raise ValueError("the skip-flag pooler takes a fixed sampling_ratio > 0, as the JAX "
                          "package's does; ratio 0 takes the gather (roi_align_multilevel)")
-    args = ([f.contiguous() for f in feats], boxes.float().contiguous(),
-            levels.int().contiguous(), [float(s) for s in scales], list(output_size),
-            int(sampling_ratio), bool(aligned))
+    args = call_args(feats, boxes, levels, scales, output_size, sampling_ratio, aligned,
+                     frames)
     if torch.compiler.is_exporting():
         return torch.ops.densepose_tpu_torch.roi_align_sparse(*args)
     if boxes.is_cuda:

@@ -33,8 +33,21 @@ Two bucketing modes, as in the JAX package (predictor.py:96-109, 516-588):
   valid rows either way), and, as in the JAX package, the device
   postprocess does not run in this mode.
 
-The two are exclusive. ``predict_batch`` takes the per-shape path whatever
-the mode, as the JAX package's does.
+The two are exclusive. ``predict_batch`` bypasses both, as the JAX
+package's does.
+
+Batched frames (JAX predictor.py:593-616): ``predict_batch(images (B, H, W,
+3))`` runs the B frames as one batched forward (``GeneralizedRCNN.
+forward_batch``) and returns what the JAX package's ``predict_batch``
+returns: every output (B, ...), frame i's being the request of frame i with
+the switched DensePose stage and the device postprocess off whatever the
+config says (the JAX package vmaps ``forward`` with its defaults), so the
+raw maps of all D slots, (B, D, C, HEATMAP, HEATMAP), with no host sync. A
+CUDA predictor that sees more than one card, given a multiple of their
+count, splits the batch over them instead (``parallel/mesh.py::
+data_parallel_forward``), as the JAX package shards over its mesh.
+``numpy_outputs_batch`` fetches a batch's outputs once per key and returns
+each frame's ``numpy_outputs``.
 
 Compute dtype (``TPU.COMPUTE_DTYPE``): float32, float16 or bfloat16, the
 JAX package's policy (predictor.py:89-90, 147-152). After loading, every
@@ -94,8 +107,8 @@ from .checkpoint.pkl_loader import align_state_dicts, load_checkpoint_file
 from .checkpoint.transform import fold_state, random_torch_state
 from .models.fpn import fpn_int8_scale_sites
 from .models.hrnet import hrnet_int8_quant_bases, hrnet_int8_scale_sites
-from .models.rcnn import (GeneralizedRCNN, build_model, check_image, image_tensor,
-                          size_divisibility)
+from .models.rcnn import (GeneralizedRCNN, batch_tensor, build_model, check_image,
+                          image_tensor, size_divisibility)
 from .models.resnet import resnet_int8_scale_sites
 from .ops.conv_int8 import is_int8_key, is_scale_key, quantize_weight_int8, set_buffer
 from .ops.resize import resize_bilinear_np
@@ -120,6 +133,17 @@ def load_params(cfg, weights_path: Optional[str] = None, seed: int = 0,
     else:
         state = random_torch_state(spec, seed=seed)
     return fold_state(state, spec)
+
+
+def data_parallel_devices(device: torch.device) -> List[torch.device]:
+    """The devices ``predict_batch`` splits a batch over: for a CUDA
+    predictor every card this process sees, its own first (the outputs come
+    back there); otherwise its one device."""
+    if device.type != "cuda":
+        return [device]
+    n = torch.cuda.device_count()
+    first = device.index if device.index is not None else torch.cuda.current_device()
+    return [torch.device("cuda", (first + i) % n) for i in range(n)]
 
 
 class DensePosePredictor:
@@ -156,6 +180,7 @@ class DensePosePredictor:
         self.model.to(self.device).eval()
         self._int8_needed = int8_needed(cfg)
         self._int8_ready = False
+        self._data_parallel = None  # predict_batch's replicas, made at first need
         # where the installed scales came from: None | "explicit" | "sidecar"
         # | "auto-single-frame" (saturation_report diagnoses the last)
         self.calibration_source = None
@@ -239,20 +264,25 @@ class DensePosePredictor:
         return self.numpy_outputs(self(image_bgr_u8))
 
     @torch.inference_mode()
-    def predict_batch(self, images_bgr_u8: np.ndarray) -> Dict[str, torch.Tensor]:
-        """Same-shaped frames (B, H, W, 3) -> outputs stacked to (B, ...). The
-        model serves one frame at a time, so this runs the frames in turn on
-        the per-shape path (``GeneralizedRCNN.forward``), bypassing both
-        bucketing modes as the JAX package's ``predict_batch`` does; the stack
-        holds because every output then has a fixed size (the DensePose maps
-        are padded to D slots whatever bucket a frame takes)."""
-        images = np.asarray(images_bgr_u8)
-        if images.ndim != 4 or images.shape[-1] != 3:
-            raise ValueError(f"expected (B, H, W, 3) frames, got {images.shape}")
+    def predict_batch(self, images_bgr_u8) -> Dict[str, torch.Tensor]:
+        """Same-shaped frames (B, H, W, 3) uint8 BGR (numpy, or a tensor) ->
+        the JAX package's ``predict_batch`` outputs, (B, ...) each, on this
+        predictor's device: one batched forward (``forward_batch``: every
+        DensePose slot, raw maps, no host sync), bypassing both bucketing
+        modes. On more than one card, with B a multiple of their count, the
+        frames split over them (``data_parallel_forward`` over
+        ``data_parallel_devices``, this predictor's card first). An int8 mode
+        without its scales calibrates on the first frame."""
+        images = batch_tensor(images_bgr_u8, self.device)
         if self._int8_needed and not self._int8_ready:
             self._auto_calibrate(images[0])
-        outs = [self.model(image_tensor(image, self.device)) for image in images]
-        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        devices = data_parallel_devices(self.device)
+        if len(devices) > 1 and images.shape[0] % len(devices) == 0:
+            if self._data_parallel is None or self._data_parallel.devices != devices:
+                from .parallel.mesh import data_parallel_forward
+                self._data_parallel = data_parallel_forward(self.model, devices)
+            return self._data_parallel(images)
+        return self.model.forward_batch(images)
 
     # -- int8 calibration (JAX predictor.py:164-502) --------------------------
 
@@ -395,6 +425,7 @@ class DensePosePredictor:
             set_buffer(conv, "qweight", qw)
             set_buffer(conv, "wscale", sw)
         self._int8_ready = True
+        self._data_parallel = None  # replicas hold the state they were copied with
 
     def _int8_quant_bases(self, present) -> List[str]:
         """The convs to quantize, from which activation scales are in
@@ -605,6 +636,20 @@ class DensePosePredictor:
                 v.record_stream(side)  # its memory is not reused before the copy ends
                 setattr(v, _HOST_COPY, (host, done))
             done.record(side)
+
+    @staticmethod
+    def numpy_outputs_batch(outputs: Dict[str, torch.Tensor], keys=None, count=None,
+                            copy: bool = True) -> List[Dict[str, np.ndarray]]:
+        """``numpy_outputs`` of each frame of a batch's outputs (``predict_batch``):
+        each key crosses to the host once for the whole batch (through
+        ``start_fetch``'s pinned copy where one was started), then splits
+        into the first ``count`` frames (all of them by default; a padded
+        tail's rows are dropped)."""
+        DensePosePredictor.start_fetch(outputs, keys)
+        host = {k: _to_numpy(v) for k, v in fetch_subset(outputs, keys).items()}
+        n = len(next(iter(host.values()))) if count is None else count
+        return [DensePosePredictor.numpy_outputs({k: v[i] for k, v in host.items()}, keys,
+                                                 copy) for i in range(n)]
 
     @staticmethod
     def numpy_outputs(outputs: Dict[str, torch.Tensor], keys=None,

@@ -35,8 +35,10 @@ densepose_tpu_torch.export``, or the JAX package's export.py): its
 ``.config.json`` gives the config (``--fp32`` and ``--opts`` apply on top of
 it) and its ``.calib.json``, where there is one, the int8 scales.
 
-Batched video frames are not ported: ``--batch`` is accepted and a video runs
-frame by frame.
+``--batch N`` runs a video N frames a dispatch through
+``DensePosePredictor.predict_batch`` (one batched forward; on several cards,
+one shard a card), the tail group padded and trimmed; the default is the
+number of CUDA devices, and 1 on the CPU or under TTA.
 """
 
 from __future__ import annotations
@@ -161,8 +163,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="Force float32 compute, over the config's and --opts' "
                              "TPU.COMPUTE_DTYPE")
     parser.add_argument("--batch", type=int, default=0,
-                        help="Video frames per batch (accepted for the JAX CLI's contract; "
-                             "the port runs frame by frame on one device)")
+                        help="Video frames per batched dispatch (default: the number of "
+                             "CUDA devices; 1 on the CPU)")
     parser.add_argument("--opts", nargs="*", default=[],
                         help="Extra dotted-key config overrides")
     parser.add_argument("--profile", metavar="DIR", default="",
@@ -229,10 +231,7 @@ def _dispatch(args, predictor, visualizer) -> None:
 
     from .parallel.pipeline import run_video
     save_path = os.path.splitext(save_path)[0] + ".mp4"
-    if args.batch > 1:
-        print(f"note: --batch {args.batch}: the port runs frame by frame on one device; "
-              "batched video is not ported yet (ROADMAP.md queue 1)", file=sys.stderr)
-    run_video(predictor, visualizer, args.input, save_path)
+    run_video(predictor, visualizer, args.input, save_path, batch=args.batch)
 
 
 if __name__ == "__main__":

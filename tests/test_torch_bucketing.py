@@ -339,20 +339,35 @@ def check_two_stage(jpred, pred, img, bucket):
 @pytest.mark.parametrize("mode", ["geometry", "two_stage"])
 def test_predict_batch_takes_the_per_shape_path(jparams, geom, two_stage, mode):
     """predict_batch bypasses both bucketing modes, as the JAX package's
-    does: every frame on the per-shape path, D-slot maps, equal to an
-    unbucketed predictor's requests."""
+    does: every frame on the per-shape path, D-slot maps, equal to the
+    requests of an unbucketed predictor with TPU.SWITCHED_DENSEPOSE off (the
+    JAX ``predict_batch`` vmaps ``forward`` with the switched stage off,
+    predictor.py:612-616), and on the valid rows to its switched requests.
+    With oneDNN off the CPU's convolutions compute each frame and row alone,
+    so a batch of two equals the single frames bit for bit."""
     pred = geom[1] if mode == "geometry" else two_stage[1]
     _, plain_cfg = cfg_pair()
-    plain = DensePosePredictor(plain_cfg, device="cpu", params=params_from_jax(jparams))
+    _, mono_cfg = cfg_pair("TPU.SWITCHED_DENSEPOSE", False)
+    params = params_from_jax(jparams)
+    plain = DensePosePredictor(plain_cfg, device="cpu", params=params)
+    mono = DensePosePredictor(mono_cfg, device="cpu", params=params)
     frames = np.stack([image(s, 60, 80) for s in (71, 72)])
-    batch = pred.predict_batch(frames)
     d = pred.cfg.TEST.DETECTIONS_PER_IMAGE
-    for i, f in enumerate(frames):
-        want = plain(f)
-        assert sorted(batch) == sorted(want)
-        for k, v in want.items():
-            assert torch.equal(batch[k][i], v), k
-        assert batch["pred_densepose_u"].shape[1] == d
+    with torch.backends.mkldnn.flags(enabled=False):
+        batch = pred.predict_batch(frames)
+        for i, f in enumerate(frames):
+            want, switched = mono(f), plain(f)
+            assert sorted(batch) == sorted(want) == sorted(switched)
+            for k, v in want.items():
+                assert torch.equal(batch[k][i], v), k
+            n = int(switched["num_instances"])
+            for k, v in switched.items():  # detections exact, the valid rows' maps
+                if k.startswith("pred_densepose_"):
+                    np.testing.assert_allclose(batch[k][i][:n].numpy(), v[:n].numpy(),
+                                               atol=ATOL, rtol=RTOL, err_msg=k)
+                else:
+                    assert torch.equal(batch[k][i], v), k
+            assert batch["pred_densepose_u"].shape[1] == d
 
 
 def test_anchor_cache_alternating_geometries(jparams):

@@ -33,6 +33,16 @@ the card; and a small flagship request exported as a program
 exact, maps within SERVED_AGAIN_TOL (cuDNN's transposed convolutions add
 with atomics), the program's K1 and K2 launches counted.
 
+Batched frames: K2 and K3 on (N, C, H, W) levels with a frame index per box,
+one launch for every frame, against their plain versions as above and
+against the kernel on each frame's levels alone (bit for bit: a box's output
+does not depend on the other boxes); Q1 at N = 3 images equal to each image
+alone; and a small predictor's ``predict_batch`` (one batched forward, 2 K1
+and 2 K2 launches) against ``forward_batch`` of each frame alone, with cuDNN
+off so that the convolutions compute each frame alone: detections exact,
+maps within SERVED_AGAIN_TOL; ``data_parallel_forward`` with two replicas on
+the card the same.
+
 At a half dtype (float16, bfloat16): K2<T> bit-identical to K2 on the
 widened levels rounded to T (only its loads and its store change), and to
 its plain version at T; K3<T> within one unit in the last place of T, at the
@@ -52,7 +62,7 @@ import torch
 from densepose_tpu_torch.models.rcnn import image_tensor
 from densepose_tpu_torch.ops import conv_int8, cuda_build, nms, roi_align, roi_align_sparse
 from torch_cases import (  # tests/ is on the path (rootdir insertion)
-    k1_edge_cases, k3_edge_cases, op_args, op_cases, unit_variance_)
+    batched_pooler_cases, k1_edge_cases, k3_edge_cases, op_args, op_cases, unit_variance_)
 
 torch.set_num_threads(2)
 
@@ -553,10 +563,10 @@ def test_hrnet_request_on_card(cuda, dtype, monkeypatch):
         held.append("K1")
         return keep
 
-    def held_k2(feats, boxes, levels, scales, out_hw, ratio, aligned):
-        out = k2(feats, boxes, levels, scales, out_hw, ratio, aligned)
+    def held_k2(feats, boxes, levels, scales, out_hw, ratio, aligned, frames=None):
+        out = k2(feats, boxes, levels, scales, out_hw, ratio, aligned, frames)
         assert torch.equal(out, roi_align.roi_align_plain(feats, boxes, levels, scales, out_hw,
-                                                          ratio, aligned))
+                                                          ratio, aligned, frames))
         held.append(f"K2 x{len(feats)}")
         return out
 
@@ -830,3 +840,119 @@ def test_aot_program_on_card(cuda):
                                        atol=SERVED_AGAIN_TOL, err_msg=k)
         else:
             assert torch.equal(got[k], v), k
+
+
+# -- batched frames ------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sparse", [False, True], ids=["K2", "K3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_poolers_with_a_frame_index_on_card(cuda, sparse, dtype):
+    """K2 and K3 with a frame index: one launch for the boxes of every
+    frame, against the plain version (K2 bit for bit, K3 within 1e-5 or one
+    unit in the last place of float16) and bit for bit against the kernel on
+    each frame alone; a frame index outside [0, N) pools zeros."""
+    feats, boxes, levels, index, scales = batched_pooler_cases(channels=64)
+    feats = [torch.from_numpy(f).to(cuda, dtype) for f in feats]
+    b, lv, fr = (torch.from_numpy(a).to(cuda) for a in (boxes, levels, index))
+    kernel = roi_align_sparse.roi_align_sparse_cuda if sparse else roi_align.roi_align_cuda
+    plain = roi_align_sparse.roi_align_sparse_plain if sparse else roi_align.roi_align_plain
+    before = kernel.launches
+    got = kernel(feats, b, lv, scales, (7, 7), 2, True, fr)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(feats, b, lv, scales, (7, 7), 2, True, fr)
+    if sparse:
+        tol = 1e-5 if dtype == torch.float32 else ulp(dtype, want)
+        assert float((got.float() - want.float()).abs().max()) <= tol
+    else:
+        assert torch.equal(got, want)
+    for i in range(feats[0].shape[0]):
+        sel = (fr == i).nonzero()[:, 0]
+        one = kernel([f[i] for f in feats], b[sel].contiguous(), lv[sel].contiguous(), scales,
+                     (7, 7), 2, True)
+        assert torch.equal(got[sel], one), i
+    outside = torch.full_like(fr, feats[0].shape[0] + 1)
+    assert not kernel(feats, b, lv, scales, (7, 7), 2, True, outside).any()
+    with pytest.raises(ValueError, match="frame index"):
+        kernel(feats, b, lv, scales, (7, 7), 2, True)
+    with pytest.raises(ValueError, match="int32"):
+        kernel(feats, b, lv, scales, (7, 7), 2, True, fr.long())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 13, 11, 64, 64, 3, 1, 1, 1, False),
+                                   (3, 13, 11, 64, 64, 3, 2, 1, 1, False),
+                                   (3, 9, 9, 64, 77, 4, 2, 1, 1, True)],
+                         ids=["3x3", "3x3s2", "deconv"])
+def test_q1_images_of_a_batch_stay_apart(cuda, shape):
+    """Q1's wgmma variant at N = 3 images: each image of the batched call
+    equals its call alone bit for bit, so neither the im2col box's padding
+    nor an M tile that straddles two images reads across an image's edge."""
+    *_, k, stride, padding, dilation, transposed = shape
+    qx, qw, qb, vec = (t.to(cuda) for t in q1_inputs(shape, seed=4))
+    kw = dict(stride=stride, padding=padding, dilation=dilation, transposed=transposed,
+              relu=True, out_kind=torch.float32, variant="wgmma")
+    got = conv_int8.conv_s8_cuda(qx, qw, qb, vec, **kw)
+    for i in range(qx.shape[0]):
+        assert torch.equal(got[i:i + 1], conv_int8.conv_s8_cuda(qx[i:i + 1].contiguous(), qw,
+                                                                qb, vec, **kw)), i
+    kw.pop("variant")
+    assert torch.equal(got.cpu(), conv_int8.conv_s8_plain(qx.cpu(), qw.cpu(), qb.cpu(),
+                                                          vec.cpu(), **kw))
+
+
+SERVED_AGAIN_TOL = 1e-3  # chip_smoke.py's: cuDNN's transposed convolutions add with atomics
+
+
+def assert_served_again(got, want):
+    for k, v in want.items():
+        if k.startswith("pred_densepose_"):
+            err = float((got[k].float() - v.float()).abs().max())
+            assert err <= SERVED_AGAIN_TOL * max(1.0, float(v.float().abs().max())), (k, err)
+        elif k in ("pred_boxes", "scores", "det_packed"):
+            assert torch.allclose(got[k], v, atol=1e-4, rtol=1e-5), k
+        else:
+            assert torch.equal(got[k], v), k
+
+
+@pytest.mark.gpu
+def test_predict_batch_on_card(cuda, monkeypatch):
+    """A small flagship's ``predict_batch`` of 3 frames: one batched forward
+    (2 K1 and 2 K2 launches for the batch), every output (3, ...), the raw
+    maps of all D slots; each frame against ``forward_batch`` of that frame
+    alone; and ``predict_batch``'s route over several cards, with
+    ``data_parallel_devices`` listing this card twice: 4 frames in two
+    shards (2 K1 and 2 K2 a shard), the outputs on the predictor's device,
+    against the same, all with cuDNN off."""
+    from densepose_tpu_torch import predictor
+    pred = small_zoo_predictor(cuda, "densepose_rcnn_R_50_FPN_s1x")
+    frames = np.stack([(np.random.RandomState(s).rand(96, 128, 3) * 255).astype(np.uint8)
+                       for s in (30, 31, 32, 33)])
+    with torch.backends.cudnn.flags(enabled=False):
+        before = (nms.nms_keep_cuda.launches, roi_align.roi_align_cuda.launches)
+        batch = pred.predict_batch(frames[:3])
+        torch.cuda.synchronize()
+        assert (nms.nms_keep_cuda.launches - before[0],
+                roi_align.roi_align_cuda.launches - before[1]) == (2, 2)
+        with torch.inference_mode():
+            singles = [pred.model.forward_batch(torch.from_numpy(f[None]).to(cuda))
+                       for f in frames]
+        monkeypatch.setattr(predictor, "data_parallel_devices",
+                            lambda device: [device, device])
+        before = (nms.nms_keep_cuda.launches, roi_align.roi_align_cuda.launches)
+        dp = pred.predict_batch(frames)
+        torch.cuda.synchronize()
+        assert (nms.nms_keep_cuda.launches - before[0],
+                roi_align.roi_align_cuda.launches - before[1]) == (4, 4)
+    assert len(pred._data_parallel.replicas) == 2
+    home = torch.device("cuda", torch.cuda.current_device())  # pred.device is "cuda"
+    assert all(v.device == home for v in dp.values())
+    assert batch["pred_densepose_u"].shape[:2] == (3, 20)
+    assert "pred_densepose_labels" not in batch
+    for i, one in enumerate(singles):
+        one = {k: v[0] for k, v in one.items()}
+        assert_served_again({k: dp[k][i] for k in dp}, one)
+        if i < 3:
+            assert_served_again({k: batch[k][i] for k in batch}, one)

@@ -189,3 +189,24 @@ def op_args(args, device="cpu"):
             return [torch.from_numpy(x).to(device) for x in a]
         return getattr(torch, a) if isinstance(a, str) else a
     return tuple(conv(a) for a in args)
+
+
+def batched_pooler_cases(seed=0, frames=3, channels=8, m=90):
+    """Batched ROIAlign inputs: a pyramid of ``frames`` frames, (N, C, H, W)
+    per level, and boxes over every level of every frame with their frame
+    index, as (feats, boxes (M, 4) f32, levels (M,) i32, frames (M,) i32,
+    scales). Boxes run past the image edges and a few are degenerate; one
+    frame has no box (its maps are never read). tests/test_torch_batch.py
+    holds the plain versions against per-frame calls on them, and
+    tests/test_torch_gpu.py and ``chip_smoke.py`` K2 and K3 against the plain
+    versions."""
+    rng = np.random.RandomState(seed)
+    shapes = [(48, 64), (24, 32), (12, 16), (6, 8)]
+    feats = [rng.randn(frames + 1, channels, h, w).astype(np.float32) for h, w in shapes]
+    xy = rng.rand(m, 2) * 240 - 20
+    wh = rng.rand(m, 2) * 150 + 0.5
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    boxes[:3, 2:] = boxes[:3, :2]  # empty boxes
+    levels = rng.randint(0, len(shapes), m).astype(np.int32)
+    index = rng.randint(0, frames, m).astype(np.int32)  # frame `frames` has no box
+    return feats, boxes, levels, index, [0.25, 0.125, 0.0625, 0.03125]
