@@ -133,6 +133,27 @@ toolkit. Phases, each of which fails the run:
    each K3 call timed; each of these against forward_batch of its frames
    alone, its DensePose stage given each frame's own features and boxes,
    and its box-stage decisions given each frame's own box-head outputs;
+4c. spatial (spatial_phase): one frame's rows sharded over devices
+   (parallel/mesh.py::spatial_parallel_forward: the preprocess, backbone and
+   FPN / HRFPN as row slabs with a hand-written halo exchange, the pyramid
+   gathered onto the first device): the fp32 and float16 flagship, R101
+   legacy on K3, DL, HRNet-W32 and max serving (all four int8 groups,
+   calibrated on 4 frames: Q1 on halo-extended s8 slabs), at full width on
+   DETECTION_TAME weights, each over this card listed 2 and 4 times (one
+   replica: a correctness check, speed across cards not measured) and over
+   every card when more than one is visible: a warm-up and 2 frames with the
+   launch counters set to 0 just before and read just after (2 K1 + 2 K2 or
+   2 K3 a request, Q1's backbone links once a shard, no plain version
+   called) beside the unsharded request (forward_batch of the frame) on the
+   same frames; one sharded request with every K1, K2, K3 and Q1 launch held
+   against its plain version (max serving over 4 shards: Q1 at a slab of FPN's
+   p2 output conv timed beside the whole map's, spatial_sites on the kernels
+   line); the detections and maps against the unsharded request's as
+   hold_frames holds a batch's frames, and the gathered pyramid within
+   SPATIAL_FEATURE_TOL of each level's largest magnitude, beside the
+   readings of a planted fault (a halo one row short at each interior
+   boundary); ms a request both ways, halo copies and bytes, gather bytes,
+   rows per shard per level and peak memory per device;
 5. consumer, right after the flagship's, DL's and the float16 flagship's
    path phase (raw SIUV maps; a label map; float16 maps), each through the
    predictor its path built, on 8 distinct
@@ -1789,11 +1810,11 @@ def stage_text(stage, dtype="float32"):
             f"bound, {scaled:.3e} of the map's largest magnitude, relative L2 {rel:.3e}")
 
 
-def batch_site(torch, report, kind, dtype, args, kw, site):
-    """One kernel call kept from a batch, timed (CUDA events around
-    back-to-back calls) beside its plain version and its bound for this
-    call's work; added to the kernel's ``batched_sites`` on the kernels
-    line."""
+def batch_site(torch, report, kind, dtype, args, kw, site, key="batched_sites"):
+    """One kernel call kept from a batch (or a sharded request), timed (CUDA
+    events around back-to-back calls) beside its plain version and its bound
+    for this call's work; added to the kernel's ``key`` sites on the kernels
+    line. Returns the entry."""
     from densepose_tpu_torch.ops import conv_int8, nms, roi_align, roi_align_sparse
     name = {"k1": "nms_keep_cuda", "k2": "roi_align_cuda", "k3": "roi_align_sparse_cuda",
             "q1": Q1}[kind]
@@ -1820,9 +1841,10 @@ def batch_site(torch, report, kind, dtype, args, kw, site):
         shape = f"M={args[1].shape[0]} levels={len(args[0])} frames={args[0][0].shape[0]}"
     entry = {"site": site, "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
              "bound_by": by}
-    report[entry_name(name, dtype)].setdefault("batched_sites", []).append(entry)
-    print(f"batch site {name} [{dtype}] {site} {shape}: {ms:.4f} ms a call, plain {plain_ms:.4f}, "
-          f"bound {b_ms:.6f} ({by})")
+    report[entry_name(name, dtype)].setdefault(key, []).append(entry)
+    print(f"{key.split('_')[0]} site {name} [{dtype}] {site} {shape}: {ms:.4f} ms a call, "
+          f"plain {plain_ms:.4f}, bound {b_ms:.6f} ({by})")
+    return entry
 
 
 def batch_run(torch, report, pred, tag, dtype, b, per_batch, seed):
@@ -2360,10 +2382,11 @@ DETECTION_TAME = {"proposal_generator.rpn_head.anchor_deltas": 0.003,
                   "roi_heads.box_predictor.bbox_pred": 0.01}
 
 
-def tamed_params(cfg, seed=0):
-    """The port's random weights from ``seed`` with DETECTION_TAME applied."""
+def tamed_params(cfg, seed=0, params=None):
+    """The port's random weights from ``seed`` (or ``params``) with
+    DETECTION_TAME applied."""
     from densepose_tpu_torch.predictor import load_params
-    params = load_params(cfg, seed=seed)
+    params = load_params(cfg, seed=seed) if params is None else dict(params)
     for k in params:
         for prefix, f in DETECTION_TAME.items():
             if k.startswith(prefix + "."):
@@ -3578,6 +3601,215 @@ def deploy_phase(torch, report, dev):
     torch.cuda.empty_cache()
     evaluate_phase(torch, dev)
 
+# Spatial sharding of one frame (spatial_phase): SPATIAL_PATHS at full width
+# on DETECTION_TAME weights, each frame's rows over this card listed
+# SPATIAL_SHARDS times (one replica: a correctness check) and over every card
+# where more than one is visible, against the unsharded request of the same
+# predictor (forward_batch of the frame: the JAX forward form). cuDNN picks
+# its algorithms by the slab's shape, so a slab's convolutions may round
+# apart from the whole map's: the detections and maps are held as
+# hold_frames holds a batch's frames, the gathered pyramid within
+# SPATIAL_FEATURE_TOL of each level's largest magnitude (the int8 chain
+# requantizes the fp stem's output, where a last-bit move can step an s8
+# value). Each limit sits between the sound readings and the planted fault's,
+# a halo one row short at each interior boundary
+# (tests/torch_cases.py::halo_one_row_short), PERF.md section 6: on an H100
+# the fp32 and int8 pyramids read 0 (cuDNN picks a slab's algorithm as the
+# whole map's), float16 up to 2.142e-03, the fault 0.5665 or more. At
+# float16 the detections move as a batch's do (BATCH_MOVED_ROWS).
+SPATIAL_SHARDS = (2, 4)
+SPATIAL_TIMED = 2
+SPATIAL_PATHS = [(FLAGSHIP, (), False), (FLAGSHIP, FP16, False), (LEGACY, (), True),
+                 (DEEPLAB, (), False), (HRNET, (), False),
+                 (FLAGSHIP, INT8_ALL_FLAGS, False)]  # max serving
+SPATIAL_FEATURE_TOL = {"float32": 1e-5, "float16": 2e-2, "int8": 1e-2}
+
+
+def spatial_features(torch, pred, fwd, img):
+    """The pyramid of a sharded request (``features_rows``, gathered onto
+    the first device) against the backbone on the whole input: each level's
+    largest difference over its largest magnitude."""
+    with torch.inference_mode():
+        got, _, _ = pred.model.features_rows(img, fwd.shards)
+        x, _, _ = pred.model.preprocess(img)
+        want = pred.model.backbone(x)
+        check(sorted(got) == sorted(want), f"spatial: levels {sorted(got)} vs {sorted(want)}")
+        gaps = {}
+        for k, w in want.items():
+            g = got[k]
+            check(g.shape == w.shape and g.dtype == w.dtype and g.device == w.device,
+                  f"spatial: {k} {tuple(g.shape)} {g.dtype} {g.device} vs {tuple(w.shape)} "
+                  f"{w.dtype} {w.device}")
+            w = w.float()
+            gaps[k] = float((g.float() - w).abs().max() / w.abs().max().clamp_min(1e-30))
+    return gaps
+
+
+def spatial_path(torch, report, dev, name, extra, sparse, smi):
+    """One path over each shard set: a warm-up and SPATIAL_TIMED sharded
+    requests with the launch counters set to 0 just before and read just
+    after (2 K1 + 2 K2 or 2 K3, Q1's backbone links once a shard, no plain
+    version called), beside the unsharded request's time on the same frames;
+    one sharded request with every K1, K2, K3 and Q1 launch held against its
+    plain version (int8, over the most shards: Q1 at a slab of FPN's p2
+    output conv timed beside the same conv on the whole map); the holds
+    above; the halo and gather copies, rows per shard per level and peak
+    memory per device."""
+    from densepose_tpu_torch.models.rcnn import image_tensor
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    cfg = path_config(name, extra)
+    dtype = path_dtype(extra)
+    int8 = any(k.split(".")[-1] in INT8_FLAGS for k, _ in extra)
+    kind = "int8" if int8 else dtype
+    tag = name + (f" with {SPARSE_POOLER}=1" if sparse else "") + "".join(
+        f", {k}={v}" for k, v in extra)
+    t0 = time.perf_counter()
+    pred = DensePosePredictor(cfg, device=dev, params=tamed_params(
+        cfg, params=path_params(cfg, dev)))
+    if int8:
+        pred.calibrate_int8(frames(7, CALIB_FRAMES))
+    imgs = [image_tensor(img, dev) for img in frames(90, 1 + SPATIAL_TIMED)]
+    warm, timed = imgs[0], imgs[1:]
+    unsharded = lambda img: pred.model.forward_batch(img[None])  # noqa: E731
+    per_request = dict(ON_K3 if sparse else ON_K2)
+    if sparse:
+        os.environ[SPARSE_POOLER] = "1"
+    try:
+        with torch.inference_mode():
+            unsharded(warm)
+            x, _, _ = pred.model.preprocess(warm)
+            zero_counters()
+            pred.model.backbone(x)
+            torch.cuda.synchronize()
+            backbone_q1 = counters()[Q1].launches
+            lat_whole = []
+            for img in timed:
+                t1 = time.perf_counter()
+                unsharded(img)
+                torch.cuda.synchronize()
+                lat_whole.append((time.perf_counter() - t1) * 1e3)
+        print(f"spatial {tag}: built on DETECTION_TAME weights in "
+              f"{time.perf_counter() - t0:.1f} s; {backbone_q1} Q1 launches in the backbone")
+        sets = [[dev] * n for n in SPATIAL_SHARDS]
+        if torch.cuda.device_count() > 1:
+            sets.append([torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+        for devices in sets:
+            spatial_run(torch, report, pred, tag, dtype, kind, devices, per_request,
+                        backbone_q1, warm, timed, lat_whole, smi)
+    finally:
+        os.environ.pop(SPARSE_POOLER, None)
+
+
+def spatial_run(torch, report, pred, tag, dtype, kind, devices, per_request, backbone_q1,
+                warm, timed, lat_whole, smi):
+    """spatial_path over one device list."""
+    from densepose_tpu_torch.parallel import halo, spatial_parallel_forward
+    n = len(devices)
+    cards = sorted({halo.device_key(d)[1] for d in devices})
+    what = f"spatial {tag} over {n} shards on cuda:{','.join(map(str, cards))}"
+    fwd = spatial_parallel_forward(pred.model, devices)
+    check(len({id(r) for r in fwd.shards.replicas}) == len(cards),
+          f"{what}: {len({id(r) for r in fwd.shards.replicas})} replicas")
+    fwd(warm)
+    torch.cuda.synchronize()
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    zero_counters()
+    fwd.stats.reset()
+    lat, outs = [], []
+    with CountPlain() as plain:
+        for img in timed:
+            t0 = time.perf_counter()
+            outs.append(fwd(img))
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: fn.launches for k, fn in counters().items()}
+    stats = fwd.stats.as_dict()
+    peaks = {f"cuda:{c}": torch.cuda.max_memory_allocated(c) / 2**20 for c in cards}
+    check(plain.calls == 0, f"{what}: {plain.calls} plain-version calls")
+    expected = dict(per_request)
+    if kind == "int8":  # every shard owns rows at every level of a 480x640 frame
+        expected[Q1] = q1_per_request(pred) + (n - 1) * backbone_q1
+    count_launches(report, what, dtype, launches, expected, len(timed))
+    d = pred.cfg.TEST.DETECTIONS_PER_IMAGE
+    for out in outs:
+        check(out["pred_boxes"].shape == (d, 4) and int(out["num_instances"]) >= 1
+              and out["pred_densepose_u"].shape[0] == d
+              and out["pred_densepose_u"].dtype == getattr(torch, dtype)
+              and all(v.device == out["pred_boxes"].device for v in out.values()),
+              f"{what}: outputs {({k: tuple(v.shape) for k, v in out.items()})}")
+        check(all(bool(torch.isfinite(v).all()) for v in out.values() if v.is_floating_point()),
+              f"{what}: non-finite outputs")
+    del outs
+    keep = kind == "int8" and n == max(SPATIAL_SHARDS)
+    with HeldAgainstPlain(torch, what, keep=keep) as held:
+        fwd(timed[0])
+        torch.cuda.synchronize()
+    pooled = held.k3 if SPARSE_POOLER in os.environ else held.k2
+    check(len(held.k1) == 2 and len(pooled) == 2 and len(held.q1) == expected[Q1],
+          f"{what}: held {len(held.k1)} K1, {len(held.k2)} K2, {len(held.k3)} K3 and "
+          f"{len(held.q1)} Q1 calls")
+    print(f"held: one {what} request, {held.summary()}")
+    if keep:
+        qw = pred.model.backbone.fpn_output2.qweight
+        slab = next(c for c in held.calls["q1"] if c[0][1] is qw)
+        with HeldAgainstPlain(torch, f"{what}, unsharded", keep=True) as whole, \
+                torch.inference_mode():
+            pred.model.forward_batch(timed[0][None])
+            torch.cuda.synchronize()
+        full = next(c for c in whole.calls["q1"] if c[0][1] is qw)
+        for (args, kw), site in ((slab, f"FPN p2 output conv, the first of {n} slabs"),
+                                 (full, "FPN p2 output conv, the whole map")):
+            batch_site(torch, report, "q1", "float32", args, kw, site, key="spatial_sites")
+        del whole
+    del held
+    pnp = pred.numpy_outputs
+    with torch.inference_mode():
+        r = hold_frames(torch, lambda: [pnp(fwd(img)) for img in timed],
+                        lambda: [pnp(frame_of(pred.model.forward_batch(img[None]), 0))
+                                 for img in timed],
+                        f"{what} against the unsharded request", kind)
+    gaps = spatial_features(torch, pred, fwd, timed[0])
+    real = halo.fetch_rows
+    halo.fetch_rows = torch_cases().halo_one_row_short(real)
+    try:
+        fault = spatial_features(torch, pred, fwd, timed[0])
+    finally:
+        halo.fetch_rows = real
+    tol = SPATIAL_FEATURE_TOL[kind]
+    worst, fault_min = max(gaps.values()), max(fault.values())
+    check(worst <= tol, f"{what}: the pyramid differs by {gaps} of each level's largest "
+          f"magnitude (limit {tol})")
+    check(fault_min > tol, f"{what}: the planted fault's pyramid differs by only {fault}")
+    rows = {k: [b[i + 1] - b[i] for i in range(n)] for k, b in stats["levels"].items()}
+    per = len(timed)
+    across = "one card: a correctness check, speed across cards not measured" \
+        if len(cards) == 1 else f"{len(cards)} cards"
+    print(f"{what} ({across}): {float(np.median(lat)):.2f} ms a request (median of "
+          f"{', '.join(f'{x:.2f}' for x in lat)}) against {float(np.median(lat_whole)):.2f} "
+          f"unsharded ({', '.join(f'{x:.2f}' for x in lat_whole)}), same frames and run; "
+          f"halo {stats['halo_copies'] / per:.0f} copies, {stats['halo_bytes'] / per / 1e6:.3f} "
+          f"MB a request; gather of the other shards' rows {stats['gather_copies'] / per:.0f} "
+          f"copies, {stats['gather_bytes'] / per / 1e6:.3f} MB; rows per shard by level {rows}; "
+          f"peak memory {', '.join(f'{k} {v:.1f} MiB' for k, v in peaks.items())}; launches "
+          f"{launches} over {per} requests; nvidia-smi: {smi}")
+    print(f"{what}: against the unsharded request: {held_text(r, kind)}; the pyramid within "
+          f"{worst:.3e} of each level's largest magnitude (limit {tol}; by level "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in gaps.items())}); planted fault, a halo one "
+          f"row short at each interior boundary: up to {fault_min:.3e} "
+          f"({', '.join(f'{k} {v:.3e}' for k, v in fault.items())})")
+
+
+def spatial_phase(torch, report, dev, smi):
+    """Spatial sharding of one frame: every path of SPATIAL_PATHS; the
+    seconds each took."""
+    t0 = time.perf_counter()
+    for name, extra, sparse in SPATIAL_PATHS:
+        spatial_path(torch, report, dev, name, extra, sparse, smi)
+        torch.cuda.empty_cache()
+        print(f"time: spatial {name}{''.join(f', {k}={v}' for k, v in extra)} done "
+              f"{time.perf_counter() - t0:.1f} s into the spatial phase")
+
 
 def main():
     try:
@@ -3669,6 +3901,8 @@ def main():
     lap("int8 paths")
     batch_phase(torch, report, dev, smi_line)
     lap("batch phase")
+    spatial_phase(torch, report, dev, smi_line)
+    lap("spatial phase")
     cse_phase(torch, report, dev)
     geometry_phase(torch, report, dev)
     detection_bucket_phase(torch, report, dev)

@@ -1,7 +1,9 @@
 """Backbone dispatch: cfg.MODEL.BACKBONE.NAME -> (spec, module, strides)
 (port of densepose_tpu/models/backbones.py): the ResNet-FPN (p2..p6) and
 HRNet + HRFPN (p1..p5), both at strides 4..64. The plain C4 ResNet and the
-RetinaNet FPN, which no zoo config uses, are not ported (ROADMAP.md)."""
+RetinaNet FPN, which no zoo config uses, are not ported (ROADMAP.md).
+``backbone_rows`` dispatches the row-sharded walk of each
+(``spatial_parallel_forward``)."""
 
 from __future__ import annotations
 
@@ -30,6 +32,16 @@ def backbone_spec(cfg) -> Spec:
 
 def build_backbone(cfg) -> nn.Module:
     return _entry(cfg)[1](cfg)
+
+
+def backbone_rows(cfg, backbone: nn.Module, x):
+    """The backbone's row-sharded walk (``forward_rows``) on input slabs
+    ``x`` (``parallel/halo.py::RowSlabs``): the pyramid as row slabs."""
+    name = cfg.MODEL.BACKBONE.NAME
+    if name not in _BACKBONES:
+        raise NotImplementedError(f"backbone {name!r} has no row-sharded walk: it is not "
+                                  "ported yet (ROADMAP.md queue 1, items 5 and 6)")
+    return backbone.forward_rows(x)
 
 
 def feature_strides(cfg) -> Dict[str, int]:

@@ -10,7 +10,8 @@ int8 serving (``TPU.INT8_BACKBONE``, JAX fpn.py:51-130): once calibrated, the
 scale, to f32 and then the compute dtype; the laterals stay fp. This holds at
 any ResNet depth: FPN int8 has no depth gate. ``fpn_int8_scale_sites`` and
 ``FPN.int8_calibration`` are the site lists (FPN, then the RPN conv's per-level
-inputs) and the walk that records them.
+inputs) and the walk that records them. ``FPN.forward_rows`` is the forward
+on row slabs of the frame (``spatial_parallel_forward``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import torch.nn.functional as F
 
 from ..checkpoint.spec import Spec, conv_spec
 from ..ops.conv_int8 import act_stat, link, quantized, to_nchw, to_s8_nhwc
+from ..parallel.halo import (RowSlabs, conv_rows, link_rows, subsample_rows,
+                             upsample_nearest_rows)
 from .resnet import ResNet, resnet_spec
 
 _STAGE_LOG2 = {"res2": 2, "res3": 3, "res4": 4, "res5": 5}
@@ -112,6 +115,31 @@ class FPN(nn.Module):
                 results[f"p{stage}"] = out(prev)
         top = _STAGE_LOG2[self.in_features[-1]]
         results[f"p{top + 1}"] = results[f"p{top}"][:, :, ::2, ::2]
+        return dict(sorted(results.items()))
+
+    def forward_rows(self, x: RowSlabs) -> Dict[str, RowSlabs]:
+        """``forward`` (its serving arm) on row slabs (``parallel/halo.py``):
+        the top-down sums row-local, the output convs with a halo exchange, p6
+        from the even global rows of p5."""
+        bottom_up = self.bottom_up.forward_rows(x)
+        int8 = self.int8_active()
+        results: Dict[str, RowSlabs] = {}
+        prev = None
+        for f in reversed(self.in_features):
+            stage = _STAGE_LOG2[f]
+            lateral = conv_rows(getattr(self, f"fpn_lateral{stage}"), bottom_up[f])
+            if prev is not None:
+                lateral = lateral.map(torch.add, upsample_nearest_rows(prev, 2))
+            prev = lateral
+            out = getattr(self, f"fpn_output{stage}")
+            if int8:
+                q = prev.map(to_s8_nhwc, out.in_scale, row_dim=1)
+                results[f"p{stage}"] = link_rows(out, q, out.in_scale).map(
+                    to_nchw, prev.dtype, row_dim=2)
+            else:
+                results[f"p{stage}"] = conv_rows(out, prev)
+        top = _STAGE_LOG2[self.in_features[-1]]
+        results[f"p{top + 1}"] = subsample_rows(results[f"p{top}"])
         return dict(sorted(results.items()))
 
     def int8_calibration(self, x: torch.Tensor, rpn_conv: nn.Module, rpn_features: List[str],

@@ -32,6 +32,10 @@ adds its dequantized s8 input q * s_in. Passing ``calib`` (a list) to the
 forwards runs the fp walk instead and appends each site's statistic in
 ``hrnet_int8_scale_sites`` order.
 
+Each ``forward_rows`` / ``forward_int8_rows`` is the forward above it (its
+serving arms, no calibration walk) on row slabs of the frame
+(``parallel/halo.py``), for ``spatial_parallel_forward``.
+
 Left out, as TPU-only: the width-packed branch convs (``hrnet_wpack_augment``:
 lane occupancy on the TPU; the int8 chain quantizes the plain convs) and the
 packed stem conv (``conv2d_rgb_s2``, another summation order of the same conv).
@@ -48,6 +52,8 @@ import torch.nn.functional as F
 from ..checkpoint.spec import ParamSpec, Spec
 from ..ops.conv_int8 import act_stat, link, quant_act_s8, quantized, to_nchw, to_s8_nhwc
 from ..ops.resize import resize_bilinear
+from ..parallel.halo import (RowSlabs, avg_pool_rows, conv_rows, link_rows,
+                             upsample_bilinear_rows, upsample_nearest_rows)
 
 _BN_SUFFIXES = ("weight", "bias", "running_mean", "running_var")
 STEM_WIDTH = 64     # the stem's two convs
@@ -214,6 +220,24 @@ class Bottleneck(nn.Module):
               else x.permute(0, 2, 3, 1).float())
         return to_nchw(F.relu(y + sc), x.dtype)
 
+    def forward_rows(self, x: RowSlabs) -> RowSlabs:
+        """``forward`` (fp) on row slabs (``parallel/halo.py``)."""
+        out = conv_rows(self.conv1, x).map(F.relu)
+        out = conv_rows(self.conv2, out).map(F.relu)
+        sc = x if self.downsample is None else conv_rows(self.downsample[0], x)
+        return conv_rows(self.conv3, out).map(lambda a, b: F.relu(a + b), sc)
+
+    def forward_int8_rows(self, x: RowSlabs) -> RowSlabs:
+        """``forward_int8`` on row slabs."""
+        s1, s2, s3 = self.conv1.in_scale, self.conv2.in_scale, self.conv3.in_scale
+        q = x.map(to_s8_nhwc, s1, row_dim=1)
+        q1 = link_rows(self.conv1, q, s1, s2, relu=True)
+        q2 = link_rows(self.conv2, q1, s2, s3, relu=True)
+        y = link_rows(self.conv3, q2, s3)
+        sc = (link_rows(self.downsample[0], q, s1) if self.downsample is not None
+              else x.map(lambda t: t.permute(0, 2, 3, 1).float(), row_dim=1))
+        return y.map(lambda a, b: F.relu(a + b), sc).map(to_nchw, x.dtype, row_dim=2)
+
 
 class BasicBlock(nn.Module):
     def __init__(self, c: int):
@@ -236,6 +260,17 @@ class BasicBlock(nn.Module):
         y = link(self.conv2, q1, self.conv2.in_scale)
         return F.relu(y + q.float() * s_in)
 
+    def forward_rows(self, x: RowSlabs) -> RowSlabs:
+        """``forward`` (fp) on row slabs."""
+        out = conv_rows(self.conv1, x).map(F.relu)
+        return conv_rows(self.conv2, out).map(lambda a, b: F.relu(a + b), x)
+
+    def forward_int8_rows(self, q: RowSlabs, s_in: torch.Tensor) -> RowSlabs:
+        """``forward_int8`` on NHWC s8 row slabs."""
+        q1 = link_rows(self.conv1, q, s_in, self.conv2.in_scale, relu=True)
+        y = link_rows(self.conv2, q1, self.conv2.in_scale)
+        return y.map(lambda a, b, s: F.relu(a + b.float() * s), q, s_in)
+
 
 def run_branch(branch: nn.Sequential, y: torch.Tensor, calib=None,
                stat: str = "max") -> torch.Tensor:
@@ -252,6 +287,21 @@ def run_branch(branch: nn.Sequential, y: torch.Tensor, calib=None,
         s_in = block.conv1.in_scale
         y = block.forward_int8(quant_act_s8(y, s_in).contiguous(), s_in)
     return to_nchw(y, dtype)
+
+
+def run_branch_rows(branch: nn.Sequential, y: RowSlabs) -> RowSlabs:
+    """``run_branch`` (its serving arms) on row slabs."""
+    if not _int8_ok(branch[0].conv1, None):
+        for block in branch:
+            y = block.forward_rows(y)
+        return y
+    dtype = y.dtype
+    y = y.map(lambda t: t.permute(0, 2, 3, 1), row_dim=1)
+    for block in branch:
+        s_in = block.conv1.in_scale
+        y = block.forward_int8_rows(y.map(lambda t, s: quant_act_s8(t, s).contiguous(), s_in),
+                                    s_in)
+    return y.map(to_nchw, dtype, row_dim=2)
 
 
 class HRModule(nn.Module):
@@ -300,6 +350,26 @@ class HRModule(nn.Module):
             fused.append(F.relu(acc))
         return fused
 
+    def forward_rows(self, feats: List[RowSlabs]) -> List[RowSlabs]:
+        """``forward`` (its serving arms) on row slabs: the nearest upsample
+        row-local, the strided chains with a halo exchange a conv."""
+        outs = [run_branch_rows(branch, x) for branch, x in zip(self.branches, feats)]
+        fused = []
+        for i, row in enumerate(self.fuse_layers):
+            acc = None
+            for j, layer in enumerate(row):
+                y = outs[j]
+                if j > i:
+                    y = upsample_nearest_rows(conv_rows(layer[0], y), 2 ** (j - i))
+                elif j < i:
+                    for k, step in enumerate(layer):
+                        y = conv_rows(step[0], y)
+                        if k < len(layer) - 1:
+                            y = y.map(F.relu)
+                acc = y if acc is None else acc.map(torch.add, y)
+            fused.append(acc.map(F.relu))
+        return fused
+
 
 class HRNet(nn.Module):
     """x: (N, 3, H, W) -> the four branch maps at 1/4, 1/8, 1/16, 1/32."""
@@ -343,6 +413,27 @@ class HRNet(nn.Module):
             feats = new
             for module in getattr(self, f"stage{s}"):
                 feats = module(feats, calib, stat)
+        return feats
+
+    def forward_rows(self, x: RowSlabs) -> List[RowSlabs]:
+        """``forward`` (its serving arms) on row slabs."""
+        x = conv_rows(self.conv2, conv_rows(self.conv1, x).map(F.relu)).map(F.relu)
+        int8 = _int8_ok(self.layer1[0].conv1, None)
+        for block in self.layer1:
+            x = block.forward_int8_rows(x) if int8 else block.forward_rows(x)
+        feats = [x]
+        for s in (2, 3, 4):
+            new = []
+            for b, t in enumerate(getattr(self, f"transition{s - 1}")):
+                if isinstance(t, nn.Identity):
+                    new.append(feats[b])
+                elif b >= len(feats):
+                    new.append(conv_rows(t[0][0], feats[-1]).map(F.relu))
+                else:
+                    new.append(conv_rows(t[0], feats[b]).map(F.relu))
+            feats = new
+            for module in getattr(self, f"stage{s}"):
+                feats = module.forward_rows(feats)
         return feats
 
 
@@ -389,6 +480,31 @@ class HRFPN(nn.Module):
                                      dtype)
             else:
                 outs[f"p{i + 1}"] = conv(red if i == 0 else F.avg_pool2d(red, 2 ** i))
+        return outs
+
+    def forward_rows(self, x: RowSlabs) -> Dict[str, RowSlabs]:
+        """``forward`` (its serving arms) on row slabs (``parallel/halo.py``):
+        the bilinear upsamples from the source rows they read, the pools and
+        3x3 convs with a halo exchange."""
+        feats = self.bottom_up.forward_rows(x)
+        ups = [feats[0]] + [upsample_bilinear_rows(f, 2 ** i) for i, f in enumerate(feats[1:], 1)]
+        cat = ups[0].map(lambda *xs: torch.cat(xs, dim=1), *ups[1:])
+        int8 = _int8_ok(self.reduction_conv, None)
+        dtype = cat.dtype
+        if int8:
+            s_cat = self.reduction_conv.in_scale
+            red = link_rows(self.reduction_conv, cat.map(to_s8_nhwc, s_cat, row_dim=1), s_cat,
+                            out_dtype=dtype).map(to_nchw, dtype, row_dim=2)
+        else:
+            red = conv_rows(self.reduction_conv, cat)
+        outs = {}
+        for i, conv in enumerate(self.fpn_conv):
+            if i == 0 and int8 and quantized(conv):
+                s_red = conv.in_scale
+                outs["p1"] = link_rows(conv, red.map(to_s8_nhwc, s_red, row_dim=1), s_red,
+                                       out_dtype=dtype).map(to_nchw, dtype, row_dim=2)
+            else:
+                outs[f"p{i + 1}"] = conv_rows(conv, red if i == 0 else avg_pool_rows(red, 2 ** i))
         return outs
 
     def int8_calibration(self, x: torch.Tensor, stat: str = "max") -> torch.Tensor:

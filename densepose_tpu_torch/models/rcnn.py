@@ -40,6 +40,15 @@ every frame (B * D rows), whatever ``TPU.SWITCHED_DENSEPOSE`` and
 the host. Frame i's outputs are ``forward`` of frame i with the switched
 stage and the device postprocess off.
 
+``forward_rows`` (``parallel/mesh.py::spatial_parallel_forward``) runs one
+frame with its rows sharded over several devices: the preprocess, backbone
+and FPN / HRFPN as row slabs with a halo exchange before every convolution,
+pool and upsample that reads a neighbour's rows (``features_rows``,
+``parallel/halo.py``), the pyramid gathered onto the first device, and
+there the detection stages (``_detect_features``, the part of
+``_detect_batch`` after the backbone) and the monolithic DensePose stage:
+``forward_batch``'s frame, all D slots and raw maps.
+
 ``forward_bucketed`` (``TPU.GEOMETRY_BUCKET_QUANT``) runs the same stages on
 a geometry-bucket canvas: the resized image at the top left of a canvas
 padded to a multiple of the quantum (``bucket_canvas``), normalized in fp32
@@ -76,8 +85,9 @@ from torch.profiler import record_function
 
 from ..checkpoint.spec import Spec
 from ..ops.boxes import clip_boxes, nonempty_boxes
-from ..ops.resize import resize_image
-from .backbones import backbone_spec, build_backbone
+from ..ops.resize import resize_image, resize_image_rows, source_rows
+from ..parallel.halo import RowSlabs, Shards, gather, row_bounds
+from .backbones import backbone_rows, backbone_spec, build_backbone
 from .roi_heads import (ROIHeads, box_stage_forward_batch, densepose_stacked_calibration,
                         densepose_stage_forward, frame_index, roi_heads_spec)
 from .rpn import RPNHead, rpn_forward_batch, rpn_spec
@@ -223,6 +233,30 @@ class GeneralizedRCNN(nn.Module):
         y = torch.nn.functional.pad(y.permute(0, 3, 1, 2), (0, wp - w1, 0, hp - h1))
         return y.to(self.compute_dtype).contiguous(), (h1, w1), (hp, wp)
 
+    def preprocess_rows(self, image_u8: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
+        """Rows [r0, r1) of ``preprocess``'s padded input, (1, 3, r1 - r0, Wp)
+        in the compute dtype on this model's device, bitwise those rows: the
+        uint8 resize of the source rows they read (only those rows of
+        ``image_u8``, (H0, W0, 3) uint8 anywhere, are copied here), rounded
+        and clipped, normalized, zero at rows >= h1 and columns >= w1, cast
+        once."""
+        h0, w0 = int(image_u8.shape[0]), int(image_u8.shape[1])
+        k, h1, w1 = self.resized_size(h0, w0)
+        _, wp = pad_to_divisible(h1, w1, self.size_divisibility)
+        dev = self.pixel_mean.device
+        top = min(r1, h1)  # the slab's last resized row, + 1
+        if top > r0:
+            lo, hi = source_rows(h0, h1, k, r0, top)
+            x = image_u8[lo:hi].to(dev)
+            if self.cfg.INPUT.FORMAT == "RGB":  # defaults.py:81-83
+                x = x.flip(-1)
+            y = torch.round(resize_image_rows(x, h0, (h1, w1), (k, k), r0, top)).clamp(0, 255)
+            y = (y - self.pixel_mean) / self.pixel_std
+            y = torch.nn.functional.pad(y.permute(2, 0, 1), (0, wp - w1, 0, r1 - top))
+        else:
+            y = torch.zeros((3, r1 - r0, wp), device=dev)
+        return y[None].to(self.compute_dtype).contiguous()
+
     def forward_stage1(self, image_u8: torch.Tensor, min_size: Optional[int] = None,
                        max_size: Optional[int] = None):
         """Preprocess -> backbone -> RPN -> box stage -> box postprocess.
@@ -253,10 +287,17 @@ class GeneralizedRCNN(nn.Module):
         """``_detect`` of B frames of one size, x (B, 3, Hp, Wp): every
         result (B, ...), the features (B, C, H, W) per level and boxes_net
         (B, D, 4)."""
-        cfg = self.cfg
-        h0, w0 = orig_hw
         with record_function("backbone"):
             features = self.backbone(x)
+        return self._detect_features(features, clip_hw, anchor_valid_hw, orig_hw, scale_xy)
+
+    def _detect_features(self, features: Dict[str, torch.Tensor], clip_hw: Tuple[int, int],
+                         anchor_valid_hw, orig_hw: Tuple[int, int], scale_xy: torch.Tensor):
+        """``_detect_batch`` from the backbone's features (B, C, H, W) per
+        level: RPN -> box stage -> box postprocess."""
+        cfg = self.cfg
+        h0, w0 = orig_hw
+        b = next(iter(features.values())).shape[0]
         with record_function("rpn"):
             proposals, _, pvalid = rpn_forward_batch(self.proposal_generator.rpn_head,
                                                      features, clip_hw, cfg, anchor_valid_hw)
@@ -272,7 +313,7 @@ class GeneralizedRCNN(nn.Module):
             boxes = clip_boxes(boxes, (h0, w0))
             size = device_values([h0, w0], torch.int32, boxes.device)
             result = {
-                "image_size": size.expand(x.shape[0], 2),
+                "image_size": size.expand(b, 2),
                 "pred_boxes": boxes,
                 "scores": scores,
                 "pred_classes": classes,
@@ -420,6 +461,43 @@ class GeneralizedRCNN(nn.Module):
                                      self.cfg, frame_index(b, d, boxes_net.device))
         return {f"pred_densepose_{k}": v.reshape((b, d) + tuple(v.shape[1:]))
                 for k, v in dp.items()}
+
+    def features_rows(self, image_u8: torch.Tensor, shards: Shards):
+        """The preprocess, backbone and FPN / HRFPN of one frame (H0, W0, 3)
+        uint8 as row slabs over ``shards`` (``parallel/halo.py``), the input's
+        rows cut into whole blocks of the size divisibility; the pyramid
+        gathered onto the first device. Returns (features (1, C, H, W) per
+        level, (Hp, Wp), (h1, w1))."""
+        h0, w0 = int(image_u8.shape[0]), int(image_u8.shape[1])
+        _, h1, w1 = self.resized_size(h0, w0)
+        hp, wp = pad_to_divisible(h1, w1, self.size_divisibility)
+        bounds = row_bounds(hp, self.size_divisibility, len(shards))
+        with record_function("preprocess"):
+            x = RowSlabs([shards.module(self, i).preprocess_rows(image_u8, r0, r1)
+                          if r1 > r0 else None
+                          for i, (r0, r1) in enumerate(zip(bounds[:-1], bounds[1:]))],
+                         bounds, shards)
+        with record_function("backbone"):
+            levels = backbone_rows(self.cfg, self.backbone, x)
+        with record_function("gather"):
+            features = {k: gather(v, shards.devices[0], k) for k, v in levels.items()}
+        return features, (hp, wp), (h1, w1)
+
+    def forward_rows(self, image_u8: torch.Tensor, shards: Shards) -> Dict[str, torch.Tensor]:
+        """One frame (H0, W0, 3) uint8 with its rows sharded over ``shards``
+        (``parallel/mesh.py::spatial_parallel_forward``, the JAX package's
+        ``forward`` under its row sharding): ``features_rows``, then on the
+        first device the detection stages and the monolithic DensePose stage
+        unchanged. Outputs as ``forward_batch``'s frame: all D slots, raw
+        maps, no batch dimension."""
+        h0, w0 = int(image_u8.shape[0]), int(image_u8.shape[1])
+        features, hw, (h1, w1) = self.features_rows(image_u8, shards)
+        scale = device_values([w0 / w1, h0 / h1], torch.float32, shards.devices[0])
+        result, features, boxes_net = self._detect_features(features, hw, None, (h0, w0), scale)
+        result = {k: v[0] for k, v in result.items()}
+        if self.cfg.MODEL.DENSEPOSE_ON:
+            result.update(self.forward_densepose(features, boxes_net[0]))
+        return result
 
     def _with_densepose(self, result, features, boxes_net) -> Dict[str, torch.Tensor]:
         """Stage 1's result with the DensePose stage (switched on the count,

@@ -16,6 +16,11 @@ stays fp. The port always folds FrozenBN, so the JAX package's refusal of
 unfolded BN never applies. ``resnet_int8_scale_sites`` and
 ``ResNet.int8_calibration`` are the site list and the fp walk that records
 its statistics, in the same order.
+
+Each ``forward_rows`` / ``forward_int8_rows`` is the forward above it on
+row slabs of the frame (``parallel/halo.py``: a halo exchange before every
+convolution and pool that reads a neighbour's rows), for
+``spatial_parallel_forward``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch.nn.functional as F
 
 from ..checkpoint.spec import Spec, conv_spec
 from ..ops.conv_int8 import act_stat, link, quant_act_s8, quantized, to_nchw, to_s8_nhwc
+from ..parallel.halo import RowSlabs, conv_rows, link_rows, max_pool_rows
 
 NUM_BLOCKS_PER_STAGE = {
     18: [2, 2, 2, 2],
@@ -144,6 +150,23 @@ class BottleneckBlock(nn.Module):
         sc = link(self.shortcut, q, s_in) if self.shortcut is not None else q.float() * s_in
         return F.relu(y + sc)
 
+    def forward_rows(self, x: RowSlabs) -> RowSlabs:
+        """``forward`` on row slabs (``parallel/halo.py``)."""
+        out = conv_rows(self.conv1, x).map(F.relu)
+        out = conv_rows(self.conv2, out).map(F.relu)
+        out = conv_rows(self.conv3, out)
+        shortcut = conv_rows(self.shortcut, x) if self.shortcut is not None else x
+        return out.map(lambda a, b: F.relu(a + b), shortcut)
+
+    def forward_int8_rows(self, q: RowSlabs, s_in: torch.Tensor) -> RowSlabs:
+        """``forward_int8`` on NHWC s8 row slabs."""
+        q1 = link_rows(self.conv1, q, s_in, self.conv2.in_scale, relu=True)
+        q2 = link_rows(self.conv2, q1, self.conv2.in_scale, self.conv3.in_scale, relu=True)
+        y = link_rows(self.conv3, q2, self.conv3.in_scale)
+        sc = link_rows(self.shortcut, q, s_in) if self.shortcut is not None else \
+            q.map(lambda t, s: t.float() * s, s_in)
+        return y.map(lambda a, b: F.relu(a + b), sc)
+
 
 class BasicStem(nn.Module):
     def __init__(self, cout: int):
@@ -152,6 +175,10 @@ class BasicStem(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.max_pool2d(F.relu(self.conv1(x)), kernel_size=3, stride=2, padding=1)
+
+    def forward_rows(self, x: RowSlabs) -> RowSlabs:
+        """``forward`` on row slabs: the pool's rows past the edges are -inf."""
+        return max_pool_rows(conv_rows(self.conv1, x).map(F.relu), 3, 2, 1)
 
 
 class ResNet(nn.Module):
@@ -213,6 +240,36 @@ class ResNet(nn.Module):
             if nxt is not None:
                 s_in = nxt[1].conv1.in_scale
                 q = quant_act_s8(y, s_in)
+        return outputs
+
+    def forward_rows(self, x: RowSlabs) -> Dict[str, RowSlabs]:
+        """``forward`` on row slabs (``parallel/halo.py``)."""
+        x = self.stem.forward_rows(x)
+        if self.int8_active():
+            return self._int8_stages_rows(x)
+        outputs = {}
+        for name in self.stage_names:
+            for block in getattr(self, name):
+                x = block.forward_rows(x)
+            if name in self.out_features:
+                outputs[name] = x
+        return outputs
+
+    def _int8_stages_rows(self, x: RowSlabs) -> Dict[str, RowSlabs]:
+        """``_int8_stages`` on row slabs: the s8 chain's slabs NHWC."""
+        blocks = self.blocks()
+        outputs = {}
+        dtype = x.dtype
+        s_in = blocks[0][1].conv1.in_scale
+        q = x.map(to_s8_nhwc, s_in, row_dim=1)
+        for j, (stage, block) in enumerate(blocks):
+            y = block.forward_int8_rows(q, s_in)
+            nxt = blocks[j + 1] if j + 1 < len(blocks) else None
+            if (nxt is None or nxt[0] != stage) and stage in self.out_features:
+                outputs[stage] = y.map(to_nchw, dtype, row_dim=2)
+            if nxt is not None:
+                s_in = nxt[1].conv1.in_scale
+                q = y.map(quant_act_s8, s_in)
         return outputs
 
     def int8_calibration(self, x: torch.Tensor, stat: str = "max") -> torch.Tensor:

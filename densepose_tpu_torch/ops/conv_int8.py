@@ -408,10 +408,13 @@ def set_buffer(module, name: str, value: torch.Tensor) -> None:
 
 
 def link(conv, qx: torch.Tensor, sx: torch.Tensor, out_scale: Optional[torch.Tensor] = None,
-         relu: bool = False, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+         relu: bool = False, out_dtype: Optional[torch.dtype] = None,
+         padding: Optional[IntPair] = None) -> torch.Tensor:
     """One quantized conv of a chain through Q1: qx (N, H, W, Cin) s8 at
     scale ``sx`` -> NHWC s8 at ``out_scale``, or float32 (``out_dtype``).
-    Stride, padding and dilation are the module's; a ConvTranspose2d runs as
+    Stride, padding and dilation are the module's (``padding``: in its place,
+    as a row slab with its halo rows takes row padding 0,
+    ``parallel/halo.py::link_rows``); a ConvTranspose2d runs as
     ``conv_transpose2d_int8_chain``. The epilogue's vectors are made on the
     first call for each (sx, out_scale) and kept on the module; while
     ``torch.export`` traces, they are made in the program instead."""
@@ -427,7 +430,8 @@ def link(conv, qx: torch.Tensor, sx: torch.Tensor, out_scale: Optional[torch.Ten
         ep = hit[2]
     transposed = isinstance(conv, torch.nn.ConvTranspose2d)
     kind = "s8" if out_scale is not None else (out_dtype or torch.float32)
-    return conv_s8(qx, conv.qweight, ep.qb, ep.vec, stride=conv.stride, padding=conv.padding,
+    return conv_s8(qx, conv.qweight, ep.qb, ep.vec, stride=conv.stride,
+                   padding=conv.padding if padding is None else padding,
                    dilation=conv.dilation, transposed=transposed, relu=relu, out_kind=kind)
 
 

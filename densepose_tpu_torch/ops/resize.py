@@ -10,6 +10,10 @@ Uses:
 * ``resize_bilinear_np``, the same resize in numpy on the host (a copy of
   the JAX package's): the geometry-bucket canvas of
   ``predictor.DensePosePredictor.bucketize``;
+* ``source_rows`` / ``row_weights``: the source rows and the tables of a
+  range of output rows, for a row slab of the preprocess
+  (``models/rcnn.py::preprocess_rows``) and of HRFPN's upsample
+  (``parallel/halo.py::upsample_bilinear_rows``);
 * the decoder and chart-predictor 2x upsamples (``resize_bilinear``), which
   call ``F.interpolate(..., align_corners=False)`` directly.
 
@@ -59,20 +63,61 @@ def resize_image(
     H pass then W pass, each ``a * w0 + b * w1`` as two rounded products and
     one rounded sum (separate elementwise kernels, so nothing is fused into an
     FMA): bit-identical to the JAX package's preprocess resize."""
-    h_in, w_in = image.shape[-3], image.shape[-2]
-    h_out, w_out = out_hw
-    sh, sw = scale if scale is not None else (None, None)
-    dev = image.device
+    h_in = image.shape[-3]
+    sh = scale[0] if scale is not None else None
+    return _resize(image, _device_weights(h_in, out_hw[0], sh, image.device), out_hw[1], scale)
 
-    i0, i1, w0, w1 = _device_weights(h_in, h_out, sh, dev)
+
+def resize_image_rows(source: torch.Tensor, h_in: int, out_hw: Tuple[int, int],
+                      scale: Optional[Tuple[float, float]], r0: int, r1: int) -> torch.Tensor:
+    """Output rows [r0, r1) of ``resize_image`` of an ``h_in``-row image,
+    given only its rows [lo, hi) that ``source_rows`` names (``source``):
+    the same taps, weights and roundings, so bitwise those rows."""
+    sh = scale[0] if scale is not None else None
+    lo, hi, *tables = row_weights(h_in, out_hw[0], sh, r0, r1, source.device)
+    if source.shape[-3] != hi - lo:
+        raise ValueError(f"output rows [{r0}, {r1}) read source rows [{lo}, {hi}), given "
+                         f"{source.shape[-3]}")
+    return _resize(source, tables, out_hw[1], scale)
+
+
+def _resize(image: torch.Tensor, row_tables, w_out: int,
+            scale: Optional[Tuple[float, float]]) -> torch.Tensor:
+    """The H pass by ``row_tables`` (i0, i1, w0, w1), then the W pass."""
+    w_in = image.shape[-2]
+    sw = scale[1] if scale is not None else None
+    i0, i1, w0, w1 = row_tables
     ya = image.index_select(-3, i0).float()
     yb = image.index_select(-3, i1).float()
     y = ya * w0[:, None, None] + yb * w1[:, None, None]
 
-    j0, j1, v0, v1 = _device_weights(w_in, w_out, sw, dev)
+    j0, j1, v0, v1 = _device_weights(w_in, w_out, sw, image.device)
     ya = y.index_select(-2, j0)
     yb = y.index_select(-2, j1)
     return ya * v0[None, :, None] + yb * v1[None, :, None]
+
+
+@functools.lru_cache(maxsize=64)
+def _host_weights(in_size: int, out_size: int, scale: Optional[float]):
+    return _axis_weights(in_size, out_size, scale)
+
+
+def source_rows(in_size: int, out_size: int, scale: Optional[float], r0: int,
+                r1: int) -> Tuple[int, int]:
+    """The source rows [lo, hi) that output rows [r0, r1) of a resize read
+    (``_axis_weights``' taps: clamped at the edges, never past them)."""
+    i0, i1, _, _ = _host_weights(in_size, out_size, scale)
+    return int(i0[r0:r1].min()), int(i1[r0:r1].max()) + 1
+
+
+def row_weights(in_size: int, out_size: int, scale: Optional[float], r0: int, r1: int,
+                device):
+    """Output rows [r0, r1) of a resize: (lo, hi, i0, i1, w0, w1), the
+    source rows ``source_rows`` gives and ``_axis_weights``' tables of those
+    output rows on ``device``, the taps counted from ``lo``."""
+    lo, hi = source_rows(in_size, out_size, scale, r0, r1)
+    i0, i1, w0, w1 = _device_weights(in_size, out_size, scale, device)
+    return lo, hi, i0[r0:r1] - lo, i1[r0:r1] - lo, w0[r0:r1], w1[r0:r1]
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,5 +1,6 @@
-"""Data-parallel frames over several devices (port of
-densepose_tpu/parallel/mesh.py::data_parallel_forward).
+"""Data-parallel frames and spatial sharding of one frame over several
+devices (port of densepose_tpu/parallel/mesh.py::data_parallel_forward and
+``spatial_parallel_forward``).
 
 The scale axis of this workload is frames: a batch of same-shaped frames is
 split into equal contiguous shards, one a device, each device holding a
@@ -16,17 +17,27 @@ twice) or on the CPU check the sharding where there is a single device. It
 is checked for correctness only; its speed across cards has not been
 measured, as the JAX package's commit 643a311 says of the TPU mesh.
 
-Spatial sharding of one frame (the JAX package's
-``spatial_parallel_forward``) is not ported: its halo exchanges, which GSPMD
-wrote for JAX, have to be written by hand here (ROADMAP.md queue 1).
+``spatial_parallel_forward`` shards one frame's rows instead: the JAX
+package jits ``forward`` with the image's rows sharded over a mesh axis and
+the parameters replicated, and GSPMD partitions the resize and every
+convolution by rows, writing their halo exchanges. Here one process runs the
+preprocess, the backbone and the FPN / HRFPN as row slabs, one a listed
+device, with a hand-written halo exchange before every convolution, pool and
+upsample that reads a neighbour's rows (``parallel/halo.py``), gathers the
+pyramid onto the first device and runs the detection stages and the
+monolithic DensePose stage there. A device list is the port's mesh: JAX's
+``spatial_parallel_forward`` shards only its ``axis``, so no counterpart of
+``make_mesh_2d`` is needed. Its speed across cards has not been measured.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
+
+from .halo import Shards, device_key
 
 
 def data_parallel_forward(model, devices: Sequence) -> Callable[[torch.Tensor],
@@ -86,12 +97,47 @@ def data_parallel_forward(model, devices: Sequence) -> Callable[[torch.Tensor],
     return forward
 
 
+def spatial_parallel_forward(model, devices: Optional[Sequence] = None) -> Callable[
+        [torch.Tensor], Dict[str, torch.Tensor]]:
+    """A function of one frame (H0, W0, 3) uint8 (numpy, or a tensor on any
+    device) that runs ``model`` (a ``GeneralizedRCNN``) with the frame's rows
+    sharded over ``devices``, one shard a listed device
+    (``GeneralizedRCNN.forward_rows``): the JAX ``forward`` form, all D
+    slots and raw maps with no batch dimension, on the first device. The
+    padded input's rows are cut into blocks of the size divisibility (32, or
+    64 for HRFPN), dealt as evenly as possible; a shard may get none.
+
+    ``devices``: None is every visible card (RuntimeError where there is
+    none; the CPU runs only when listed, ``"cpu"``). Each distinct device
+    holds one replica of the model as it is now (the model itself where it
+    lies): ``cuda:0`` listed four times is four shards on one replica. A
+    frame whose rows do not divide by the number of shards raises
+    ``ValueError``, as the JAX mesh does. Calibrate an int8 model unsharded
+    (through the predictor) first, then make this function; make it again
+    after the model's state changes. The returned function's ``shards``
+    holds the devices and replicas, ``stats`` the halo and gather copies."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("spatial_parallel_forward: no CUDA device is visible; list the "
+                               "devices (\"cpu\" for the CPU)")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    from ..models.rcnn import image_tensor  # the models import this package
+    shards = Shards(model, devices)
+
+    @torch.inference_mode()
+    def forward(image_u8) -> Dict[str, torch.Tensor]:
+        image = image_tensor(image_u8, image_u8.device if isinstance(image_u8, torch.Tensor)
+                             else "cpu")
+        if image.shape[0] % len(shards):
+            raise ValueError(f"a frame of {image.shape[0]} rows does not split over "
+                             f"{len(shards)} shards")
+        return model.forward_rows(image, shards)
+
+    forward.shards = shards
+    forward.stats = shards.stats
+    return forward
+
+
 def _same_device(a: torch.device, b: torch.device) -> bool:
     """Whether two devices are one ("cuda" is the current card)."""
-    if a.type != b.type:
-        return False
-    if a.type != "cuda":
-        return True
-    current = torch.cuda.current_device()
-    return (a.index if a.index is not None else current) == \
-        (b.index if b.index is not None else current)
+    return device_key(a) == device_key(b)

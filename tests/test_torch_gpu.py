@@ -43,6 +43,17 @@ off so that the convolutions compute each frame alone: detections exact,
 maps within SERVED_AGAIN_TOL; ``data_parallel_forward`` with two replicas on
 the card the same.
 
+Spatial sharding of one frame (``parallel/mesh.py::spatial_parallel_forward``):
+small flagship (fp32 and float16), R101 legacy on K3, HRNet and max-serving
+int8 predictors with the frame's rows over this card listed 2 and 4 times,
+against ``forward_batch`` of the frame unsharded with cuDNN off: the
+gathered pyramid within 1e-5 of each level's largest magnitude (at float16,
+8 units in its last place: the half GEMMs round a slab apart from the whole
+map), detections exact and maps within SERVED_AGAIN_TOL (at float16, on
+random weights, whose scores tie, only finite outputs of the right form);
+every K1, K2, K3 and Q1 launch of the sharded request held against its
+plain version (Q1 on halo-extended slabs with row padding 0).
+
 At a half dtype (float16, bfloat16): K2<T> bit-identical to K2 on the
 widened levels rounded to T (only its loads and its store change), and to
 its plain version at T; K3<T> within one unit in the last place of T, at the
@@ -956,3 +967,107 @@ def test_predict_batch_on_card(cuda, monkeypatch):
         assert_served_again({k: dp[k][i] for k in dp}, one)
         if i < 3:
             assert_served_again({k: batch[k][i] for k in batch}, one)
+
+
+# -- spatial sharding of one frame ----------------------------------------------
+
+def hold_kernels(monkeypatch):
+    """Swaps K1, K2, K3 and Q1 for wrappers that hold every launch against
+    the plain version (K1 exact, K2 and Q1 bit for bit, K3 within 1e-5 of
+    the output's largest magnitude above 1); returns what each saw."""
+    seen = {"k1": [], "k2": [], "k3": [], "q1": []}
+    k1, k2 = nms.nms_keep_cuda, roi_align.roi_align_cuda
+    k3, q1 = roi_align_sparse.roi_align_sparse_cuda, conv_int8.conv_s8_cuda
+
+    def held_k1(boxes, valid, thr, classes=None):
+        got = k1(boxes, valid, thr, classes)
+        assert torch.equal(got, nms.nms_keep_plain(boxes, valid, thr, classes))
+        seen["k1"].append(tuple(boxes.shape))
+        return got
+
+    def held_k2(*args):
+        got = k2(*args)
+        assert torch.equal(got, roi_align.roi_align_plain(*args))
+        seen["k2"].append(tuple(args[0][0].shape))
+        return got
+
+    def held_k3(*args):
+        got, want = k3(*args), roi_align_sparse.roi_align_sparse_plain(*args)
+        top = max(1.0, float(want.float().abs().max())) if want.numel() else 1.0
+        assert float((got.float() - want.float()).abs().max()) <= 1e-5 * top
+        seen["k3"].append(tuple(args[0][0].shape))
+        return got
+
+    def held_q1(qx, qw, qb, vec, **kw):
+        got = q1(qx, qw, qb, vec, **kw)
+        assert torch.equal(got, conv_int8.conv_s8_plain(qx, qw, qb, vec, **kw)), kw
+        seen["q1"].append((tuple(qx.shape), tuple(np.atleast_1d(kw["padding"]))))
+        return got
+
+    for fn in (held_k1, held_k2, held_k3, held_q1):
+        fn.launches = 0
+    held_q1.variant_launches = dict.fromkeys(conv_int8.Q1_VARIANTS, 0)
+    monkeypatch.setattr(nms, "nms_keep_cuda", held_k1)
+    monkeypatch.setattr(roi_align, "roi_align_cuda", held_k2)
+    monkeypatch.setattr(roi_align_sparse, "roi_align_sparse_cuda", held_k3)
+    monkeypatch.setattr(conv_int8, "conv_s8_cuda", held_q1)
+    return seen
+
+
+SPATIAL_CASES = [
+    ("densepose_rcnn_R_50_FPN_s1x", ()),
+    ("densepose_rcnn_R_50_FPN_s1x", ("TPU.COMPUTE_DTYPE", "float16")),
+    ("densepose_rcnn_R_101_FPN_s1x_legacy", ()),
+    ("densepose_rcnn_HRFPN_HRNet_w32_s1x", ()),
+    ("densepose_rcnn_R_50_FPN_s1x", ("TPU.INT8_HEAD", True, "TPU.INT8_PREDICTOR", True,
+                                     "TPU.INT8_BACKBONE", True, "TPU.INT8_RPN", True)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("name,extra", SPATIAL_CASES,
+                         ids=["flagship", "flagship-float16", "legacy-K3", "hrnet", "int8"])
+def test_spatial_forward_on_card(cuda, name, extra, n, monkeypatch):
+    """One frame's rows over this card listed ``n`` times (one replica, the
+    predictor's model) against ``forward_batch`` of the frame unsharded, with
+    cuDNN off; every kernel launch of the sharded request held against its
+    plain version. HRNet's 128 padded rows are 2 blocks of 64: over 4 shards
+    two own no rows. At float16 a slab's convolutions round apart from the
+    whole map's by a unit in the last place, and on random weights every
+    score ties, so the detections are a draw: the pyramid is held there."""
+    from densepose_tpu_torch.parallel import spatial_parallel_forward
+    sparse = "legacy" in name
+    if sparse:
+        monkeypatch.setenv("DENSEPOSE_TPU_SPARSE_POOLER", "1")
+    pred = small_zoo_predictor(cuda, name, extra)
+    frame = (np.random.RandomState(34).rand(96, 136, 3) * 255).astype(np.uint8)
+    int8 = "TPU.INT8_BACKBONE" in extra
+    if int8:
+        pred.calibrate_int8([frame])
+    fwd = spatial_parallel_forward(pred.model, [cuda] * n)
+    assert fwd.shards.replicas == [pred.model] * n
+    half = "float16" in extra
+    with torch.backends.cudnn.flags(enabled=False), torch.inference_mode():
+        image = image_tensor(frame, cuda)
+        want = {k: v[0] for k, v in pred.model.forward_batch(image[None]).items()}
+        levels, _, _ = pred.model.features_rows(image, fwd.shards)
+        whole = pred.model.backbone(pred.model.preprocess(image)[0])
+        seen = hold_kernels(monkeypatch)
+        got = fwd(frame)
+        torch.cuda.synchronize()
+    for k, w in whole.items():
+        top = float(w.float().abs().max())
+        err = float((levels[k].float() - w.float()).abs().max())
+        assert err <= (8 * 2.0 ** -10 if half else 1e-5) * top, (k, err, top)
+    assert len(seen["k1"]) == 2 and len(seen["k3" if sparse else "k2"]) == 2, seen
+    assert all(len(b) == n + 1 for b in fwd.stats.levels.values())
+    if int8:  # the backbone's 3x3 links on halo-extended slabs
+        assert any(pad == (0, 1) for _, pad in seen["q1"])
+    assert sorted(got) == sorted(want)
+    assert all(v.device == want[k].device and v.dtype == want[k].dtype
+               and v.shape == want[k].shape for k, v in got.items())
+    if half:
+        assert all(bool(torch.isfinite(v).all()) for v in got.values() if v.is_floating_point())
+    else:
+        assert_served_again(got, want)

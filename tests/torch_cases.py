@@ -210,3 +210,20 @@ def batched_pooler_cases(seed=0, frames=3, channels=8, m=90):
     levels = rng.randint(0, len(shapes), m).astype(np.int32)
     index = rng.randint(0, frames, m).astype(np.int32)  # frame `frames` has no box
     return feats, boxes, levels, index, [0.25, 0.125, 0.0625, 0.03125]
+
+
+def halo_one_row_short(fetch_rows):
+    """A planted fault of the spatial sharding (``parallel/halo.py``):
+    ``fetch_rows`` with each halo that reaches past the asking shard's own
+    rows into a neighbour's one row short, its last row zero (at an interior
+    boundary: the image's true edge is left alone). tests/test_torch_spatial.py
+    and chip_smoke.py swap it in for ``halo.fetch_rows`` and hold that the
+    sharded forward then fails its holds."""
+    def short(slabs, a, b, device, shard=None, fill=None):
+        rows = fetch_rows(slabs, a, b, device, shard, fill)
+        end = slabs.bounds[shard + 1] if shard is not None else b
+        if end < b <= slabs.height and b - a > 1:
+            rows = rows.clone()
+            rows.narrow(slabs.row_dim, b - a - 1, 1).zero_()
+        return rows
+    return short
