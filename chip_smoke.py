@@ -154,6 +154,23 @@ toolkit. Phases, each of which fails the run:
    readings of a planted fault (a halo one row short at each interior
    boundary); ms a request both ways, halo copies and bytes, gather bytes,
    rows per shard per level and peak memory per device;
+4d. new backbones (new_backbones_phase): get_cfg()'s R50-C4 detector
+   (detectron2's faster_rcnn_R_50_C4_1x with DensePose off: build_resnet_backbone
+   to res4, the RPN on res4, Res5ROIHeads with 14x14 ROIAlignV2 at ratio 0
+   and 80 classes) in fp32, at float16 and with INT8_BACKBONE calibrated on
+   4 frames (tests/torch_cases.py::C4_TAME weights: random ones put no box
+   inside the frame), the flagship with DEPTH 34 (BasicBlock) and the
+   flagship on the RetinaNet FPN (RPN p3..p7, ROI heads p3..p5), at full
+   width: a warm-up and 2 frames with the launch counters set to 0 just
+   before and read just after (C4: 2 K1, the RPN's one level and the box
+   stage's 80 class problems of 1000 proposals, 1 K2 and 42 Q1 links under
+   INT8_BACKBONE; the FPN paths 2 K1 + 2 K2; no plain version called), the
+   latency, device time and idle share beside the nvidia-smi line, the
+   outputs' form, one request with every K1, K2 and Q1 launch held against
+   its plain version; the C4 fp32 request's K1 and K2 calls timed at their
+   sites beside their plain versions and bounds (c4_sites on the kernels
+   line); narrowed C4 (R50, R18), R18-FPN and RetinaNet models card against
+   CPU;
 5. consumer, right after the flagship's, DL's and the float16 flagship's
    path phase (raw SIUV maps; a label map; float16 maps), each through the
    predictor its path built, on 8 distinct
@@ -1812,9 +1829,9 @@ def stage_text(stage, dtype="float32"):
 
 def batch_site(torch, report, kind, dtype, args, kw, site, key="batched_sites"):
     """One kernel call kept from a batch (or a sharded request), timed (CUDA
-    events around back-to-back calls) beside its plain version and its bound
-    for this call's work; added to the kernel's ``key`` sites on the kernels
-    line. Returns the entry."""
+    events around back-to-back calls) beside its plain version, its largest
+    difference from it and its bound for this call's work; added to the
+    kernel's ``key`` sites on the kernels line. Returns the entry."""
     from densepose_tpu_torch.ops import conv_int8, nms, roi_align, roi_align_sparse
     name = {"k1": "nms_keep_cuda", "k2": "roi_align_cuda", "k3": "roi_align_sparse_cuda",
             "q1": Q1}[kind]
@@ -1823,6 +1840,8 @@ def batch_site(torch, report, kind, dtype, args, kw, site, key="batched_sites"):
              "k3": roi_align_sparse.roi_align_sparse_plain, "q1": conv_int8.conv_s8_plain}[kind]
     ms = cuda_ms(lambda: kernel(*args, **kw), reps=20)
     plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=2, warmup=1)
+    got, want = kernel(*args, **kw), plain(*args, **kw)
+    err = float((got.float() - want.float()).abs().max()) if want.numel() else 0.0
     if kind == "k1":
         boxes, valid, thr, classes = args
         b_ms, by = bound(*nms_work(boxes, valid, plain(*args), thr, classes))
@@ -1840,10 +1859,10 @@ def batch_site(torch, report, kind, dtype, args, kw, site, key="batched_sites"):
         b_ms, by = bound(*roi_align_work(*args))
         shape = f"M={args[1].shape[0]} levels={len(args[0])} frames={args[0][0].shape[0]}"
     entry = {"site": site, "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-             "bound_by": by}
+             "bound_by": by, "max_abs_err": err}
     report[entry_name(name, dtype)].setdefault(key, []).append(entry)
     print(f"{key.split('_')[0]} site {name} [{dtype}] {site} {shape}: {ms:.4f} ms a call, "
-          f"plain {plain_ms:.4f}, bound {b_ms:.6f} ({by})")
+          f"plain {plain_ms:.4f}, bound {b_ms:.6f} ({by}); max abs error {err:.3e}")
     return entry
 
 
@@ -2386,12 +2405,8 @@ def tamed_params(cfg, seed=0, params=None):
     """The port's random weights from ``seed`` (or ``params``) with
     DETECTION_TAME applied."""
     from densepose_tpu_torch.predictor import load_params
-    params = load_params(cfg, seed=seed) if params is None else dict(params)
-    for k in params:
-        for prefix, f in DETECTION_TAME.items():
-            if k.startswith(prefix + "."):
-                params[k] = params[k] * np.float32(f)
-    return params
+    params = load_params(cfg, seed=seed) if params is None else params
+    return torch_cases().tame(params, DETECTION_TAME)
 
 
 def tamed_predictor(pred):
@@ -3811,6 +3826,181 @@ def spatial_phase(torch, report, dev, smi):
               f"{time.perf_counter() - t0:.1f} s into the spatial phase")
 
 
+# 4d. the C4 detector, BasicBlock R34 and the RetinaNet FPN (new_backbones_phase)
+R34 = (("MODEL.RESNETS.DEPTH", 34), ("MODEL.RESNETS.RES2_OUT_CHANNELS", 64))
+NEW_TIMED = 2  # timed requests a path
+# per request: the C4 detector's 2 K1 (the RPN's one level, then 80 class
+# problems) and 1 K2 (res4); the FPN paths 2 K1 + 2 K2; INT8_BACKBONE on C4 42
+# Q1 links (res2..res4: 13 blocks of 3 convs and 3 shortcuts)
+ON_C4 = {"nms_keep_cuda": 2, "roi_align_cuda": 1, "roi_align_sparse_cuda": 0, "conv_s8_cuda": 0}
+C4_INT8_LINKS = 3 * (3 + 4 + 6) + 3
+
+
+def new_backbone_paths():
+    """(tag, config, weights, launches per request) of the phase: get_cfg()'s
+    R50-C4 detector (detectron2's faster_rcnn_R_50_C4_1x) in fp32, at float16
+    and with INT8_BACKBONE, on C4_TAME weights (random ones put no box
+    inside the frame); the flagship with DEPTH 34 (BasicBlock, res2 64 wide);
+    the flagship on the RetinaNet FPN (RPN p3..p7, ROI heads p3..p5); both on
+    random weights from seed 0."""
+    from densepose_tpu_torch.config import get_cfg
+    from densepose_tpu_torch.predictor import load_params
+    cases = torch_cases()
+    paths = []
+    for tag, extra in [("R50-C4", ()), ("R50-C4 float16", FP16),
+                       ("R50-C4 INT8_BACKBONE", (("TPU.INT8_BACKBONE", True),))]:
+        cfg = cases.set_cfg(get_cfg(), cases.C4_DETECTION + list(extra))
+        cfg.freeze()
+        per = dict(ON_C4, conv_s8_cuda=C4_INT8_LINKS if "INT8" in tag else 0)
+        paths.append((tag, cfg, cases.tame(load_params(cfg, seed=0), cases.C4_TAME), per))
+    paths.append(("R34-FPN", path_config(FLAGSHIP, R34), None, ON_K2))
+    paths.append(("RetinaNet-FPN R50", path_config(FLAGSHIP, cases.RETINANET), None, ON_K2))
+    return paths
+
+
+def new_backbone_path(torch, report, dev, tag, cfg, params, per_request, smi):
+    """One path at full width: (INT8_BACKBONE: calibrate_int8 on CALIB_FRAMES
+    frames) a warm-up and NEW_TIMED requests with the launch counters set to 0
+    just before and read just after, and no plain version called; one
+    profiled request; the outputs' form; one request with every K1, K2 and Q1
+    launch held against its plain version, its calls kept. Returns the
+    HeldAgainstPlain."""
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    dtype = cfg.TPU.COMPUTE_DTYPE
+    pred = DensePosePredictor(cfg, seed=0, device=dev, params=params)
+    if cfg.TPU.INT8_BACKBONE:
+        t0 = time.perf_counter()
+        pred.calibrate_int8(frames(7, CALIB_FRAMES))
+        torch.cuda.synchronize()
+        check(pred.model.backbone.int8_active(), f"{tag}: the s8 chain is not installed")
+        print(f"new backbones {tag}: calibrate_int8 on {CALIB_FRAMES} frames in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms, "
+              f"{len(pred.export_calibration())} scales (the unused backbone res5's among "
+              "them)")
+    warm, *timed = frames(1, 1 + NEW_TIMED)
+    pred(warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    lat, outs = [], []
+    with CountPlain() as plain:
+        for img in timed:
+            t0 = time.perf_counter()
+            outs.append(pred(img))
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: fn.launches for k, fn in counters().items()}
+        variants = dict(counters()[Q1].variant_launches)
+    check(plain.calls == 0, f"{tag}: {plain.calls} plain-version calls")
+    count_launches(report, tag, dtype, launches, per_request, len(timed))
+    if per_request[Q1]:
+        report[Q1]["variant_launches_per_path"][tag] = variants
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ms = float(np.median(lat))
+    busy = breakdown(torch, pred, timed[0], ms)
+    d = cfg.TEST.DETECTIONS_PER_IMAGE
+    rows = d  # the C4 detector's are min(D, R * C), with no padding to D
+    if cfg.MODEL.ROI_HEADS.NAME == "Res5ROIHeads":
+        rows = min(d, cfg.MODEL.RPN.POST_NMS_TOPK_TEST * cfg.MODEL.ROI_HEADS.NUM_CLASSES)
+    for i, out in enumerate(outs):
+        check(out["pred_boxes"].shape == (rows, 4) and out["pred_boxes"].dtype == torch.float32,
+              f"{tag} request {i}: pred_boxes {tuple(out['pred_boxes'].shape)} "
+              f"{out['pred_boxes'].dtype}")
+        check(all(bool(torch.isfinite(v).all()) for v in out.values() if v.is_floating_point()),
+              f"{tag} request {i}: non-finite outputs")
+        res = pred.numpy_outputs(out)
+        n = res["num_instances"]
+        check(n >= 1, f"{tag} request {i}: no detections")
+        maps = sorted(k for k in out if k.startswith("pred_densepose_"))
+        if cfg.MODEL.DENSEPOSE_ON:
+            check(maps == [f"pred_densepose_{k}" for k in ("coarse_segm", "fine_segm", "u",
+                                                           "v")]
+                  and res["pred_densepose_u"].shape[0] == n,
+                  f"{tag} request {i}: maps {maps}")
+        else:
+            check(not maps, f"{tag} request {i}: maps {maps} from a detector without DensePose")
+        print(f"new backbones {tag}: request {i}: {lat[i]:.2f} ms, num_instances {n}, "
+              f"classes {sorted(set(res['pred_classes'].tolist()))[:8]}")
+    print(f"new backbones {tag} [{dtype}] ({smi}): {len(timed)} requests of "
+          f"{FRAME_HW[0]}x{FRAME_HW[1]} frames (input "
+          f"{'x'.join(map(str, main_path_shapes(cfg)[0]))}): latency ms "
+          f"{', '.join(f'{x:.2f}' for x in lat)} (median {ms:.2f}); device busy "
+          f"{fmt(busy)} ms; kernel launches {launches}"
+          + (f" (Q1 by variant {variants})" if per_request[Q1] else "")
+          + f"; max memory allocated {peak:.1f} MiB")
+    with HeldAgainstPlain(torch, tag, keep=True) as held:
+        pred(timed[0])
+        torch.cuda.synchronize()
+    check((len(held.k1), len(held.k2), len(held.q1)) == (
+        per_request["nms_keep_cuda"], per_request["roi_align_cuda"], per_request[Q1]),
+        f"{tag}: held {len(held.k1)} K1, {len(held.k2)} K2, {len(held.q1)} Q1 calls")
+    print(f"held: one {tag} request, {held.summary()}")
+    del pred, outs
+    torch.cuda.empty_cache()
+    return held
+
+
+def reference_check_c4(torch, dev, tag, extra, hw=(64, 64)):
+    """A narrowed C4 detector, card against CPU on seed-5 weights: the same
+    detections (count and classes exact, boxes and scores within 1e-3),
+    detections paired by box as reference_check pairs them."""
+    from densepose_tpu_torch.config import get_cfg
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    cases = torch_cases()
+    cfg = cases.set_cfg(get_cfg(), cases.C4_DETECTION + list(extra))
+    cfg.freeze()
+    img = (np.random.RandomState(21).rand(*hw, 3) * 255).astype(np.uint8)
+    gpu, cpu = (DensePosePredictor(cfg, seed=5, device=d).predict_numpy(img) for d in (dev, "cpu"))
+    n = cpu["num_instances"]
+    check(gpu["num_instances"] == n >= 1, f"reference {tag}: {gpu['num_instances']} vs {n} "
+          "detections")
+    order = [np.lexsort(r["pred_boxes"].T[::-1]) for r in (gpu, cpu)]
+    err = 0.0
+    for k in ("pred_boxes", "scores", "pred_classes"):
+        e = float(np.abs(gpu[k][order[0]].astype(np.float64) - cpu[k][order[1]]).max())
+        check(e <= (0 if k == "pred_classes" else 1e-3), f"reference {tag}: {k} differs by {e}")
+        err = max(err, e)
+    print(f"reference: narrowed {tag} on the card == on the CPU: {n} detections, max abs "
+          f"difference {err:.3e} (tol 1e-3)")
+
+
+def new_backbones_phase(torch, report, dev, smi):
+    """The C4 detector, R34-FPN and RetinaNet-FPN at full width
+    (new_backbone_paths), each through new_backbone_path; the R50-C4 fp32
+    request's kept calls timed at their sites beside their plain versions and
+    bounds (``c4_sites`` on the kernels line: K1 at the RPN's one level of
+    PRE_NMS_TOPK_TEST boxes, K1's per-class route at 80 problems of 1000
+    proposals, K2 at the res4 pooler); narrowed C4 (R50, R18), R18-FPN and
+    RetinaNet models card against CPU."""
+    t0 = time.perf_counter()
+    for tag, cfg, params, per_request in new_backbone_paths():
+        held = new_backbone_path(torch, report, dev, tag, cfg, params, per_request, smi)
+        if tag == "R50-C4":
+            (rpn, box), (pool,) = held.calls["k1"], held.calls["k2"]
+            check(rpn[0][0].shape[:2] == (1, cfg.MODEL.RPN.PRE_NMS_TOPK_TEST)
+                  and box[0][0].shape[:2] == (cfg.MODEL.ROI_HEADS.NUM_CLASSES,
+                                              cfg.MODEL.RPN.POST_NMS_TOPK_TEST)
+                  and box[0][3] is None,
+                  f"R50-C4: K1 at {tuple(rpn[0][0].shape)} and {tuple(box[0][0].shape)}")
+            check(tuple(pool[0][0][0].shape[:2]) == (1, 1024) and pool[0][5] == 0
+                  and pool[0][6], f"R50-C4: K2 at {tuple(pool[0][0][0].shape)}")
+            for kind, (args, kw), site in [("k1", rpn, "c4_rpn"),
+                                           ("k1", box, "c4_box_stage_per_class"),
+                                           ("k2", pool, "c4_box_pooler")]:
+                batch_site(torch, report, kind, "float32", args, kw, site, key="c4_sites")
+        del held
+        torch.cuda.empty_cache()
+        print(f"time: new backbones {tag} done {time.perf_counter() - t0:.1f} s into the phase")
+    cases = torch_cases()  # the narrowed C4 detectors of tests/test_torch_c4.py
+    reference_check_c4(torch, dev, "R50-C4", cases.C4_TINY + cases.R50_NARROW)
+    reference_check_c4(torch, dev, "R18-C4",
+                       cases.C4_TINY + [("MODEL.RESNETS.DEPTH", 18)] + cases.BASIC_BLOCK)
+    reference_check(torch, dev, FLAGSHIP, False,
+                    extra=(("MODEL.RESNETS.DEPTH", 18),) + tuple(cases.BASIC_BLOCK))
+    reference_check(torch, dev, FLAGSHIP, False, extra=tuple(cases.RETINANET))
+    print(f"time: new backbones phase {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     try:
         import torch
@@ -3903,6 +4093,8 @@ def main():
     lap("batch phase")
     spatial_phase(torch, report, dev, smi_line)
     lap("spatial phase")
+    new_backbones_phase(torch, report, dev, smi_line)
+    lap("new backbones phase")
     cse_phase(torch, report, dev)
     geometry_phase(torch, report, dev)
     detection_bucket_phase(torch, report, dev)

@@ -12,6 +12,10 @@ any ResNet depth: FPN int8 has no depth gate. ``fpn_int8_scale_sites`` and
 ``FPN.int8_calibration`` are the site lists (FPN, then the RPN conv's per-level
 inputs) and the walk that records them. ``FPN.forward_rows`` is the forward
 on row slabs of the frame (``spatial_parallel_forward``).
+
+``RetinaNetFPN`` (``build_retinanet_resnet_fpn_backbone``, JAX fpn.py:165-207)
+is the same FPN with LastLevelP6P7 in place of the max pool: p6 a 3x3/2 conv
+of res5, p7 a 3x3/2 conv of relu(p6) (``top_block.p6`` / ``.p7``).
 """
 
 from __future__ import annotations
@@ -32,13 +36,23 @@ _STAGE_LOG2 = {"res2": 2, "res3": 3, "res4": 4, "res5": 5}
 
 
 def _in_channels(cfg) -> Dict[str, int]:
+    """Each stage's width (JAX fpn.py:34-40): 64..512 for BasicBlock ResNets,
+    RES2_OUT_CHANNELS doubling per stage for bottlenecks."""
+    if cfg.MODEL.RESNETS.DEPTH < 50:
+        return {"res2": 64, "res3": 128, "res4": 256, "res5": 512}
     base = cfg.MODEL.RESNETS.RES2_OUT_CHANNELS
     return {f: base * (2 ** (s - 2)) for f, s in _STAGE_LOG2.items()}
 
 
-def fpn_spec(cfg, prefix: str = "backbone") -> Spec:
+def _check_supported(cfg) -> None:
     if cfg.MODEL.FPN.NORM:
-        raise NotImplementedError(f"FPN norm {cfg.MODEL.FPN.NORM!r} is not ported yet")
+        raise NotImplementedError(f"FPN.NORM {cfg.MODEL.FPN.NORM!r}: the JAX package declares the "
+                                  "norm's parameters but applies none (fpn.py:30-47, 60-91); the "
+                                  "port refuses it rather than copy that")
+
+
+def fpn_spec(cfg, prefix: str = "backbone") -> Spec:
+    _check_supported(cfg)
     spec = resnet_spec(cfg, prefix=f"{prefix}.bottom_up")
     out_channels = cfg.MODEL.FPN.OUT_CHANNELS
     ch = _in_channels(cfg)
@@ -73,8 +87,7 @@ class FPN(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        if cfg.MODEL.FPN.NORM:
-            raise NotImplementedError(f"FPN norm {cfg.MODEL.FPN.NORM!r} is not ported yet")
+        _check_supported(cfg)
         self.in_features: List[str] = list(cfg.MODEL.FPN.IN_FEATURES)
         self.int8 = bool(cfg.TPU.INT8_BACKBONE)
         self.bottom_up = ResNet(cfg)
@@ -95,6 +108,15 @@ class FPN(nn.Module):
                 stat: str = "max") -> Dict[str, torch.Tensor]:
         """``stats``: append each output conv's input statistic (the fp
         calibration walk) instead of running int8."""
+        results, _ = self.levels(x, stats, stat)
+        top = _STAGE_LOG2[self.in_features[-1]]
+        results[f"p{top + 1}"] = results[f"p{top}"][:, :, ::2, ::2]
+        return dict(sorted(results.items()))
+
+    def levels(self, x: torch.Tensor, stats: List[torch.Tensor] = None,
+               stat: str = "max"):
+        """The lateral, top-down and output pass (JAX ``_fpn_levels``):
+        (the p-levels of ``FPN.IN_FEATURES``, the bottom-up features)."""
         bottom_up = self.bottom_up(x)
         int8 = stats is None and self.int8_active()
         results: Dict[str, torch.Tensor] = {}
@@ -113,14 +135,19 @@ class FPN(nn.Module):
                 results[f"p{stage}"] = to_nchw(y, prev.dtype)
             else:
                 results[f"p{stage}"] = out(prev)
-        top = _STAGE_LOG2[self.in_features[-1]]
-        results[f"p{top + 1}"] = results[f"p{top}"][:, :, ::2, ::2]
-        return dict(sorted(results.items()))
+        return results, bottom_up
 
     def forward_rows(self, x: RowSlabs) -> Dict[str, RowSlabs]:
         """``forward`` (its serving arm) on row slabs (``parallel/halo.py``):
         the top-down sums row-local, the output convs with a halo exchange, p6
         from the even global rows of p5."""
+        results, _ = self.levels_rows(x)
+        top = _STAGE_LOG2[self.in_features[-1]]
+        results[f"p{top + 1}"] = subsample_rows(results[f"p{top}"])
+        return dict(sorted(results.items()))
+
+    def levels_rows(self, x: RowSlabs):
+        """``levels`` on row slabs."""
         bottom_up = self.bottom_up.forward_rows(x)
         int8 = self.int8_active()
         results: Dict[str, RowSlabs] = {}
@@ -138,9 +165,7 @@ class FPN(nn.Module):
                     to_nchw, prev.dtype, row_dim=2)
             else:
                 results[f"p{stage}"] = conv_rows(out, prev)
-        top = _STAGE_LOG2[self.in_features[-1]]
-        results[f"p{top + 1}"] = subsample_rows(results[f"p{top}"])
-        return dict(sorted(results.items()))
+        return results, bottom_up
 
     def int8_calibration(self, x: torch.Tensor, rpn_conv: nn.Module, rpn_features: List[str],
                          stat: str = "max") -> torch.Tensor:
@@ -153,3 +178,58 @@ class FPN(nn.Module):
         for f in rpn_features:
             stats.append(act_stat(results[f], stat, getattr(rpn_conv, f"in_scale_{f}", None)))
         return torch.stack(stats)
+
+
+def retinanet_fpn_spec(cfg, prefix: str = "backbone") -> Spec:
+    """The FPN's spec and LastLevelP6P7's two convs (JAX
+    ``retinanet_fpn_spec``: res5's width taken as 8 x RES2_OUT_CHANNELS)."""
+    spec = fpn_spec(cfg, prefix)
+    out_channels = cfg.MODEL.FPN.OUT_CHANNELS
+    conv_spec(spec, f"{prefix}.top_block.p6", cfg.MODEL.RESNETS.RES2_OUT_CHANNELS * 8,
+              out_channels, 3)
+    conv_spec(spec, f"{prefix}.top_block.p7", out_channels, out_channels, 3)
+    return spec
+
+
+def retinanet_fpn_out_strides(cfg) -> Dict[str, int]:
+    top = _STAGE_LOG2[cfg.MODEL.FPN.IN_FEATURES[-1]]
+    strides = {f"p{_STAGE_LOG2[f]}": 2 ** _STAGE_LOG2[f] for f in cfg.MODEL.FPN.IN_FEATURES}
+    strides.update({f"p{top + 1}": 2 ** (top + 1), f"p{top + 2}": 2 ** (top + 2)})
+    return strides
+
+
+class LastLevelP6P7(nn.Module):
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.p6 = nn.Conv2d(cin, cout, 3, stride=2, padding=1)
+        self.p7 = nn.Conv2d(cout, cout, 3, stride=2, padding=1)
+
+
+class RetinaNetFPN(FPN):
+    """x: (N, 3, H, W) -> {"p3": ..., "p7": ...} NCHW: the FPN levels, p6 a
+    3x3/2 conv of res5 and p7 a 3x3/2 conv of relu(p6) (JAX
+    ``retinanet_fpn_forward``)."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.top_block = LastLevelP6P7(cfg.MODEL.RESNETS.RES2_OUT_CHANNELS * 8,
+                                       cfg.MODEL.FPN.OUT_CHANNELS)
+
+    def forward(self, x: torch.Tensor, stats: List[torch.Tensor] = None,
+                stat: str = "max") -> Dict[str, torch.Tensor]:
+        results, bottom_up = self.levels(x, stats, stat)
+        top = _STAGE_LOG2[self.in_features[-1]]
+        p6 = self.top_block.p6(bottom_up["res5"])
+        results[f"p{top + 1}"] = p6
+        results[f"p{top + 2}"] = self.top_block.p7(F.relu(p6))
+        return dict(sorted(results.items()))
+
+    def forward_rows(self, x: RowSlabs) -> Dict[str, RowSlabs]:
+        """``forward`` on row slabs: p6 and p7 stride-2 convs with a halo
+        exchange."""
+        results, bottom_up = self.levels_rows(x)
+        top = _STAGE_LOG2[self.in_features[-1]]
+        p6 = conv_rows(self.top_block.p6, bottom_up["res5"])
+        results[f"p{top + 1}"] = p6
+        results[f"p{top + 2}"] = conv_rows(self.top_block.p7, p6.map(F.relu))
+        return dict(sorted(results.items()))

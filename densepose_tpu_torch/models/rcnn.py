@@ -10,9 +10,13 @@ FrozenBN folded (``backbone.bottom_up.stem.conv1.weight``,
    zero-padded to a multiple of ``size_divisibility`` (32; HRFPN 64) in
    fp32, then cast once to the compute dtype — bit-identical to the JAX
    package;
-2. the backbone: ResNet-FPN or HRNet + HRFPN;
+2. the backbone: ResNet-FPN, HRNet + HRFPN, the RetinaNet FPN, or the plain
+   ResNet of the C4 detector;
 3. ``rpn_forward`` (NMS through kernel K1);
-4. ``box_stage_forward`` (ROIAlign through K2, NMS through K1);
+4. the box stage, by ``ROI_HEADS.NAME``: ``box_stage_forward`` (ROIAlign
+   through K2, NMS through K1), or the C4 detector's ``res5_forward``
+   (models/res5_roi_heads.py: K2 on res4, the res5 stage on every region,
+   K1);
 5. the box postprocess (detector_postprocess, postprocessing.py:11-61) and
    ``pack_detections``;
 6. the DensePose stage on a detection-count bucket picked on the host
@@ -88,6 +92,7 @@ from ..ops.boxes import clip_boxes, nonempty_boxes
 from ..ops.resize import resize_image, resize_image_rows, source_rows
 from ..parallel.halo import RowSlabs, Shards, gather, row_bounds
 from .backbones import backbone_rows, backbone_spec, build_backbone
+from .res5_roi_heads import Res5ROIHeads, res5_forward_batch, res5_spec
 from .roi_heads import (ROIHeads, box_stage_forward_batch, densepose_stacked_calibration,
                         densepose_stage_forward, frame_index, roi_heads_spec)
 from .rpn import RPNHead, rpn_forward_batch, rpn_spec
@@ -120,6 +125,11 @@ def pad_to_divisible(h: int, w: int, d: int) -> Tuple[int, int]:
 def _check_supported(cfg) -> None:
     if cfg.MODEL.META_ARCHITECTURE != "GeneralizedRCNN":
         raise NotImplementedError(cfg.MODEL.META_ARCHITECTURE)
+    if cfg.MODEL.ROI_HEADS.NAME == "Res5ROIHeads" and cfg.MODEL.DENSEPOSE_ON:
+        raise ValueError("Res5ROIHeads has no DensePose heads: set MODEL.DENSEPOSE_ON False "
+                         "for the C4 detector (the JAX package's spec holds no decoder or "
+                         "DensePose head under it, and its forward fails on "
+                         "'roi_heads.decoder.res4.0.weight')")
     t = cfg.TPU
     if t.COMPUTE_DTYPE not in COMPUTE_DTYPES:
         raise ValueError(f"TPU.COMPUTE_DTYPE {t.COMPUTE_DTYPE!r}: expected one of "
@@ -145,21 +155,23 @@ class GeneralizedRCNN(nn.Module):
                                                        dtype=torch.float32), persistent=False)
         self.backbone = build_backbone(cfg)
         self.proposal_generator = ProposalGenerator(cfg)
-        self.roi_heads = ROIHeads(cfg)
+        self.res5 = cfg.MODEL.ROI_HEADS.NAME == "Res5ROIHeads"
+        self.roi_heads = Res5ROIHeads(cfg) if self.res5 else ROIHeads(cfg)
 
     def spec(self) -> Spec:
         """Reference-layout (unfolded) parameter spec, in the JAX package's
-        order: checkpoint alignment and random init read it."""
+        order: checkpoint alignment and random init read it. The C4 spec
+        holds the backbone's four stages (res5 unused), the RPN, then
+        ``roi_heads.res5``."""
         spec = backbone_spec(self.cfg)
         spec.update(rpn_spec(self.cfg))
-        spec.update(roi_heads_spec(self.cfg))
+        spec.update(res5_spec(self.cfg) if self.res5 else roi_heads_spec(self.cfg))
         return spec
 
     def resnet_prefix(self) -> Optional[str]:
-        """Param prefix of the ResNet bottom-up, or None for HRNet (the int8
-        backbone's bottleneck sites apply to ResNets only)."""
-        return "backbone.bottom_up" if self.cfg.MODEL.BACKBONE.NAME == \
-            "build_resnet_fpn_backbone" else None
+        """Param prefix of the ResNet, or None for HRNet (the int8 backbone's
+        bottleneck sites apply to ResNets only; JAX rcnn.py:233-242)."""
+        return resnet_prefix(self.cfg)
 
     def forward_int8_calibration(self, image_u8: torch.Tensor,
                                  stat: str = "max") -> Dict[str, torch.Tensor]:
@@ -177,13 +189,15 @@ class GeneralizedRCNN(nn.Module):
             _, features, boxes_net = self.forward_stage1(image_u8)
             out["head"] = densepose_stacked_calibration(self.roi_heads, features, boxes_net,
                                                         cfg, stat)
-        resnet = self.resnet_prefix() is not None
+        resnet = self.resnet_prefix() is not None and cfg.MODEL.RESNETS.DEPTH >= 50
+        fpn = cfg.MODEL.BACKBONE.NAME == "build_resnet_fpn_backbone"
         hrnet = cfg.MODEL.BACKBONE.NAME == "build_hrfpn_backbone"
-        if (t.INT8_BACKBONE and (resnet or hrnet)) or (t.INT8_RPN and resnet):
+        if t.INT8_BACKBONE and (resnet or hrnet) or (t.INT8_BACKBONE or t.INT8_RPN) and fpn:
             x, _, _ = self.preprocess(image_u8)
             if t.INT8_BACKBONE and resnet:
-                out["backbone"] = self.backbone.bottom_up.int8_calibration(x, stat)
-            if resnet:
+                out["backbone"] = self.get_submodule(self.resnet_prefix()).int8_calibration(
+                    x, stat)
+            if fpn:
                 out["fpn"] = self.backbone.int8_calibration(
                     x, self.proposal_generator.rpn_head.conv, list(cfg.MODEL.RPN.IN_FEATURES),
                     stat)
@@ -302,8 +316,9 @@ class GeneralizedRCNN(nn.Module):
             proposals, _, pvalid = rpn_forward_batch(self.proposal_generator.rpn_head,
                                                      features, clip_hw, cfg, anchor_valid_hw)
         with record_function("box_stage"):
-            boxes_net, scores, classes, dvalid = box_stage_forward_batch(
-                self.roi_heads, features, proposals, pvalid, cfg)
+            stage = res5_forward_batch if self.res5 else box_stage_forward_batch
+            boxes_net, scores, classes, dvalid = stage(self.roi_heads, features, proposals,
+                                                       pvalid, cfg)
 
         with record_function("postprocess"):
             # detector_postprocess: rescale to the original resolution, drop
@@ -555,6 +570,15 @@ def densepose_bucket(num_valid: int, d: int) -> int:
 
 def build_model(cfg) -> GeneralizedRCNN:
     return GeneralizedRCNN(cfg)
+
+
+def resnet_prefix(cfg) -> Optional[str]:
+    """Where a config's ResNet lies: ``backbone.bottom_up`` under the FPNs,
+    ``backbone`` for the C4 backbone, None for HRNet."""
+    name = cfg.MODEL.BACKBONE.NAME
+    if name in ("build_resnet_fpn_backbone", "build_retinanet_resnet_fpn_backbone"):
+        return "backbone.bottom_up"
+    return "backbone" if name == "build_resnet_backbone" else None
 
 
 def check_image(image_bgr_u8: np.ndarray) -> np.ndarray:

@@ -1,10 +1,14 @@
 """ResNet bottom-up (port of densepose_tpu/models/resnet.py), NCHW.
 
-BasicStem (resnet.py:325-354) and BottleneckBlock (:95-205, R50/101/152)
-with ``stride_in_1x1`` and res5 dilation. FrozenBN is folded into the convs
-at load time (checkpoint/transform.py), so every conv carries a bias and the
-blocks are conv -> ReLU chains on cuDNN. Module names mirror the reference
-state_dict (``stem.conv1``, ``res2.0.conv1``, ...).
+BasicStem (resnet.py:325-354), BasicBlock (:27-92, R18/R34: two 3x3 convs,
+widths fixed at 64/128/256/512 as in the JAX package) and BottleneckBlock
+(:95-205, R50/101/152) with ``stride_in_1x1`` and res5 dilation. FrozenBN is
+folded into the convs at load time (checkpoint/transform.py), so every conv
+carries a bias and the blocks are conv -> ReLU chains on cuDNN. Module names
+mirror the reference state_dict (``stem.conv1``, ``res2.0.conv1``, ...).
+The module holds all four stages, as the JAX spec does, and runs the stages
+up to the last of ``RESNETS.OUT_FEATURES``: the C4 backbone
+(``build_resnet_backbone``, res4 out) holds an unused res5.
 
 int8 serving (``TPU.INT8_BACKBONE``, JAX resnet.py:169-275): once calibrated
 scales and quantized weights are installed, res2..res5 run as an s8 chain
@@ -15,7 +19,9 @@ package does), the ReLU runs in f32 and the next block requantizes; the stem
 stays fp. The port always folds FrozenBN, so the JAX package's refusal of
 unfolded BN never applies. ``resnet_int8_scale_sites`` and
 ``ResNet.int8_calibration`` are the site list and the fp walk that records
-its statistics, in the same order.
+its statistics, in the same order, over all four stages as the JAX walk goes
+(the C4 backbone's res5 sites feed nothing). BasicBlock ResNets keep the fp
+path under ``INT8_BACKBONE`` (JAX ``int8_backbone_active``).
 
 Each ``forward_rows`` / ``forward_int8_rows`` is the forward above it on
 row slabs of the frame (``parallel/halo.py``: a halo exchange before every
@@ -25,7 +31,7 @@ convolution and pool that reads a neighbour's rows), for
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -46,7 +52,11 @@ NUM_BLOCKS_PER_STAGE = {
 
 def _stage_channels(cfg) -> List[Tuple[int, int, int]]:
     """[(in, bottleneck, out)] per stage (build_resnet_backbone,
-    resnet.py:602-689)."""
+    resnet.py:602-689); BasicBlock ResNets (depth < 50) have no bottleneck
+    and the widths 64, 128, 256, 512 whatever RES2_OUT_CHANNELS says (JAX
+    resnet.py:58-60)."""
+    if cfg.MODEL.RESNETS.DEPTH < 50:
+        return [(64, 0, 64), (64, 0, 128), (128, 0, 256), (256, 0, 512)]
     bottleneck = cfg.MODEL.RESNETS.NUM_GROUPS * cfg.MODEL.RESNETS.WIDTH_PER_GROUP
     in_ch = cfg.MODEL.RESNETS.STEM_OUT_CHANNELS
     out_ch = cfg.MODEL.RESNETS.RES2_OUT_CHANNELS
@@ -60,13 +70,13 @@ def _stage_channels(cfg) -> List[Tuple[int, int, int]]:
 
 
 def _check_supported(cfg) -> None:
-    if cfg.MODEL.RESNETS.DEPTH < 50:
-        raise NotImplementedError("BasicBlock ResNets (R18/R34) are not ported yet")
     if cfg.MODEL.RESNETS.NORM != "FrozenBN":
         raise NotImplementedError(f"norm {cfg.MODEL.RESNETS.NORM!r}: the port folds "
                                   "FrozenBN only")
     if cfg.MODEL.RESNETS.NUM_GROUPS != 1:
-        raise NotImplementedError("grouped (ResNeXt) bottlenecks are not ported yet")
+        raise NotImplementedError("RESNETS.NUM_GROUPS != 1: the JAX package widens the "
+                                  "bottleneck but groups no conv (resnet.py:47-49, 112-123); "
+                                  "the port refuses it rather than copy that")
     if any(cfg.MODEL.RESNETS.DEFORM_ON_PER_STAGE):
         raise NotImplementedError("deformable conv blocks are nonfunctional in the "
                                   "reference (resnet.py:255-259)")
@@ -115,9 +125,13 @@ def resnet_spec(cfg, prefix: str = "backbone.bottom_up") -> Spec:
         name = f"{prefix}.res{stage_idx + 2}"
         for i in range(n):
             b_in = cin if i == 0 else cout
-            conv_spec(spec, f"{name}.{i}.conv1", b_in, cb, 1, bias=False, norm=norm)
-            conv_spec(spec, f"{name}.{i}.conv2", cb, cb, 3, bias=False, norm=norm)
-            conv_spec(spec, f"{name}.{i}.conv3", cb, cout, 1, bias=False, norm=norm)
+            if cfg.MODEL.RESNETS.DEPTH >= 50:
+                conv_spec(spec, f"{name}.{i}.conv1", b_in, cb, 1, bias=False, norm=norm)
+                conv_spec(spec, f"{name}.{i}.conv2", cb, cb, 3, bias=False, norm=norm)
+                conv_spec(spec, f"{name}.{i}.conv3", cb, cout, 1, bias=False, norm=norm)
+            else:
+                conv_spec(spec, f"{name}.{i}.conv1", b_in, cout, 3, bias=False, norm=norm)
+                conv_spec(spec, f"{name}.{i}.conv2", cout, cout, 3, bias=False, norm=norm)
             if b_in != cout:
                 conv_spec(spec, f"{name}.{i}.shortcut", b_in, cout, 1, bias=False,
                           norm=norm)
@@ -168,6 +182,28 @@ class BottleneckBlock(nn.Module):
         return y.map(lambda a, b: F.relu(a + b), sc)
 
 
+class BasicBlock(nn.Module):
+    """Two 3x3 convs, the first with the stride, and a 1x1 shortcut where
+    the width changes (JAX ``_basic_block``)."""
+
+    def __init__(self, cin: int, cout: int, stride: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(cin, cout, 3, stride=stride, padding=1)
+        self.conv2 = nn.Conv2d(cout, cout, 3, padding=1)
+        self.shortcut = nn.Conv2d(cin, cout, 1, stride=stride) if cin != cout else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv2(F.relu(self.conv1(x)))
+        shortcut = self.shortcut(x) if self.shortcut is not None else x
+        return F.relu(out + shortcut)
+
+    def forward_rows(self, x: RowSlabs) -> RowSlabs:
+        """``forward`` on row slabs (``parallel/halo.py``)."""
+        out = conv_rows(self.conv2, conv_rows(self.conv1, x).map(F.relu))
+        shortcut = conv_rows(self.shortcut, x) if self.shortcut is not None else x
+        return out.map(lambda a, b: F.relu(a + b), shortcut)
+
+
 class BasicStem(nn.Module):
     def __init__(self, cout: int):
         super().__init__()
@@ -188,30 +224,34 @@ class ResNet(nn.Module):
         super().__init__()
         _check_supported(cfg)
         r = cfg.MODEL.RESNETS
-        self.int8 = bool(cfg.TPU.INT8_BACKBONE)
+        self.int8 = bool(cfg.TPU.INT8_BACKBONE) and r.DEPTH >= 50
         self.out_features = tuple(r.OUT_FEATURES)
         self.stem = BasicStem(r.STEM_OUT_CHANNELS)
-        num_stages = max({"res2": 1, "res3": 2, "res4": 3, "res5": 4}[f]
-                         for f in self.out_features)
         blocks = NUM_BLOCKS_PER_STAGE[r.DEPTH]
-        self.stage_names = []
-        for stage_idx, (cin, cb, cout) in enumerate(_stage_channels(cfg)[:num_stages]):
+        self.all_stages = []
+        for stage_idx, (cin, cb, cout) in enumerate(_stage_channels(cfg)):
             dilation = r.RES5_DILATION if stage_idx == 3 else 1
             first_stride = 1 if stage_idx == 0 or (stage_idx == 3 and dilation == 2) else 2
             stage = nn.Sequential(*[
                 BottleneckBlock(cin if i == 0 else cout, cb, cout,
                                 first_stride if i == 0 else 1, r.STRIDE_IN_1X1, dilation)
+                if r.DEPTH >= 50 else
+                BasicBlock(cin if i == 0 else cout, cout, first_stride if i == 0 else 1)
                 for i in range(blocks[stage_idx])])
             name = f"res{stage_idx + 2}"
             self.add_module(name, stage)
-            self.stage_names.append(name)
+            self.all_stages.append(name)
+        # the stages a forward runs: up to the last of out_features
+        self.stage_names = self.all_stages[:max(
+            {"res2": 1, "res3": 2, "res4": 3, "res5": 4}[f] for f in self.out_features)]
 
-    def blocks(self) -> List[Tuple[str, BottleneckBlock]]:
-        return [(name, b) for name in self.stage_names for b in getattr(self, name)]
+    def blocks(self, stages: Optional[List[str]] = None) -> List[Tuple[str, nn.Module]]:
+        """(stage, block) of ``stages``, by default those a forward runs."""
+        return [(name, b) for name in (stages or self.stage_names) for b in getattr(self, name)]
 
     def int8_active(self) -> bool:
-        """``TPU.INT8_BACKBONE`` with the calibration installed (JAX
-        ``int8_backbone_active``)."""
+        """``TPU.INT8_BACKBONE`` on a bottleneck ResNet with the calibration
+        installed (JAX ``int8_backbone_active``)."""
         return self.int8 and quantized(self.res2[0].conv1)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -274,9 +314,9 @@ class ResNet(nn.Module):
 
     def int8_calibration(self, x: torch.Tensor, stat: str = "max") -> torch.Tensor:
         """The fp walk recording each site's statistic in
-        ``resnet_int8_scale_sites`` order (JAX ``resnet_int8_calibration``):
-        x is the preprocessed input."""
-        blocks = [b for _, b in self.blocks()]
+        ``resnet_int8_scale_sites`` order (JAX ``resnet_int8_calibration``),
+        through all four stages: x is the preprocessed input."""
+        blocks = [b for _, b in self.blocks(self.all_stages)]
         x = self.stem(x)
         stats = [act_stat(x, stat, getattr(blocks[0].conv1, "in_scale", None))]
         for j, b in enumerate(blocks):

@@ -46,7 +46,7 @@ from ..checkpoint.spec import Spec, conv_spec, conv_transpose_spec, gn_spec, lin
 from ..ops.boxes import apply_deltas
 from ..ops.conv_int8 import (act_stat, conv2d_int8, conv_s8, make_epilogue, link, quant_act_s8,
                              quantized, to_nchw, to_s8_nhwc)
-from ..ops.nms import batched_nms_mask, nms_mask
+from ..ops.nms import nms_mask, per_class_nms_mask
 from ..ops.norms import GroupNorm32, group_norm_onepass
 from ..ops.resize import resize_bilinear
 from ..ops.roi_align import assign_boxes_to_levels, roi_align_multilevel, roi_align_single
@@ -60,10 +60,10 @@ _CHART_HEADS = ("ann_index_lowres", "index_uv_lowres", "u_lowres", "v_lowres")
 
 def _check_supported(cfg) -> None:
     h = cfg.MODEL.ROI_DENSEPOSE_HEAD
-    if cfg.MODEL.ROI_HEADS.NAME == "Res5ROIHeads":
-        raise NotImplementedError("Res5ROIHeads is not ported yet")
     if cfg.MODEL.ROI_BOX_HEAD.NUM_CONV:
-        raise NotImplementedError("box-head convs are not ported yet")
+        raise NotImplementedError("ROI_BOX_HEAD.NUM_CONV: the JAX package declares the convs "
+                                  "but its box stage runs only the FCs (roi_heads.py:74-79, "
+                                  "234-241); the port refuses it rather than copy that")
     if cfg.MODEL.DENSEPOSE_ON:
         if h.NAME not in ("DensePoseV1ConvXHead", "DensePoseDeepLabHead"):
             raise NotImplementedError(f"DensePose head {h.NAME!r} is not ported yet")
@@ -72,7 +72,9 @@ def _check_supported(cfg) -> None:
             raise NotImplementedError("the DeepLab head is ported as every shipped config "
                                       "sets it: GroupNorm, no NonLocal block")
         if h.DECODER_ON and h.DECODER_NORM:
-            raise NotImplementedError("a normed decoder is not ported yet")
+            raise NotImplementedError("DECODER_NORM: the JAX package declares the norm but its "
+                                      "decoder never applies it (roi_heads.py:100-110, "
+                                      "293-345); the port refuses it rather than copy that")
 
 
 # ---------------------------------------------------------------------------
@@ -219,13 +221,15 @@ class FastRCNNConvFCHead(nn.Module):
 
 
 class FastRCNNOutputLayers(nn.Module):
-    def __init__(self, cfg):
+    """Class logits and box deltas of ``width``-wide region features (the
+    box head's FC_DIM, or the C4 detector's res5 width)."""
+
+    def __init__(self, cfg, width: int):
         super().__init__()
-        fc_dim = cfg.MODEL.ROI_BOX_HEAD.FC_DIM
         n = cfg.MODEL.ROI_HEADS.NUM_CLASSES
         nreg = 1 if cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG else n
-        self.cls_score = nn.Linear(fc_dim, n + 1)
-        self.bbox_pred = nn.Linear(fc_dim, nreg * 4)
+        self.cls_score = nn.Linear(width, n + 1)
+        self.bbox_pred = nn.Linear(width, nreg * 4)
 
 
 class Decoder(nn.Module):
@@ -252,6 +256,13 @@ class Decoder(nn.Module):
                 if has_up:
                     x = resize_bilinear(x, (x.shape[-2] * 2, x.shape[-1] * 2),
                                         scale=(2.0, 2.0))
+            if acc is not None and acc.shape[-2:] != x.shape[-2:]:
+                # a level whose size is not the first's halved exactly (the
+                # RetinaNet FPN's p6 / p7 round odd sizes up): the JAX
+                # package fails here on the add's shapes too
+                raise ValueError(f"decoder: level {f} upsamples to {tuple(x.shape[-2:])}, not "
+                                 f"the first level's {tuple(acc.shape[-2:])}; its stride does "
+                                 "not divide the padded input exactly")
             acc = x if acc is None else acc + x
         return self.predictor(acc)
 
@@ -472,7 +483,7 @@ class ROIHeads(nn.Module):
         super().__init__()
         _check_supported(cfg)
         self.box_head = FastRCNNConvFCHead(cfg)
-        self.box_predictor = FastRCNNOutputLayers(cfg)
+        self.box_predictor = FastRCNNOutputLayers(cfg, cfg.MODEL.ROI_BOX_HEAD.FC_DIM)
         if cfg.MODEL.DENSEPOSE_ON:
             if cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_ON:
                 self.decoder = Decoder(cfg)
@@ -522,8 +533,8 @@ def box_stage_forward_batch(
     proposals (B, R, 4), proposal_valid (B, R). Returns (boxes (B, D, 4),
     scores (B, D), classes (B, D), valid (B, D)), frame i's rows those of
     frame i alone. One pooler launch for the B * R proposals (each with its
-    frame), the FCs over B * R rows, one classed NMS launch over B problems
-    of R * classes boxes, a top-D per frame."""
+    frame), the FCs over B * R rows, one class-aware NMS launch over B *
+    classes problems of R boxes, a top-D per frame."""
     scores_logits, deltas = box_head_forward(heads, features, proposals, cfg)
     return box_stage_decisions(scores_logits, deltas, proposals, proposal_valid, cfg)
 
@@ -560,7 +571,8 @@ def box_stage_decisions(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """fast_rcnn_inference of B frames from the box head's outputs
     (``box_head_forward``): the fp32 softmax and decode, one class-aware NMS
-    launch over B problems of R * classes boxes, a top-D per frame. Returns
+    launch over B * classes problems of R boxes (one problem a frame with a
+    single class), a top-D per frame. Returns
     ``box_stage_forward_batch``'s (boxes, scores, classes, valid)."""
     num_classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
     topk = cfg.TEST.DETECTIONS_PER_IMAGE
@@ -589,8 +601,11 @@ def box_stage_decisions(
     nms_thresh = cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST
     if num_classes == 1:
         keep = nms_mask(flat_boxes, flat_scores, flat_valid, nms_thresh)
-    else:
-        keep = batched_nms_mask(flat_boxes, flat_scores, flat_cls, flat_valid, nms_thresh)
+    else:  # one K1 problem a frame and class (ops/nms.py::per_class_nms_mask)
+        keep = per_class_nms_mask(flat_boxes.reshape(nb, r, num_classes, 4),
+                                  flat_scores.reshape(nb, r, num_classes),
+                                  flat_valid.reshape(nb, r, num_classes),
+                                  nms_thresh).reshape(nb, r * num_classes)
 
     sel_scores = torch.where(keep & flat_valid, flat_scores, torch.full_like(flat_scores, _NEG))
     k_out = min(topk, sel_scores.shape[1])

@@ -108,7 +108,7 @@ from .checkpoint.transform import fold_state, random_torch_state
 from .models.fpn import fpn_int8_scale_sites
 from .models.hrnet import hrnet_int8_quant_bases, hrnet_int8_scale_sites
 from .models.rcnn import (GeneralizedRCNN, batch_tensor, build_model, check_image,
-                          image_tensor, size_divisibility)
+                          image_tensor, resnet_prefix, size_divisibility)
 from .models.resnet import resnet_int8_scale_sites
 from .ops.conv_int8 import is_int8_key, is_scale_key, quantize_weight_int8, set_buffer
 from .ops.resize import resize_bilinear_np
@@ -444,6 +444,7 @@ class DensePosePredictor:
             sites = resnet_int8_scale_sites(cfg, prefix)
             if all(s in present for s in sites):
                 bases += self._resnet_bases()
+        if cfg.MODEL.BACKBONE.NAME == "build_resnet_fpn_backbone":
             fpn_sites, rpn_sites = fpn_int8_scale_sites(cfg)
             if all(s in present for s in fpn_sites):
                 bases += [s[:-len(".in_scale")] for s in fpn_sites]
@@ -457,7 +458,9 @@ class DensePosePredictor:
     def _required_scale_keys(self) -> List[str]:
         """The activation scales the enabled TPU.INT8_* modes use: exactly
         what ``calibrate_int8`` installs for this config (JAX
-        ``_required_scale_keys``). FPN's are required at any ResNet depth."""
+        ``_required_scale_keys``): the ResNet's at depth 50 and more (the C4
+        backbone's include its unused res5), the ResNet-FPN's output convs'
+        at any depth."""
         cfg, t = self.cfg, self.cfg.TPU
         required = []
         if t.INT8_HEAD and cfg.MODEL.DENSEPOSE_ON:
@@ -466,12 +469,13 @@ class DensePosePredictor:
         if t.INT8_PREDICTOR and cfg.MODEL.DENSEPOSE_ON and self._chart_predictor():
             required.append(f"{_PREDICTOR}.in_scale")
         prefix = self.model.resnet_prefix()
-        if prefix is not None:
-            if t.INT8_BACKBONE:
-                required += resnet_int8_scale_sites(cfg, prefix)
-                required += fpn_int8_scale_sites(cfg)[0]
-            if t.INT8_RPN:
-                required += fpn_int8_scale_sites(cfg)[1]
+        fpn = cfg.MODEL.BACKBONE.NAME == "build_resnet_fpn_backbone"
+        if t.INT8_BACKBONE and prefix is not None and cfg.MODEL.RESNETS.DEPTH >= 50:
+            required += resnet_int8_scale_sites(cfg, prefix)
+        if t.INT8_BACKBONE and fpn:
+            required += fpn_int8_scale_sites(cfg)[0]
+        if t.INT8_RPN and fpn:
+            required += fpn_int8_scale_sites(cfg)[1]
         if t.INT8_BACKBONE and cfg.MODEL.BACKBONE.NAME == "build_hrfpn_backbone":
             required += hrnet_int8_scale_sites(cfg)
         return required
@@ -713,12 +717,15 @@ def _scale_of(m) -> float:
 def int8_needed(cfg) -> bool:
     """Whether the config enables an int8 mode that has sites in its model
     (JAX predictor.py:110-125): the head or predictor on a DensePose model;
-    the backbone on ResNet-FPN (FPN's output convs at any depth) or HRFPN;
-    the RPN on ResNet-FPN."""
+    the backbone on a bottleneck ResNet (the C4 and RetinaNet ResNets too),
+    on ResNet-FPN (FPN's output convs at any depth) or HRFPN; the RPN on
+    ResNet-FPN only (elsewhere ``INT8_RPN`` is a no-op, as in JAX)."""
     t, backbone = cfg.TPU, cfg.MODEL.BACKBONE.NAME
     return bool(((t.INT8_HEAD or t.INT8_PREDICTOR) and cfg.MODEL.DENSEPOSE_ON)
-                or (t.INT8_BACKBONE and backbone in ("build_resnet_fpn_backbone",
-                                                     "build_hrfpn_backbone"))
+                or (t.INT8_BACKBONE and ((resnet_prefix(cfg) is not None
+                                          and cfg.MODEL.RESNETS.DEPTH >= 50)
+                                         or backbone in ("build_resnet_fpn_backbone",
+                                                         "build_hrfpn_backbone")))
                 or (t.INT8_RPN and backbone == "build_resnet_fpn_backbone"))
 
 

@@ -28,7 +28,8 @@ An HRNet config runs like any other. A CSE config
 (``DensePoseEmbeddingPredictor``) draws only ``--vis bbox``: the chart
 overlays read maps a CSE model does not make, and the CLI refuses them
 before it runs (the JAX CLI fails inside its visualizer); the CSE overlay is
-``visualizer.CseVisualizer``, from Python.
+``visualizer.CseVisualizer``, from Python. A detector without DensePose (the
+C4 detector, ``MODEL.DENSEPOSE_ON False``) draws only ``--vis bbox`` too.
 
 ``<model>`` may also be an exported ``.npz`` bundle (``python -m
 densepose_tpu_torch.export``, or the JAX package's export.py): its
@@ -135,7 +136,11 @@ def wrap_tta(pred):
 
 
 def check_vis(cfg, vis: str) -> None:
-    """A CSE model has no chart maps: only ``--vis bbox`` can draw it."""
+    """A CSE model has no chart maps, and a detector without DensePose (the
+    C4 detector) no maps at all: only ``--vis bbox`` can draw them."""
+    if not cfg.MODEL.DENSEPOSE_ON and vis != "bbox":
+        raise ValueError(f"--vis {vis} draws DensePose maps, which a model with "
+                         "MODEL.DENSEPOSE_ON False does not output; use --vis bbox")
     if (cfg.MODEL.ROI_DENSEPOSE_HEAD.PREDICTOR_NAME == "DensePoseEmbeddingPredictor"
             and vis != "bbox"):
         raise ValueError(f"--vis {vis} draws chart maps (fine segmentation, U, V), which a "

@@ -54,6 +54,16 @@ random weights, whose scores tie, only finite outputs of the right form);
 every K1, K2, K3 and Q1 launch of the sharded request held against its
 plain version (Q1 on halo-extended slabs with row padding 0).
 
+The C4 detector, BasicBlock R34 and the RetinaNet FPN: K1's per-class route
+(80 problems of 1000 boxes, the box stage of an 80-class detector, which one
+problem of 80000 boxes with a class row exceeded) with every launch equal to
+the plain version, also against the classed route where K1 takes it; K2 at
+the C4 pooler's site (res4 at 1/16, 1024 channels, 14x14 ROIAlignV2 at ratio
+0, 1000 boxes) against its plain version; small C4 requests (fp32, float16,
+INT8_BACKBONE: 42 Q1 links through res2..res4), R34-FPN and RetinaNet
+requests with every kernel launch held; and C4, R18-FPN and RetinaNet
+sharded over this card twice against their unsharded request.
+
 At a half dtype (float16, bfloat16): K2<T> bit-identical to K2 on the
 widened levels rounded to T (only its loads and its store change), and to
 its plain version at T; K3<T> within one unit in the last place of T, at the
@@ -73,7 +83,8 @@ import torch
 from densepose_tpu_torch.models.rcnn import image_tensor
 from densepose_tpu_torch.ops import conv_int8, cuda_build, nms, roi_align, roi_align_sparse
 from torch_cases import (  # tests/ is on the path (rootdir insertion)
-    batched_pooler_cases, k1_edge_cases, k3_edge_cases, op_args, op_cases, unit_variance_)
+    BASIC_BLOCK, C4_DETECTION, C4_TAME, RETINANET, batched_pooler_cases, k1_edge_cases,
+    k3_edge_cases, op_args, op_cases, per_class_nms_case, set_cfg, tame, unit_variance_)
 
 torch.set_num_threads(2)
 
@@ -1071,3 +1082,164 @@ def test_spatial_forward_on_card(cuda, name, extra, n, monkeypatch):
         assert all(bool(torch.isfinite(v).all()) for v in got.values() if v.is_floating_point())
     else:
         assert_served_again(got, want)
+
+
+# -- the C4 detector, BasicBlock R34 and the RetinaNet FPN ---------------------
+
+def small_c4_predictor(device, extra=()):
+    """get_cfg()'s R50-C4 detector (80 classes, 1000 proposals, 14x14
+    ROIAlignV2 at ratio 0) on a small input, with C4_TAME weights from seed 0
+    (random weights give no box inside the frame)."""
+    from densepose_tpu_torch.config import get_cfg
+    from densepose_tpu_torch.predictor import DensePosePredictor, load_params
+    cfg = set_cfg(get_cfg(), C4_DETECTION + [("INPUT.MIN_SIZE_TEST", 128),
+                                             ("INPUT.MAX_SIZE_TEST", 192)] + list(extra))
+    cfg.freeze()
+    return DensePosePredictor(cfg, device=device, params=tame(load_params(cfg, seed=0), C4_TAME))
+
+
+def flat(pairs):
+    return [x for kv in pairs for x in kv]
+
+
+@pytest.mark.gpu
+def test_k1_per_class_box_stage_80x1000(cuda, monkeypatch):
+    """The box stage of an 80-class detector at 1000 proposals sends K1 80
+    problems of 1000 boxes, each launch equal to the plain version; one
+    problem of 80000 boxes with a class row (the route before) exceeds K1's
+    16384 boxes and raised ValueError."""
+    from densepose_tpu_torch.model_zoo import get_config
+    from densepose_tpu_torch.models.roi_heads import box_stage_decisions
+    cfg = get_config("densepose_rcnn_R_50_FPN_s1x").clone()
+    cfg.defrost()
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = 80
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.01
+    cfg.freeze()
+    rng = np.random.RandomState(40)
+    r = 1000
+    logits = torch.from_numpy(rng.randn(r, 81).astype(np.float32) * 2).to(cuda)
+    deltas = torch.from_numpy(rng.randn(r, 320).astype(np.float32) * 0.2).to(cuda)
+    props = torch.from_numpy(boxes_np(rng, r, 700, 200)[None]).to(cuda)
+    pvalid = torch.from_numpy(rng.rand(1, r) > 0.05).to(cuda)
+    seen = hold_kernels(monkeypatch)
+    boxes, scores, classes, valid = box_stage_decisions(logits, deltas, props, pvalid, cfg)
+    torch.cuda.synchronize()
+    assert seen["k1"] == [(80, r, 4)]
+    assert int(valid.sum()) == 100 and len(set(classes[valid].tolist())) > 10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,c", [(1000, 80), (200, 80)])
+def test_k1_per_class_route_matches_plain(cuda, r, c):
+    """``per_class_nms_mask`` on the card (one K1 launch, c problems of r
+    boxes) equals its plain version on the CPU exactly, on tied scores and
+    invalid pairs; where one problem of r * c boxes fits K1 (200 x 80 =
+    16000), the classed route on the card keeps the same."""
+    boxes, scores, valid = per_class_nms_case(7, r, c)
+    args = [torch.from_numpy(a) for a in (boxes, scores, valid)]
+    want = nms.per_class_nms_mask(*args, 0.5)
+    before = nms.nms_keep_cuda.launches
+    got = nms.per_class_nms_mask(*[a.to(cuda) for a in args], 0.5)
+    torch.cuda.synchronize()
+    assert nms.nms_keep_cuda.launches == before + 1
+    assert 0 < int(want.sum()) < int(valid.sum())
+    assert torch.equal(got.cpu(), want)
+    if r * c <= 16384:
+        cls = torch.arange(c, dtype=torch.int32).repeat(r)
+        classed = nms.batched_nms_mask(args[0].reshape(-1, 4).to(cuda), args[1].reshape(-1).to(
+            cuda), cls.to(cuda), args[2].reshape(-1).to(cuda), 0.5)
+        assert torch.equal(classed.cpu().reshape(r, c), want)
+
+
+@pytest.mark.gpu
+def test_k2_at_the_c4_pooler(cuda):
+    """K2 at the C4 box pooler's site: res4 of an 800x1088 input (50x68 at
+    1/16, 1024 channels), 1000 proposals, 14x14, ROIAlignV2, the adaptive
+    ratio (0), against its plain version on the same card tensors."""
+    rng = np.random.RandomState(41)
+    feat = torch.randn(1, 1024, 50, 68, generator=torch.Generator().manual_seed(41)).to(cuda)
+    b = torch.from_numpy(boxes_np(rng, 1000, 1000, 500)).to(cuda)
+    before = roi_align.roi_align_cuda.launches
+    got = roi_align.roi_align_single(feat, b, 1 / 16, (14, 14), 0, True)
+    torch.cuda.synchronize()
+    assert roi_align.roi_align_cuda.launches == before + 1
+    assert got.shape == (1000, 1024, 14, 14)
+    levels = torch.zeros(1000, dtype=torch.int32, device=cuda)
+    want = roi_align.roi_align_plain([feat], b, levels, [1 / 16], (14, 14), 0, True)
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [(), (("TPU.COMPUTE_DTYPE", "float16"),),
+                                   (("TPU.INT8_BACKBONE", True),)],
+                         ids=["fp32", "float16", "int8_backbone"])
+def test_c4_request_on_card(cuda, extra, monkeypatch):
+    """A small R50-C4 request: 2 K1 (the RPN's one level of 15 anchors a
+    cell, then 80 class problems of 1000 proposals) and 1 K2 (res4, 1024
+    channels, ratio 0) a request, 42 Q1 links under INT8_BACKBONE (res2..res4:
+    13 blocks of 3 convs and 3 shortcuts; the unused res5 calibrated but not
+    run), every launch held against its plain version; detections of C4's
+    form (min(D, R * C) rows) with at least one valid, fp32 and finite."""
+    pred = small_c4_predictor(cuda, extra)
+    frame = (np.random.RandomState(42).rand(96, 136, 3) * 255).astype(np.uint8)
+    int8 = bool(extra) and extra[0][0] == "TPU.INT8_BACKBONE"
+    if int8:
+        pred.calibrate_int8([frame])
+        assert pred.model.backbone.int8_active()
+    seen = hold_kernels(monkeypatch)
+    out = pred(frame)
+    torch.cuda.synchronize()
+    assert [s[0] for s in seen["k1"]] == [1, 80] and seen["k1"][1][1] == 1000
+    assert len(seen["k2"]) == 1 and seen["k2"][0][1] == 1024
+    assert len(seen["q1"]) == (42 if int8 else 0)
+    assert out["pred_boxes"].shape == (100, 4) and out["pred_boxes"].dtype == torch.float32
+    assert int(out["num_instances"]) >= 1
+    assert all(bool(torch.isfinite(v).all()) for v in out.values() if v.is_floating_point())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["r34_fpn", "retinanet"])
+def test_basicblock_and_retinanet_requests_on_card(cuda, name, monkeypatch):
+    """A small R34-FPN DensePose request and a RetinaNet-FPN one (RPN on
+    p3..p7, ROI heads on p3..p5): 2 K1 + 2 K2 a request, every launch held
+    against its plain version, outputs finite."""
+    extra = [("MODEL.RESNETS.DEPTH", 34)] + BASIC_BLOCK if name == "r34_fpn" else RETINANET
+    pred = small_zoo_predictor(cuda, "densepose_rcnn_R_50_FPN_s1x", flat(extra))
+    frame = (np.random.RandomState(43).rand(96, 136, 3) * 255).astype(np.uint8)
+    seen = hold_kernels(monkeypatch)
+    out = pred(frame)
+    torch.cuda.synchronize()
+    assert len(seen["k1"]) == 2 and len(seen["k2"]) == 2
+    assert seen["k1"][0][0] == 5  # one problem a level
+    assert int(out["num_instances"]) >= 1
+    assert all(bool(torch.isfinite(v).all()) for v in out.values() if v.is_floating_point())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["c4", "r18_fpn", "retinanet"])
+def test_new_backbones_sharded_on_card(cuda, name, monkeypatch):
+    """C4 (its plain trunk), R18-FPN (BasicBlock stages) and RetinaNet (p6 /
+    p7 stride-2 convs) with the frame's rows over this card listed twice,
+    against ``forward_batch`` unsharded with cuDNN off: detections exact,
+    maps within SERVED_AGAIN_TOL; and C4's ``predict_batch`` of 2 frames
+    (K2 with a frame index) against each frame alone."""
+    from densepose_tpu_torch.parallel import spatial_parallel_forward
+    if name == "c4":
+        pred = small_c4_predictor(cuda, [("TEST.DETECTIONS_PER_IMAGE", 20)])
+    else:
+        extra = [("MODEL.RESNETS.DEPTH", 18)] + BASIC_BLOCK if name == "r18_fpn" else RETINANET
+        pred = small_zoo_predictor(cuda, "densepose_rcnn_R_50_FPN_s1x", flat(extra))
+    frames = [(np.random.RandomState(s).rand(96, 136, 3) * 255).astype(np.uint8)
+              for s in (44, 45)]
+    fwd = spatial_parallel_forward(pred.model, [cuda] * 2)
+    with torch.backends.cudnn.flags(enabled=False), torch.inference_mode():
+        alone = [{k: v[0] for k, v in pred.model.forward_batch(
+            image_tensor(f, cuda)[None]).items()} for f in frames]
+        got = fwd(frames[0])
+        torch.cuda.synchronize()
+        assert_served_again(got, alone[0])
+        if name == "c4":
+            batch = pred.predict_batch(np.stack(frames))
+            for i, want in enumerate(alone):
+                assert_served_again({k: v[i] for k, v in batch.items()}, want)
+    assert int(alone[0]["num_instances"]) >= 1

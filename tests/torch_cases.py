@@ -227,3 +227,79 @@ def halo_one_row_short(fetch_rows):
             rows.narrow(slabs.row_dim, b - a - 1, 1).zero_()
         return rows
     return short
+
+
+def set_cfg(cfg, deltas):
+    """``cfg.A.B = value`` for each ("A.B", value) of ``deltas``."""
+    for key, value in deltas:
+        *path, leaf = key.split(".")
+        node = cfg
+        for p in path:
+            node = node[p]
+        node[leaf] = value
+    return cfg
+
+
+# The C4 detector is get_cfg()'s own (detectron2's Base-RCNN-C4.yaml,
+# faster_rcnn_R_50_C4_1x: build_resnet_backbone to res4, RPN on res4 with 15
+# anchors a cell, 6000 / 1000 proposals, Res5ROIHeads with 14x14 ROIAlignV2 at
+# sampling ratio 0, 80 classes); DensePose off, which it has no heads for.
+C4_DETECTION = [("MODEL.DENSEPOSE_ON", False)]
+# tests/test_res5.py's sizes of the C4 detector (4 classes, 64..128 px,
+# 100 / 40 proposals, 5 detections), and an R50 narrowed to toy widths
+C4_TINY = [("MODEL.ROI_HEADS.NUM_CLASSES", 4), ("MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO", 2),
+           ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlign"), ("INPUT.MIN_SIZE_TEST", 64),
+           ("INPUT.MAX_SIZE_TEST", 128), ("MODEL.RPN.PRE_NMS_TOPK_TEST", 100),
+           ("MODEL.RPN.POST_NMS_TOPK_TEST", 40), ("TEST.DETECTIONS_PER_IMAGE", 5)]
+R50_NARROW = [("MODEL.RESNETS.STEM_OUT_CHANNELS", 8), ("MODEL.RESNETS.RES2_OUT_CHANNELS", 16),
+              ("MODEL.RESNETS.WIDTH_PER_GROUP", 4)]
+# BasicBlock ResNets: the JAX package fixes their widths at 64..512, so the
+# stem and res2 must be 64 wide whatever a test narrows
+BASIC_BLOCK = [("MODEL.RESNETS.STEM_OUT_CHANNELS", 64),
+               ("MODEL.RESNETS.RES2_OUT_CHANNELS", 64)]
+# The RetinaNet FPN (build_retinanet_resnet_fpn_backbone) on the flagship's
+# config: res3..res5 into the FPN, LastLevelP6P7 from res5, the RPN on p3..p7
+# and the ROI heads on p3..p5
+RETINANET = [("MODEL.BACKBONE.NAME", "build_retinanet_resnet_fpn_backbone"),
+             ("MODEL.RESNETS.OUT_FEATURES", ["res3", "res4", "res5"]),
+             ("MODEL.FPN.IN_FEATURES", ["res3", "res4", "res5"]),
+             ("MODEL.RPN.IN_FEATURES", ["p3", "p4", "p5", "p6", "p7"]),
+             ("MODEL.ROI_HEADS.IN_FEATURES", ["p3", "p4", "p5"])]
+
+
+def per_class_nms_case(seed, r, c, ties=True):
+    """Box-stage NMS inputs of R proposals x C classes: boxes (R, C, 4) f32
+    clustered so that many overlap within a class, scores (R, C) f32 with
+    exact ties across proposals and classes, valid (R, C) with a tenth
+    invalid. ``ops/nms.py::per_class_nms_mask`` is held against the JAX
+    package's ``batched_nms_mask`` and kernel K1 against its plain version on
+    these."""
+    rng = np.random.RandomState(seed)
+    ctr = rng.rand(r, 1, 2) * 200 + rng.randn(r, c, 2) * 4
+    wh = rng.rand(r, 1, 2) * 60 + 8 + rng.randn(r, c, 2)
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32)
+    scores = rng.rand(r, c).astype(np.float32)
+    if ties:
+        scores = np.round(scores * 16) / 16  # a few levels: many exact ties
+    valid = rng.rand(r, c) > 0.1
+    return boxes, scores.astype(np.float32), valid
+
+
+# Detection weights of the C4 detector on random weights: the RPN's and the
+# box predictor's deltas tamed (as chip_smoke.py's DETECTION_TAME tames the
+# FPN detector's) so that the boxes stay inside the frame and non-empty; the
+# classifier is left as it is (at 80 classes DETECTION_TAME's 0.02 would
+# leave every score near 1 / 81, below SCORE_THRESH_TEST)
+C4_TAME = {"proposal_generator.rpn_head.anchor_deltas": 0.003,
+           "roi_heads.box_predictor.bbox_pred": 0.01}
+
+
+def tame(params, factors):
+    """``params`` (name -> array) with each entry under a prefix of
+    ``factors`` scaled by its factor, as float32."""
+    out = dict(params)
+    for k in out:
+        for prefix, f in factors.items():
+            if k.startswith(prefix + "."):
+                out[k] = out[k] * np.float32(f)
+    return out
