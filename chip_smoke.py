@@ -171,6 +171,28 @@ toolkit. Phases, each of which fails the run:
    sites beside their plain versions and bounds (c4_sites on the kernels
    line); narrowed C4 (R50, R18), R18-FPN and RetinaNet models card against
    CPU;
+4e. last slice (last_slice_phase): K1 on one problem of 20000 and of 30000
+   boxes (the long scan: past 16384 boxes `removed` lives in shared memory)
+   against its plain version, two runs equal, timed with its mask and scan
+   launches apart beside the plain version and the bound (long_sites on the
+   kernels line); the flagship with RPN.PRE_NMS_TOPK_TEST 20000 at full
+   width (new_backbone_path: five K1 problems of 20000 boxes a request, the
+   RPN's call timed at its site); the flagship and HRNet-W32 in fp32 with
+   TPU.FOLD_FROZEN_BN False (each conv's FrozenBatchNorm2d after it) against
+   their folded requests on the same reference weights (DETECTION_TAME;
+   HRNet's backbone at unit variance through its BN, unit_variance_state):
+   launches counted, latency both ways, detections and maps held as
+   hold_frames holds a batch (kind "unfolded") beside the planted fault of
+   the statistics dropped, one request held against the plain versions;
+   densepose_rcnn_R_50_FPN_DL_s1x with DEEPLAB.NORM "" and "FrozenBN"
+   (drive_path, one request held) and with NORM "" under INT8_HEAD
+   (int8_path: the head's bias links on Q1, detections the fp request's,
+   the maps inside V1ConvX's envelope); detectron2's mask_rcnn_R_50_FPN_3x
+   mask head and keypoint_rcnn_R_50_FPN_3x keypoint head on the flagship's
+   p2..p5 (input 800x1088) with 100 boxes, each K2 launch held against its
+   plain version and timed at its site (head_sites), and both heads at
+   tests/test_extras.py's size card against CPU; narrowed unfolded flagship
+   and HRNet and DeepLab NORM "" / "FrozenBN" models card against CPU;
 5. consumer, right after the flagship's, DL's and the float16 flagship's
    path phase (raw SIUV maps; a label map; float16 maps), each through the
    predictor its path built, on 8 distinct
@@ -291,6 +313,7 @@ TIMED_REQUESTS = 3
 K2_TOL = 1e-5
 K3_TOL = 1e-5
 K3_K2_TOL = 2e-5  # K3 sums the taps in another order (tests/test_ops.py:625)
+LONG_K = 16384    # K1: the most boxes a problem the register scan takes
 SOURCES = {"nms_keep_cuda": "nms", "roi_align_cuda": "roi_align",
            "roi_align_sparse_cuda": "roi_align_sparse", "conv_s8_cuda": "conv_s8"}
 HALF = ("float16", "bfloat16")  # TPU.COMPUTE_DTYPE's half types
@@ -431,20 +454,37 @@ def torch_cases():
 def nms_work(boxes, valid, keep, thr, classes):
     """Bytes and operations greedy NMS needs on these inputs: each live box j
     is tested against every kept pivot before it, up to the one that
-    suppresses it (13 fp32 operations per test)."""
+    suppresses it (13 fp32 operations per test). One problem at a time: a
+    long problem's IoU matrix alone is K^2 floats."""
     import torch
     from densepose_tpu_torch.ops.boxes import pairwise_iou
     p, k = valid.shape
-    iou = pairwise_iou(boxes, boxes)                         # (P, i, j)
     idx = torch.arange(k, device=boxes.device)
-    sup = (iou > thr) & keep[:, :, None] & (idx[:, None] < idx[None, :])
-    if classes is not None:
-        sup &= classes[:, :, None] == classes[:, None, :]
-    first = torch.where(sup.any(1), sup.float().argmax(1), idx.expand(p, k) - 1)
-    pivots = torch.cumsum(keep.int(), 1).gather(1, first.clamp(min=0)) * (first >= 0)
-    tests = int((pivots * valid).sum())
+    tests = 0
+    for i in range(p):
+        sup = (pairwise_iou(boxes[i], boxes[i]) > thr) & keep[i, :, None] & (
+            idx[:, None] < idx[None, :])                    # (pivot, j)
+        if classes is not None:
+            sup &= classes[i, :, None] == classes[i, None, :]
+        first = torch.where(sup.any(0), sup.float().argmax(0), idx - 1)
+        pivots = torch.cumsum(keep[i].int(), 0)[first.clamp(min=0)] * (first >= 0)
+        tests += int((pivots * valid[i]).sum())
+        del sup
     nbytes = p * k * (16 + 1 + 1 + (4 if classes is not None else 0))
     return nbytes, 13 * tests
+
+
+def k1_plain(boxes, valid, thr, classes=None):
+    """K1's plain version, one problem at a time where a problem is long
+    (past the register scan's 16384 boxes): its fixed point holds several
+    K^2 temporaries, too many at once for P long problems."""
+    import torch
+    from densepose_tpu_torch.ops import nms
+    if boxes.shape[1] <= LONG_K:
+        return nms.nms_keep_plain(boxes, valid, thr, classes)
+    return torch.cat([nms.nms_keep_plain(boxes[i:i + 1], valid[i:i + 1], thr,
+                                         None if classes is None else classes[i:i + 1])
+                      for i in range(boxes.shape[0])])
 
 
 def roi_align_work(feats, boxes, levels, scales, out_hw, ratio, aligned, frames=None):
@@ -977,7 +1017,7 @@ class HeldAgainstPlain:
 
         def held_k1(boxes, valid, thr, classes=None):
             keep = k1(boxes, valid, thr, classes)
-            want = nms.nms_keep_plain(boxes, valid, thr, classes)
+            want = k1_plain(boxes, valid, thr, classes)
             check(torch.equal(keep, want), f"{what}: K1 at P={boxes.shape[0]} K={boxes.shape[1]}: "
                   f"{int((keep != want).sum())} keep flags differ from the plain version")
             self.k1.append((boxes.shape[0], boxes.shape[1], classes is not None))
@@ -1558,11 +1598,16 @@ def frame_of(out, i):
 # (hold_densepose_stage), a box moved by one pixel (at float16 a box moves
 # by up to 3% of its size; the box stage is held bit for bit on the same
 # head outputs, hold_box_decisions).
-BATCH_BOX_TOL = {"float32": 1e-5, "int8": 1e-5, "float16": 3e-2}
-BATCH_SCORE_TOL = {"float32": 1e-6, "int8": 1e-6, "float16": 1e-3}
+# Kind "unfolded" holds the unfolded FrozenBN route against the folded
+# request on the same reference weights (unfolded_path): fp32 both, the BN
+# applied after each conv in fp32 against folded into the weights in float64,
+# so roundings apart at every conv; its planted fault is the statistics
+# dropped (each FrozenBatchNorm2d an identity), which moves every row.
+BATCH_BOX_TOL = {"float32": 1e-5, "int8": 1e-5, "float16": 3e-2, "unfolded": 1e-4}
+BATCH_SCORE_TOL = {"float32": 1e-6, "int8": 1e-6, "float16": 1e-3, "unfolded": 1e-5}
 BATCH_MAP_RTOL = 1e-4
-BATCH_MAP_REL_L2 = {"int8": 1e-2, "float16": 5e-3}
-BATCH_MOVED_ROWS = {"float32": 0, "int8": 0, "float16": 20}
+BATCH_MAP_REL_L2 = {"int8": 1e-2, "float16": 5e-3, "unfolded": 1e-3}
+BATCH_MOVED_ROWS = {"float32": 0, "int8": 0, "float16": 20, "unfolded": 0}
 
 
 def box_gaps(x, y):
@@ -1836,7 +1881,7 @@ def batch_site(torch, report, kind, dtype, args, kw, site, key="batched_sites"):
     name = {"k1": "nms_keep_cuda", "k2": "roi_align_cuda", "k3": "roi_align_sparse_cuda",
             "q1": Q1}[kind]
     kernel = counters()[name]
-    plain = {"k1": nms.nms_keep_plain, "k2": roi_align.roi_align_plain,
+    plain = {"k1": k1_plain, "k2": roi_align.roi_align_plain,
              "k3": roi_align_sparse.roi_align_sparse_plain, "q1": conv_int8.conv_s8_plain}[kind]
     ms = cuda_ms(lambda: kernel(*args, **kw), reps=20)
     plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=2, warmup=1)
@@ -3193,7 +3238,7 @@ def int8_path(torch, report, dev, name, extra, post_detection):
         u8 = got["pred_densepose_u"].astype(np.float64)
         u = want["pred_densepose_u"].astype(np.float64)
         rel = float(np.abs(u8 - u).max() / (np.abs(u).max() + 1e-9))
-        if name == DEEPLAB:
+        if name == DEEPLAB and fp_cfg.MODEL.ROI_DENSEPOSE_HEAD.DEEPLAB.NORM == "GN":
             l2 = float(np.linalg.norm(u8 - u) / (np.linalg.norm(u) + 1e-9))
             agree = float(np.mean(got["pred_densepose_fine_segm"].argmax(1)
                                   == want["pred_densepose_fine_segm"].argmax(1)))
@@ -3858,13 +3903,14 @@ def new_backbone_paths():
     return paths
 
 
-def new_backbone_path(torch, report, dev, tag, cfg, params, per_request, smi):
+def new_backbone_path(torch, report, dev, tag, cfg, params, per_request, smi,
+                      phase="new backbones"):
     """One path at full width: (INT8_BACKBONE: calibrate_int8 on CALIB_FRAMES
     frames) a warm-up and NEW_TIMED requests with the launch counters set to 0
     just before and read just after, and no plain version called; one
     profiled request; the outputs' form; one request with every K1, K2 and Q1
-    launch held against its plain version, its calls kept. Returns the
-    HeldAgainstPlain."""
+    launch held against its plain version, its calls kept; its lines printed
+    under ``phase``. Returns the HeldAgainstPlain."""
     from densepose_tpu_torch.predictor import DensePosePredictor
     dtype = cfg.TPU.COMPUTE_DTYPE
     pred = DensePosePredictor(cfg, seed=0, device=dev, params=params)
@@ -3873,7 +3919,7 @@ def new_backbone_path(torch, report, dev, tag, cfg, params, per_request, smi):
         pred.calibrate_int8(frames(7, CALIB_FRAMES))
         torch.cuda.synchronize()
         check(pred.model.backbone.int8_active(), f"{tag}: the s8 chain is not installed")
-        print(f"new backbones {tag}: calibrate_int8 on {CALIB_FRAMES} frames in "
+        print(f"{phase} {tag}: calibrate_int8 on {CALIB_FRAMES} frames in "
               f"{(time.perf_counter() - t0) * 1e3:.1f} ms, "
               f"{len(pred.export_calibration())} scales (the unused backbone res5's among "
               "them)")
@@ -3919,9 +3965,9 @@ def new_backbone_path(torch, report, dev, tag, cfg, params, per_request, smi):
                   f"{tag} request {i}: maps {maps}")
         else:
             check(not maps, f"{tag} request {i}: maps {maps} from a detector without DensePose")
-        print(f"new backbones {tag}: request {i}: {lat[i]:.2f} ms, num_instances {n}, "
+        print(f"{phase} {tag}: request {i}: {lat[i]:.2f} ms, num_instances {n}, "
               f"classes {sorted(set(res['pred_classes'].tolist()))[:8]}")
-    print(f"new backbones {tag} [{dtype}] ({smi}): {len(timed)} requests of "
+    print(f"{phase} {tag} [{dtype}] ({smi}): {len(timed)} requests of "
           f"{FRAME_HW[0]}x{FRAME_HW[1]} frames (input "
           f"{'x'.join(map(str, main_path_shapes(cfg)[0]))}): latency ms "
           f"{', '.join(f'{x:.2f}' for x in lat)} (median {ms:.2f}); device busy "
@@ -3999,6 +4045,360 @@ def new_backbones_phase(torch, report, dev, smi):
                     extra=(("MODEL.RESNETS.DEPTH", 18),) + tuple(cases.BASIC_BLOCK))
     reference_check(torch, dev, FLAGSHIP, False, extra=tuple(cases.RETINANET))
     print(f"time: new backbones phase {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# 4e. the last slice
+# ---------------------------------------------------------------------------
+
+UNFOLD = (("TPU.FOLD_FROZEN_BN", False),)
+UNFOLD_TIMED = 2  # frames a model, after a warm-up
+# K1's standalone long problems: K = 20000 (313 mask words, odd) and a larger
+# K whose plain version still fits the card (30000: 469 words; the plain
+# fixed point holds several K^2 temporaries, ~30 GB)
+LONG_KS = (20000, 30000)
+DL_NORMS = ("", "FrozenBN")
+HEAD_BOXES = 100
+
+
+def k1_long_checks(torch, report, dev):
+    """K1 on one problem of K boxes for each of LONG_KS (the long scan:
+    `removed` in shared memory): clustered boxes as the RPN's, a twentieth
+    invalid; keep flags equal to the plain version's, two runs equal; the
+    time of a call, of its mask and scan launches apart, and of the plain
+    version, beside the bound (nms_work); ``long_sites`` on the kernels
+    line."""
+    from densepose_tpu_torch.ops import nms
+    rng = np.random.RandomState(30)
+    for k in LONG_KS:
+        hw = (800, 1088)
+        b = torch.from_numpy(clustered_boxes(rng, k, hw))[None].to(dev)
+        v = torch.from_numpy(rng.rand(1, k) > 0.05).to(dev)
+        got, again = nms.nms_keep_cuda(b, v, 0.7), nms.nms_keep_cuda(b, v, 0.7)
+        want = nms.nms_keep_plain(b, v, 0.7)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K1 long K={k}: {int((got != want).sum())} keep flags "
+              "differ from the plain version")
+        check(torch.equal(got, again), f"K1 long K={k}: two runs differ")
+        check(0 < int(want.sum()) < int(v.sum()), f"K1 long K={k}: degenerate (nothing "
+              "suppressed)")
+        ms = cuda_ms(lambda: nms.nms_keep_cuda(b, v, 0.7), reps=10)
+        mask = torch.empty((1, k, nms.mask_words(k)), dtype=torch.int64, device=dev)
+        keep = torch.empty((1, k), dtype=torch.bool, device=dev)
+        mask_ms = cuda_ms(lambda: nms.nms_mask_launch(b, v, 0.7, None, mask), reps=10)
+        scan_ms = cuda_ms(lambda: nms.nms_scan_launch(mask, v, keep), reps=10)
+        check(torch.equal(keep, want), f"K1 long K={k}: the scan alone differs")
+        plain_ms = cuda_ms(lambda: nms.nms_keep_plain(b, v, 0.7), reps=2, warmup=1)
+        bound_ms, bound_by = bound(*nms_work(b, v, want, 0.7, None))
+        scratch = k * nms.mask_words(k) * 8
+        del mask
+        report["nms_keep_cuda"].setdefault("long_sites", []).append(
+            {"site": f"one_problem_{k}", "shape": [1, k], "kept": int(want.sum()),
+             "max_abs_err": 0.0, "ms": ms, "mask_ms": mask_ms, "scan_ms": scan_ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "scratch_bytes": scratch})
+        print(f"K1 nms_keep_cuda long problem K={k} ({nms.mask_words(k)} words a row, "
+              f"{scratch} bytes of IoU scratch): exact ({int(want.sum())} of {int(v.sum())} "
+              f"kept), two runs equal; {ms:.4f} ms (mask launch {mask_ms:.4f}, scan launch "
+              f"{scan_ms:.4f}, {scan_ms / k * 1e3:.4f} us a box); plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.6f} ms ({bound_by})")
+        torch.cuda.empty_cache()
+
+
+def unit_variance_state(torch, cfg, raw, spec, dev):
+    """``raw`` (reference layout) with each backbone conv's output scaled to
+    unit std on the warm-up frame in the folded fp32 model, as path_params
+    scales HRNet: through the conv's FrozenBN weight and bias where it has
+    one (``frozen_bn_of``), else its own weight and bias. The folded and the
+    unfolded model then see the same scaled network, and the statistics stay
+    what random_torch_state drew."""
+    from densepose_tpu_torch.checkpoint.transform import fold_state, frozen_bn_of
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    folded_cfg = cfg.clone()
+    folded_cfg.defrost()
+    folded_cfg.TPU.FOLD_FROZEN_BN = True
+    pred = DensePosePredictor(folded_cfg, device=dev, params=fold_state(raw, spec))
+    scales = {}
+
+    def hook(name):
+        def fn(module, args, out):
+            scales[name] = float(out.float().std())
+            return out / scales[name]
+        return fn
+
+    handles = [m.register_forward_hook(hook(f"backbone.{n}"))
+               for n, m in pred.model.backbone.named_modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        pred(frames(1, 1)[0])
+    finally:
+        for h in handles:
+            h.remove()
+    out = dict(raw)
+    for name, s in scales.items():
+        base = frozen_bn_of(name, spec) or name
+        for key in (f"{base}.weight", f"{base}.bias"):
+            if key in out:
+                out[key] = out[key] / np.float32(s)
+    return out
+
+
+def unfolded_pair(torch, dev, name):
+    """(folded, unfolded) predictors of ``name`` in fp32 on one reference
+    state: random_torch_state of seed 0 (HRNet's backbone at unit variance,
+    unit_variance_state), DETECTION_TAME applied, through fold_state with and
+    without folding."""
+    from densepose_tpu_torch.checkpoint.transform import fold_state, random_torch_state
+    from densepose_tpu_torch.models.rcnn import build_model
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    cfg_f, cfg_u = path_config(name), path_config(name, UNFOLD)
+    spec = build_model(cfg_u).spec()
+    raw = random_torch_state(spec, seed=0)
+    if name == HRNET:
+        raw = unit_variance_state(torch, cfg_u, raw, spec, dev)
+    raw = torch_cases().tame(raw, DETECTION_TAME)
+    return (DensePosePredictor(cfg_f, device=dev, params=fold_state(raw, spec)),
+            DensePosePredictor(cfg_u, device=dev, params=fold_state(raw, spec, fold=False)))
+
+
+def unfolded_path(torch, report, dev, name, smi):
+    """The unfolded FrozenBN route at full width: a warm-up and UNFOLD_TIMED
+    frames with the launch counters set to 0 just before and read just after
+    (2 K1 + 2 K2 a request, no plain version called), latency and one
+    profiled request's breakdown beside the folded request's on the same
+    frames; the detections and maps held
+    against the folded request's (hold_frames, kind "unfolded"), with the
+    planted fault of the statistics dropped (each FrozenBatchNorm2d an
+    identity, what TPU.FOLD_FROZEN_BN False gave before) read beside them;
+    one unfolded request with every K1 and K2 launch held against its plain
+    version."""
+    from densepose_tpu_torch.ops import norms
+    folded, unfolded = unfolded_pair(torch, dev, name)
+    n_bn = sum(isinstance(m, norms.FrozenBatchNorm2d) for m in unfolded.model.modules())
+    check(n_bn > 0 and n_bn == sum(k.endswith(".norm.running_var")
+                                   for k in unfolded.model.state_dict())
+          and not any(isinstance(m, norms.FrozenBatchNorm2d) for m in folded.model.modules()),
+          f"unfolded {name}: {n_bn} FrozenBatchNorm2d modules")
+    warm, *imgs = frames(31, 1 + UNFOLD_TIMED)
+    lat, busy = {}, {}
+    for tag, pred in (("folded", folded), ("unfolded", unfolded)):
+        pred(warm)
+        torch.cuda.synchronize()
+        zero_counters()
+        with CountPlain() as plain:
+            ts, got = [], []
+            for img in imgs:
+                t0 = time.perf_counter()
+                got.append(pred(img))
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            launches = {k: fn.launches for k, fn in counters().items()}
+        check(plain.calls == 0, f"unfolded {name} {tag}: {plain.calls} plain-version calls")
+        busy[tag] = breakdown(torch, pred, imgs[0], float(np.median(ts)))
+        if tag == "unfolded":
+            count_launches(report, f"{name} unfolded FrozenBN", "float32", launches, ON_K2,
+                           len(imgs))
+        lat[tag] = ts
+        for out in got:
+            check(int(out["num_instances"]) >= 1, f"unfolded {name} {tag}: no detections")
+    want = [folded.predict_numpy(img) for img in imgs]
+    r = hold_frames(torch, lambda: [unfolded.predict_numpy(img) for img in imgs],
+                    lambda: [folded.predict_numpy(img) for img in imgs], f"unfolded {name}",
+                    "unfolded")
+    orig = norms.FrozenBatchNorm2d.forward
+    norms.FrozenBatchNorm2d.forward = lambda self, x: x
+    try:
+        dropped = [unfolded.predict_numpy(img) for img in imgs]
+    finally:
+        norms.FrozenBatchNorm2d.forward = orig
+    fault = []
+    for x, y in zip(dropped, want):
+        fault.append(max(len(x["scores"]), len(y["scores"])) - int((pair_rows(
+            x, y, "unfolded") >= 0).sum()))
+    check(min(fault) > BATCH_MOVED_ROWS["unfolded"], f"unfolded {name}: the planted fault "
+          f"(statistics dropped) leaves only {fault} rows without a partner")
+    print(f"unfolded {name} (fp32, {smi}): latency ms unfolded "
+          f"{', '.join(f'{x:.2f}' for x in lat['unfolded'])}, folded "
+          f"{', '.join(f'{x:.2f}' for x in lat['folded'])}; device busy {fmt(busy['unfolded'])} "
+          f"against {fmt(busy['folded'])} ms; {n_bn} FrozenBatchNorm2d; "
+          f"against the folded request: {held_text(r, 'unfolded')}; planted fault, the "
+          f"statistics dropped: {fault} rows without a partner a frame")
+    with HeldAgainstPlain(torch, f"unfolded {name}") as held:
+        unfolded(imgs[0])
+        torch.cuda.synchronize()
+    check(len(held.k1) == 2 and len(held.k2) == 2, f"unfolded {name}: held {len(held.k1)} K1, "
+          f"{len(held.k2)} K2 calls")
+    print(f"held: one unfolded {name} request, {held.summary()}")
+    del folded, unfolded
+    torch.cuda.empty_cache()
+
+
+def deeplab_norm_path(torch, report, dev, norm):
+    """densepose_rcnn_R_50_FPN_DL_s1x with DEEPLAB.NORM ``norm`` in fp32
+    (drive_path: warm-up, timed requests with launch counts, outputs' form,
+    profile), then one request with every K1 and K2 launch held against its
+    plain version."""
+    extra = (("MODEL.ROI_DENSEPOSE_HEAD.DEEPLAB.NORM", norm),)
+    pred = drive_path(torch, report, dev, DEEPLAB, extra, False, ON_K2)
+    head = pred.model.roi_heads.densepose_head
+    check(not head.gn and all(c.bias is not None for c in head.convs()),
+          f"DeepLab NORM {norm!r}: the body convs are not bias convs")
+    with HeldAgainstPlain(torch, f"DeepLab NORM {norm!r}") as held:
+        pred(frames(1, 1)[0])
+        torch.cuda.synchronize()
+    check(len(held.k1) == 2 and len(held.k2) == 2, f"DeepLab NORM {norm!r}: held "
+          f"{len(held.k1)} K1, {len(held.k2)} K2 calls")
+    print(f"held: one DeepLab NORM {norm!r} request, {held.summary()}")
+    del pred
+    torch.cuda.empty_cache()
+
+
+def published_heads():
+    """(tag, config, spec, module class) of detectron2's mask_rcnn_R_50_FPN_3x
+    mask head (4 convs of 256, 14x14 ROIAlignV2 at ratio 0, 80 classes) and
+    keypoint_rcnn_R_50_FPN_3x keypoint head (8 convs of 512, 14x14, 17
+    keypoints), over the flagship's p2..p5."""
+    from densepose_tpu_torch.models import keypoint_head, mask_head
+    cfg = path_config(FLAGSHIP, (("MODEL.ROI_HEADS.NUM_CLASSES", 80),
+                                 ("MODEL.ROI_MASK_HEAD.NUM_CONV", 4)))
+    return [("mask", cfg, mask_head.mask_head_spec, mask_head.MaskRCNNConvUpsampleHead),
+            ("keypoint", cfg, keypoint_head.keypoint_head_spec,
+             keypoint_head.KRCNNConvDeconvUpsampleHead)]
+
+
+def head_of(torch, cfg, spec_fn, cls, dev, seed=0):
+    """A head module with random weights from ``seed`` (the spec's stream)."""
+    from densepose_tpu_torch.checkpoint.transform import random_torch_state
+    module = cls(cfg)
+    state = random_torch_state(spec_fn(cfg), seed=seed)
+    prefix = ".".join(next(iter(state)).split(".")[:2]) + "."  # roi_heads.<head>.
+    module.load_state_dict({k[len(prefix):]: torch.from_numpy(v) for k, v in state.items()})
+    return module.to(dev).eval()
+
+
+def heads_phase(torch, report, dev, flagship):
+    """The mask and keypoint heads at full width on the flagship's p2..p5 of
+    a 480x640 frame (input 800x1088) and its first HEAD_BOXES detection
+    slots: each head once with its K2 launch held against the plain version
+    (bit-identical at ratio 0 within K2_TOL), its output's form, the head's
+    time and its K2 call's at the pooler site (``head_sites`` on the kernels
+    line); then the heads of tests/test_extras.py's size, card against CPU."""
+    from densepose_tpu_torch.models.rcnn import image_tensor
+    with torch.inference_mode():
+        _, feats, boxes = flagship.model.forward_stage1(image_tensor(frames(32, 1)[0], dev))
+    boxes = boxes[:HEAD_BOXES].contiguous()
+    (hp, wp), _ = main_path_shapes(flagship.cfg)
+    check(tuple(feats["p2"].shape[-2:]) == (hp // 4, wp // 4) and len(boxes) == HEAD_BOXES,
+          f"heads: p2 {tuple(feats['p2'].shape)}, {len(boxes)} boxes")
+    strides = {f"p{i}": 2 ** i for i in (2, 3, 4, 5)}
+    rng = np.random.RandomState(33)
+    classes = torch.from_numpy(rng.randint(0, 80, HEAD_BOXES).astype(np.int32)).to(dev)
+    for tag, cfg, spec_fn, cls in published_heads():
+        head = head_of(torch, cfg, spec_fn, cls, dev)
+        args = (feats, boxes) + ((classes,) if tag == "mask" else ()) + (strides,)
+        with HeldAgainstPlain(torch, f"{tag} head", keep=True) as held, torch.inference_mode():
+            out = head(*args)
+            torch.cuda.synchronize()
+        check(len(held.k2) == 1 and not held.k1, f"{tag} head: held {len(held.k2)} K2 calls")
+        shape = (HEAD_BOXES, 28, 28) if tag == "mask" else (HEAD_BOXES, 17, 56, 56)
+        check(tuple(out.shape) == shape and bool(torch.isfinite(out).all()),
+              f"{tag} head: output {tuple(out.shape)}")
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: head(*args), reps=10)
+        (k2_args, k2_kw), = held.calls["k2"]
+        site = batch_site(torch, report, "k2", "float32", k2_args, k2_kw, f"{tag}_head_pooler",
+                          key="head_sites")
+        print(f"heads: {tag} head on the flagship's p2..p5 ({hp}x{wp} input), {HEAD_BOXES} "
+              f"boxes: {tuple(out.shape)}, "
+              f"{ms:.4f} ms a call (its K2 call {site['ms']:.4f} ms); {held.summary()}")
+        del head
+    # card against CPU at tests/test_extras.py's size (FPN width 16, p2 32x32)
+    small = path_config(FLAGSHIP, (("MODEL.ROI_HEADS.IN_FEATURES", ["p2", "p3"]),
+                                   ("MODEL.ROI_HEADS.NUM_CLASSES", 3),
+                                   ("MODEL.ROI_MASK_HEAD.NUM_CONV", 2),
+                                   ("MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION", 7),
+                                   ("MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS", (32, 32)),
+                                   ("MODEL.FPN.OUT_CHANNELS", 16),
+                                   ("MODEL.ROI_MASK_HEAD.CONV_DIM", 16),
+                                   ("MODEL.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION", 7)))
+    feats = {"p2": rng.randn(1, 16, 32, 32).astype(np.float32),
+             "p3": rng.randn(1, 16, 16, 16).astype(np.float32)}
+    boxes = np.float32([[4.0, 4.0, 60.0, 60.0], [10.0, 10.0, 40.0, 30.0]])
+    for tag, _, spec_fn, cls in published_heads():
+        res = []
+        for d in (dev, "cpu"):
+            head = head_of(torch, small, spec_fn, cls, d, seed=5)
+            args = ({k: torch.from_numpy(v).to(d) for k, v in feats.items()},
+                    torch.from_numpy(boxes).to(d))
+            if tag == "mask":
+                args += (torch.tensor([1, 2], dtype=torch.int32, device=d),)
+            with torch.inference_mode():
+                res.append(head(*args, {"p2": 4, "p3": 8}).cpu())
+        err = float((res[0] - res[1]).abs().max())
+        top = float(res[1].abs().max())
+        check(err <= 1e-4 * max(1.0, top), f"reference {tag} head: card and CPU differ by {err}")
+        print(f"reference: the {tag} head at tests/test_extras.py's size on the card == on the "
+              f"CPU: {tuple(res[1].shape)}, max abs difference {err:.3e} (tol 1e-4 of "
+              f"max(1, {top:.3e}))")
+
+
+def last_slice_phase(torch, report, dev, smi):
+    """K1's long problems (k1_long_checks), and at full width: the flagship
+    with RPN.PRE_NMS_TOPK_TEST 20000 (K1 at five problems of 20000 boxes a
+    request, its call timed at the site: ``long_sites``); the unfolded
+    FrozenBN route of the flagship and HRNet-W32 (unfolded_path);
+    DeepLab with NORM "" and "FrozenBN" (deeplab_norm_path) and with NORM ""
+    under INT8_HEAD (int8_path); the mask and keypoint heads (heads_phase);
+    then narrowed unfolded flagship and HRNet and DeepLab NORM "" /
+    "FrozenBN" models card against CPU."""
+    t0 = time.perf_counter()
+
+    def lap(what):
+        print(f"time: last slice {what} done {time.perf_counter() - t0:.1f} s into the phase")
+
+    k1_long_checks(torch, report, dev)
+    lap("K1 long problems")
+    cfg = path_config(FLAGSHIP, (("MODEL.RPN.PRE_NMS_TOPK_TEST", 20000),))
+    held = new_backbone_path(torch, report, dev, "flagship RPN.PRE_NMS_TOPK_TEST=20000", cfg,
+                             None, ON_K2, smi, phase="last slice")
+    (rpn, _) = held.calls["k1"]
+    _, levels = main_path_shapes(cfg)
+    cells = len(cfg.MODEL.ANCHOR_GENERATOR.SIZES[0]) * len(
+        cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS[0])
+    k = min(20000, max(h * w * cells for h, w in levels.values()))
+    check(tuple(rpn[0][0].shape[:2]) == (len(levels), k) and k > LONG_K,
+          f"PRE_NMS_TOPK_TEST 20000: the RPN's K1 call is {tuple(rpn[0][0].shape)}, not "
+          f"{(len(levels), k)} past {LONG_K} boxes a problem")
+    batch_site(torch, report, "k1", "float32", rpn[0], rpn[1], "flagship_rpn_5x20000",
+               key="long_sites")
+    del held
+    torch.cuda.empty_cache()
+    lap("PRE_NMS_TOPK_TEST 20000")
+    for name in (FLAGSHIP, HRNET):
+        unfolded_path(torch, report, dev, name, smi)
+    lap("unfolded FrozenBN")
+    for norm in DL_NORMS:
+        deeplab_norm_path(torch, report, dev, norm)
+    pred = int8_path(torch, report, dev, DEEPLAB, (("TPU.INT8_HEAD", True),
+                                                   ("MODEL.ROI_DENSEPOSE_HEAD.DEEPLAB.NORM", "")),
+                     True)
+    del pred
+    torch.cuda.empty_cache()
+    lap("DeepLab NORM")
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    flagship = DensePosePredictor(path_config(FLAGSHIP), seed=0, device=dev)
+    heads_phase(torch, report, dev, flagship)
+    del flagship
+    torch.cuda.empty_cache()
+    lap("heads")
+    reference_check(torch, dev, FLAGSHIP, False, extra=UNFOLD)
+    reference_check(torch, dev, HRNET, False, extra=UNFOLD)
+    for norm in DL_NORMS:
+        reference_check(torch, dev, DEEPLAB, False, extra=(
+            ("MODEL.ROI_DENSEPOSE_HEAD.DEEPLAB.NORM", norm),
+            ("MODEL.ROI_DENSEPOSE_HEAD.DECODER_NUM_CLASSES", 32),
+            ("MODEL.ROI_DENSEPOSE_HEAD.CONV_HEAD_DIM", 32)))
+    lap("reference checks")
 
 
 def main():
@@ -4095,6 +4495,8 @@ def main():
     lap("spatial phase")
     new_backbones_phase(torch, report, dev, smi_line)
     lap("new backbones phase")
+    last_slice_phase(torch, report, dev, smi_line)
+    lap("last slice phase")
     cse_phase(torch, report, dev)
     geometry_phase(torch, report, dev)
     detection_bucket_phase(torch, report, dev)

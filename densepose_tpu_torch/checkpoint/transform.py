@@ -6,14 +6,15 @@
   spec and seed, so both packages build identical weights from one seed.
 * ``fold_frozen_bn``: FrozenBN collapsed into the preceding conv's kernel and
   bias (the port of ``densepose_tpu/ops/norms.py::fold_frozen_bn`` on OIHW
-  kernels). The port always folds: its backbone convs carry a bias and no
-  norm module.
-* ``fold_state``: reference state dict -> the port's module state dict,
-  folding each FrozenBN into its conv: detectron2's ``X.norm`` children and
-  HRNet's siblings (``conv1``/``bn1``, Sequential ``.0``/``.1``:
-  ``bn_base_for``).
-* ``params_from_jax``: the JAX package's param dict -> the port's module
-  state dict, undoing the layout transforms of
+  kernels).
+* ``fold_state``: reference state dict -> the port's module state dict. With
+  ``TPU.FOLD_FROZEN_BN`` (the default) each FrozenBN is folded into its conv:
+  detectron2's ``X.norm`` children and HRNet's siblings (``conv1``/``bn1``,
+  Sequential ``.0``/``.1``: ``bn_base_for``), and the convs carry a bias and
+  no norm module. Without it the statistics stay, under the conv's
+  ``.norm`` child (``ops/norms.py::conv_bn``), HRNet's siblings renamed.
+* ``params_from_jax``: the JAX package's param dict (folded or not) -> the
+  port's module state dict, undoing the layout transforms of
   ``densepose_tpu/checkpoint/transform.py::torch_state_to_jax``.
 """
 
@@ -86,7 +87,10 @@ def bn_base_for(conv_base: str) -> Optional[str]:
     return None
 
 
-def _frozen_bn_of(base: str, spec: Spec) -> Optional[str]:
+_BN_SUFFIXES = ("weight", "bias", "running_mean", "running_var")
+
+
+def frozen_bn_of(base: str, spec: Spec) -> Optional[str]:
     """The FrozenBN folded into conv ``base``: its ``.norm`` child, or its
     HRNet sibling (``bn_base_for``) where the spec has that BN's statistics."""
     if f"{base}.norm.running_mean" in spec:
@@ -95,13 +99,15 @@ def _frozen_bn_of(base: str, spec: Spec) -> Optional[str]:
     return bn if bn is not None and f"{bn}.running_mean" in spec else None
 
 
-def fold_state(state: StateDict, spec: Spec) -> StateDict:
+def fold_state(state: StateDict, spec: Spec, fold: bool = True) -> StateDict:
     """Reference state dict -> the port's module state dict: every conv with a
     FrozenBN in the spec (a ``.norm`` child, or an HRNet sibling,
-    ``_frozen_bn_of``) gets it folded into a weight and a bias, in float64 as
+    ``frozen_bn_of``) gets it folded into a weight and a bias, in float64 as
     the JAX package folds both (``torch_state_to_jax``, ``hrnet_fold_bn``), so
-    the folded weights are the JAX package's bits. Missing spec entries are
-    zero-filled (``.norm`` scales and variances one-filled), as the
+    the folded weights are the JAX package's bits. With ``fold`` False
+    (``TPU.FOLD_FROZEN_BN`` off) the four statistics stay, named
+    ``<conv>.norm.<name>`` as the port's ``conv_bn`` modules hold them. Missing
+    spec entries are zero-filled (BN scales and variances one-filled), as the
     reference's strict=False load and the JAX package's loader do."""
 
     def get(name: str, ps: ParamSpec) -> np.ndarray:
@@ -119,7 +125,7 @@ def fold_state(state: StateDict, spec: Spec) -> StateDict:
     for name, ps in spec.items():
         if name in handled:
             continue
-        bn = _frozen_bn_of(name[: -len(".weight")], spec) \
+        bn = frozen_bn_of(name[: -len(".weight")], spec) \
             if ps.kind == "conv" and name.endswith(".weight") else None
         if bn is not None:
             base = name[: -len(".weight")]
@@ -129,10 +135,16 @@ def fold_state(state: StateDict, spec: Spec) -> StateDict:
                 b = get(bias_name, spec[bias_name])
                 handled.add(bias_name)
             norm = {}
-            for sfx in ("weight", "bias", "running_mean", "running_var"):
+            for sfx in _BN_SUFFIXES:
                 n = f"{bn}.{sfx}"
                 norm[sfx] = get(n, spec[n])
                 handled.add(n)
+            if not fold:
+                out[name] = get(name, ps)
+                if b is not None:
+                    out[bias_name] = b
+                out.update({f"{base}.norm.{sfx}": v for sfx, v in norm.items()})
+                continue
             out[name], out[bias_name] = fold_frozen_bn(
                 get(name, ps), b, norm["weight"], norm["bias"],
                 norm["running_mean"], norm["running_var"])
@@ -141,19 +153,44 @@ def fold_state(state: StateDict, spec: Spec) -> StateDict:
     return out
 
 
-def params_from_jax(jax_params: Dict[str, np.ndarray]) -> StateDict:
-    """The JAX package's folded param dict -> the port's module state dict.
+def _conv_of_bn(bn: str) -> str:
+    """The port's name of the conv whose FrozenBN has base ``bn``: the owner
+    of a ``.norm`` child, or HRNet's sibling conv (the inverse of
+    ``bn_base_for``)."""
+    head, _, tail = bn.rpartition(".")
+    if tail == "norm":
+        return head
+    if tail.startswith("bn"):
+        return f"{head}.conv{tail[2:]}"
+    if tail == "1":
+        return f"{head}.0"
+    raise ValueError(f"{bn}: no conv pairs with this BatchNorm")
+
+
+# the ConvTranspose2d weights (kind "convT"): the chart predictors' deconvs,
+# the mask head's and the keypoint head's
+_CONV_TRANSPOSE = (".densepose_predictor.", ".mask_head.deconv.", ".keypoint_head.score_lowres.")
+
+
+def params_from_jax(jax_params: Dict[str, np.ndarray], fold_bn: bool = True) -> StateDict:
+    """The JAX package's param dict -> the port's module state dict.
 
     Inverts ``torch_state_to_jax``'s layouts: HWIO -> OIHW for convs, the
     spatially flipped forward-conv form (kh, kw, Cin, Cout) -> (Cin, Cout, kh,
-    kw) for the predictors' ConvTranspose2d kernels (the only 4-D weights
-    under ``densepose_predictor.``), (in, out) -> (out, in) for linears. The
+    kw) for the ConvTranspose2d kernels (``_CONV_TRANSPOSE``: the chart
+    predictors', the mask head's deconv and the keypoint head's
+    ``score_lowres``), (in, out) -> (out, in) for linears. The
     CSE embedders' 2-D tables (kind "vec", ``models/cse.py::embedder_spec``:
     names under ``.embedder.``) pass through as they are, as every vector
-    does. FrozenBN must already be folded (``TPU.FOLD_FROZEN_BN``, and for
-    HRNet the JAX predictor's ``hrnet_fold_bn``): any BN statistic, of a
-    ``.norm`` child or an HRNet sibling, is refused. A GroupNorm's
-    ``.norm.weight``/``.norm.bias`` pass through as they are.
+    does. ``fold_bn`` says which model the dict is for, as
+    ``torch_state_to_jax``'s does: with True (``TPU.FOLD_FROZEN_BN``, and for
+    HRNet the JAX predictor's ``hrnet_fold_bn``) any BN statistic, of a
+    ``.norm`` child or an HRNet sibling, is refused; with False
+    (``torch_state_to_jax(..., fold_bn=False)``, HRNet without
+    ``hrnet_fold_bn``) each BN's four vectors come back under its conv's
+    ``.norm`` child, HRNet's siblings renamed (``_conv_of_bn``), for a model
+    built with the flag off. A GroupNorm's ``.norm.weight``/``.norm.bias``
+    pass through as they are.
 
     The JAX predictor's params at a half compute dtype (``_cast_param``)
     keep it: float16 arrays come back float16. bfloat16 arrays (``ml_dtypes``
@@ -167,10 +204,15 @@ def params_from_jax(jax_params: Dict[str, np.ndarray]) -> StateDict:
     ConvTranspose2d's tap order (``ops/conv_int8.py``); ``.wscale`` (Cout,)
     and the 0-dim ``.in_scale`` / ``.in_scale_<level>`` pass through as
     float32."""
+    bns = {n[: -len(".running_mean")] for n in jax_params if n.endswith(".running_mean")}
     out: StateDict = {}
     for name, a in jax_params.items():
-        if name.endswith((".running_mean", ".running_var")):
-            raise ValueError(f"{name}: unfolded FrozenBN; the port takes folded params")
+        if fold_bn and name.endswith((".running_mean", ".running_var")):
+            raise ValueError(f"{name}: unfolded FrozenBN; with fold_bn the port takes folded "
+                             "params")
+        base, _, sfx = name.rpartition(".")
+        if base in bns:
+            name = f"{_conv_of_bn(base)}.norm.{sfx}"
         if name.endswith(".qweight"):
             q = np.transpose(np.asarray(a, dtype=np.int8), (3, 0, 1, 2))
             if ".densepose_predictor." in name:
@@ -179,7 +221,7 @@ def params_from_jax(jax_params: Dict[str, np.ndarray]) -> StateDict:
             continue
         dtype = np.float16 if np.asarray(a).dtype == np.float16 else np.float32
         a = np.asarray(a, dtype=np.float32)
-        if a.ndim == 4 and ".densepose_predictor." in name:
+        if a.ndim == 4 and any(m in name for m in _CONV_TRANSPOSE):
             a = np.transpose(a, (2, 3, 0, 1))[:, :, ::-1, ::-1]
         elif a.ndim == 4:
             a = np.transpose(a, (3, 2, 0, 1))

@@ -38,6 +38,22 @@
 //    ~removed at the end: a bit i is final once step i has read it, since
 //    row i only sets bits after i.
 //
+// Problems of more than 16384 boxes (256 mask words, what the lanes'
+// registers hold) take nms_scan_long_kernel instead: `removed` lives in
+// shared memory (8 bytes a 64 boxes: 20 KB at the 163200 anchors of an
+// 800x1088 frame's p2, under the 48 KB a block may take without the opt-in
+// attribute up to 387072 boxes; past that the launch opts in, up to 227 KB,
+// kMaxLongWords) and one CTA of kLongThreads threads walks the problem a
+// 64-box word at a time. Warp 0 keeps the next word's 64 diagonal words in
+// flight (two loads a lane) while lane 0 walks the current word's rows
+// against it in shared memory, listing the kept rows; then every thread ORs
+// the kept rows' words after it into its own words of `removed`, reading
+// only kept rows (no staging of whole rows, which at 20 KB a row no longer
+// fit two buffers). Its serial chain is a shared-memory walk of 64 rows and
+// two CTA barriers a word. The IoU scratch is K x ld words, K^2 / 8 bytes:
+// 3.3 GB at K = 163200; the wrapper refuses a problem whose scratch does
+// not fit on the device, stating the bytes.
+//
 // Numerics: the IoU is written with __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn
 // and the file is built with --fmad=false, so no product is contracted into
 // an FMA. Row i is the earlier (pivot) box and column j the later one, with
@@ -52,10 +68,16 @@ namespace {
 constexpr int kBlock = 64;                             // boxes per mask word
 constexpr int kSplit = 4;                              // mask threads per row
 constexpr int kWordsPerLane = 8;                       // scan registers per lane
-constexpr int kMaxWords = 32 * kWordsPerLane;
-constexpr int kMaxBoxes = kMaxWords * kBlock;          // 16384 per problem
+constexpr int kMaxWords = 32 * kWordsPerLane;          // 16384 boxes on the register scan
 constexpr int kMaxProblems = 65535;                    // gridDim.z
 constexpr int kScanSmem = 48 * 1024;                   // no opt-in attribute needed
+constexpr int kLongThreads = 512;                      // the long scan's CTA
+// the long scan's shared memory past `removed`: the diagonal words and the
+// kept-row list of one 64-box word
+constexpr int kLongExtra = kBlock * 8 + kBlock * 4;
+constexpr int kOptInSmem = 227 * 1024;                 // an H100 block's most
+constexpr int kMaxLongWords = (kOptInSmem - kLongExtra - 16) / 8;
+constexpr int kMaxBoxes = kMaxLongWords * kBlock;      // 1853312 per problem
 constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(kBlock * kSplit) nms_mask_kernel(
@@ -267,6 +289,78 @@ __global__ void __launch_bounds__(32) nms_scan_kernel(
   }
 }
 
+// The long problem's scan (K > 64 * kMaxWords): one CTA a problem, `removed`
+// (n_words words, ~valid to start, bits at or past k set) in shared memory.
+// For each 64-box word wd: lane 0 walks rows wd*64.. against word wd of their
+// rows (staged by warp 0, which loads the next word's meanwhile), as the
+// register scan's owner lane does, and lists the kept rows; then each thread
+// ORs, for its words w > wd, word w of every kept row into removed[w].
+__global__ void __launch_bounds__(kLongThreads) nms_scan_long_kernel(
+    const unsigned long long* __restrict__ mask, const bool* __restrict__ valid,
+    bool* __restrict__ keep, int k, int n_words, int ld) {
+  extern __shared__ __align__(16) unsigned long long removed[];  // n_words, diag, rows
+  unsigned long long* diag = removed + n_words;
+  int* rows = reinterpret_cast<int*>(diag + kBlock);
+  __shared__ int n_kept;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const size_t base = static_cast<size_t>(blockIdx.x) * k;
+  const unsigned long long* m = mask + base * ld;
+
+  for (int w = warp; w < n_words; w += kLongThreads / 32) {
+    const int i = w * kBlock + lane;
+    const unsigned lo = __ballot_sync(kFull, i >= k || !valid[base + i]);
+    const unsigned hi = __ballot_sync(kFull, i + 32 >= k || !valid[base + i + 32]);
+    if (lane == 0) removed[w] = (static_cast<unsigned long long>(hi) << 32) | lo;
+  }
+  // lane l of warp 0: word wd of rows wd*64 + l (d0) and wd*64 + 32 + l (d1);
+  // rows past k are not read (rows of invalid boxes hold no written word,
+  // and are never kept)
+  unsigned long long d0 = 0, d1 = 0;
+  auto load_diag = [&](int wd) {
+    const int r = wd * kBlock + lane;
+    d0 = r < k ? __ldg(m + static_cast<size_t>(r) * ld + wd) : 0ull;
+    d1 = r + 32 < k ? __ldg(m + static_cast<size_t>(r + 32) * ld + wd) : 0ull;
+  };
+  if (warp == 0) load_diag(0);
+  __syncthreads();
+
+  for (int wd = 0; wd < n_words; ++wd) {
+    const int r0 = wd * kBlock;
+    if (warp == 0) {
+      diag[lane] = d0;
+      diag[lane + 32] = d1;
+      if (wd + 1 < n_words) load_diag(wd + 1);  // in flight through this word's steps
+      __syncwarp();
+      if (lane == 0) {
+        unsigned long long cur = removed[wd], kept = 0;
+        const int nr = min(kBlock, k - r0);
+#pragma unroll 8
+        for (int r = 0; r < nr; ++r) {
+          const bool live = !((cur >> r) & 1ull);
+          cur |= diag[r] & ones_if(live);
+          kept |= static_cast<unsigned long long>(live) << r;
+        }
+        removed[wd] = cur;
+        int n = 0;
+        for (; kept; kept &= kept - 1) rows[n++] = __ffsll(static_cast<long long>(kept)) - 1;
+        n_kept = n;
+      }
+    }
+    __syncthreads();
+    const int nk = n_kept;
+    for (int w = wd + 1 + t; nk && w < n_words; w += kLongThreads) {
+      const unsigned long long* col = m + static_cast<size_t>(r0) * ld + w;
+      unsigned long long acc = 0;
+#pragma unroll 8
+      for (int j = 0; j < nk; ++j) acc |= __ldg(col + static_cast<size_t>(rows[j]) * ld);
+      removed[w] |= acc;
+    }
+    __syncthreads();  // removed[wd + 1] is final, and diag and rows free
+  }
+  for (int i = t; i < k; i += kLongThreads)
+    keep[base + i] = !((removed[i >> 6] >> (i & 63)) & 1ull);
+}
+
 // Words per mask row in memory: n_words rounded up to even, so that rows and
 // blocks of rows are 16-byte aligned for the bulk copy.
 int row_stride(int k) { return ((k + kBlock - 1) / kBlock + 1) & ~1; }
@@ -282,6 +376,10 @@ int scan_rows(int ld) {
 
 extern "C" {
 
+// The most boxes a problem may have: what the long scan's shared memory
+// holds (1853312). The IoU scratch of such a problem, K^2 / 8 bytes, is far
+// past any card's memory: the wrapper refuses a problem whose scratch does
+// not fit on the device.
 int dp_nms_max_boxes() { return kMaxBoxes; }
 int dp_nms_max_problems() { return kMaxProblems; }
 
@@ -310,11 +408,26 @@ int dp_nms_scan(const void* mask, const void* valid, void* keep, int problems, i
                 void* stream) {
   if (k < 1 || k > kMaxBoxes || problems < 1) return cudaErrorInvalidValue;
   const int ld = row_stride(k);
+  const int n_words = (k + kBlock - 1) / kBlock;
+  const auto m = static_cast<const unsigned long long*>(mask);
+  const auto v = static_cast<const bool*>(valid);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (n_words > kMaxWords) {
+    const size_t smem = static_cast<size_t>(n_words) * 8 + kLongExtra;
+    if (smem > kScanSmem) {  // past 387072 boxes: opt in to more shared memory
+      const cudaError_t err = cudaFuncSetAttribute(
+          nms_scan_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    nms_scan_long_kernel<<<problems, kLongThreads, smem, s>>>(m, v, static_cast<bool*>(keep),
+                                                              k, n_words, ld);
+    return cudaGetLastError();
+  }
   const int rows = scan_rows(ld);
   const size_t smem = static_cast<size_t>(2) * rows * ld * sizeof(unsigned long long);
-  nms_scan_kernel<<<problems, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned long long*>(mask), static_cast<const bool*>(valid),
-      static_cast<bool*>(keep), k, (k + kBlock - 1) / kBlock, ld, rows);
+  nms_scan_kernel<<<problems, 32, smem, s>>>(m, v, static_cast<bool*>(keep), k, n_words, ld,
+                                             rows);
   return cudaGetLastError();
 }
 

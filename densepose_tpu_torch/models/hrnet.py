@@ -11,6 +11,11 @@ upstream HRNet parameter names (``conv1``/``bn1``, ``layer1``,
 Every BatchNorm is inference-mode (FrozenBN) and is folded into its conv when
 the weights load (``checkpoint/transform.py::fold_state`` folds the sibling
 ``bn{N}`` / ``.1`` modules), so every conv here carries a bias and no norm.
+With ``TPU.FOLD_FROZEN_BN`` off each conv applies its BN after it instead
+(``ops/norms.py::conv_bn``: the sibling's statistics under the conv's
+``.norm``), as JAX ``_cbr`` and ``hrnet_forward``'s stem do (hrnet.py:108-118,
+446-451). The int8 chains then do not run: the port refuses
+``INT8_BACKBONE`` with the flag off (``models/rcnn.py::_check_supported``).
 
 Structure (branch widths Ci from MODEL.HRNET.STAGEk.NUM_CHANNELS):
     stem: two 3x3/2 convs (64) -> 1/4 resolution
@@ -51,6 +56,7 @@ import torch.nn.functional as F
 
 from ..checkpoint.spec import ParamSpec, Spec
 from ..ops.conv_int8 import act_stat, link, quant_act_s8, quantized, to_nchw, to_s8_nhwc
+from ..ops.norms import conv_bn
 from ..ops.resize import resize_bilinear
 from ..parallel.halo import (RowSlabs, avg_pool_rows, conv_rows, link_rows,
                              upsample_bilinear_rows, upsample_nearest_rows)
@@ -176,9 +182,10 @@ def _int8_ok(conv: nn.Module, calib) -> bool:
     return calib is None and getattr(conv, "in_scale", None) is not None and quantized(conv)
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    """A conv with its BN folded in: bias, 'same' padding for odd k."""
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2)
+def _conv(cin: int, cout: int, k: int, fold: bool, stride: int = 1) -> nn.Conv2d:
+    """A conv and its BN (``conv_bn``: folded in, or its ``.norm``), 'same'
+    padding for odd k."""
+    return conv_bn(cin, cout, k, fold, stride=stride, padding=k // 2)
 
 
 def _seq(*modules: nn.Module) -> nn.Module:
@@ -188,12 +195,12 @@ def _seq(*modules: nn.Module) -> nn.Module:
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, cin: int, downsample: bool):
+    def __init__(self, cin: int, downsample: bool, fold: bool):
         super().__init__()
-        self.conv1 = _conv(cin, 64, 1)
-        self.conv2 = _conv(64, 64, 3)
-        self.conv3 = _conv(64, LAYER1_WIDTH, 1)
-        self.downsample = _seq(_conv(cin, LAYER1_WIDTH, 1)) if downsample else None
+        self.conv1 = _conv(cin, 64, 1, fold)
+        self.conv2 = _conv(64, 64, 3, fold)
+        self.conv3 = _conv(64, LAYER1_WIDTH, 1, fold)
+        self.downsample = _seq(_conv(cin, LAYER1_WIDTH, 1, fold)) if downsample else None
 
     def forward(self, x: torch.Tensor, calib=None, stat: str = "max") -> torch.Tensor:
         if calib is not None:
@@ -240,10 +247,10 @@ class Bottleneck(nn.Module):
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, c: int):
+    def __init__(self, c: int, fold: bool):
         super().__init__()
-        self.conv1 = _conv(c, c, 3)
-        self.conv2 = _conv(c, c, 3)
+        self.conv1 = _conv(c, c, 3, fold)
+        self.conv2 = _conv(c, c, 3, fold)
 
     def forward(self, x: torch.Tensor, calib=None, stat: str = "max") -> torch.Tensor:
         if calib is not None:
@@ -311,20 +318,22 @@ class HRModule(nn.Module):
     upsample by 2^(j-i) (j > i); a chain of i-j 3x3/2 convs, ReLU on all but
     the last (j < i); then a ReLU."""
 
-    def __init__(self, chans: List[int], n_blocks: List[int]):
+    def __init__(self, chans: List[int], n_blocks: List[int], fold: bool):
         super().__init__()
         self.branches = nn.ModuleList(
-            nn.Sequential(*(BasicBlock(c) for _ in range(n))) for c, n in zip(chans, n_blocks))
+            nn.Sequential(*(BasicBlock(c, fold) for _ in range(n)))
+            for c, n in zip(chans, n_blocks))
         n = len(chans)
         self.fuse_layers = nn.ModuleList()
         for i in range(n):
             row = nn.ModuleList()
             for j in range(n):
                 if j > i:
-                    row.append(_seq(_conv(chans[j], chans[i], 1)))
+                    row.append(_seq(_conv(chans[j], chans[i], 1, fold)))
                 elif j < i:
                     row.append(_seq(*(
-                        _seq(_conv(chans[j], chans[i] if k == i - j - 1 else chans[j], 3, 2))
+                        _seq(_conv(chans[j], chans[i] if k == i - j - 1 else chans[j], 3, fold,
+                                   2))
                         for k in range(i - j))))
                 else:
                     row.append(nn.Identity())
@@ -376,23 +385,24 @@ class HRNet(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        self.conv1 = _conv(3, STEM_WIDTH, 3, 2)
-        self.conv2 = _conv(STEM_WIDTH, STEM_WIDTH, 3, 2)
-        self.layer1 = nn.Sequential(*(Bottleneck(STEM_WIDTH if i == 0 else LAYER1_WIDTH, i == 0)
-                                      for i in range(4)))
+        fold = bool(cfg.TPU.FOLD_FROZEN_BN)
+        self.conv1 = _conv(3, STEM_WIDTH, 3, fold, 2)
+        self.conv2 = _conv(STEM_WIDTH, STEM_WIDTH, 3, fold, 2)
+        self.layer1 = nn.Sequential(*(Bottleneck(STEM_WIDTH if i == 0 else LAYER1_WIDTH, i == 0,
+                                                 fold) for i in range(4)))
         prev = [LAYER1_WIDTH]
         for si, (chans, n_modules, n_blocks) in enumerate(_stages(cfg)):
             transition = nn.ModuleList()
             for b, c in enumerate(chans):
                 if b >= len(prev):
-                    transition.append(_seq(_seq(_conv(prev[-1], c, 3, 2))))
+                    transition.append(_seq(_seq(_conv(prev[-1], c, 3, fold, 2))))
                 elif prev[b] != c:
-                    transition.append(_seq(_conv(prev[b], c, 3)))
+                    transition.append(_seq(_conv(prev[b], c, 3, fold)))
                 else:
                     transition.append(nn.Identity())
             self.add_module(f"transition{si + 1}", transition)
             self.add_module(f"stage{si + 2}", nn.Sequential(
-                *(HRModule(chans, n_blocks) for _ in range(n_modules))))
+                *(HRModule(chans, n_blocks, fold) for _ in range(n_modules))))
             prev = chans
 
     def forward(self, x: torch.Tensor, calib=None, stat: str = "max") -> List[torch.Tensor]:

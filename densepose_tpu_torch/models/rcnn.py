@@ -3,7 +3,8 @@
 One ``nn.Module`` whose state_dict keys are the reference's names with
 FrozenBN folded (``backbone.bottom_up.stem.conv1.weight``,
 ``proposal_generator.rpn_head.conv.weight``, ``roi_heads.box_head.fc1.weight``
-...). Inference runs eagerly, stage by stage:
+...), or with ``TPU.FOLD_FROZEN_BN`` off kept under each conv's ``.norm``
+(HRNet's sibling BNs too). Inference runs eagerly, stage by stage:
 
 1. ``preprocess``: the uint8 resize with torch's scale-factor rule, rounded
    and clipped (the reference resizes the uint8 tensor), normalized and
@@ -89,7 +90,7 @@ from torch.profiler import record_function
 
 from ..checkpoint.spec import Spec
 from ..ops.boxes import clip_boxes, nonempty_boxes
-from ..ops.resize import resize_image, resize_image_rows, source_rows
+from ..ops.resize import resize_bilinear, resize_image, resize_image_rows, source_rows
 from ..parallel.halo import RowSlabs, Shards, gather, row_bounds
 from .backbones import backbone_rows, backbone_spec, build_backbone
 from .res5_roi_heads import Res5ROIHeads, res5_forward_batch, res5_spec
@@ -131,6 +132,11 @@ def _check_supported(cfg) -> None:
                          "DensePose head under it, and its forward fails on "
                          "'roi_heads.decoder.res4.0.weight')")
     t = cfg.TPU
+    if (not t.FOLD_FROZEN_BN and t.INT8_BACKBONE
+            and cfg.MODEL.BACKBONE.NAME == "build_hrfpn_backbone"):
+        raise ValueError("TPU.INT8_BACKBONE on HRNet needs TPU.FOLD_FROZEN_BN: the JAX "
+                         "package's s8 chains (hrnet.py:273-290, 385-418) take each conv's "
+                         "weight and bias and drop its unfolded BatchNorm statistics")
     if t.COMPUTE_DTYPE not in COMPUTE_DTYPES:
         raise ValueError(f"TPU.COMPUTE_DTYPE {t.COMPUTE_DTYPE!r}: expected one of "
                          f"{sorted(COMPUTE_DTYPES)}")
@@ -560,6 +566,18 @@ def device_postprocess(dp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
            "pred_densepose_uv": uv.half()}
     out.update({k: v for k, v in dp.items() if k not in _SIUV})
     return out
+
+
+def sem_seg_postprocess(result: torch.Tensor, img_size, output_height: int,
+                        output_width: int) -> torch.Tensor:
+    """The reference's semantic-segmentation postprocess
+    (detectron2/modeling/postprocessing.py:64-87; JAX
+    ``rcnn.py::sem_seg_postprocess``, which takes (H, W, C)): a padded (C, H,
+    W) logit map cropped to the un-padded ``img_size`` (h, w), then resized
+    bilinearly (align_corners False) to the output size. No DensePose config
+    builds a semantic segmentor."""
+    result = result[:, :img_size[0], :img_size[1]]
+    return resize_bilinear(result[None], (int(output_height), int(output_width)))[0]
 
 
 def densepose_bucket(num_valid: int, d: int) -> int:

@@ -74,7 +74,7 @@ class Res5ROIHeads(nn.Module):
         stride_in_1x1 = cfg.MODEL.RESNETS.STRIDE_IN_1X1
         self.res5 = nn.Sequential(*[
             BottleneckBlock(cin if i == 0 else cout, cb, cout, 2 if i == 0 else 1,
-                            stride_in_1x1, 1) for i in range(3)])
+                            stride_in_1x1, 1, bool(cfg.TPU.FOLD_FROZEN_BN)) for i in range(3)])
         self.box_predictor = FastRCNNOutputLayers(cfg, cout)
 
 

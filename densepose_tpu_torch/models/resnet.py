@@ -4,7 +4,9 @@ BasicStem (resnet.py:325-354), BasicBlock (:27-92, R18/R34: two 3x3 convs,
 widths fixed at 64/128/256/512 as in the JAX package) and BottleneckBlock
 (:95-205, R50/101/152) with ``stride_in_1x1`` and res5 dilation. FrozenBN is
 folded into the convs at load time (checkpoint/transform.py), so every conv
-carries a bias and the blocks are conv -> ReLU chains on cuDNN. Module names
+carries a bias and the blocks are conv -> ReLU chains on cuDNN; with
+``TPU.FOLD_FROZEN_BN`` off each conv applies its statistics after it
+(``ops/norms.py::conv_bn``, JAX ``_conv_norm`` / ``stem_conv_norm``). Module names
 mirror the reference state_dict (``stem.conv1``, ``res2.0.conv1``, ...).
 The module holds all four stages, as the JAX spec does, and runs the stages
 up to the last of ``RESNETS.OUT_FEATURES``: the C4 backbone
@@ -16,8 +18,9 @@ through kernel Q1 (``ops/conv_int8.py``): conv1 and conv2 stay in the integer
 domain, conv3 and the shortcut dequantize to f32 for the residual add (an
 identity shortcut adds the dequantized s8 input, q * s_in, as the JAX
 package does), the ReLU runs in f32 and the next block requantizes; the stem
-stays fp. The port always folds FrozenBN, so the JAX package's refusal of
-unfolded BN never applies. ``resnet_int8_scale_sites`` and
+stays fp. With FrozenBN unfolded the backbone keeps the fp path, as JAX
+``int8_backbone_active`` does (resnet.py:205-214): the s8 chain assumes the
+BN in the weights. ``resnet_int8_scale_sites`` and
 ``ResNet.int8_calibration`` are the site list and the fp walk that records
 its statistics, in the same order, over all four stages as the JAX walk goes
 (the C4 backbone's res5 sites feed nothing). BasicBlock ResNets keep the fp
@@ -39,6 +42,7 @@ import torch.nn.functional as F
 
 from ..checkpoint.spec import Spec, conv_spec
 from ..ops.conv_int8 import act_stat, link, quant_act_s8, quantized, to_nchw, to_s8_nhwc
+from ..ops.norms import conv_bn
 from ..parallel.halo import RowSlabs, conv_rows, link_rows, max_pool_rows
 
 NUM_BLOCKS_PER_STAGE = {
@@ -71,7 +75,7 @@ def _stage_channels(cfg) -> List[Tuple[int, int, int]]:
 
 def _check_supported(cfg) -> None:
     if cfg.MODEL.RESNETS.NORM != "FrozenBN":
-        raise NotImplementedError(f"norm {cfg.MODEL.RESNETS.NORM!r}: the port folds "
+        raise NotImplementedError(f"norm {cfg.MODEL.RESNETS.NORM!r}: the port runs "
                                   "FrozenBN only")
     if cfg.MODEL.RESNETS.NUM_GROUPS != 1:
         raise NotImplementedError("RESNETS.NUM_GROUPS != 1: the JAX package widens the "
@@ -140,13 +144,13 @@ def resnet_spec(cfg, prefix: str = "backbone.bottom_up") -> Spec:
 
 class BottleneckBlock(nn.Module):
     def __init__(self, cin: int, cb: int, cout: int, stride: int, stride_in_1x1: bool,
-                 dilation: int):
+                 dilation: int, fold: bool = True):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
-        self.conv1 = nn.Conv2d(cin, cb, 1, stride=s1)
-        self.conv2 = nn.Conv2d(cb, cb, 3, stride=s3, padding=dilation, dilation=dilation)
-        self.conv3 = nn.Conv2d(cb, cout, 1)
-        self.shortcut = nn.Conv2d(cin, cout, 1, stride=stride) if cin != cout else None
+        self.conv1 = conv_bn(cin, cb, 1, fold, stride=s1)
+        self.conv2 = conv_bn(cb, cb, 3, fold, stride=s3, padding=dilation, dilation=dilation)
+        self.conv3 = conv_bn(cb, cout, 1, fold)
+        self.shortcut = conv_bn(cin, cout, 1, fold, stride=stride) if cin != cout else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.conv1(x))
@@ -186,11 +190,11 @@ class BasicBlock(nn.Module):
     """Two 3x3 convs, the first with the stride, and a 1x1 shortcut where
     the width changes (JAX ``_basic_block``)."""
 
-    def __init__(self, cin: int, cout: int, stride: int):
+    def __init__(self, cin: int, cout: int, stride: int, fold: bool = True):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, cout, 3, stride=stride, padding=1)
-        self.conv2 = nn.Conv2d(cout, cout, 3, padding=1)
-        self.shortcut = nn.Conv2d(cin, cout, 1, stride=stride) if cin != cout else None
+        self.conv1 = conv_bn(cin, cout, 3, fold, stride=stride, padding=1)
+        self.conv2 = conv_bn(cout, cout, 3, fold, padding=1)
+        self.shortcut = conv_bn(cin, cout, 1, fold, stride=stride) if cin != cout else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.conv2(F.relu(self.conv1(x)))
@@ -205,9 +209,9 @@ class BasicBlock(nn.Module):
 
 
 class BasicStem(nn.Module):
-    def __init__(self, cout: int):
+    def __init__(self, cout: int, fold: bool = True):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, cout, 7, stride=2, padding=3)
+        self.conv1 = conv_bn(3, cout, 7, fold, stride=2, padding=3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.max_pool2d(F.relu(self.conv1(x)), kernel_size=3, stride=2, padding=1)
@@ -224,9 +228,10 @@ class ResNet(nn.Module):
         super().__init__()
         _check_supported(cfg)
         r = cfg.MODEL.RESNETS
-        self.int8 = bool(cfg.TPU.INT8_BACKBONE) and r.DEPTH >= 50
+        fold = bool(cfg.TPU.FOLD_FROZEN_BN)
+        self.int8 = bool(cfg.TPU.INT8_BACKBONE) and r.DEPTH >= 50 and fold
         self.out_features = tuple(r.OUT_FEATURES)
-        self.stem = BasicStem(r.STEM_OUT_CHANNELS)
+        self.stem = BasicStem(r.STEM_OUT_CHANNELS, fold)
         blocks = NUM_BLOCKS_PER_STAGE[r.DEPTH]
         self.all_stages = []
         for stage_idx, (cin, cb, cout) in enumerate(_stage_channels(cfg)):
@@ -234,9 +239,9 @@ class ResNet(nn.Module):
             first_stride = 1 if stage_idx == 0 or (stage_idx == 3 and dilation == 2) else 2
             stage = nn.Sequential(*[
                 BottleneckBlock(cin if i == 0 else cout, cb, cout,
-                                first_stride if i == 0 else 1, r.STRIDE_IN_1X1, dilation)
+                                first_stride if i == 0 else 1, r.STRIDE_IN_1X1, dilation, fold)
                 if r.DEPTH >= 50 else
-                BasicBlock(cin if i == 0 else cout, cout, first_stride if i == 0 else 1)
+                BasicBlock(cin if i == 0 else cout, cout, first_stride if i == 0 else 1, fold)
                 for i in range(blocks[stage_idx])])
             name = f"res{stage_idx + 2}"
             self.add_module(name, stage)
@@ -250,8 +255,8 @@ class ResNet(nn.Module):
         return [(name, b) for name in (stages or self.stage_names) for b in getattr(self, name)]
 
     def int8_active(self) -> bool:
-        """``TPU.INT8_BACKBONE`` on a bottleneck ResNet with the calibration
-        installed (JAX ``int8_backbone_active``)."""
+        """``TPU.INT8_BACKBONE`` on a bottleneck ResNet with FrozenBN folded
+        and the calibration installed (JAX ``int8_backbone_active``)."""
         return self.int8 and quantized(self.res2[0].conv1)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -11,7 +11,8 @@ densepose_tpu/models/roi_heads.py), NCHW.
   for the legacy configs (``DECODER_ON=False``), multi-level ROIAlign over
   the FPN levels (K2, or K3 with ``DENSEPOSE_TPU_SPARSE_POOLER``).
 * DensePoseV1ConvXHead or DensePoseDeepLabHead (ASPP with GroupNorm, then
-  GN convs), and the chart predictor's four separate deconv heads with a 2x
+  convs with GroupNorm, with a bias, or with FrozenBN folded in: DEEPLAB.NORM),
+  and the chart predictor's four separate deconv heads with a 2x
   bilinear upsample; with ``TPU.EMIT_CONFIDENCES`` the WC predictors'
   confidence heads too.
 * int8 serving (JAX roi_heads.py:350-416, 469-471, 510-560): with
@@ -47,7 +48,7 @@ from ..ops.boxes import apply_deltas
 from ..ops.conv_int8 import (act_stat, conv2d_int8, conv_s8, make_epilogue, link, quant_act_s8,
                              quantized, to_nchw, to_s8_nhwc)
 from ..ops.nms import nms_mask, per_class_nms_mask
-from ..ops.norms import GroupNorm32, group_norm_onepass
+from ..ops.norms import Conv2dNorm, GroupNorm32, group_norm_onepass
 from ..ops.resize import resize_bilinear
 from ..ops.roi_align import assign_boxes_to_levels, roi_align_multilevel, roi_align_single
 from .backbones import backbone_out_channels, feature_strides
@@ -55,6 +56,9 @@ from .cse import DensePoseEmbeddingPredictor, Embedder, embedder_spec, embedding
 from .rpn import top_k
 
 _NEG = -1e30
+# DEEPLAB.NORM: the body convs' norm (JAX roi_heads.py:146-149): GroupNorm; none
+# (a bias); or FrozenBN, folded into the convs at load
+_DEEPLAB_NORMS = ("GN", "", "FrozenBN")
 _CHART_HEADS = ("ann_index_lowres", "index_uv_lowres", "u_lowres", "v_lowres")
 
 
@@ -67,10 +71,19 @@ def _check_supported(cfg) -> None:
     if cfg.MODEL.DENSEPOSE_ON:
         if h.NAME not in ("DensePoseV1ConvXHead", "DensePoseDeepLabHead"):
             raise NotImplementedError(f"DensePose head {h.NAME!r} is not ported yet")
-        if h.NAME == "DensePoseDeepLabHead" and (h.DEEPLAB.NONLOCAL_ON
-                                                 or h.DEEPLAB.NORM != "GN"):
-            raise NotImplementedError("the DeepLab head is ported as every shipped config "
-                                      "sets it: GroupNorm, no NonLocal block")
+        if h.NAME == "DensePoseDeepLabHead":
+            if h.DEEPLAB.NONLOCAL_ON:
+                raise NotImplementedError("DEEPLAB.NONLOCAL_ON: the JAX package's spec asserts "
+                                          "it off (roi_heads.py:131-132), as every shipped "
+                                          "config sets it")
+            if h.DEEPLAB.NORM not in _DEEPLAB_NORMS:
+                raise NotImplementedError(f"DEEPLAB.NORM {h.DEEPLAB.NORM!r}: the JAX package "
+                                          f"runs {sorted(_DEEPLAB_NORMS)}")
+            if h.DEEPLAB.NORM == "FrozenBN" and not cfg.TPU.FOLD_FROZEN_BN:
+                raise ValueError("DEEPLAB.NORM FrozenBN needs TPU.FOLD_FROZEN_BN: the JAX "
+                                 "package's DeepLab forward applies only GroupNorm after its "
+                                 "convs (roi_heads.py:476-483) and drops unfolded BatchNorm "
+                                 "statistics")
         if h.DECODER_ON and h.DECODER_NORM:
             raise NotImplementedError("DECODER_NORM: the JAX package declares the norm but its "
                                       "decoder never applies it (roi_heads.py:100-110, "
@@ -134,8 +147,9 @@ def densepose_head_spec(cfg, prefix: str = "roi_heads.densepose_head") -> Spec:
     norm = ""
     if h.NAME == "DensePoseDeepLabHead":
         # ASPP (deeplab.py:33): out width = in width; branches 0-3 conv + GN,
-        # branch 4 pool (index 0) + conv + GN, then the 1x1 projection
-        norm = "GN"
+        # branch 4 pool (index 0) + conv + GN, then the 1x1 projection; the
+        # body convs' norm is DEEPLAB.NORM, the ASPP's GroupNorm in every mode
+        norm = h.DEEPLAB.NORM
         a = f"{prefix}.ASPP"
         conv_spec(spec, f"{a}.convs.0.0", d, d, 1, bias=False)
         gn_spec(spec, f"{a}.convs.0.1", d)
@@ -334,18 +348,6 @@ class DensePoseV1ConvXHead(StackedHead):
         return self.stack(x)
 
 
-class Conv2dNorm(nn.Conv2d):
-    """detectron2's Conv2d with a fused norm (layers/wrappers.py:82-112): the
-    convolution, then ``self.norm``."""
-
-    def __init__(self, *args, norm: nn.Module, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.norm = norm
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(super().forward(x))
-
-
 def _gn_branch(*convs: nn.Module) -> nn.Sequential:
     c = convs[-1].out_channels
     return nn.Sequential(*convs, GroupNorm32(c), nn.ReLU())
@@ -387,23 +389,30 @@ class ASPP(nn.Module):
 
 
 class DensePoseDeepLabHead(StackedHead):
-    """ASPP, then the stacked convs with GroupNorm (deeplab.py:16-86; JAX
-    roi_heads.py:461-481). In int8 mode the ASPP stays fp."""
+    """ASPP, then the stacked convs (deeplab.py:16-86; JAX roi_heads.py:461-481)
+    with ``DEEPLAB.NORM``: GroupNorm after each conv ("GN", every shipped
+    config), or convs with a bias and no norm ("", and "FrozenBN", whose
+    statistics ``fold_state`` folds into that bias and weight). In int8 mode
+    the ASPP, which keeps its GroupNorm in every mode, stays fp, and the
+    stacked convs run as ``stacked_int8_chain`` (with GroupNorm links, or as
+    the bias chain of V1ConvX)."""
 
     def __init__(self, cfg):
         super().__init__(cfg)
         h = cfg.MODEL.ROI_DENSEPOSE_HEAD
         k = h.CONV_HEAD_KERNEL
         d = _head_in_channels(cfg)
+        self.gn = h.DEEPLAB.NORM == "GN"
         self.ASPP = ASPP(d)
         for i in range(self.n):
-            self.add_module(f"body_conv_fcn{i + 1}",
-                            Conv2dNorm(d, h.CONV_HEAD_DIM, k, padding=k // 2, bias=False,
-                                       norm=GroupNorm32(h.CONV_HEAD_DIM)))
+            conv = (Conv2dNorm(d, h.CONV_HEAD_DIM, k, padding=k // 2, bias=False,
+                               norm=GroupNorm32(h.CONV_HEAD_DIM)) if self.gn else
+                    nn.Conv2d(d, h.CONV_HEAD_DIM, k, padding=k // 2))
+            self.add_module(f"body_conv_fcn{i + 1}", conv)
             d = h.CONV_HEAD_DIM
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.stack(self.ASPP(x), norm=True)
+        return self.stack(self.ASPP(x), norm=self.gn)
 
 
 _HEADS = {"DensePoseV1ConvXHead": DensePoseV1ConvXHead,
@@ -677,11 +686,11 @@ def densepose_stacked_calibration(heads: ROIHeads, features: Dict[str, torch.Ten
     ``densepose_stacked_calibration``): each stacked conv's input statistic
     (``ops/conv_int8.py::act_stat``, "max" or "sat"), and with
     ``TPU.INT8_PREDICTOR`` the head output's (the chart deconvs' input) last.
-    DeepLab's walk takes two-pass GroupNorm, as the fp head does."""
+    DeepLab's walk starts at the ASPP's output, and its GN convs take two-pass
+    GroupNorm, as the fp head does (JAX roi_heads.py:680-692)."""
     x = _densepose_pooled(heads, features, boxes, cfg)
     head = heads.densepose_head
-    norm = isinstance(head, DensePoseDeepLabHead)
-    if norm:
+    if isinstance(head, DensePoseDeepLabHead):
         x = head.ASPP(x)  # ASPP stays fp in int8 mode; the chain starts at its projection
     stats = []
     for conv in head.convs():

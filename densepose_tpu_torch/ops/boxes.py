@@ -89,6 +89,24 @@ def apply_deltas(
     return torch.stack((x1, y1, x2, y2), dim=-1).reshape(orig_shape)
 
 
+def scale_boxes(boxes: torch.Tensor, scale_x: float, scale_y: float) -> torch.Tensor:
+    """Boxes with x scaled by ``scale_x`` and y by ``scale_y`` (structures.py:
+    132-140, functional where the reference scales in place)."""
+    return boxes * torch.tensor([scale_x, scale_y, scale_x, scale_y], dtype=boxes.dtype,
+                                device=boxes.device)
+
+
+def matched_pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise IoU of two equal-length box sets (N, 4) (structures.py:
+    8-31), torchvision's areas, 0 where the union is not positive."""
+    lt = torch.maximum(a[:, :2], b[:, :2])
+    rb = torch.minimum(a[:, 2:], b[:, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[:, 0] * wh[:, 1]
+    union = boxes_area(a) + boxes_area(b) - inter
+    return torch.where(union > 0, inter / union, torch.zeros_like(inter))
+
+
 def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(..., M, 4) x (..., N, 4) -> (..., M, N) IoU, torchvision box_iou
     convention (area = (x2-x1)*(y2-y1), no +1), 0 where the union is not

@@ -7,7 +7,9 @@ descending, as ``argsort(-s, stable=True)`` at nms.py:72), runs the keep
 kernel on the sorted boxes and scatters the result back.
 
 The keep step is kernel K1 (``csrc/nms.cu``: an IoU bit-matrix launch, then
-a one-warp scan launch) for CUDA tensors. For CPU
+a scan launch: one warp a problem up to 16384 boxes, one CTA with the
+removed set in shared memory past that) for CUDA tensors, at any K whose
+IoU scratch (K * mask_words(K) * 8 bytes a problem) the device can hold. For CPU
 tensors it is ``nms_keep_plain``, a PyTorch port of the JAX package's
 fixed-point iteration (nms.py:81-101): keep[i] = valid[i] and no earlier
 kept j has IoU(i, j) > threshold, iterated from keep = valid until it stops
@@ -19,8 +21,7 @@ proposals x C classes, as C problems of R boxes in one K1 call: boxes of
 different classes never suppress each other, and within class c the stable
 order by (-score, r * C + c) is the stable order by (-score, r), so its keep
 mask is ``batched_nms_mask``'s bit for bit. It writes C R^2 bits of IoU
-matrix where one problem of R C boxes with a class row writes C^2 R^2, and
-it fits K1's 16384 boxes a problem at 80 classes x 1000 proposals.
+matrix where one problem of R C boxes with a class row writes C^2 R^2.
 """
 
 from __future__ import annotations
@@ -109,10 +110,12 @@ def nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
                   classes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel K1 on CUDA tensors: boxes (P, K, 4) f32, valid (P, K) bool,
     classes (P, K) i32 or None, all contiguous on one device. Two kernel
-    launches (the IoU bit-matrix into a (P, K, mask_words(K)) int64 scratch, then
-    the one-warp scan), counted as ONE in ``nms_keep_cuda.launches``: the
-    count is of calls. K is at most ``dp_nms_max_boxes()`` (16384). Raises if
-    the inputs do not fit or a launch fails."""
+    launches (the IoU bit-matrix into a (P, K, mask_words(K)) int64 scratch,
+    then the scan), counted as ONE in ``nms_keep_cuda.launches``: the count is
+    of calls. Raises ValueError if the inputs do not fit: K past
+    ``dp_nms_max_boxes()`` (what the long scan's shared memory holds), or a
+    scratch that the device cannot allocate (the message states its bytes);
+    RuntimeError if a launch fails."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (P, K, 4), got {tuple(boxes.shape)}")
     p, k = boxes.shape[0], boxes.shape[1]
@@ -133,7 +136,13 @@ def nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
     keep = torch.empty((p, k), dtype=torch.bool, device=boxes.device)
     if p == 0 or k == 0:
         return keep
-    mask = torch.empty((p, k, mask_words(k)), dtype=torch.int64, device=boxes.device)
+    nbytes = p * k * mask_words(k) * 8
+    try:
+        mask = torch.empty((p, k, mask_words(k)), dtype=torch.int64, device=boxes.device)
+    except torch.cuda.OutOfMemoryError as e:
+        raise ValueError(f"K1's IoU scratch for {p} problems of {k} boxes takes {nbytes} bytes "
+                         f"({nbytes / 2**30:.2f} GiB), more than {boxes.device} can "
+                         "allocate") from e
     nms_mask_launch(boxes, valid, iou_threshold, classes, mask)
     nms_scan_launch(mask, valid, keep)
     nms_keep_cuda.launches += 1

@@ -236,13 +236,15 @@ def window_rows(slabs: RowSlabs, k: int, s: int, p: int, d: int, op: Callable,
 
 def conv_rows(conv: nn.Conv2d, slabs: RowSlabs) -> RowSlabs:
     """``conv`` (an ``nn.Conv2d`` of the model: groups, dilation and bias
-    as it has them) on NCHW slabs."""
+    as it has them, and the FrozenBN of an unfolded ``conv_bn``, which is
+    pointwise) on NCHW slabs."""
     (k, _), (s, sw), (p, pw), (d, dw) = conv.kernel_size, conv.stride, conv.padding, \
         conv.dilation
 
     def op(i, x):
         m = slabs.shards.module(conv, i)
-        return F.conv2d(x, m.weight, m.bias, (s, sw), (0, pw), (d, dw), m.groups)
+        y = F.conv2d(x, m.weight, m.bias, (s, sw), (0, pw), (d, dw), m.groups)
+        return m.norm(y) if hasattr(m, "norm") else y
 
     return window_rows(slabs, k, s, p, d, op)
 

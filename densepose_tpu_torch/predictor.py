@@ -121,7 +121,9 @@ def load_params(cfg, weights_path: Optional[str] = None, seed: int = 0,
     """cfg + checkpoint -> the port's module state dict (host numpy).
 
     The reference load stack: pkl -> (optional Caffe2 rename) -> suffix
-    alignment against the model's spec -> FrozenBN folding. Without a
+    alignment against the model's spec -> FrozenBN folding, or with
+    ``TPU.FOLD_FROZEN_BN`` off the statistics kept for the model's
+    ``FrozenBatchNorm2d`` modules (JAX predictor.py:72). Without a
     checkpoint, random weights drawn from ``seed`` (the JAX package's stream:
     the same seed gives the same weights in both packages)."""
     spec = (model or build_model(cfg)).spec()
@@ -132,7 +134,7 @@ def load_params(cfg, weights_path: Optional[str] = None, seed: int = 0,
         logger.info("checkpoint: matched %d/%d params", len(state), len(spec))
     else:
         state = random_torch_state(spec, seed=seed)
-    return fold_state(state, spec)
+    return fold_state(state, spec, fold=bool(cfg.TPU.FOLD_FROZEN_BN))
 
 
 def data_parallel_devices(device: torch.device) -> List[torch.device]:

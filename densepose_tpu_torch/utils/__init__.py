@@ -1,1 +1,2 @@
-"""Host utilities: path resolution with a download cache, and timers."""
+"""Host utilities: path resolution with a download cache, timers, and a
+string -> object registry."""

@@ -64,6 +64,15 @@ INT8_BACKBONE: 42 Q1 links through res2..res4), R34-FPN and RetinaNet
 requests with every kernel launch held; and C4, R18-FPN and RetinaNet
 sharded over this card twice against their unsharded request.
 
+The last slice: K1 on long problems (one of 20000 boxes, three of 17000 in
+one call, classed, and the per-class route at 2 x 16500) exactly, and its
+refusals past its shared memory and of a scratch the card cannot hold; the
+mask and keypoint heads (mask_rcnn_R_50_FPN_3x's and keypoint_rcnn_R_50_FPN_3x's,
+their pooling on K2) on the card against the same modules on the CPU; and
+the standalone functions (matcher, subsampling, the data filter, rotated
+boxes and NMS, ``sem_seg_postprocess``, the norms, the box helpers) on CUDA
+tensors against CPU ones.
+
 At a half dtype (float16, bfloat16): K2<T> bit-identical to K2 on the
 widened levels rounded to T (only its loads and its store change), and to
 its plain version at T; K3<T> within one unit in the last place of T, at the
@@ -191,10 +200,58 @@ def test_k1_many_boxes_match_plain(cuda, k):
 
 @pytest.mark.gpu
 def test_k1_refuses_too_many_boxes(cuda):
-    k = 16385  # past the scan's 256 register words of 64 boxes
-    with pytest.raises(ValueError, match="at most 16384 boxes"):
-        nms.nms_keep_cuda(torch.zeros(1, k, 4, device=cuda),
-                          torch.ones(1, k, dtype=torch.bool, device=cuda), 0.5)
+    """Past K1's limits: more boxes a problem than the long scan's shared
+    memory holds (``dp_nms_max_boxes()``), and a problem whose IoU scratch
+    the card cannot allocate (1.2 million boxes: 180 GB), the message
+    stating its bytes."""
+    most = nms._lib().dp_nms_max_boxes()
+    for k, match in [(most + 1, f"at most {most} boxes"),
+                     (1_200_000, f"takes {1_200_000 * nms.mask_words(1_200_000) * 8} bytes")]:
+        with pytest.raises(ValueError, match=match):
+            nms.nms_keep_cuda(torch.zeros(1, k, 4, device=cuda),
+                              torch.ones(1, k, dtype=torch.bool, device=cuda), 0.5)
+
+
+@pytest.mark.gpu
+def test_k1_long_problem_20000(cuda):
+    """One problem of 20000 boxes (313 mask words, an odd count, past the
+    register scan's 256: the long scan) keeps exactly what the plain version
+    keeps, in one counted call; K1 refused it before (16384 boxes a
+    problem)."""
+    rng = np.random.RandomState(17)
+    k = 20000
+    b = torch.from_numpy(boxes_np(rng, k, 1500, 150))[None].to(cuda)
+    v = torch.from_numpy(rng.rand(1, k) > 0.1).to(cuda)
+    want = nms.nms_keep_plain(b, v, 0.5)
+    before = nms.nms_keep_cuda.launches
+    got = nms.nms_keep(b, v, 0.5)
+    torch.cuda.synchronize()
+    assert nms.nms_keep_cuda.launches == before + 1
+    assert 0 < int(want.sum()) < int(v.sum()) - 1000
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("classed", [False, True])
+def test_k1_long_problems_batched_and_per_class(cuda, classed):
+    """Three long problems in one call (17000 boxes, each with its own count
+    of valid boxes, optionally three classes), and the per-class route at 2
+    classes of 16500 proposals, on the long scan: keep flags exact."""
+    rng = np.random.RandomState(18)
+    p, k = 3, 17000
+    b = torch.from_numpy(np.stack([boxes_np(rng, k, 2500, 150) for _ in range(p)])).to(cuda)
+    v = torch.from_numpy(rng.rand(p, k) > 0.1).to(cuda)
+    v &= torch.arange(k, device=cuda)[None] < torch.tensor([k, 16500, 12000], device=cuda)[:, None]
+    c = torch.from_numpy(rng.randint(0, 3, (p, k)).astype(np.int32)).to(cuda) if classed else None
+    want = nms.nms_keep_plain(b, v, 0.5, c)
+    got = nms.nms_keep_cuda(b, v, 0.5, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and 0 < int(want.sum()) < int(v.sum())
+    boxes, scores, valid = (torch.from_numpy(a).to(cuda) for a in per_class_nms_case(8, 16500, 2))
+    want = nms.per_class_nms_mask(boxes.cpu(), scores.cpu(), valid.cpu(), 0.5)
+    got = nms.per_class_nms_mask(boxes, scores, valid, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
 
 
 HALF = [torch.float16, torch.bfloat16]
@@ -1243,3 +1300,149 @@ def test_new_backbones_sharded_on_card(cuda, name, monkeypatch):
             for i, want in enumerate(alone):
                 assert_served_again({k: v[i] for k, v in batch.items()}, want)
     assert int(alone[0]["num_instances"]) >= 1
+
+
+# ---------------------------------------------------------------------------
+# the last slice: the mask and keypoint heads, the standalone functions
+# ---------------------------------------------------------------------------
+
+def published_head_cfg():
+    """get_cfg() with detectron2's mask_rcnn_R_50_FPN_3x mask head (4 convs of
+    256, 14x14 ROIAlignV2 at ratio 0, 80 classes) or keypoint_rcnn_R_50_FPN_3x
+    keypoint head (8 convs of 512, 14x14, 17 keypoints), over p2..p5."""
+    from densepose_tpu_torch.config import get_cfg
+    cfg = get_cfg()
+    cfg.MODEL.ROI_HEADS.IN_FEATURES = ["p2", "p3", "p4", "p5"]
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = 80
+    cfg.MODEL.ROI_MASK_HEAD.NUM_CONV = 4
+    cfg.freeze()
+    return cfg
+
+
+def head_module(head, cfg, device):
+    """The head with random weights from seed 0 (the spec's stream)."""
+    from densepose_tpu_torch.checkpoint.transform import random_torch_state
+    from densepose_tpu_torch.models import keypoint_head, mask_head
+    spec, module, prefix = {
+        "mask": (mask_head.mask_head_spec, mask_head.MaskRCNNConvUpsampleHead,
+                 "roi_heads.mask_head."),
+        "keypoint": (keypoint_head.keypoint_head_spec,
+                     keypoint_head.KRCNNConvDeconvUpsampleHead,
+                     "roi_heads.keypoint_head.")}[head]
+    m = module(cfg)
+    state = random_torch_state(spec(cfg), seed=0)
+    m.load_state_dict({k[len(prefix):]: torch.from_numpy(v) for k, v in state.items()})
+    return m.to(device).eval()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head", ["mask", "keypoint"])
+def test_mask_and_keypoint_heads_on_card(cuda, head):
+    """The published heads on a 256x320 input's pyramid with 24 boxes: one
+    K2 launch, and the output within 1e-4 of its largest magnitude (at least
+    1) of the same module on the CPU (K2's plain version, bit-identical at a
+    fixed ratio, within 1e-5 at ratio 0; the convolutions in another
+    summation order)."""
+    from densepose_tpu_torch.predictor import set_backend_flags
+    set_backend_flags()
+    cfg = published_head_cfg()
+    rng = np.random.RandomState(46)
+    feats = {f"p{i}": torch.from_numpy(rng.randn(1, 256, 256 // 2 ** i, 320 // 2 ** i)
+                                       .astype(np.float32)) for i in (2, 3, 4, 5)}
+    boxes = torch.from_numpy(boxes_np(rng, 24, 300, 200)).clamp(0, 256)
+    classes = torch.from_numpy(rng.randint(0, 80, 24).astype(np.int32))
+    strides = {f"p{i}": 2 ** i for i in (2, 3, 4, 5)}
+    outs = []
+    for dev in ("cpu", cuda):
+        m = head_module(head, cfg, dev)
+        args = ({k: v.to(dev) for k, v in feats.items()}, boxes.to(dev))
+        args += (classes.to(dev),) if head == "mask" else ()
+        before = roi_align.roi_align_cuda.launches
+        with torch.no_grad():
+            outs.append(m(*args, strides))
+        torch.cuda.synchronize()
+        assert roi_align.roi_align_cuda.launches == before + (dev != "cpu")
+    want, got = outs[0], outs[1].cpu()
+    shape = (24, 28, 28) if head == "mask" else (24, 17, 56, 56)
+    assert got.shape == want.shape == shape and bool(torch.isfinite(got).all())
+    top = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-4 * top
+
+
+def standalone_cases():
+    """(name, function of a device giving its outputs) of the standalone
+    functions, on fixed numpy inputs."""
+    from densepose_tpu_torch.models.filter import densepose_data_filter_mask
+    from densepose_tpu_torch.models.matcher import match_quality
+    from densepose_tpu_torch.models.rcnn import sem_seg_postprocess
+    from densepose_tpu_torch.ops import boxes as B, norms as N, rotated as R
+    rng = np.random.RandomState(47)
+    iou = np.round(rng.rand(6, 50), 2).astype(np.float32)
+    props, gt = boxes_np(rng, 60, 200, 60), boxes_np(rng, 6, 200, 60)
+    rot = np.concatenate([rng.rand(40, 2) * 40, rng.rand(40, 2) * 12 + 1,
+                          rng.rand(40, 1) * 360 - 180], 1).astype(np.float32)
+    deltas = (rng.randn(40, 5) * 0.5).astype(np.float32)
+    scores, valid = rng.rand(40).astype(np.float32), rng.rand(40) > 0.1
+    seg = rng.randn(5, 32, 40).astype(np.float32)
+    x = rng.randn(2, 4, 4, 6).astype(np.float32)
+    means, variances = rng.randn(3, 6).astype(np.float32), rng.rand(3, 6).astype(np.float32) + .3
+    w, b = rng.randn(6).astype(np.float32), rng.randn(6).astype(np.float32)
+
+    def t(a, dev):
+        return torch.from_numpy(a).to(dev)
+
+    return [
+        ("match_quality", lambda d: match_quality(t(iou, d), [0.3, 0.7], [0, -1, 1], True)),
+        ("data_filter", lambda d: (densepose_data_filter_mask(t(props, d), t(gt, d),
+                                                              t(valid[:6], d), 0.3),)),
+        ("rotated_iou", lambda d: (R.rotated_pairwise_iou(t(rot, d), t(rot[:20], d)),)),
+        ("rotated_nms", lambda d: (R.nms_rotated_mask(t(rot, d), t(scores, d), t(valid, d),
+                                                      0.3),)),
+        ("deltas_rotated", lambda d: (R.apply_deltas_rotated(t(deltas, d), t(rot, d),
+                                                             (10.0, 10.0, 5.0, 5.0, 1.0)),)),
+        ("deltas_linear", lambda d: (R.apply_deltas_linear(t(deltas[:, :4], d),
+                                                           t(props[:40], d)),)),
+        ("sem_seg_postprocess", lambda d: (sem_seg_postprocess(t(seg, d), (28, 36), 56, 75),)),
+        ("cycle_batch_norm", lambda d: (N.cycle_batch_norm(t(x, d), t(means, d),
+                                                           t(variances, d), t(w, d), t(b, d),
+                                                           1),)),
+        ("layer_norm_cf", lambda d: (N.layer_norm_cf(t(x, d), t(w, d), t(b, d)),)),
+        ("frozen_batch_norm", lambda d: (N.frozen_batch_norm(
+            t(x, d).permute(0, 3, 1, 2), t(w, d), t(b, d), t(means[0], d),
+            t(variances[0], d)),)),
+        ("scale_boxes", lambda d: (B.scale_boxes(t(props, d), 0.5, 1.25),)),
+        ("matched_iou", lambda d: (B.matched_pairwise_iou(t(props[:6], d), t(gt, d)),)),
+    ]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", standalone_cases(), ids=lambda case: case[0])
+def test_standalone_functions_on_card(cuda, case):
+    """Each on CUDA tensors, on the card: integer and boolean outputs equal
+    to the CPU's, float ones within 1e-5 (1e-4 for the rotated IoU's
+    clipping, whose trigonometry rounds apart)."""
+    name, fn = case
+    for got, want in zip(fn(cuda), fn("cpu")):
+        assert got.is_cuda and got.dtype == want.dtype and got.shape == want.shape, name
+        if got.is_floating_point():
+            tol = 1e-4 if name.startswith("rotated") else 1e-5
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=tol, rtol=tol)
+        else:
+            assert torch.equal(got.cpu(), want), name
+
+
+@pytest.mark.gpu
+def test_subsample_labels_on_card(cuda):
+    """The sampler on CUDA labels with a CUDA generator: the counts of the
+    CPU draw (the draws themselves differ), disjoint masks on the right
+    labels."""
+    from densepose_tpu_torch.models.matcher import subsample_labels
+    labels = torch.tensor([1] * 20 + [0] * 100 + [-1] * 10)
+    want = subsample_labels(labels, 64, 0.25, 0, torch.Generator().manual_seed(0))
+    got = subsample_labels(labels.to(cuda), 64, 0.25, 0,
+                           torch.Generator(device=cuda).manual_seed(0))
+    for g, w in zip(got, want):
+        assert g.is_cuda and int(g.sum()) == int(w.sum())
+    pos, neg = (g.cpu() for g in got)
+    assert not bool((pos & neg).any()) and bool((labels[pos] == 1).all())
+    assert bool((labels[neg] == 0).all())
