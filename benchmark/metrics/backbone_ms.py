@@ -1,0 +1,7 @@
+"""Device ms a frame under the program's `backbone` range (device trace)."""
+
+from benchmark.readers import stage_ms
+
+
+def read(run):
+    return stage_ms(run, "backbone")
