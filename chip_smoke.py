@@ -354,9 +354,8 @@ def device_ms(torch, fn, reps=20):
     """Device time per call of ``fn``: the device events torch.profiler
     records over ``reps`` back-to-back calls, summed, over ``reps``. Unlike
     cuda_ms it leaves out the host's time between launches. The profiler
-    mirrors each record_function range of the model on the device; those
-    events span kernels already counted and are left out."""
-    from torch.autograd import DeviceType
+    mirrors each range of the model on the device; those events span
+    kernels already counted and are left out."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -364,8 +363,7 @@ def device_ms(torch, fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and e.name not in STAGES + TTA_STAGES)
+    us = sum(e.time_range.elapsed_us() for e in device_work(prof.events()))
     return us / 1e3 / reps
 
 
@@ -1250,6 +1248,16 @@ TOP_KERNEL_STAGES = ("rpn", "box_stage")
 TTA_STAGES = ("tta_stage1", "tta_merge", "tta_stage2", "tta_reduce")
 
 
+def device_work(events):
+    """A profile's kernels, copies and sets: its device events without the
+    device mirrors of its host ranges (every span of the port, and the
+    caller's own ranges)."""
+    from torch.autograd import DeviceType
+    ranges = {e.name for e in events if getattr(e, "is_user_annotation", False)}
+    ranges |= set(STAGES + TTA_STAGES + ("request",))
+    return [e for e in events if e.device_type == DeviceType.CUDA and e.name not in ranges]
+
+
 def short_kernel_name(name):
     """A device kernel's name without its argument list and namespaces."""
     name = name.replace("(anonymous namespace)::", "")
@@ -1286,9 +1294,7 @@ def breakdown(torch, pred, img, latency_ms, stages_of=STAGES, top_stages=TOP_KER
     events = prof.events()
     host = [e for e in events if e.device_type == DeviceType.CPU]
     wall_ms = next(e for e in host if e.name == "request").time_range.elapsed_us() / 1e3
-    # kernels and copies; the profiler also mirrors each range on the device
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and e.name not in STAGES + TTA_STAGES + ("request",)]
+    device = device_work(events)
     if not device:
         print("breakdown: not measured (the profiler saw no device activity)")
         return
@@ -3406,16 +3412,14 @@ def device_profile(torch, fn):
     """One call of ``fn`` under torch.profiler: (device busy ms, profiled
     wall ms, device events, device ms by kernel name), or None when the
     profiler sees no device activity. The device mirrors of the model's
-    stage ranges (which an exported program does not have) are left out."""
-    from torch.autograd import DeviceType
+    ranges (an exported program has only its kernel wrappers') are left out."""
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and e.name not in STAGES + TTA_STAGES]
+    device = device_work(prof.events())
     if not device:
         return None
     by_kernel, busy_us, end = {}, 0.0, float("-inf")

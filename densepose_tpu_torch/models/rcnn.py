@@ -65,8 +65,11 @@ effects, so outputs agree with ``forward`` within an envelope, not exactly
 a test-resolution override (``min_size`` / ``max_size``), which TTA's views
 use.
 
-Each stage runs inside a ``torch.profiler.record_function`` range of its
-name, so a profile of one request reads the device time of every stage.
+Each stage runs inside a span of its name (``utils/timing.py``; a
+``torch.profiler`` range while a profile records), so a profile of one
+request reads the device time of every stage: ``preprocess``, ``backbone``,
+``rpn``, ``box_stage``, ``postprocess`` and the DensePose stage's. The
+frames' upload is the span ``upload``; the rescale factors', ``scale``.
 
 Compute dtype (``TPU.COMPUTE_DTYPE``: float32, float16 or bfloat16), the JAX
 package's policy: the predictor casts every float32 parameter to it, and
@@ -86,12 +89,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
-from torch.profiler import record_function
 
 from ..checkpoint.spec import Spec
 from ..ops.boxes import clip_boxes, nonempty_boxes
 from ..ops.resize import resize_bilinear, resize_image, resize_image_rows, source_rows
 from ..parallel.halo import RowSlabs, Shards, gather, row_bounds
+from ..utils.timing import span
 from .backbones import backbone_rows, backbone_spec, build_backbone
 from .res5_roi_heads import Res5ROIHeads, res5_forward_batch, res5_spec
 from .roi_heads import (ROIHeads, box_stage_forward_batch, densepose_stacked_calibration,
@@ -285,10 +288,11 @@ class GeneralizedRCNN(nn.Module):
         pooler. ``min_size`` / ``max_size``: a test-resolution override (TTA's
         views)."""
         h0, w0 = int(image_u8.shape[0]), int(image_u8.shape[1])
-        with record_function("preprocess"):
+        with span("preprocess"):
             x, (h1, w1), (hp, wp) = self.preprocess(image_u8, min_size, max_size)
         # detector_postprocess's rescale: w0 / w1 in double, then rounded to fp32
-        scale = device_values([w0 / w1, h0 / h1], torch.float32, image_u8.device)
+        with span("scale"):
+            scale = device_values([w0 / w1, h0 / h1], torch.float32, image_u8.device)
         return self._detect(x, (hp, wp), None, (h0, w0), scale)
 
     def _detect(self, x: torch.Tensor, clip_hw: Tuple[int, int], anchor_valid_hw,
@@ -307,7 +311,7 @@ class GeneralizedRCNN(nn.Module):
         """``_detect`` of B frames of one size, x (B, 3, Hp, Wp): every
         result (B, ...), the features (B, C, H, W) per level and boxes_net
         (B, D, 4)."""
-        with record_function("backbone"):
+        with span("backbone"):
             features = self.backbone(x)
         return self._detect_features(features, clip_hw, anchor_valid_hw, orig_hw, scale_xy)
 
@@ -318,15 +322,15 @@ class GeneralizedRCNN(nn.Module):
         cfg = self.cfg
         h0, w0 = orig_hw
         b = next(iter(features.values())).shape[0]
-        with record_function("rpn"):
+        with span("rpn"):
             proposals, _, pvalid = rpn_forward_batch(self.proposal_generator.rpn_head,
                                                      features, clip_hw, cfg, anchor_valid_hw)
-        with record_function("box_stage"):
+        with span("box_stage"):
             stage = res5_forward_batch if self.res5 else box_stage_forward_batch
             boxes_net, scores, classes, dvalid = stage(self.roi_heads, features, proposals,
                                                        pvalid, cfg)
 
-        with record_function("postprocess"):
+        with span("postprocess"):
             # detector_postprocess: rescale to the original resolution, drop
             # empty boxes, clip with the correct (H, W) order
             boxes = boxes_net * scale_xy.repeat(2)
@@ -379,11 +383,12 @@ class GeneralizedRCNN(nn.Module):
         fp32, as the JAX package divides its traced sizes. Outputs as
         ``forward``'s."""
         h0, w0, h1, w1 = sizes
-        with record_function("preprocess"):
+        with span("preprocess"):
             x = self.preprocess_bucketed(canvas_u8, h1, w1)
         hp, wp = pad_to_divisible(h1, w1, self.size_divisibility)
-        scale = torch.as_tensor(np.float32([w0, h0]) / np.float32([w1, h1]),
-                                device=canvas_u8.device)
+        with span("scale"):
+            scale = torch.as_tensor(np.float32([w0, h0]) / np.float32([w1, h1]),
+                                    device=canvas_u8.device)
         result, features, boxes_net = self._detect(x, (hp, wp), (hp, wp), (h0, w0), scale)
         return self._with_densepose(result, features, boxes_net)
 
@@ -422,7 +427,7 @@ class GeneralizedRCNN(nn.Module):
         dp = self.forward_densepose(features, boxes_net[:b])
         if d == b:
             return dp
-        with record_function("densepose_pad"):
+        with span("densepose_pad"):
             return {k: torch.cat([v, v.new_zeros((d - b,) + tuple(v.shape[1:]))])
                     for k, v in dp.items()}
 
@@ -464,9 +469,10 @@ class GeneralizedRCNN(nn.Module):
         HEATMAP)). The DensePose stage is the monolithic one on all D slots,
         with no device postprocess; nothing is read on the host."""
         b, h0, w0 = (int(v) for v in images_u8.shape[:3])
-        with record_function("preprocess"):
+        with span("preprocess"):
             x, (h1, w1), (hp, wp) = self.preprocess_batch(images_u8)
-        scale = device_values([w0 / w1, h0 / h1], torch.float32, images_u8.device)
+        with span("scale"):
+            scale = device_values([w0 / w1, h0 / h1], torch.float32, images_u8.device)
         result, features, boxes_net = self._detect_batch(x, (hp, wp), None, (h0, w0), scale)
         if self.cfg.MODEL.DENSEPOSE_ON:
             result.update(self.forward_densepose_batch(features, boxes_net))
@@ -493,14 +499,14 @@ class GeneralizedRCNN(nn.Module):
         _, h1, w1 = self.resized_size(h0, w0)
         hp, wp = pad_to_divisible(h1, w1, self.size_divisibility)
         bounds = row_bounds(hp, self.size_divisibility, len(shards))
-        with record_function("preprocess"):
+        with span("preprocess"):
             x = RowSlabs([shards.module(self, i).preprocess_rows(image_u8, r0, r1)
                           if r1 > r0 else None
                           for i, (r0, r1) in enumerate(zip(bounds[:-1], bounds[1:]))],
                          bounds, shards)
-        with record_function("backbone"):
+        with span("backbone"):
             levels = backbone_rows(self.cfg, self.backbone, x)
-        with record_function("gather"):
+        with span("gather"):
             features = {k: gather(v, shards.devices[0], k) for k, v in levels.items()}
         return features, (hp, wp), (h1, w1)
 
@@ -513,7 +519,8 @@ class GeneralizedRCNN(nn.Module):
         maps, no batch dimension."""
         h0, w0 = int(image_u8.shape[0]), int(image_u8.shape[1])
         features, hw, (h1, w1) = self.features_rows(image_u8, shards)
-        scale = device_values([w0 / w1, h0 / h1], torch.float32, shards.devices[0])
+        with span("scale"):
+            scale = device_values([w0 / w1, h0 / h1], torch.float32, shards.devices[0])
         result, features, boxes_net = self._detect_features(features, hw, None, (h0, w0), scale)
         result = {k: v[0] for k, v in result.items()}
         if self.cfg.MODEL.DENSEPOSE_ON:
@@ -533,7 +540,7 @@ class GeneralizedRCNN(nn.Module):
             else:
                 dp = self.forward_densepose(features, boxes_net)
             if self.cfg.TPU.DEVICE_POSTPROCESS and "pred_densepose_u" in dp:
-                with record_function("densepose_postprocess"):
+                with span("densepose_postprocess"):
                     dp = device_postprocess(dp)
             result.update(dp)
         return result
@@ -610,28 +617,32 @@ def check_image(image_bgr_u8: np.ndarray) -> np.ndarray:
 
 def image_tensor(image_bgr_u8, device) -> torch.Tensor:
     """(H, W, 3) uint8 frame, numpy or an already uploaded tensor (the
-    predictor's ``stage_input``) -> a uint8 tensor on ``device``."""
-    if isinstance(image_bgr_u8, torch.Tensor):
-        if image_bgr_u8.dim() != 3 or image_bgr_u8.shape[2] != 3 \
-                or image_bgr_u8.dtype != torch.uint8:
-            raise ValueError(f"expected an (H, W, 3) uint8 image, got {image_bgr_u8.dtype} "
-                             f"{tuple(image_bgr_u8.shape)}")
-        return image_bgr_u8.to(device)
-    return torch.from_numpy(check_image(image_bgr_u8)).to(device)
+    predictor's ``stage_input``) -> a uint8 tensor on ``device``, in the
+    span ``upload``."""
+    with span("upload"):
+        if isinstance(image_bgr_u8, torch.Tensor):
+            if image_bgr_u8.dim() != 3 or image_bgr_u8.shape[2] != 3 \
+                    or image_bgr_u8.dtype != torch.uint8:
+                raise ValueError(f"expected an (H, W, 3) uint8 image, got "
+                                 f"{image_bgr_u8.dtype} {tuple(image_bgr_u8.shape)}")
+            return image_bgr_u8.to(device)
+        return torch.from_numpy(check_image(image_bgr_u8)).to(device)
 
 
 def batch_tensor(images_bgr_u8, device) -> torch.Tensor:
     """(B, H, W, 3) uint8 frames, numpy or a tensor -> a contiguous uint8
-    tensor on ``device``; ValueError otherwise. Host frames go to a CUDA
-    device through pinned memory, without waiting for its queued work."""
-    images = images_bgr_u8 if isinstance(images_bgr_u8, torch.Tensor) else \
-        torch.from_numpy(np.ascontiguousarray(np.asarray(images_bgr_u8)))
-    if images.dim() != 4 or images.shape[-1] != 3 or images.dtype != torch.uint8:
-        raise ValueError(f"expected (B, H, W, 3) uint8 frames, got {images.dtype} "
-                         f"{tuple(images.shape)}")
-    if torch.device(device).type == "cuda" and images.device.type == "cpu":
-        return images.contiguous().pin_memory().to(device, non_blocking=True)
-    return images.to(device).contiguous()
+    tensor on ``device``, in the span ``upload``; ValueError otherwise. Host
+    frames go to a CUDA device through pinned memory, without waiting for
+    its queued work."""
+    with span("upload"):
+        images = images_bgr_u8 if isinstance(images_bgr_u8, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(np.asarray(images_bgr_u8)))
+        if images.dim() != 4 or images.shape[-1] != 3 or images.dtype != torch.uint8:
+            raise ValueError(f"expected (B, H, W, 3) uint8 frames, got {images.dtype} "
+                             f"{tuple(images.shape)}")
+        if torch.device(device).type == "cuda" and images.device.type == "cpu":
+            return images.contiguous().pin_memory().to(device, non_blocking=True)
+        return images.to(device).contiguous()
 
 
 def device_values(values, dtype: torch.dtype, device) -> torch.Tensor:

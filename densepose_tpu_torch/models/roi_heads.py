@@ -41,7 +41,6 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..checkpoint.spec import Spec, conv_spec, conv_transpose_spec, gn_spec, linear_spec
 from ..ops.boxes import apply_deltas
@@ -51,6 +50,7 @@ from ..ops.nms import nms_mask, per_class_nms_mask
 from ..ops.norms import Conv2dNorm, GroupNorm32, group_norm_onepass
 from ..ops.resize import resize_bilinear
 from ..ops.roi_align import assign_boxes_to_levels, roi_align_multilevel, roi_align_single
+from ..utils.timing import span
 from .backbones import backbone_out_channels, feature_strides
 from .cse import DensePoseEmbeddingPredictor, Embedder, embedder_spec, embedding_predictor_spec
 from .rpn import top_k
@@ -652,12 +652,12 @@ def _densepose_pooled(heads: ROIHeads, features: Dict[str, torch.Tensor],
     in_features: List[str] = list(cfg.MODEL.ROI_HEADS.IN_FEATURES)
     scales, min_lvl, max_lvl = _fpn_pooling(cfg, in_features)
     if h.DECODER_ON:
-        with record_function("decoder"):
+        with span("decoder"):
             sem = heads.decoder(features)
-        with record_function("densepose_pooler"):
+        with span("densepose_pooler"):
             return roi_align_single(sem, boxes, scales[0], (res, res),
                                     h.POOLER_SAMPLING_RATIO, aligned, frames)
-    with record_function("densepose_pooler"):
+    with span("densepose_pooler"):
         levels = assign_boxes_to_levels(boxes, min_lvl, max_lvl)
         return roi_align_multilevel([features[f] for f in in_features],
                                     boxes, levels, scales, (res, res), h.POOLER_SAMPLING_RATIO,
@@ -670,13 +670,13 @@ def densepose_stage_forward(heads: ROIHeads, features: Dict[str, torch.Tensor],
     """(Decoder ->) ROIAlign -> head -> predictor on the given boxes
     (densepose roi_head.py:126-158). Maps NCHW, (M, C, HEATMAP, HEATMAP)
     each: SIUV, or a CSE model's embedding and coarse segmentation. Each step
-    is a profiler range. ``frames``: boxes (M, 4) of N frames' features,
+    is a span. ``frames``: boxes (M, 4) of N frames' features,
     each with its frame (the batched forward's B * D rows), or None for one
     frame."""
     pooled = _densepose_pooled(heads, features, boxes, cfg, frames)
-    with record_function("densepose_head"):
+    with span("densepose_head"):
         x = heads.densepose_head(pooled)
-    with record_function("densepose_predictor"):
+    with span("densepose_predictor"):
         return heads.densepose_predictor(x)
 
 

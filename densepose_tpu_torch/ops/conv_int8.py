@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.timing import span
 from .cuda_build import library
 
 IntPair = Union[int, Tuple[int, int]]
@@ -247,49 +248,50 @@ def conv_s8_cuda(qx: torch.Tensor, qw: torch.Tensor, qb: Optional[torch.Tensor],
     ``conv_s8_cuda.variant_launches[variant]``. kh * kw at most 64; Cin a
     multiple of 4 (mma_sync) or ``wgmma_takes``'s shapes (wgmma). Raises on
     any other input or a failed launch; no variant stands in for another."""
-    if qx.dim() != 4 or qw.dim() != 4 or qx.shape[3] != qw.shape[3]:
-        raise ValueError(f"Q1 takes qx (N, H, W, Cin) and qw (Cout, kh, kw, Cin), got "
-                         f"{tuple(qx.shape)} and {tuple(qw.shape)}")
-    if out_kind not in OUT_KINDS:
-        raise ValueError(f"Q1 has no output {out_kind!r}")
-    geo = dict(stride=stride, padding=padding, dilation=dilation, transposed=transposed)
-    variant = variant or q1_variant(qx.shape, qw.shape, **geo)
-    if variant not in Q1_VARIANTS:
-        raise ValueError(f"Q1 has no variant {variant!r}")
-    cout = qw.shape[0]
-    tensors = [("qx", qx, torch.int8), ("qw", qw, torch.int8)]
-    if qb is not None:
-        tensors.append(("qb", qb, torch.int32))
-    if out_kind != "s32":
-        if vec is None:
-            raise ValueError(f"Q1's {out_kind} output needs its epilogue vector")
-        tensors.append(("vec", vec, torch.float32))
-    for name, t, dtype in tensors:
-        if not t.is_cuda or t.device != qx.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {qx.device}")
-        if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {dtype}, got {t.dtype}")
-        if name in ("qb", "vec") and tuple(t.shape) != (cout,):
-            raise ValueError(f"{name} must be ({cout},), got {tuple(t.shape)}")
-    n, h, w, cin = qx.shape
-    (sh, sw), (ph, pw), (dh, dw) = _pair(stride), _pair(padding), _pair(dilation)
-    ho, wo = out_size(h, w, qw, stride, padding, dilation, transposed)
-    out = torch.empty((n, ho, wo, cout), device=qx.device,
-                      dtype=out_dtype_of(out_kind))
-    if out.numel() == 0:
+    with span("conv_s8"):
+        if qx.dim() != 4 or qw.dim() != 4 or qx.shape[3] != qw.shape[3]:
+            raise ValueError(f"Q1 takes qx (N, H, W, Cin) and qw (Cout, kh, kw, Cin), got "
+                             f"{tuple(qx.shape)} and {tuple(qw.shape)}")
+        if out_kind not in OUT_KINDS:
+            raise ValueError(f"Q1 has no output {out_kind!r}")
+        geo = dict(stride=stride, padding=padding, dilation=dilation, transposed=transposed)
+        variant = variant or q1_variant(qx.shape, qw.shape, **geo)
+        if variant not in Q1_VARIANTS:
+            raise ValueError(f"Q1 has no variant {variant!r}")
+        cout = qw.shape[0]
+        tensors = [("qx", qx, torch.int8), ("qw", qw, torch.int8)]
+        if qb is not None:
+            tensors.append(("qb", qb, torch.int32))
+        if out_kind != "s32":
+            if vec is None:
+                raise ValueError(f"Q1's {out_kind} output needs its epilogue vector")
+            tensors.append(("vec", vec, torch.float32))
+        for name, t, dtype in tensors:
+            if not t.is_cuda or t.device != qx.device:
+                raise ValueError(f"{name} must be a CUDA tensor on {qx.device}")
+            if t.dtype != dtype or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous {dtype}, got {t.dtype}")
+            if name in ("qb", "vec") and tuple(t.shape) != (cout,):
+                raise ValueError(f"{name} must be ({cout},), got {tuple(t.shape)}")
+        n, h, w, cin = qx.shape
+        (sh, sw), (ph, pw), (dh, dw) = _pair(stride), _pair(padding), _pair(dilation)
+        ho, wo = out_size(h, w, qw, stride, padding, dilation, transposed)
+        out = torch.empty((n, ho, wo, cout), device=qx.device,
+                          dtype=out_dtype_of(out_kind))
+        if out.numel() == 0:
+            return out
+        with torch.cuda.device(qx.device):
+            err = _lib().dp_conv_s8(
+                qx.data_ptr(), qw.data_ptr(), qb.data_ptr() if qb is not None else None,
+                vec.data_ptr() if out_kind != "s32" else None, out.data_ptr(),
+                n, h, w, cin, ho, wo, cout, qw.shape[1], qw.shape[2], sh, sw, ph, pw, dh, dw,
+                int(transposed), int(relu), OUT_KINDS[out_kind], Q1_VARIANTS[variant],
+                torch.cuda.current_stream(qx.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"Q1 launch failed: cudaError {err} ({variant})")
+        conv_s8_cuda.launches += 1
+        conv_s8_cuda.variant_launches[variant] += 1
         return out
-    with torch.cuda.device(qx.device):
-        err = _lib().dp_conv_s8(
-            qx.data_ptr(), qw.data_ptr(), qb.data_ptr() if qb is not None else None,
-            vec.data_ptr() if out_kind != "s32" else None, out.data_ptr(),
-            n, h, w, cin, ho, wo, cout, qw.shape[1], qw.shape[2], sh, sw, ph, pw, dh, dw,
-            int(transposed), int(relu), OUT_KINDS[out_kind], Q1_VARIANTS[variant],
-            torch.cuda.current_stream(qx.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"Q1 launch failed: cudaError {err} ({variant})")
-    conv_s8_cuda.launches += 1
-    conv_s8_cuda.variant_launches[variant] += 1
-    return out
 
 
 conv_s8_cuda.launches = 0

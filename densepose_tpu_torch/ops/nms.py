@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.timing import span
 from .boxes import pairwise_iou
 from .cuda_build import library
 
@@ -116,37 +117,38 @@ def nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
     ``dp_nms_max_boxes()`` (what the long scan's shared memory holds), or a
     scratch that the device cannot allocate (the message states its bytes);
     RuntimeError if a launch fails."""
-    if boxes.dim() != 3 or boxes.shape[-1] != 4:
-        raise ValueError(f"boxes must be (P, K, 4), got {tuple(boxes.shape)}")
-    p, k = boxes.shape[0], boxes.shape[1]
-    tensors = [("boxes", boxes, torch.float32), ("valid", valid, torch.bool)]
-    if classes is not None:
-        tensors.append(("classes", classes, torch.int32))
-    for name, t, dtype in tensors:
-        if not t.is_cuda or t.device != boxes.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {boxes.device}")
-        if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {dtype}, got {t.dtype}")
-        if tuple(t.shape[:2]) != (p, k):
-            raise ValueError(f"{name} must lead with {(p, k)}, got {tuple(t.shape)}")
-    lib = _lib()
-    if k > lib.dp_nms_max_boxes() or p > lib.dp_nms_max_problems():
-        raise ValueError(f"K1 takes at most {lib.dp_nms_max_boxes()} boxes per problem and "
-                         f"{lib.dp_nms_max_problems()} problems, got {(p, k)}")
-    keep = torch.empty((p, k), dtype=torch.bool, device=boxes.device)
-    if p == 0 or k == 0:
+    with span("nms"):
+        if boxes.dim() != 3 or boxes.shape[-1] != 4:
+            raise ValueError(f"boxes must be (P, K, 4), got {tuple(boxes.shape)}")
+        p, k = boxes.shape[0], boxes.shape[1]
+        tensors = [("boxes", boxes, torch.float32), ("valid", valid, torch.bool)]
+        if classes is not None:
+            tensors.append(("classes", classes, torch.int32))
+        for name, t, dtype in tensors:
+            if not t.is_cuda or t.device != boxes.device:
+                raise ValueError(f"{name} must be a CUDA tensor on {boxes.device}")
+            if t.dtype != dtype or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous {dtype}, got {t.dtype}")
+            if tuple(t.shape[:2]) != (p, k):
+                raise ValueError(f"{name} must lead with {(p, k)}, got {tuple(t.shape)}")
+        lib = _lib()
+        if k > lib.dp_nms_max_boxes() or p > lib.dp_nms_max_problems():
+            raise ValueError(f"K1 takes at most {lib.dp_nms_max_boxes()} boxes per problem and "
+                             f"{lib.dp_nms_max_problems()} problems, got {(p, k)}")
+        keep = torch.empty((p, k), dtype=torch.bool, device=boxes.device)
+        if p == 0 or k == 0:
+            return keep
+        nbytes = p * k * mask_words(k) * 8
+        try:
+            mask = torch.empty((p, k, mask_words(k)), dtype=torch.int64, device=boxes.device)
+        except torch.cuda.OutOfMemoryError as e:
+            raise ValueError(f"K1's IoU scratch for {p} problems of {k} boxes takes {nbytes} bytes "
+                             f"({nbytes / 2**30:.2f} GiB), more than {boxes.device} can "
+                             "allocate") from e
+        nms_mask_launch(boxes, valid, iou_threshold, classes, mask)
+        nms_scan_launch(mask, valid, keep)
+        nms_keep_cuda.launches += 1
         return keep
-    nbytes = p * k * mask_words(k) * 8
-    try:
-        mask = torch.empty((p, k, mask_words(k)), dtype=torch.int64, device=boxes.device)
-    except torch.cuda.OutOfMemoryError as e:
-        raise ValueError(f"K1's IoU scratch for {p} problems of {k} boxes takes {nbytes} bytes "
-                         f"({nbytes / 2**30:.2f} GiB), more than {boxes.device} can "
-                         "allocate") from e
-    nms_mask_launch(boxes, valid, iou_threshold, classes, mask)
-    nms_scan_launch(mask, valid, keep)
-    nms_keep_cuda.launches += 1
-    return keep
 
 
 nms_keep_cuda.launches = 0

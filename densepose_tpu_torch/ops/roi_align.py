@@ -52,6 +52,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.timing import span
 from .boxes import true_div
 from .cuda_build import library
 
@@ -295,30 +296,31 @@ def roi_align_cuda(
     or bfloat16; boxes (M, 4) f32, levels (M,) i32, all on one device;
     sampling_ratio 0 is the adaptive count. Returns (M, C, oh, ow) in the
     levels' dtype. Raises if the inputs do not fit or the launch fails."""
-    n_frames = check_cuda_inputs(feats, boxes, levels, scales, frames)
-    if sampling_ratio < 0:
-        raise ValueError(f"K2 takes a sampling_ratio >= 0, got {sampling_ratio}")
-    n, m, c = len(feats), boxes.shape[0], feats[0].shape[-3]
-    dev = boxes.device
-    lib = _lib()
-    if n > lib.dp_roi_align_max_levels():
-        raise ValueError(f"K2 takes at most {lib.dp_roi_align_max_levels()} levels")
-    oh, ow = output_size
-    entries = (oh + ow) * (sampling_ratio or ADAPTIVE_CAP)
-    if entries > lib.dp_roi_align_max_table_entries():
-        raise ValueError(f"K2's tap tables ({entries} entries for {output_size} at ratio "
-                         f"{sampling_ratio}) exceed {lib.dp_roi_align_max_table_entries()}")
-    out = torch.empty((m, c, oh, ow), dtype=feats[0].dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dp_roi_align(*level_args(feats, scales), boxes.data_ptr(),
-                               levels.data_ptr(), frame_ptr(frames), out.data_ptr(), n_frames,
-                               m, c, oh, ow, int(sampling_ratio), int(bool(aligned)),
-                               DTYPE_CODES[out.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"roi_align_cuda launch failed: cudaError {err}")
-    roi_align_cuda.launches += 1
-    return out
+    with span("roi_align"):
+        n_frames = check_cuda_inputs(feats, boxes, levels, scales, frames)
+        if sampling_ratio < 0:
+            raise ValueError(f"K2 takes a sampling_ratio >= 0, got {sampling_ratio}")
+        n, m, c = len(feats), boxes.shape[0], feats[0].shape[-3]
+        dev = boxes.device
+        lib = _lib()
+        if n > lib.dp_roi_align_max_levels():
+            raise ValueError(f"K2 takes at most {lib.dp_roi_align_max_levels()} levels")
+        oh, ow = output_size
+        entries = (oh + ow) * (sampling_ratio or ADAPTIVE_CAP)
+        if entries > lib.dp_roi_align_max_table_entries():
+            raise ValueError(f"K2's tap tables ({entries} entries for {output_size} at ratio "
+                             f"{sampling_ratio}) exceed {lib.dp_roi_align_max_table_entries()}")
+        out = torch.empty((m, c, oh, ow), dtype=feats[0].dtype, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.dp_roi_align(*level_args(feats, scales), boxes.data_ptr(),
+                                   levels.data_ptr(), frame_ptr(frames), out.data_ptr(), n_frames,
+                                   m, c, oh, ow, int(sampling_ratio), int(bool(aligned)),
+                                   DTYPE_CODES[out.dtype], stream)
+        if err != 0:
+            raise RuntimeError(f"roi_align_cuda launch failed: cudaError {err}")
+        roi_align_cuda.launches += 1
+        return out
 
 
 roi_align_cuda.launches = 0

@@ -48,6 +48,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.timing import span
 from .boxes import true_div
 from .cuda_build import library
 from .roi_align import (DTYPE_CODES, ENTRY_ARGTYPES, _axis_samples, _roi_geometry, call_args,
@@ -254,28 +255,29 @@ def roi_align_sparse_cuda(
     not in [0, N), gets zeros. No sort and no flag table: on the card the
     flags skip nothing (``csrc/roi_align_sparse.cu``). Raises if the inputs
     do not fit or the launch fails."""
-    n_frames = check_cuda_inputs(feats, boxes, levels, scales, frames)
-    lib = _lib()
-    if len(feats) > lib.dp_roi_align_sparse_max_levels():
-        raise ValueError(f"K3 takes at most {lib.dp_roi_align_sparse_max_levels()} levels")
-    if not 0 < sampling_ratio <= lib.dp_roi_align_sparse_max_ratio():
-        raise ValueError(f"K3 takes a fixed sampling_ratio in 1.."
-                         f"{lib.dp_roi_align_sparse_max_ratio()}, got {sampling_ratio}")
-    m, c = boxes.shape[0], feats[0].shape[-3]
-    oh, ow = output_size
-    out = torch.empty((m, c, oh, ow), dtype=feats[0].dtype, device=boxes.device)
-    if out.numel() == 0:
+    with span("roi_align_sparse"):
+        n_frames = check_cuda_inputs(feats, boxes, levels, scales, frames)
+        lib = _lib()
+        if len(feats) > lib.dp_roi_align_sparse_max_levels():
+            raise ValueError(f"K3 takes at most {lib.dp_roi_align_sparse_max_levels()} levels")
+        if not 0 < sampling_ratio <= lib.dp_roi_align_sparse_max_ratio():
+            raise ValueError(f"K3 takes a fixed sampling_ratio in 1.."
+                             f"{lib.dp_roi_align_sparse_max_ratio()}, got {sampling_ratio}")
+        m, c = boxes.shape[0], feats[0].shape[-3]
+        oh, ow = output_size
+        out = torch.empty((m, c, oh, ow), dtype=feats[0].dtype, device=boxes.device)
+        if out.numel() == 0:
+            return out
+        with torch.cuda.device(boxes.device):
+            stream = torch.cuda.current_stream(boxes.device).cuda_stream
+            err = lib.dp_roi_align_sparse(*level_args(feats, scales), boxes.data_ptr(),
+                                          levels.data_ptr(), frame_ptr(frames), out.data_ptr(),
+                                          n_frames, m, c, oh, ow, int(sampling_ratio),
+                                          int(bool(aligned)), DTYPE_CODES[out.dtype], stream)
+        if err != 0:
+            raise RuntimeError(f"roi_align_sparse_cuda launch failed: cudaError {err}")
+        roi_align_sparse_cuda.launches += 1
         return out
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = lib.dp_roi_align_sparse(*level_args(feats, scales), boxes.data_ptr(),
-                                      levels.data_ptr(), frame_ptr(frames), out.data_ptr(),
-                                      n_frames, m, c, oh, ow, int(sampling_ratio),
-                                      int(bool(aligned)), DTYPE_CODES[out.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"roi_align_sparse_cuda launch failed: cudaError {err}")
-    roi_align_sparse_cuda.launches += 1
-    return out
 
 
 roi_align_sparse_cuda.launches = 0

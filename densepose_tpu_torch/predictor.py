@@ -49,6 +49,10 @@ data_parallel_forward``), as the JAX package shards over its mesh.
 ``numpy_outputs_batch`` fetches a batch's outputs once per key and returns
 each frame's ``numpy_outputs``.
 
+Spans (``utils/timing.py``): ``__call__`` and ``predict_batch`` each open a
+root span (``predict``, ``predict_batch``) that holds the call's ``upload``,
+its stages and its kernel wrappers' spans, one call number for all of them.
+
 Compute dtype (``TPU.COMPUTE_DTYPE``): float32, float16 or bfloat16, the
 JAX package's policy (predictor.py:89-90, 147-152). After loading, every
 float32 parameter is cast to the dtype; the ``pixel_mean``/``pixel_std``
@@ -112,6 +116,7 @@ from .models.rcnn import (GeneralizedRCNN, batch_tensor, build_model, check_imag
 from .models.resnet import resnet_int8_scale_sites
 from .ops.conv_int8 import is_int8_key, is_scale_key, quantize_weight_int8, set_buffer
 from .ops.resize import resize_bilinear_np
+from .utils.timing import span
 
 logger = logging.getLogger(__name__)
 
@@ -219,18 +224,19 @@ class DensePosePredictor:
         ``stage_input`` tensor. Returns tensors on the device: fixed-size
         slots + num_instances (under ``TPU.BUCKETED_DENSEPOSE`` the maps hold
         the bucket's rows)."""
-        if self._int8_needed and not self._int8_ready:
-            self._auto_calibrate(image_bgr_u8)
-        image = image_tensor(image_bgr_u8, self.device)
-        if self.geometry_quant:
-            return self.model.forward_bucketed(*self.model.bucket_canvas(image,
-                                                                         self.geometry_quant))
-        if self.bucketed:
-            result, features, boxes_net = self.model.forward_stage1(image)
-            result.update(self.densepose_stage2(features, boxes_net,
-                                                int(result["num_instances"])))  # the one sync
-            return result
-        return self.model(image)
+        with span("predict"):
+            if self._int8_needed and not self._int8_ready:
+                self._auto_calibrate(image_bgr_u8)
+            image = image_tensor(image_bgr_u8, self.device)
+            if self.geometry_quant:
+                return self.model.forward_bucketed(
+                    *self.model.bucket_canvas(image, self.geometry_quant))
+            if self.bucketed:
+                result, features, boxes_net = self.model.forward_stage1(image)
+                result.update(self.densepose_stage2(features, boxes_net,
+                                                    int(result["num_instances"])))  # the one sync
+                return result
+            return self.model(image)
 
     def stage2_bucket(self, num_valid: int) -> int:
         """``TPU.BUCKETED_DENSEPOSE``'s bucket: the smallest of
@@ -275,16 +281,17 @@ class DensePosePredictor:
         frames split over them (``data_parallel_forward`` over
         ``data_parallel_devices``, this predictor's card first). An int8 mode
         without its scales calibrates on the first frame."""
-        images = batch_tensor(images_bgr_u8, self.device)
-        if self._int8_needed and not self._int8_ready:
-            self._auto_calibrate(images[0])
-        devices = data_parallel_devices(self.device)
-        if len(devices) > 1 and images.shape[0] % len(devices) == 0:
-            if self._data_parallel is None or self._data_parallel.devices != devices:
-                from .parallel.mesh import data_parallel_forward
-                self._data_parallel = data_parallel_forward(self.model, devices)
-            return self._data_parallel(images)
-        return self.model.forward_batch(images)
+        with span("predict_batch"):
+            images = batch_tensor(images_bgr_u8, self.device)
+            if self._int8_needed and not self._int8_ready:
+                self._auto_calibrate(images[0])
+            devices = data_parallel_devices(self.device)
+            if len(devices) > 1 and images.shape[0] % len(devices) == 0:
+                if self._data_parallel is None or self._data_parallel.devices != devices:
+                    from .parallel.mesh import data_parallel_forward
+                    self._data_parallel = data_parallel_forward(self.model, devices)
+                return self._data_parallel(images)
+            return self.model.forward_batch(images)
 
     # -- int8 calibration (JAX predictor.py:164-502) --------------------------
 

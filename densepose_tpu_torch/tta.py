@@ -35,11 +35,11 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .models.rcnn import image_tensor
 from .ops.boxes import true_div
 from .ops.nms import batched_nms_mask
+from .utils.timing import span
 
 _NEG = -1e30
 
@@ -227,6 +227,10 @@ class TTAPredictor:
 
     @torch.inference_mode()
     def __call__(self, image_bgr_u8) -> Dict[str, torch.Tensor]:
+        with span("predict"):  # the request's root span, as the base predictor's
+            return self._predict(image_bgr_u8)
+
+    def _predict(self, image_bgr_u8) -> Dict[str, torch.Tensor]:
         model = self.base.model
         img = image_tensor(image_bgr_u8, self.base.device)
         h0, w0 = int(img.shape[0]), int(img.shape[1])
@@ -234,7 +238,7 @@ class TTAPredictor:
 
         dets = []   # per view: (boxes in the frame's coordinates, scores, classes, valid)
         views = []  # (features, (h1 / h0, w1 / w0), flipped) of the views stage 2 runs on
-        with record_function("tta_stage1"):
+        with span("tta_stage1"):
             for ms in self.min_sizes:
                 _, h1, w1 = model.resized_size(h0, w0, ms, self.max_size)
                 res, feats, _ = model.forward_stage1(img, ms, self.max_size)
@@ -248,7 +252,7 @@ class TTAPredictor:
                     if self.flip_segm:
                         views.append((feats, (h1 / h0, w1 / w0), True))
                     del feats
-        with record_function("tta_merge"):
+        with span("tta_merge"):
             boxes, scores, classes, valid = merge_detections(
                 *(torch.cat(x) for x in zip(*dets)), self.nms_thresh, self.topk)
         del dets
@@ -265,15 +269,15 @@ class TTAPredictor:
         reduce = StreamingReduce(self.uv_tables)
         while views:
             feats, (sy, sx), flipped = views.pop(0)
-            with record_function("tta_stage2"):
+            with span("tta_stage2"):
                 bx = mirror(boxes, w0) if flipped else boxes
                 scale = torch.tensor([sx, sy, sx, sy], dtype=torch.float32, device=bx.device)
                 dp = model.forward_densepose(feats, bx * scale)
             del feats
-            with record_function("tta_reduce"):
+            with span("tta_reduce"):
                 reduce.add(dp, flipped)
             del dp
-        with record_function("tta_reduce"):
+        with span("tta_reduce"):
             result.update(reduce.result())
         return result
 

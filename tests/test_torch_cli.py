@@ -16,6 +16,7 @@ fp32 tolerances, and the overlays differ in at most 0.1% of their pixels
 across an integer).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -306,11 +307,18 @@ def test_refuses_what_is_not_ported(tmp_path, what):
 
 
 def test_profile_writes_a_trace(tmp_path):
+    """The trace holds the request's spans as ranges: its root, the upload
+    and every stage."""
     img_path = tmp_path / "in.jpg"
     cv2.imwrite(str(img_path), image(4))
     cli(FLAGSHIP, str(img_path), "--profile", str(tmp_path / "prof"))
     assert (tmp_path / "in_pred.jpg").exists()
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    with open(tmp_path / "prof" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    ranges = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"predict", "upload", "scale", "preprocess", "backbone", "rpn", "box_stage",
+            "postprocess", "decoder", "densepose_pooler", "densepose_head",
+            "densepose_predictor"} <= ranges
 
 
 # -- video -----------------------------------------------------------------------
