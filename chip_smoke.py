@@ -54,11 +54,22 @@ toolkit. Phases, each of which fails the run:
    yardsticks the port never calls (the float16 cuDNN convolution of the same
    shape, library_ms; torch._int_mm on the unfolded input where its shape
    rules admit the site);
+   Then U1 (the 2x bilinear upsample) at float16 at the predictor shapes of a
+   batch of 8 frames of both benchmark cells and at the flagship decoder's:
+   bit-identical to its plain version and to F.interpolate, two runs equal,
+   its time beside its bound, the plain version's and F.interpolate's
+   (library_ms), which the port no longer calls there; its six
+   instantiations with no stack frame or spills;
 4. paths, each at full width with random weights from seed 0: a
    DensePosePredictor answers a warm-up request and then distinct synthetic
    frames; outputs finite and of the expected shapes; the kernels' launch
    counters, set to 0 just before the timed requests and read just after,
-   show the requests went through the path's kernels; then one more request
+   show the requests went through the path's kernels (every phase that
+   counts launches also counts U1's: u1_per_call gives a forward's from the
+   configuration, 4 for the chart predictor, 2 for the CSE predictor, one a
+   decoder conv that upsamples, 6 on the flagship, and 1 for HRFPN; every
+   held request holds each U1 call against its plain version bit for bit);
+   then one more request
    under torch.profiler gives the device time of each stage range the model
    marks, the three device kernels that take the most time in the RPN and
    box-stage ranges, and the device's idle share. The paths:
@@ -315,7 +326,8 @@ K3_TOL = 1e-5
 K3_K2_TOL = 2e-5  # K3 sums the taps in another order (tests/test_ops.py:625)
 LONG_K = 16384    # K1: the most boxes a problem the register scan takes
 SOURCES = {"nms_keep_cuda": "nms", "roi_align_cuda": "roi_align",
-           "roi_align_sparse_cuda": "roi_align_sparse", "conv_s8_cuda": "conv_s8"}
+           "roi_align_sparse_cuda": "roi_align_sparse", "conv_s8_cuda": "conv_s8",
+           "upsample2x_cuda": "upsample2x"}
 HALF = ("float16", "bfloat16")  # TPU.COMPUTE_DTYPE's half types
 EPS = {"float16": 2.0 ** -10, "bfloat16": 2.0 ** -7}  # a unit in the last place at 1
 FP16_MAX = 65504.0
@@ -377,9 +389,10 @@ def ulp(dtype, t):
 
 def entry_name(kernel, dtype):
     """The kernels line's entry of a kernel at a compute dtype: K1 takes fp32
-    boxes and Q1 s8 activations at every dtype (one entry each); K2 and K3
-    one entry a dtype."""
-    one = ("nms_keep_cuda", "conv_s8_cuda")
+    boxes and Q1 s8 activations at every dtype (one entry each); U1 one
+    entry, its sites timed at float16 and its launches counted at every
+    dtype; K2 and K3 one entry a dtype."""
+    one = ("nms_keep_cuda", "conv_s8_cuda", "upsample2x_cuda")
     return kernel if dtype == "float32" or kernel in one else f"{kernel}[{dtype}]"
 
 
@@ -966,10 +979,36 @@ def path_params(cfg, dev):
 
 def counters():
     """Each kernel wrapper, whose ``launches`` counts its kernel's launches."""
-    from densepose_tpu_torch.ops import conv_int8, nms, roi_align, roi_align_sparse
+    from densepose_tpu_torch.ops import conv_int8, nms, resize, roi_align, roi_align_sparse
     return {"nms_keep_cuda": nms.nms_keep_cuda, "roi_align_cuda": roi_align.roi_align_cuda,
             "roi_align_sparse_cuda": roi_align_sparse.roi_align_sparse_cuda,
-            "conv_s8_cuda": conv_int8.conv_s8_cuda}
+            "conv_s8_cuda": conv_int8.conv_s8_cuda,
+            "upsample2x_cuda": resize.upsample2x_cuda}
+
+
+def u1_per_call(cfg, rows=False):
+    """U1's launches in one forward of ``cfg``'s model, of a request or a
+    batch: one a DensePose predictor output (the chart predictor's four maps
+    and any confidence maps it emits, the CSE predictor's two), one a conv of
+    the decoder's upsampling chains, and HRFPN's 2x level, which the
+    row-sharded forward (``rows``) upsamples by rows instead."""
+    from densepose_tpu_torch.models.roi_heads import _decoder_chains, _predictor_heads
+    h, n = cfg.MODEL.ROI_DENSEPOSE_HEAD, 0
+    if cfg.MODEL.DENSEPOSE_ON and h.UP_SCALE == 2:
+        if h.PREDICTOR_NAME == "DensePoseEmbeddingPredictor":
+            n += 2
+        else:
+            n += len(_predictor_heads(cfg)) if cfg.TPU.EMIT_CONFIDENCES else 4
+    if cfg.MODEL.DENSEPOSE_ON and h.DECODER_ON:
+        n += sum(len(idxs) for _, idxs, up in _decoder_chains(cfg) if up)
+    if cfg.MODEL.BACKBONE.NAME == "build_hrfpn_backbone" and not rows:
+        n += 1
+    return n
+
+
+def with_u1(per_request, cfg, forwards=1, rows=False):
+    """``per_request`` with U1's launches of ``forwards`` forwards a request."""
+    return dict(per_request, **{"upsample2x_cuda": forwards * u1_per_call(cfg, rows)})
 
 
 def count_launches(report, tag, dtype, launches, per_request, n_req, what="requests"):
@@ -983,12 +1022,12 @@ def count_launches(report, tag, dtype, launches, per_request, n_req, what="reque
 
 
 class HeldAgainstPlain:
-    """Within the block, each K1, K2, K3 and Q1 launch a path makes is held
-    against its plain version on the same inputs, as kernel_checks holds its
-    sites: K1's keep flags exact, K2 bit-identical (ratio 0: within K2_TOL, or
-    one unit in the last place of a half dtype), K3 within K3_TOL of the
+    """Within the block, each K1, K2, K3, Q1 and U1 launch a path makes is
+    held against its plain version on the same inputs, as kernel_checks holds
+    its sites: K1's keep flags exact, K2 bit-identical (ratio 0: within K2_TOL,
+    or one unit in the last place of a half dtype), K3 within K3_TOL of the
     output's largest magnitude above 1 (one unit in the last place of a half
-    dtype), Q1 bit-identical; a batch's poolers
+    dtype), Q1 and U1 bit-identical; a batch's poolers
     with their frame index. The wrappers are swapped in the modules that
     dispatch to them and restored on exit; the launches in the block are
     counted on the held wrappers, apart, and not read. ``keep``: also keep
@@ -997,17 +1036,17 @@ class HeldAgainstPlain:
     def __init__(self, torch, what, keep=False):
         self.torch, self.what, self.keep = torch, what, keep
         # (P, K, classed); (M, first level (H, W), dtype, levels, frames) for K2
-        # and K3; (M, K, N, (H, W), variant, transposed)
-        self.k1, self.k2, self.k3, self.q1 = [], [], [], []
+        # and K3; (M, K, N, (H, W), variant, transposed); (N, C, H, W, dtype)
+        self.k1, self.k2, self.k3, self.q1, self.u1 = [], [], [], [], []
         self.calls = {"k1": [], "k2": [], "k3": [], "q1": []}
 
     def __enter__(self):
-        from densepose_tpu_torch.ops import conv_int8, nms, roi_align, roi_align_sparse
+        from densepose_tpu_torch.ops import conv_int8, nms, resize, roi_align, roi_align_sparse
         torch, what = self.torch, self.what
-        self.mods = (nms, roi_align, roi_align_sparse, conv_int8)
-        self.orig = k1, k2, k3, q1 = (nms.nms_keep_cuda, roi_align.roi_align_cuda,
-                                      roi_align_sparse.roi_align_sparse_cuda,
-                                      conv_int8.conv_s8_cuda)
+        self.mods = (nms, roi_align, roi_align_sparse, conv_int8, resize)
+        self.orig = k1, k2, k3, q1, u1 = (nms.nms_keep_cuda, roi_align.roi_align_cuda,
+                                          roi_align_sparse.roi_align_sparse_cuda,
+                                          conv_int8.conv_s8_cuda, resize.upsample2x_cuda)
 
         def kept(kind, *args, **kw):
             if self.keep:
@@ -1068,19 +1107,29 @@ class HeldAgainstPlain:
             kept("q1", qx, qw, qb, vec, **kw)
             return out
 
+        def held_u1(x):
+            out = u1(x)
+            site = (*x.shape, str(x.dtype).split(".")[-1])
+            check(torch.equal(out, resize.upsample2x_plain(x)), f"{what}: U1 at {site}: "
+                  "differs from the plain version")
+            self.u1.append(site)
+            return out
+
         # a wrapper counts through its module's name, which is now the held
         # one's: the launches in the block land here and are not read
         held_k1.launches = held_k2.launches = held_k3.launches = held_q1.launches = 0
+        held_u1.launches = 0
         held_q1.variant_launches = dict.fromkeys(conv_int8.Q1_VARIANTS, 0)
         nms.nms_keep_cuda, roi_align.roi_align_cuda = held_k1, held_k2
         roi_align_sparse.roi_align_sparse_cuda = held_k3
-        conv_int8.conv_s8_cuda = held_q1
+        conv_int8.conv_s8_cuda, resize.upsample2x_cuda = held_q1, held_u1
         return self
 
     def __exit__(self, *exc):
-        (nms, roi_align, roi_align_sparse, conv_int8), (k1, k2, k3, q1) = self.mods, self.orig
+        (nms, roi_align, roi_align_sparse, conv_int8, resize), (k1, k2, k3, q1, u1) = \
+            self.mods, self.orig
         nms.nms_keep_cuda, roi_align.roi_align_cuda, conv_int8.conv_s8_cuda = k1, k2, q1
-        roi_align_sparse.roi_align_sparse_cuda = k3
+        roi_align_sparse.roi_align_sparse_cuda, resize.upsample2x_cuda = k3, u1
         return False
 
     def summary(self):
@@ -1098,7 +1147,10 @@ class HeldAgainstPlain:
               f"pixels up to {max(m for m, *_ in self.q1)}; "
               f"{sum(k[4] == 'wgmma' for k in self.q1)} wgmma, "
               f"{sum(k[4] == 'mma_sync' for k in self.q1)} mma_sync)") if self.q1 else ""
-        return f"{k1} and {k2}{q1} equal to their plain versions (K3 within its bound)"
+        u1 = (f", {len(self.u1)} U1 calls (planes "
+              f"{sorted({tuple(k[2:4]) for k in self.u1})}, N x C up to "
+              f"{max(n * c for n, c, *_ in self.u1)})") if self.u1 else ""
+        return f"{k1} and {k2}{q1}{u1} equal to their plain versions (K3 within its bound)"
 
 
 # (zoo name, config changes, DENSEPOSE_TPU_SPARSE_POOLER set, launches per request)
@@ -1170,7 +1222,7 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request, prepare=Non
 
     n_req = len(timed)
     dtype = path_dtype(extra)
-    count_launches(report, tag, dtype, launches, per_request, n_req)
+    count_launches(report, tag, dtype, launches, with_u1(per_request, cfg), n_req)
     if per_request.get(Q1):
         check(sum(q1_variants.values()) == launches[Q1], f"{tag}: Q1's variant counts "
               f"{q1_variants} do not add up to its {launches[Q1]} launches")
@@ -1480,8 +1532,8 @@ def consumer(torch, report, pred, name, per_request, dtype="float32"):
     torch.cuda.synchronize()
     stream_ms = (time.perf_counter() - t0) * 1e3 / len(imgs)
     launches = {k: fn.launches for k, fn in counters().items()}
-    count_launches(report, f"{name} {dtype} consumer", dtype, launches, per_request, len(imgs),
-                   "streamed frames")
+    count_launches(report, f"{name} {dtype} consumer", dtype, launches,
+                   with_u1(per_request, pred.cfg), len(imgs), "streamed frames")
     check(len(overlays) == len(rec.outs) == len(imgs), f"consumer {name}: {len(overlays)} "
           f"overlays for {len(imgs)} frames")
 
@@ -1941,7 +1993,8 @@ def batch_run(torch, report, pred, tag, dtype, b, per_batch, seed):
             outs.append(out)
         launches = {k: fn.launches for k, fn in counters().items()}
     check(plain.calls == 0, f"batch {tag} B={b}: {plain.calls} plain-version calls")
-    count_launches(report, f"{tag} batch {b}", dtype, launches, per_batch, len(timed), "batches")
+    count_launches(report, f"{tag} batch {b}", dtype, launches, with_u1(per_batch, pred.cfg),
+                   len(timed), "batches")
     peak = torch.cuda.max_memory_allocated() / 2**20
     ms = float(np.median(lat))
     cfg = pred.cfg
@@ -2501,8 +2554,10 @@ def lookup_gate(pixels, verts, got, what):
 
 def cse_phase(torch, report, dev):
     """R50-CSE with tamed detection weights (DETECTION_TAME: boxes of real
-    size, not the whole frame) on one frame: 2 K1 + 2 K2 for the request
-    (counters 0 just before, read just after); CseResultExtractor on the
+    size, not the whole frame) on one frame: 2 K1 + 2 K2 + 8 U1 for the
+    request (counters 0 just before, read just after), and one more request
+    with every K1, K2 and U1 launch held against its plain version;
+    CseResultExtractor on the
     card (vertex embeddings of the SMPL mesh computed there once; each
     instance's embedding resized to its box on the host and its pixels'
     closest vertices looked up on the card in chunks), every lookup timed
@@ -2524,7 +2579,14 @@ def cse_phase(torch, report, dev):
         fn.launches = 0
     out = pred.numpy_outputs(pred(img), keys=keys)
     launches = {k: fn.launches for k, fn in counters().items()}
-    count_launches(report, f"{CSE} CSE consumer, tamed weights", "float32", launches, ON_K2, 1)
+    count_launches(report, f"{CSE} CSE consumer, tamed weights", "float32", launches,
+                   with_u1(ON_K2, cfg), 1)
+    with HeldAgainstPlain(torch, "CSE") as held:
+        pred(img)
+        torch.cuda.synchronize()
+    check(len(held.k1) == 2 and len(held.k2) == 2 and len(held.u1) == u1_per_call(cfg),
+          f"cse: held {len(held.k1)} K1, {len(held.k2)} K2 and {len(held.u1)} U1 calls")
+    print(f"held: one {CSE} request on tamed weights, {held.summary()}")
     n = out["num_instances"]
     check(n >= 1, "cse: no detections")
     extractor = CseResultExtractor(pred)
@@ -2683,8 +2745,8 @@ def geometry_phase(torch, report, dev):
             ms[pred].append(float(np.median(lat)))
         if pred is geo:
             launches = {k: fn.launches for k, fn in counters().items()}
-    count_launches(report, f"{FLAGSHIP} geometry-bucketed", "float32", launches, ON_K2,
-                   len(imgs) * GEOMETRY_REPEATS)
+    count_launches(report, f"{FLAGSHIP} geometry-bucketed", "float32", launches,
+                   with_u1(ON_K2, geo.cfg), len(imgs) * GEOMETRY_REPEATS)
     worst = [0, 0.0, 0.0]
     for i, img in enumerate(imgs):
         g, p = geo.numpy_outputs(outs[geo][i]), plain.numpy_outputs(outs[plain][i])
@@ -2793,7 +2855,8 @@ def detection_bucket_phase(torch, report, dev):
         check(out["pred_densepose_u"].shape[0] == pred.stage2_bucket(n),
               f"buckets: a request of {n} detections has {out['pred_densepose_u'].shape[0]} rows")
     count_launches(report, f"{FLAGSHIP} BUCKETED_DENSEPOSE", "float32",
-                   {k: fn.launches for k, fn in counters().items()}, ON_K2, n_req)
+                   {k: fn.launches for k, fn in counters().items()}, with_u1(ON_K2, pred.cfg),
+                   n_req)
     print("buckets: forced counts on one fp32 request's features: "
           + "; ".join(f"count {c}: TPU.BUCKETED_DENSEPOSE bucket {b} stage 2 {t:.3f} device ms, "
                       f"switched bucket {sb} {st:.3f} device ms, rows within {e:.2e} of the "
@@ -2823,13 +2886,15 @@ def tta_phase(torch, report, dev, dtype):
     """The flagship at full width under TTA (18 views of a 480x640 frame, up
     to 1200x1600), at ``dtype``: a warm-up and TTA_TIMED distinct frames with
     the counters 0 just before and read just after (per request: 2 K1 a view
-    and the merge's, 37; 2 K2 a view, 36); outputs finite, maps fp32 of
+    and the merge's, 37; 2 K2 a view, 36; 10 U1 a view's DensePose stage,
+    180); outputs finite, maps fp32 of
     (100, C, 112, 112); the peak memory; then one profiled request split into
     TTA's stage 1, merge, stage 2 and reduce."""
     pred = tta_predictor(torch, dev, (("TPU.COMPUTE_DTYPE", dtype),))
     views = len(pred.min_sizes) * (2 if pred.flip else 1)
-    per_request = {"nms_keep_cuda": 2 * views + 1, "roi_align_cuda": 2 * views,
-                   "roi_align_sparse_cuda": 0}
+    stage2 = len(pred.min_sizes) * (2 if pred.flip and pred.flip_segm else 1)
+    per_request = with_u1({"nms_keep_cuda": 2 * views + 1, "roi_align_cuda": 2 * views,
+                           "roi_align_sparse_cuda": 0}, pred.base.cfg, stage2)
     warm, *timed = frames(3, 1 + TTA_TIMED)
     pred(warm)
     torch.cuda.synchronize()
@@ -3148,6 +3213,78 @@ def q1_checks(torch, report, dev, ptxas):
           f"{report[Q1]['ms']:.4f} ms [{report[Q1]['device_ms']:.4f}] (mma_sync "
           f"{report[Q1]['before_ms']:.4f}), bound {report[Q1]['bound_ms']:.6f}, float16 cuDNN "
           f"{report[Q1]['library_ms']:.4f}")
+
+
+U1 = "upsample2x_cuda"
+U1_SOURCE = "densepose_tpu_torch/csrc/upsample2x.cu"
+U1_REPLACES = ("densepose_tpu/ops/resize.py::resize_bilinear (port-only; XLA's resize in "
+               "JAX, F.interpolate in the port before)")
+# a batch of 8 frames of 100 boxes a cell: (site, (N, C, H, W), calls a batch);
+# the flagship decoder's 2x upsamples (256 channels: p3 one, p4 two, p5 three)
+U1_SITES = {
+    "r50_fpn_s1x_f16.cams8 predictor": [("coarse", (800, 2, 56, 56), 1),
+                                        ("fine, u, v", (800, 25, 56, 56), 3)],
+    "r101_fpn_legacy_f16.cams8 predictor": [("coarse", (800, 15, 28, 28), 1),
+                                            ("fine, u, v", (800, 25, 28, 28), 3)],
+    "r50_fpn_s1x_f16.cams8 decoder": [("96x168", (8, 256, 96, 168), 3),
+                                      ("48x84", (8, 256, 48, 84), 2),
+                                      ("24x42", (8, 256, 24, 42), 1)],
+}
+
+
+def u1_checks(torch, report, dev):
+    """U1 at the two cells' predictor shapes and the flagship decoder's, at
+    float16 (the cells' dtype): bit-identical to its plain version and to
+    F.interpolate, two runs equal; its time (CUDA events, device events)
+    beside its bound (bytes: each input element read once, four output
+    elements written, at 3.35 TB/s), the plain version's and F.interpolate's
+    (``library_ms``, the call the port made before); each group's sum a
+    batch."""
+    from densepose_tpu_torch.ops import resize
+    g = torch.Generator(device=dev).manual_seed(0)
+    groups = {}
+    for group, sites in U1_SITES.items():
+        entries = []
+        for site, shape, calls in sites:
+            x = torch.randn(shape, generator=g, device=dev).half()
+            got, again = resize.upsample2x_cuda(x), resize.upsample2x_cuda(x)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"U1 {group} {site}: two runs differ")
+            check(torch.equal(got, resize.upsample2x_plain(x)),
+                  f"U1 {group} {site}: differs from the plain version")
+            check(torch.equal(got, resize.upsample2x_library(x)),
+                  f"U1 {group} {site}: differs from F.interpolate")
+            launch = lambda: resize.upsample2x_cuda(x)
+            ms, dev_ms = cuda_ms(launch, reps=50), device_ms(torch, launch)
+            plain_ms = cuda_ms(lambda: resize.upsample2x_plain(x), reps=3, warmup=1)
+            lib_ms = cuda_ms(lambda: resize.upsample2x_library(x), reps=5, warmup=1)
+            bound_ms, bound_by = bound(5 * x.numel() * x.element_size(), 0)
+            entries.append({"site": f"{group}: {site}", "shape": list(shape), "calls": calls,
+                            "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": lib_ms})
+            print(f"U1 {group} {site}: {'x'.join(map(str, shape))} float16, bit-identical to "
+                  f"the plain version and F.interpolate, two runs equal: {ms:.4f} ms "
+                  f"[{dev_ms:.4f}], bound {bound_ms:.6f} ({bound_by}, "
+                  f"{100 * bound_ms / dev_ms:.1f}% of it), plain {plain_ms:.4f}, F.interpolate "
+                  f"{lib_ms:.4f}; {calls} a batch")
+            del x, got, again
+            torch.cuda.empty_cache()
+        total = {k: sum(e[k] * e["calls"] for e in entries)
+                 for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+        print(f"U1 {group}, a batch: {total['ms']:.4f} ms [{total['device_ms']:.4f}], bound "
+              f"{total['bound_ms']:.6f} ({100 * total['bound_ms'] / total['device_ms']:.1f}% of "
+              f"it), plain {total['plain_ms']:.4f}, F.interpolate {total['library_ms']:.4f}")
+        groups[group] = (entries, total)
+    entries = [e for es, _ in groups.values() for e in es]
+    per_batch = groups["r50_fpn_s1x_f16.cams8 predictor"][1]
+    report[entry_name(U1, "float16")] = {
+        "name": entry_name(U1, "float16"), "route": "cuda", "source": U1_SOURCE,
+        "replaces": U1_REPLACES,
+        "check": "bit-identical to the plain version and F.interpolate, two runs equal",
+        "launches": 0, "launches_per_path": {}, "max_abs_err": 0.0,
+        **per_batch, "bound_by": "bytes", "dtype": "float16", "sites": entries,
+    }
 
 
 def q1_per_request(pred):
@@ -3588,8 +3725,8 @@ def aot_program(torch, report, dev, tmp, tag, pred, per_request, sparse=False):
               f"{eb:.3f} ms of {pw:.3f} / {ew:.3f} ms wall, {pn} / {en} device events; "
               "largest differences by kernel (ms): " + "; ".join(
                   f"{k} {pk.get(k, 0.0):.3f} / {ek.get(k, 0.0):.3f}" for k in delta[:4]))
-    count_launches(report, f"aot {tag}", path_dtype(()), launches, per_request, AOT_TIMED,
-                   "program requests")
+    count_launches(report, f"aot {tag}", path_dtype(()), launches, with_u1(per_request, pred.cfg),
+                   AOT_TIMED, "program requests")
     print(f"aot {tag}: aot_export_bytes {export_s:.2f} s, {os.path.getsize(path) / 2**20:.1f} "
           f"MiB .pt2 ({len(consts)} constants, {on_host} on the host), aot_load {load_s:.2f} s; "
           f"{AOT_TIMED} requests of the program "
@@ -3791,7 +3928,7 @@ def spatial_run(torch, report, pred, tag, dtype, kind, devices, per_request, bac
     stats = fwd.stats.as_dict()
     peaks = {f"cuda:{c}": torch.cuda.max_memory_allocated(c) / 2**20 for c in cards}
     check(plain.calls == 0, f"{what}: {plain.calls} plain-version calls")
-    expected = dict(per_request)
+    expected = with_u1(per_request, pred.cfg, rows=True)
     if kind == "int8":  # every shard owns rows at every level of a 480x640 frame
         expected[Q1] = q1_per_request(pred) + (n - 1) * backbone_q1
     count_launches(report, what, dtype, launches, expected, len(timed))
@@ -3810,9 +3947,9 @@ def spatial_run(torch, report, pred, tag, dtype, kind, devices, per_request, bac
         fwd(timed[0])
         torch.cuda.synchronize()
     pooled = held.k3 if SPARSE_POOLER in os.environ else held.k2
-    check(len(held.k1) == 2 and len(pooled) == 2 and len(held.q1) == expected[Q1],
-          f"{what}: held {len(held.k1)} K1, {len(held.k2)} K2, {len(held.k3)} K3 and "
-          f"{len(held.q1)} Q1 calls")
+    check(len(held.k1) == 2 and len(pooled) == 2 and len(held.q1) == expected[Q1]
+          and len(held.u1) == expected[U1], f"{what}: held {len(held.k1)} K1, {len(held.k2)} "
+          f"K2, {len(held.k3)} K3, {len(held.q1)} Q1 and {len(held.u1)} U1 calls")
     print(f"held: one {what} request, {held.summary()}")
     if keep:
         qw = pred.model.backbone.fpn_output2.qweight
@@ -3942,7 +4079,7 @@ def new_backbone_path(torch, report, dev, tag, cfg, params, per_request, smi,
         launches = {k: fn.launches for k, fn in counters().items()}
         variants = dict(counters()[Q1].variant_launches)
     check(plain.calls == 0, f"{tag}: {plain.calls} plain-version calls")
-    count_launches(report, tag, dtype, launches, per_request, len(timed))
+    count_launches(report, tag, dtype, launches, with_u1(per_request, cfg), len(timed))
     if per_request[Q1]:
         report[Q1]["variant_launches_per_path"][tag] = variants
     peak = torch.cuda.max_memory_allocated() / 2**20
@@ -4200,8 +4337,8 @@ def unfolded_path(torch, report, dev, name, smi):
         check(plain.calls == 0, f"unfolded {name} {tag}: {plain.calls} plain-version calls")
         busy[tag] = breakdown(torch, pred, imgs[0], float(np.median(ts)))
         if tag == "unfolded":
-            count_launches(report, f"{name} unfolded FrozenBN", "float32", launches, ON_K2,
-                           len(imgs))
+            count_launches(report, f"{name} unfolded FrozenBN", "float32", launches,
+                           with_u1(ON_K2, pred.cfg), len(imgs))
         lat[tag] = ts
         for out in got:
             check(int(out["num_instances"]) >= 1, f"unfolded {name} {tag}: no detections")
@@ -4303,7 +4440,8 @@ def heads_phase(torch, report, dev, flagship):
         with HeldAgainstPlain(torch, f"{tag} head", keep=True) as held, torch.inference_mode():
             out = head(*args)
             torch.cuda.synchronize()
-        check(len(held.k2) == 1 and not held.k1, f"{tag} head: held {len(held.k2)} K2 calls")
+        check(len(held.k2) == 1 and not held.k1 and len(held.u1) == (tag == "keypoint"),
+              f"{tag} head: held {len(held.k2)} K2 and {len(held.u1)} U1 calls")
         shape = (HEAD_BOXES, 28, 28) if tag == "mask" else (HEAD_BOXES, 17, 56, 56)
         check(tuple(out.shape) == shape and bool(torch.isfinite(out).all()),
               f"{tag} head: output {tuple(out.shape)}")
@@ -4447,6 +4585,11 @@ def main():
     for k in ptxas["roi_align_sparse"] + ptxas["conv_s8"]:
         check((k.get("stack"), k.get("spill_stores"), k.get("spill_loads")) == (0, 0, 0),
               f"build: {k['kernel']} has a stack frame or spills")
+    check(len(ptxas["upsample2x"]) == 6, "build: U1 has 6 instantiations (float, __half, "
+          f"__nv_bfloat16 x vector or scalar access), got {len(ptxas['upsample2x'])}")
+    for k in ptxas["upsample2x"]:
+        check((k.get("stack"), k.get("spill_stores"), k.get("spill_loads")) == (0, 0, 0),
+              f"build: {k['kernel']} has a stack frame or spills")
     check(len(ptxas["conv_s8"]) == 16, "build: Q1 has 16 instantiations (wgmma: tiles 64, 80, "
           "128 and 256 channels wide x 64- and 128-channel K chunks; mma_sync: 16- and 8-byte "
           "copies x CTAs 64, 128 and 256 channels wide, 4-byte copies x 64 and 128), got "
@@ -4461,6 +4604,7 @@ def main():
 
     kernel_checks(torch, cfg, report, dev)
     q1_checks(torch, report, dev, ptxas["conv_s8"])
+    u1_checks(torch, report, dev)
     lap("kernel checks")
     for entry in report.values():
         entry["ptxas"] = ptxas[SOURCES[entry["name"].split("[")[0]]]
@@ -4482,8 +4626,9 @@ def main():
                 pred(frames(1, 1)[0])
                 torch.cuda.synchronize()
             check(len(held.k1) == 2 and len(held.k2) == 2
-                  and sorted(k[3] for k in held.k2) == [1, 5],
-                  f"{name} {dtype}: held {held.k1} K1 and {held.k2} K2 calls")
+                  and sorted(k[3] for k in held.k2) == [1, 5]
+                  and len(held.u1) == u1_per_call(pred.cfg),
+                  f"{name} {dtype}: held {held.k1} K1, {held.k2} K2 and {held.u1} U1 calls")
             print(f"held: one {name} {dtype} request, {held.summary()}")
         del pred
         torch.cuda.empty_cache()

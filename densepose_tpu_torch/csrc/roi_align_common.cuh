@@ -8,6 +8,7 @@
 // __half or __nv_bfloat16 (the element type T of their templates). A load
 // widens T to float exactly; everything between runs in float; a store
 // rounds to T once, to nearest even, as PyTorch's .to(dtype) does.
+// U1 (upsample2x.cu) takes its element-type helpers and DtypeCode from here.
 
 #pragma once
 

@@ -30,7 +30,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = {"nms": "nms.cu", "roi_align": "roi_align.cu",
-           "roi_align_sparse": "roi_align_sparse.cu", "conv_s8": "conv_s8.cu"}
+           "roi_align_sparse": "roi_align_sparse.cu", "conv_s8": "conv_s8.cu",
+           "upsample2x": "upsample2x.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -88,14 +89,16 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Built]:
 
 
 # mangled template type arguments -> their names
-_MANGLED_TYPES = {"f": "float", "6__half": "__half", "13__nv_bfloat16": "__nv_bfloat16"}
+_MANGLED_TYPES = {"f": "float", "6__half": "__half", "13__nv_bfloat16": "__nv_bfloat16",
+                  "Lb0E": "false", "Lb1E": "true"}
+_MANGLED_ARG = r"f|6__half|13__nv_bfloat16|Li\d+E|Lb[01]E"
 
 
 def _kernel_name(mangled: str) -> str:
     """The ``*_kernel`` identifier of a mangled name, read component by
     component of its nested name (length-prefixed, so the digits of an
     anonymous namespace's hash do not cut it), with its template arguments,
-    if any: element types and integers."""
+    if any: element types, integers and bools."""
     pos = 3 if mangled.startswith("_ZN") else 2
     while True:
         m = re.match(r"\d+", mangled[pos:])
@@ -104,9 +107,9 @@ def _kernel_name(mangled: str) -> str:
         start = pos + m.end()
         pos = start + int(m.group())
         if mangled[start:pos].endswith("_kernel"):
-            t = re.match(r"I((?:f|6__half|13__nv_bfloat16|Li\d+E)+)E", mangled[pos:])
+            t = re.match(rf"I((?:{_MANGLED_ARG})+)E", mangled[pos:])
             args = [_MANGLED_TYPES.get(a) or a[2:-1] for a in
-                    re.findall(r"f|6__half|13__nv_bfloat16|Li\d+E", t.group(1))] if t else []
+                    re.findall(_MANGLED_ARG, t.group(1))] if t else []
             return mangled[start:pos] + (f"<{', '.join(args)}>" if args else "")
 
 
@@ -114,7 +117,7 @@ def ptxas_report(log: str) -> List[dict]:
     """Per kernel of a build log: registers, static shared memory, stack
     frame and spills, from ptxas -v. A kernel is named by the ``*_kernel``
     part of its mangled name and its template arguments, if any: an element
-    type and an integer (``roi_align_kernel<__half, 2>``)."""
+    type and an integer or a bool (``roi_align_kernel<__half, 2>``)."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)

@@ -4,6 +4,7 @@
     torch.ops.densepose_tpu_torch.roi_align         K2 (csrc/roi_align.cu)
     torch.ops.densepose_tpu_torch.roi_align_sparse  K3 (csrc/roi_align_sparse.cu)
     torch.ops.densepose_tpu_torch.conv_s8           Q1 (csrc/conv_s8.cu)
+    torch.ops.densepose_tpu_torch.upsample2x        U1 (csrc/upsample2x.cu)
 
 Each operator has a schema, a CUDA kernel (the op module's ``*_cuda``
 wrapper, which launches the hand-written kernel, counts the launch and raises
@@ -11,11 +12,17 @@ on inputs it does not take), a CPU kernel (the op module's plain PyTorch
 version) and a fake kernel that gives the output's shape and dtype without
 touching data. While ``torch.export`` traces, the routers the model calls
 (``nms.nms_keep``, ``roi_align.roi_align_multilevel`` / ``roi_align_single``,
-``roi_align_sparse.roi_align_sparse``, ``conv_int8.conv_s8``) call these
+``roi_align_sparse.roi_align_sparse``, ``conv_int8.conv_s8``,
+``resize.upsample2x``) call these
 operators, so each kernel call is one node of the exported program
 (``DensePosePredictor.aot_export_bytes``), and the dispatcher picks the
 kernel by the tensors' device when the program runs; loading a program needs
 this module imported, which importing ``densepose_tpu_torch.ops`` does.
+U1's CPU kernel is ``F.interpolate`` (``resize.upsample2x_library``), the
+route ``resize_bilinear`` takes for CPU tensors, and not U1's plain version:
+on the CPU, PyTorch's float32 upsample rounds in one of two orders, chosen
+by the shape (tests/test_torch_upsample.py), so only ``F.interpolate`` itself
+makes a program on the CPU equal to the eager request at every shape.
 Eager calls go from the routers to the same wrappers directly: on an H100
 the dispatcher added more than 5 us of host time to a call of K2, K3 and Q1,
 whose arguments hold lists (PERF.md section 6; chip_smoke.py's
@@ -37,7 +44,7 @@ from typing import List, Optional
 
 import torch
 
-from . import conv_int8, nms, roi_align, roi_align_sparse
+from . import conv_int8, nms, resize, roi_align, roi_align_sparse
 
 NAMESPACE = "densepose_tpu_torch"
 
@@ -140,3 +147,24 @@ def _conv_s8_fake(qx, qw, qb: Optional[torch.Tensor], vec: Optional[torch.Tensor
 
 
 _register("conv_s8", _conv_s8_cpu, _conv_s8_cuda, _conv_s8_fake)
+
+
+# -- U1 ------------------------------------------------------------------------
+
+_LIB.define("upsample2x(Tensor x) -> Tensor")
+
+
+def _upsample2x_cpu(x):
+    return resize.upsample2x_library(x).contiguous()
+
+
+def _upsample2x_cuda(x):
+    return resize.upsample2x_cuda(x)
+
+
+def _upsample2x_fake(x):
+    n, c, h, w = x.shape
+    return x.new_empty((n, c, 2 * h, 2 * w))
+
+
+_register("upsample2x", _upsample2x_cpu, _upsample2x_cuda, _upsample2x_fake)

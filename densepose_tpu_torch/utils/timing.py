@@ -37,7 +37,7 @@ import torch
 from torch.profiler import record_function
 
 TRACE_FILE = "trace.json"
-# spans the ring keeps: ~4000 batched calls of ~16 spans, more than a minute
+# spans the ring keeps: ~2500 batched calls of up to ~26 spans, more than a minute
 # of any benchmarked cell
 RING_SPANS = 1 << 16
 

@@ -6,7 +6,7 @@ same ``.npz`` arrays bit for bit and the same ``.config.json``; each
 package's bundle loaded by the other package's CLI loader; the port's
 ``--calib`` sidecar loaded by the JAX predictor; the port's CLI on a bundle;
 the ``--aot`` program against the eager request; and ``torch.library.opcheck``
-on each of the four operators.
+on each of the five operators.
 
 Tolerances: detection counts, classes and validity exact; boxes, scores and
 maps within tests/test_torch_pipeline.py's fp32 tolerances (the two packages
@@ -33,7 +33,8 @@ from densepose_tpu_torch import export, run  # noqa: E402
 from densepose_tpu_torch.checkpoint.transform import params_from_jax  # noqa: E402
 from densepose_tpu_torch.config import get_cfg  # noqa: E402
 from densepose_tpu_torch.models.rcnn import densepose_bucket  # noqa: E402
-from densepose_tpu_torch.ops import conv_int8, nms, roi_align, roi_align_sparse  # noqa: E402
+from densepose_tpu_torch.ops import (conv_int8, nms, resize, roi_align,  # noqa: E402
+                                     roi_align_sparse)
 from densepose_tpu_torch.predictor import DensePosePredictor  # noqa: E402
 from tests.test_torch_pipeline import ATOL, RTOL, tiny_cfg  # noqa: E402
 from tests.torch_cases import op_args, op_cases  # noqa: E402
@@ -170,13 +171,14 @@ def test_aot_program_equals_eager(exported):
     runs it on frames whose DensePose stage takes two different buckets of
     the program's nested ``torch.cond``, with the same outputs as the eager
     request bit for bit, and the program takes only its size. K1 and K2 are
-    nodes of the program, as its operators."""
+    nodes of the program, as its operators, and so is U1 (the decoder's and
+    predictor's 2x upsamples)."""
     bundle = exported[("port", "fp32")]
     path = bundle[:-len(".npz")] + "_64x64.pt2"
     graphs = [m.code for _, m in torch.export.load(path).graph_module.named_modules()
               if hasattr(m, "code")]
     ops = {n for code in graphs for n in re.findall(r"densepose_tpu_torch\.(\w+)", code)}
-    assert ops == {"nms_keep", "roi_align"}  # the kernels are operators of the program
+    assert ops == {"nms_keep", "roi_align", "upsample2x"}  # the kernels are its operators
     assert sum("torch.ops.higher_order.cond" in code for code in graphs) == 2
     with open(path, "rb") as f:
         program = DensePosePredictor.aot_load(f.read())
@@ -199,7 +201,8 @@ def test_aot_program_equals_eager(exported):
 def test_opcheck(case):
     """``torch.library.opcheck`` (schema, fake kernel, autograd registration,
     AOT dispatch) on each operator at a tiny shape, and the operator equal
-    to the plain version it routes CPU tensors to."""
+    to its kernel's plain version (U1's CPU kernel is ``F.interpolate``,
+    which rounds as the plain version at the case's odd planes)."""
     name, args = op_cases()[case]
     args = op_args(args)
     op = getattr(torch.ops.densepose_tpu_torch, name)
@@ -209,6 +212,7 @@ def test_opcheck(case):
              "roi_align_sparse": lambda: roi_align_sparse.roi_align_sparse_plain(*args),
              "conv_s8": lambda: conv_int8.conv_s8_plain(
                  *args[:4], stride=args[4], padding=args[5], dilation=args[6],
-                 transposed=args[7], relu=args[8], out_kind=conv_int8.out_kind_of(args[9]))}
+                 transposed=args[7], relu=args[8], out_kind=conv_int8.out_kind_of(args[9])),
+             "upsample2x": lambda: resize.upsample2x_plain(*args)}
     assert torch.equal(op(*args), plain[name]())
 

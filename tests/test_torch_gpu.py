@@ -25,7 +25,13 @@ variant; shapes that break the wgmma variant's preconditions refused when
 forced to it; and a small int8 flagship request with every Q1 launch held
 against the plain version, its head on the wgmma variant.
 
-The four kernels as operators (``ops/library.py``): each through
+U1 (the 2x bilinear upsample) bit for bit against ``F.interpolate`` and its
+plain version at float16, bfloat16 and float32, at the two cells' predictor
+shapes, the flagship decoder's largest and edge shapes; on the int8 route's
+channel slices; refusing planes that are not contiguous; and its launches in
+a ``predict_batch`` of each benchmarked configuration.
+
+The five kernels as operators (``ops/library.py``): each through
 ``torch.ops.densepose_tpu_torch`` on CUDA tensors, one launch of its kernel a
 call, against its plain version as above, and ``torch.library.opcheck`` on
 the card; and a small flagship request exported as a program
@@ -90,7 +96,10 @@ import pytest
 import torch
 
 from densepose_tpu_torch.models.rcnn import image_tensor
-from densepose_tpu_torch.ops import conv_int8, cuda_build, nms, roi_align, roi_align_sparse
+import torch.nn.functional as F
+
+from densepose_tpu_torch.ops import (conv_int8, cuda_build, nms, resize, roi_align,
+                                     roi_align_sparse)
 from torch_cases import (  # tests/ is on the path (rootdir insertion)
     BASIC_BLOCK, C4_DETECTION, C4_TAME, RETINANET, batched_pooler_cases, k1_edge_cases,
     k3_edge_cases, op_args, op_cases, per_class_nms_case, set_cfg, tame, unit_variance_)
@@ -866,20 +875,98 @@ def test_int8_request_on_card(cuda, monkeypatch):
     assert all(bool(torch.isfinite(v).all()) for v in out.values() if v.is_floating_point())
 
 
+# -- U1, the 2x bilinear upsample ----------------------------------------------
+
+# the two cells' predictor inputs (8 frames of 100 boxes): the flagship's 2
+# and 25 channels at 56x56, R101 legacy's 15 and 25 at 28x28; the flagship
+# decoder's largest; 1x1, 1xW, Hx1, odd H and W, W not a multiple of 4
+U1_SHAPES = [(800, 2, 56, 56), (800, 25, 56, 56), (800, 15, 28, 28), (800, 25, 28, 28),
+             (8, 256, 96, 168), (1, 1, 1, 1), (1, 3, 1, 9), (2, 1, 9, 1), (4, 7, 13, 11),
+             (3, 5, 41, 37), (2, 3, 7, 33), (2, 2, 24, 42)]
+U1_DTYPES = [torch.float16, torch.bfloat16, torch.float32]
+
+
+def interpolate2x(x):
+    return F.interpolate(x, scale_factor=(2.0, 2.0), mode="bilinear", align_corners=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", U1_DTYPES, ids=str)
+@pytest.mark.parametrize("shape", U1_SHAPES, ids=str)
+def test_u1_matches_interpolate(cuda, shape, dtype):
+    """``resize_bilinear`` at scale 2 on the card is U1, one launch a call,
+    bit-identical to ``F.interpolate`` and to its plain version, two runs the
+    same bits."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=g, device=cuda) * 3).to(dtype)
+    before = resize.upsample2x_cuda.launches
+    got = resize.resize_bilinear(x, (2 * shape[2], 2 * shape[3]), scale=(2.0, 2.0))
+    again = resize.upsample2x_cuda(x)
+    torch.cuda.synchronize()
+    assert resize.upsample2x_cuda.launches == before + 2
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, again)
+    assert torch.equal(got, interpolate2x(x))
+    if x.numel() <= 10 ** 7:
+        assert torch.equal(got, resize.upsample2x_plain(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", U1_DTYPES, ids=str)
+def test_u1_takes_channel_slices(cuda, dtype):
+    """The int8 route's channel slices y[:, c:c + n] of the merged (N, 77, H,
+    W) deconvolution go through U1 without a copy."""
+    y = torch.randn((8, 77, 56, 56), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda).to(dtype)
+    for c0, n in ((0, 2), (2, 25), (27, 25), (52, 25)):
+        x = y[:, c0:c0 + n]
+        assert torch.equal(resize.upsample2x_cuda(x), interpolate2x(x))
+
+
+@pytest.mark.gpu
+def test_u1_refuses_planes_that_are_not_contiguous(cuda):
+    x = torch.randn((2, 3, 8, 12), device=cuda)
+    for bad in (x.transpose(2, 3), x[..., ::2], x.to(memory_format=torch.channels_last),
+                x.to(torch.float64), x[0]):
+        with pytest.raises(ValueError):
+            resize.upsample2x_cuda(bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,launches", [("densepose_rcnn_R_50_FPN_s1x", 4 + 6),
+                                           ("densepose_rcnn_R_101_FPN_s1x_legacy", 4)])
+def test_u1_launches_a_predict_batch(cuda, name, launches):
+    """``predict_batch`` of each benchmarked configuration at float16: one U1
+    launch for each of the chart predictor's four heads, and on the flagship
+    one for each of its decoder's 2x upsamples (p3 one, p4 two, p5 three)."""
+    from densepose_tpu_torch.models.roi_heads import _decoder_chains
+    pred = small_zoo_predictor(cuda, name, ("TPU.COMPUTE_DTYPE", "float16"))
+    decoder = (sum(len(idxs) for _, idxs, up in _decoder_chains(pred.cfg) if up)
+               if pred.cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_ON else 0)
+    assert launches == 4 + decoder
+    frames = np.stack([(np.random.RandomState(s).rand(96, 128, 3) * 255).astype(np.uint8)
+                       for s in (40, 41)])
+    before = resize.upsample2x_cuda.launches
+    pred.predict_batch(frames)
+    torch.cuda.synchronize()
+    assert resize.upsample2x_cuda.launches - before == launches
+
+
 # -- the kernels as operators, and the exported program ------------------------
 
 OP_WRAPPERS = {"nms_keep": (nms, "nms_keep_cuda"), "roi_align": (roi_align, "roi_align_cuda"),
                "roi_align_sparse": (roi_align_sparse, "roi_align_sparse_cuda"),
-               "conv_s8": (conv_int8, "conv_s8_cuda")}
+               "conv_s8": (conv_int8, "conv_s8_cuda"),
+               "upsample2x": (resize, "upsample2x_cuda")}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", range(len(op_cases())))
 def test_operators_on_card(cuda, case):
     """Each operator on CUDA tensors launches its kernel once and agrees with
-    the operator on the same CPU tensors (the plain version): K1 and Q1
-    exactly, K2 bit for bit at ratio 2 and within 1e-5 at ratio 0, K3 within
-    1e-5; then ``opcheck`` on the card."""
+    the operator on the same CPU tensors (the plain version; U1's is
+    ``F.interpolate``): K1, Q1 and U1 exactly, K2 bit for bit at ratio 2 and
+    within 1e-5 at ratio 0, K3 within 1e-5; then ``opcheck`` on the card."""
     name, args = op_cases()[case]
     op = getattr(torch.ops.densepose_tpu_torch, name)
     module, wrapper = OP_WRAPPERS[name]

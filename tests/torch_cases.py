@@ -152,7 +152,9 @@ def op_cases(seed=0):
     list of arrays for a tensor list, and a string for a dtype
     (``op_args`` makes them tensors). K1 plain and classed; K2 at ratio 2
     and at ratio 0 (adaptive); K3 at ratio 2; Q1 a 3x3 link to s8 with ReLU
-    and a 4x4 stride-2 transposed convolution to float32."""
+    and a 4x4 stride-2 transposed convolution to float32; U1 on odd planes
+    (at which PyTorch's float32 upsample rounds alike on the CPU and the
+    card)."""
     rng = np.random.RandomState(seed)
     xy = rng.rand(2, 130, 2).astype(np.float32) * 40
     boxes = np.concatenate([xy, xy + 4 + rng.rand(2, 130, 2).astype(np.float32) * 20], -1)
@@ -168,13 +170,15 @@ def op_cases(seed=0):
     qwt = rng.randint(-127, 128, (24, 4, 4, 32)).astype(np.int8)
     qb = rng.randint(-500, 500, (24,)).astype(np.int32)
     vec = (rng.rand(24) * 1e-3).astype(np.float32)
+    maps = rng.randn(2, 5, 41, 37).astype(np.float32)
     return [("nms_keep", (boxes, valid, 0.5, None)),
             ("nms_keep", (boxes, valid, 0.5, classes)),
             ("roi_align", (feats, rois, levels, scales, [7, 7], 2, True)),
             ("roi_align", (feats, rois, levels, scales, [7, 7], 0, False)),
             ("roi_align_sparse", (feats, rois, levels, scales, [7, 7], 2, True)),
             ("conv_s8", (qx, qw, qb, vec, [1, 1], [1, 1], [1, 1], False, True, "int8")),
-            ("conv_s8", (qx, qwt, None, vec, [2, 2], [1, 1], [1, 1], True, False, "float32"))]
+            ("conv_s8", (qx, qwt, None, vec, [2, 2], [1, 1], [1, 1], True, False, "float32")),
+            ("upsample2x", (maps,))]
 
 
 def op_args(args, device="cpu"):
