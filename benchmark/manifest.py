@@ -3,8 +3,10 @@
 A cell (an entry of ``workloads``) names a configuration and a traffic mix.
 The configuration's file is the one ``configs`` gives; the traffic mix is
 ``traffic/<traffic>.json``; each metric, end-to-end or per-layer, is read by
-``metrics/<name>.py``. So a configuration, a mix, a cell or a metric is added
-with new files and entries, and no existing file changes.
+``metrics/<name>.py``; the backbone and the DensePose head a configuration
+names are files under ``reference/`` (``parts.py``). So a configuration, a
+mix, a cell, a metric or a model part is added with new files and entries,
+and no existing file changes.
 """
 
 from __future__ import annotations
@@ -62,11 +64,16 @@ def metrics_of(manifest: dict, cell_name: str, trace: bool) -> List[dict]:
 
 def reader(name: str):
     """The ``read(run)`` function of ``metrics/<name>.py``."""
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"benchmark.metrics.{name}", path)
+    return load_file(HERE / "metrics" / f"{name}.py", f"benchmark.metrics.{name}").read
+
+
+def load_file(path: Path, module_name: str):
+    """The module that the Python file ``path`` holds, loaded as
+    ``module_name`` (not entered in ``sys.modules``)."""
+    spec = importlib.util.spec_from_file_location(module_name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
 
 
 def _line(s, limit=200) -> bool:

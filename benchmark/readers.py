@@ -8,6 +8,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional
 
+from . import parts
 from .counts import kernels, model, shapes
 
 
@@ -74,10 +75,9 @@ def k2_bound_per_batch(run: Run) -> float:
     b = "MODEL.ROI_BOX_HEAD."
     dp = "MODEL.ROI_DENSEPOSE_HEAD."
     box = kernels.k2_work(c["MODEL.RPN.POST_NMS_TOPK_TEST"] * run.batch,
-                          c["MODEL.FPN.OUT_CHANNELS"], c[b + "POOLER_RESOLUTION"],
+                          parts.backbone(c).out_channels(c), c[b + "POOLER_RESOLUTION"],
                           c[b + "POOLER_SAMPLING_RATIO"], run.elem_bytes)
-    width = c[dp + "DECODER_NUM_CLASSES"] if c[dp + "DECODER_ON"] else c["MODEL.FPN.OUT_CHANNELS"]
-    dense = kernels.k2_work(c["TEST.DETECTIONS_PER_IMAGE"] * run.batch, width,
+    dense = kernels.k2_work(c["TEST.DETECTIONS_PER_IMAGE"] * run.batch, parts.head_in_channels(c),
                             c[dp + "POOLER_RESOLUTION"], c[dp + "POOLER_SAMPLING_RATIO"],
                             run.elem_bytes)
     return kernels.bound_s(*box) + kernels.bound_s(*dense)

@@ -1,12 +1,15 @@
 """The reference DensePose R-CNN in plain float32 PyTorch.
 
-One frame at a time, no kernels, no batching, TF32 off: the ResNet-FPN
-backbone, the RPN, the FastRCNN box stage, detector_postprocess, and the
-DensePose stage (the Panoptic-FPN decoder and a single-level pooler, or the
-legacy multi-level pooler; the V1ConvX head; the chart predictor's deconvs
-and 2x upsample). It is written from the published descriptions of
-detectron2's DensePose models. It keeps the semantics that the served
-configuration states where they differ from upstream detectron2:
+One frame at a time, no kernels, no batching, TF32 off: the backbone, the
+RPN, the FastRCNN box stage, detector_postprocess, and the DensePose stage
+(the Panoptic-FPN decoder and a single-level pooler, or the legacy
+multi-level pooler; the head; the chart predictor's deconvs and 2x
+upsample). The backbone and the DensePose head are parts found by the names
+the configuration gives them (``benchmark/parts.py``); this module holds
+what every configuration shares, and reads the levels' strides, widths and
+padding from the backbone part. It is written from the published
+descriptions of detectron2's DensePose models. It keeps the semantics that
+the served configuration states where they differ from upstream detectron2:
 
 * the RPN clips its proposals with the padded input's (W, H) passed where
   (H, W) is expected, so x is clamped to the padded height and y to the
@@ -15,10 +18,9 @@ configuration states where they differ from upstream detectron2:
   the unclipped detection boxes; the boxes are clipped only after they are
   scaled back to the frame;
 * a detection is kept when its width and height, scaled back to the frame
-  and before the clip, are >= 0;
-* FrozenBatchNorm is folded into every backbone conv as a bias.
+  and before the clip, are >= 0.
 
-The configuration is a flat dict of detectron2 keys (``MODEL.RESNETS.DEPTH``
+The configuration is a flat dict of detectron2 keys (``MODEL.RPN.NMS_THRESH``
 ...); the weights a dict of fp32 tensors under detectron2's module names
 (``state_shapes`` lists them). Nothing of the program under test is imported.
 """
@@ -31,67 +33,39 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import parts
 from . import ops
 
 Weights = Dict[str, torch.Tensor]
 
-_STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 _CHART = (("coarse_segm", "ann_index_lowres"), ("fine_segm", "index_uv_lowres"),
           ("u", "u_lowres"), ("v", "v_lowres"))
-
-
-def resnet_blocks(cfg) -> List[Tuple[str, int, int, int, int]]:
-    """(name, in channels, bottleneck channels, out channels, stride) of
-    every bottleneck block, res2 first."""
-    depth = cfg["MODEL.RESNETS.DEPTH"]
-    if depth not in _STAGE_BLOCKS or cfg["MODEL.RESNETS.NUM_GROUPS"] != 1 \
-            or cfg["MODEL.RESNETS.RES5_DILATION"] != 1:
-        raise ValueError("the reference holds ResNet-50/101 bottlenecks, one group, no dilation")
-    blocks = []
-    cin = cfg["MODEL.RESNETS.STEM_OUT_CHANNELS"]
-    cb = cfg["MODEL.RESNETS.WIDTH_PER_GROUP"]
-    cout = cfg["MODEL.RESNETS.RES2_OUT_CHANNELS"]
-    for s, n in enumerate(_STAGE_BLOCKS[depth]):
-        for i in range(n):
-            stride = 2 if (i == 0 and s > 0) else 1
-            blocks.append((f"res{s + 2}.{i}", cin, cb, cout, stride))
-            cin = cout
-        cb *= 2
-        cout *= 2
-    return blocks
 
 
 def decoder_chains(cfg) -> List[Tuple[str, int]]:
     """(feature, convs) of each decoder chain: a chain on a level of stride s
     has max(1, log2(s / common)) conv (+ 2x upsample) steps."""
     common = cfg["MODEL.ROI_DENSEPOSE_HEAD.DECODER_COMMON_STRIDE"]
-    return [(f, max(1, int(math.log2(2 ** int(f[1:]) / common))))
+    strides = parts.backbone(cfg).strides(cfg)
+    return [(f, max(1, int(math.log2(strides[f] / common))))
             for f in cfg["MODEL.ROI_HEADS.IN_FEATURES"]]
 
 
 def state_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
     """Every weight the reference reads, by detectron2 module name, with its
-    shape: convs OIHW with a bias (FrozenBN folded), linears (out, in),
-    transposed convs (in, out, kh, kw)."""
-    shapes: Dict[str, Tuple[int, ...]] = {}
+    shape, in the order the weights are drawn: the backbone part's, the RPN
+    head's, the box head's, the decoder's, the DensePose head part's and the
+    chart predictor's; convs OIHW with a bias, linears (out, in), transposed
+    convs (in, out, kh, kw)."""
+    backbone = parts.backbone(cfg)
+    shapes: Dict[str, Tuple[int, ...]] = dict(backbone.shapes(cfg))
 
     def conv(name, cin, cout, k):
         shapes[f"{name}.weight"] = (cout, cin, k, k)
         shapes[f"{name}.bias"] = (cout,)
 
-    bu = "backbone.bottom_up"
-    conv(f"{bu}.stem.conv1", 3, cfg["MODEL.RESNETS.STEM_OUT_CHANNELS"], 7)
-    for name, cin, cb, cout, _ in resnet_blocks(cfg):
-        conv(f"{bu}.{name}.conv1", cin, cb, 1)
-        conv(f"{bu}.{name}.conv2", cb, cb, 3)
-        conv(f"{bu}.{name}.conv3", cb, cout, 1)
-        if cin != cout:
-            conv(f"{bu}.{name}.shortcut", cin, cout, 1)
-    c = cfg["MODEL.FPN.OUT_CHANNELS"]
-    widths = {f"res{s + 2}": cfg["MODEL.RESNETS.RES2_OUT_CHANNELS"] * 2 ** s for s in range(4)}
-    for f in cfg["MODEL.FPN.IN_FEATURES"]:
-        conv(f"backbone.fpn_lateral{f[3:]}", widths[f], c, 1)
-        conv(f"backbone.fpn_output{f[3:]}", c, c, 3)
+    c = backbone.out_channels(cfg)
+    strides = backbone.strides(cfg)
     g = "MODEL.ANCHOR_GENERATOR."
     a = len(cfg[g + "SIZES"][0]) * len(cfg[g + "ASPECT_RATIOS"][0])
     rpn = "proposal_generator.rpn_head"
@@ -111,19 +85,16 @@ def state_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
     shapes["roi_heads.box_predictor.bbox_pred.weight"] = (4 * n, fc)
     shapes["roi_heads.box_predictor.bbox_pred.bias"] = (4 * n,)
     dp = "MODEL.ROI_DENSEPOSE_HEAD."
-    d = c
     if cfg[dp + "DECODER_ON"]:
         dims = cfg[dp + "DECODER_CONV_DIMS"]
         for f, steps in decoder_chains(cfg):
-            stride = 2 if 2 ** int(f[1:]) != cfg[dp + "DECODER_COMMON_STRIDE"] else 1
+            stride = 2 if strides[f] != cfg[dp + "DECODER_COMMON_STRIDE"] else 1
             for k in range(steps):
                 conv(f"roi_heads.decoder.{f}.{k * stride}", c if k == 0 else dims, dims, 3)
         conv("roi_heads.decoder.predictor", dims, cfg[dp + "DECODER_NUM_CLASSES"], 1)
-        d = cfg[dp + "DECODER_NUM_CLASSES"]
-    hd = cfg[dp + "CONV_HEAD_DIM"]
-    for i in range(cfg[dp + "NUM_STACKED_CONVS"]):
-        conv(f"roi_heads.densepose_head.body_conv_fcn{i + 1}", d if i == 0 else hd, hd,
-             cfg[dp + "CONV_HEAD_KERNEL"])
+    head = parts.head(cfg)
+    shapes.update(head.shapes(cfg, parts.head_in_channels(cfg)))
+    hd = head.out_channels(cfg)
     patches = cfg[dp + "NUM_PATCHES"] + 1
     k = cfg[dp + "DECONV_KERNEL"]
     for _, name in _CHART:
@@ -131,41 +102,6 @@ def state_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
         shapes[f"roi_heads.densepose_predictor.{name}.weight"] = (hd, cout, k, k)
         shapes[f"roi_heads.densepose_predictor.{name}.bias"] = (cout,)
     return shapes
-
-
-def _conv(x, w: Weights, name: str, stride: int = 1, relu: bool = False):
-    weight = w[f"{name}.weight"]
-    y = F.conv2d(x, weight, w[f"{name}.bias"], stride=stride, padding=weight.shape[-1] // 2)
-    return F.relu(y) if relu else y
-
-
-def backbone(cfg, w: Weights, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """ResNet (stride in the 1x1 conv, detectron2's MSRA style) + FPN (sum
-    fuse, nearest 2x top-down, p6 = p5 subsampled by 2): {p2 .. p6}."""
-    bu = "backbone.bottom_up"
-    if not cfg["MODEL.RESNETS.STRIDE_IN_1X1"]:
-        raise ValueError("the reference holds the stride in the 1x1 conv")
-    x = _conv(x, w, f"{bu}.stem.conv1", stride=2, relu=True)
-    x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
-    stages = {}
-    for name, cin, _, cout, stride in resnet_blocks(cfg):
-        b = f"{bu}.{name}"
-        y = _conv(x, w, f"{b}.conv1", stride=stride, relu=True)
-        y = _conv(y, w, f"{b}.conv2", relu=True)
-        y = _conv(y, w, f"{b}.conv3")
-        short = _conv(x, w, f"{b}.shortcut", stride=stride) if cin != cout else x
-        x = F.relu(y + short)
-        stages[name.split(".")[0]] = x
-    out, prev = {}, None
-    for f in reversed(cfg["MODEL.FPN.IN_FEATURES"]):
-        lateral = _conv(stages[f], w, f"backbone.fpn_lateral{f[3:]}")
-        if prev is not None:
-            lateral = lateral + F.interpolate(prev, scale_factor=2.0, mode="nearest")
-        prev = lateral
-        out[f"p{f[3:]}"] = _conv(lateral, w, f"backbone.fpn_output{f[3:]}")
-    top = max(int(f[3:]) for f in cfg["MODEL.FPN.IN_FEATURES"])
-    out[f"p{top + 1}"] = F.max_pool2d(out[f"p{top}"], kernel_size=1, stride=2)
-    return out
 
 
 def rpn(cfg, w: Weights, feats: Dict[str, torch.Tensor], pad_hw: Tuple[int, int]):
@@ -177,16 +113,17 @@ def rpn(cfg, w: Weights, feats: Dict[str, torch.Tensor], pad_hw: Tuple[int, int]
     g = "MODEL.ANCHOR_GENERATOR."
     head = "proposal_generator.rpn_head"
     sizes, ratios = cfg[g + "SIZES"], cfg[g + "ASPECT_RATIOS"]
+    strides = parts.backbone(cfg).strides(cfg)
     boxes_all, scores_all, levels_all = [], [], []
     for i, f in enumerate(cfg[r + "IN_FEATURES"]):
         # one entry is shared by every level, otherwise one entry a level
         cells = ops.cell_anchors(sizes[i if len(sizes) > 1 else 0],
                                  ratios[i if len(ratios) > 1 else 0])
         x = feats[f]
-        t = _conv(x, w, f"{head}.conv", relu=True)
-        logits = _conv(t, w, f"{head}.objectness_logits")[0].permute(1, 2, 0).reshape(-1)
-        deltas = _conv(t, w, f"{head}.anchor_deltas")[0].permute(1, 2, 0).reshape(-1, 4)
-        anchors = ops.grid_anchors(x.shape[-2], x.shape[-1], 2 ** int(f[1:]), cells,
+        t = ops.conv(x, w, f"{head}.conv", relu=True)
+        logits = ops.conv(t, w, f"{head}.objectness_logits")[0].permute(1, 2, 0).reshape(-1)
+        deltas = ops.conv(t, w, f"{head}.anchor_deltas")[0].permute(1, 2, 0).reshape(-1, 4)
+        anchors = ops.grid_anchors(x.shape[-2], x.shape[-1], strides[f], cells,
                                    cfg[g + "OFFSET"]).to(x.device)
         k = min(logits.shape[0], cfg[r + "PRE_NMS_TOPK_TEST"])
         idx = torch.sort(logits, descending=True, stable=True).indices[:k]
@@ -224,7 +161,8 @@ def box_stage(cfg, w: Weights, feats: Dict[str, torch.Tensor], proposals: torch.
     names = cfg["MODEL.ROI_HEADS.IN_FEATURES"]
     if cfg[b + "NUM_CONV"] or cfg[b + "CLS_AGNOSTIC_BBOX_REG"]:
         raise ValueError("the reference box head holds FCs and class-specific regression")
-    scales = [1.0 / 2 ** int(f[1:]) for f in names]
+    strides = parts.backbone(cfg).strides(cfg)
+    scales = [1.0 / strides[f] for f in names]
     pooled = ops.roi_align_levels([feats[f][0] for f in names], proposals, scales,
                                   cfg[b + "POOLER_RESOLUTION"], cfg[b + "POOLER_SAMPLING_RATIO"],
                                   cfg[b + "POOLER_TYPE"] == "ROIAlignV2")
@@ -264,27 +202,27 @@ def densepose(cfg, w: Weights, feats: Dict[str, torch.Tensor],
     res = cfg[dp + "POOLER_RESOLUTION"]
     ratio = cfg[dp + "POOLER_SAMPLING_RATIO"]
     aligned = cfg[dp + "POOLER_TYPE"] == "ROIAlignV2"
-    if cfg[dp + "NAME"] != "DensePoseV1ConvXHead" or cfg[dp + "DECODER_NORM"]:
-        raise ValueError("the reference holds the V1ConvX head and an unnormalized decoder")
+    if cfg[dp + "DECODER_NORM"]:
+        raise ValueError("the reference holds an unnormalized decoder")
+    strides = parts.backbone(cfg).strides(cfg)
     if cfg[dp + "DECODER_ON"]:
         common = cfg[dp + "DECODER_COMMON_STRIDE"]
         acc = None
         for f, steps in decoder_chains(cfg):
             x = feats[f]
-            up = 2 ** int(f[1:]) != common
+            up = strides[f] != common
             for k in range(steps):
-                x = _conv(x, w, f"roi_heads.decoder.{f}.{k * 2 if up else k}", relu=True)
+                x = ops.conv(x, w, f"roi_heads.decoder.{f}.{k * 2 if up else k}", relu=True)
                 if up:
                     x = F.interpolate(x, scale_factor=2.0, mode="bilinear", align_corners=False)
             acc = x if acc is None else acc + x
-        sem = _conv(acc, w, "roi_heads.decoder.predictor")
+        sem = ops.conv(acc, w, "roi_heads.decoder.predictor")
         x = ops.roi_align(sem[0], boxes, 1.0 / common, res, ratio, aligned)
     else:
-        scales = [1.0 / 2 ** int(f[1:]) for f in names]
+        scales = [1.0 / strides[f] for f in names]
         x = ops.roi_align_levels([feats[f][0] for f in names], boxes, scales, res, ratio,
                                  aligned)
-    for i in range(cfg[dp + "NUM_STACKED_CONVS"]):
-        x = _conv(x, w, f"roi_heads.densepose_head.body_conv_fcn{i + 1}", relu=True)
+    x = parts.head(cfg).forward(cfg, w, x)
     k = cfg[dp + "DECONV_KERNEL"]
     up = float(cfg[dp + "UP_SCALE"])
     out = {}
@@ -298,8 +236,8 @@ def densepose(cfg, w: Weights, feats: Dict[str, torch.Tensor],
 
 def preprocess(cfg, image: torch.Tensor):
     """(H0, W0, 3) uint8 BGR -> (1, 3, Hp, Wp) normalized and zero-padded to
-    a multiple of 32, the resize factor k and the resized (h1, w1):
-    detectron2's ResizeShortestEdge at test time."""
+    a multiple of the backbone part's size divisibility, the resized (h1, w1)
+    and (Hp, Wp): detectron2's ResizeShortestEdge at test time."""
     h0, w0 = image.shape[:2]
     lo, hi = cfg["INPUT.MIN_SIZE_TEST"], cfg["INPUT.MAX_SIZE_TEST"]
     k = min(lo / min(h0, w0), hi / max(h0, w0))
@@ -310,7 +248,8 @@ def preprocess(cfg, image: torch.Tensor):
     mean = torch.tensor(cfg["MODEL.PIXEL_MEAN"], dtype=torch.float32, device=x.device)
     std = torch.tensor(cfg["MODEL.PIXEL_STD"], dtype=torch.float32, device=x.device)
     x = (x - mean[:, None, None]) / std[:, None, None]
-    hp, wp = -(-h1 // 32) * 32, -(-w1 // 32) * 32
+    d = parts.backbone(cfg).size_divisibility(cfg)
+    hp, wp = -(-h1 // d) * d, -(-w1 // d) * d
     x = F.pad(x, (0, wp - w1, 0, hp - h1))
     return x[None], (h1, w1), (hp, wp)
 
@@ -325,7 +264,7 @@ def detect(cfg, w: Weights, image: torch.Tensor) -> dict:
     "keep": the candidates kept as detections, by decreasing score}."""
     h0, w0 = image.shape[:2]
     x, (h1, w1), pad_hw = preprocess(cfg, image)
-    feats = backbone(cfg, w, x)
+    feats = parts.backbone(cfg).forward(cfg, w, x)
     proposals = rpn(cfg, w, feats, pad_hw)
     net, scores, classes, finite, keep = box_stage(cfg, w, feats, proposals)
     scale = torch.tensor([w0 / w1, h0 / h1, w0 / w1, h0 / h1], dtype=torch.float32,

@@ -3,21 +3,32 @@
 Written from the published descriptions of the operations, not from the
 program under test: torchvision's ROIAlign (``aligned`` False or True, a
 fixed sampling ratio) and greedy NMS, detectron2's anchor generator,
-``Box2BoxTransform`` and FPN level assignment. Each takes and returns fp32
-tensors; nothing here is fused, batched or cached.
+``Box2BoxTransform`` and FPN level assignment, and a convolution read from
+the weights by module name. Each takes and returns fp32 tensors; nothing
+here is fused, batched or cached.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SCALE_CLAMP = math.log(1000.0 / 16)  # Box2BoxTransform's clamp of dw, dh
 CANONICAL_BOX_SIZE = 224.0
 CANONICAL_LEVEL = 4
+
+
+def conv(x: torch.Tensor, w: Dict[str, torch.Tensor], name: str, stride: int = 1,
+         relu: bool = False) -> torch.Tensor:
+    """The convolution ``name`` of the weights ``w`` (``name.weight`` OIHW,
+    ``name.bias``), padded to keep the size at stride 1, and its ReLU."""
+    weight = w[f"{name}.weight"]
+    y = F.conv2d(x, weight, w[f"{name}.bias"], stride=stride, padding=weight.shape[-1] // 2)
+    return F.relu(y) if relu else y
 
 
 def cell_anchors(sizes: Sequence[float], ratios: Sequence[float]) -> torch.Tensor:
