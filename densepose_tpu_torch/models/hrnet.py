@@ -60,6 +60,7 @@ from ..ops.norms import conv_bn
 from ..ops.resize import resize_bilinear
 from ..parallel.halo import (RowSlabs, avg_pool_rows, conv_rows, link_rows,
                              upsample_bilinear_rows, upsample_nearest_rows)
+from ..utils.timing import span
 
 _BN_SUFFIXES = ("weight", "bias", "running_mean", "running_var")
 STEM_WIDTH = 64     # the stem's two convs
@@ -464,8 +465,16 @@ class HRFPN(nn.Module):
     def forward(self, x: torch.Tensor, calib=None, stat: str = "max") -> Dict[str, torch.Tensor]:
         """In int8 mode the two full-resolution convs (the 1x1 reduction and
         p1's 3x3) run through Q1 to the compute dtype; the pooled levels stay
-        fp. ``calib``: the fp walk, appending statistics."""
-        feats = self.bottom_up(x, calib, stat)
+        fp. ``calib``: the fp walk, appending statistics. The body runs in
+        the span ``hrnet``, the neck in ``hrfpn``."""
+        with span("hrnet"):
+            feats = self.bottom_up(x, calib, stat)
+        with span("hrfpn"):
+            return self._neck(feats, calib, stat)
+
+    def _neck(self, feats: List[torch.Tensor], calib, stat: str) -> Dict[str, torch.Tensor]:
+        """HRFPN on the four branches: the upsamples, the concat, the
+        reduction, the pyramid and the level convs."""
         hw = tuple(feats[0].shape[-2:])
         ups = [feats[0]] + [resize_bilinear(f, hw, scale=(float(2 ** i), float(2 ** i)))
                             for i, f in enumerate(feats[1:], 1)]

@@ -158,18 +158,25 @@ def resize_bilinear(
 ) -> torch.Tensor:
     """Bilinear resize of an NCHW tensor to ``out_hw``; ``scale`` mirrors
     torch's scale_factor mode (the coordinate ratio is then 1/scale). A
-    scale of (2, 2) is ``upsample2x``: kernel U1 on a CUDA tensor."""
-    if scale is None:
-        return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
-                             align_corners=False)
-    if tuple(scale) == (2.0, 2.0):
+    scale of (2, 2) is ``upsample2x``: kernel U1 on a CUDA tensor. Every
+    other call is PyTorch's ``F.interpolate`` and counts one in
+    ``resize_bilinear.library_calls``, on any device."""
+    if scale is not None and tuple(scale) == (2.0, 2.0):
         y = upsample2x(x)
     else:
+        if not torch.compiler.is_compiling():
+            resize_bilinear.library_calls += 1
+        if scale is None:
+            return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                                 align_corners=False)
         y = F.interpolate(x, scale_factor=tuple(scale), mode="bilinear",
                           align_corners=False)
     if tuple(y.shape[-2:]) != tuple(out_hw):
         raise ValueError(f"scale {scale} gives {tuple(y.shape[-2:])}, not {out_hw}")
     return y
+
+
+resize_bilinear.library_calls = 0
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
