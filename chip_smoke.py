@@ -60,6 +60,14 @@ toolkit. Phases, each of which fails the run:
    its time beside its bound, the plain version's and F.interpolate's
    (library_ms), which the port no longer calls there; its six
    instantiations with no stack frame or spills;
+   Then E1 (a conv's bias and ReLU in one pass over a channels-last tensor)
+   at float16 at the DensePose head's activations of a batch of 8 frames of
+   both head sizes (800 x 512 at 28x28 and 14x14), in place, into NCHW (the
+   stack's exit) and as the channels-last copy of the pooled input (its
+   entry): bit-identical to its plain version and to PyTorch's (F.relu(y +
+   b), the layout copy), two runs equal, its time beside its byte bound, the
+   plain version's and what the head ran before (library_ms); its eight
+   instantiations with no stack frame or spills;
 4. paths, each at full width with random weights from seed 0: a
    DensePosePredictor answers a warm-up request and then distinct synthetic
    frames; outputs finite and of the expected shapes; the kernels' launch
@@ -68,7 +76,11 @@ toolkit. Phases, each of which fails the run:
    counts launches also counts U1's: u1_per_call gives a forward's from the
    configuration, 4 for the chart predictor, 2 for the CSE predictor, one a
    decoder conv that upsamples, 6 on the flagship, and 1 for HRFPN; every
-   held request holds each U1 call against its plain version bit for bit);
+   held request holds each U1 call against its plain version bit for bit;
+   and E1's: e1_per_call gives a forward's, 8 for a float DensePose head of
+   bias convs with no norm at a half dtype, 0 for int8 and GN heads and at
+   float32, with one channels-last copy beside them; every held request
+   holds each E1 call and copy bit for bit);
    then one more request
    under torch.profiler gives the device time of each stage range the model
    marks, the three device kernels that take the most time in the RPN and
@@ -327,7 +339,7 @@ K3_K2_TOL = 2e-5  # K3 sums the taps in another order (tests/test_ops.py:625)
 LONG_K = 16384    # K1: the most boxes a problem the register scan takes
 SOURCES = {"nms_keep_cuda": "nms", "roi_align_cuda": "roi_align",
            "roi_align_sparse_cuda": "roi_align_sparse", "conv_s8_cuda": "conv_s8",
-           "upsample2x_cuda": "upsample2x"}
+           "upsample2x_cuda": "upsample2x", "bias_relu_cuda": "bias_relu"}
 HALF = ("float16", "bfloat16")  # TPU.COMPUTE_DTYPE's half types
 EPS = {"float16": 2.0 ** -10, "bfloat16": 2.0 ** -7}  # a unit in the last place at 1
 FP16_MAX = 65504.0
@@ -389,10 +401,13 @@ def ulp(dtype, t):
 
 def entry_name(kernel, dtype):
     """The kernels line's entry of a kernel at a compute dtype: K1 takes fp32
-    boxes and Q1 s8 activations at every dtype (one entry each); U1 one
-    entry, its sites timed at float16 and its launches counted at every
-    dtype; K2 and K3 one entry a dtype."""
-    one = ("nms_keep_cuda", "conv_s8_cuda", "upsample2x_cuda")
+    boxes and Q1 s8 activations at every dtype (one entry each); U1 and E1
+    one entry each, their sites timed at float16 and their launches counted
+    at every dtype (E1's with its transposing copy's, channels_last_cuda);
+    K2 and K3 one entry a dtype."""
+    if kernel == "channels_last_cuda":
+        kernel = "bias_relu_cuda"
+    one = ("nms_keep_cuda", "conv_s8_cuda", "upsample2x_cuda", "bias_relu_cuda")
     return kernel if dtype == "float32" or kernel in one else f"{kernel}[{dtype}]"
 
 
@@ -979,11 +994,14 @@ def path_params(cfg, dev):
 
 def counters():
     """Each kernel wrapper, whose ``launches`` counts its kernel's launches."""
-    from densepose_tpu_torch.ops import conv_int8, nms, resize, roi_align, roi_align_sparse
+    from densepose_tpu_torch.ops import (bias_relu, conv_int8, nms, resize, roi_align,
+                                         roi_align_sparse)
     return {"nms_keep_cuda": nms.nms_keep_cuda, "roi_align_cuda": roi_align.roi_align_cuda,
             "roi_align_sparse_cuda": roi_align_sparse.roi_align_sparse_cuda,
             "conv_s8_cuda": conv_int8.conv_s8_cuda,
-            "upsample2x_cuda": resize.upsample2x_cuda}
+            "upsample2x_cuda": resize.upsample2x_cuda,
+            "bias_relu_cuda": bias_relu.bias_relu_cuda,
+            "channels_last_cuda": bias_relu.channels_last_cuda}
 
 
 def u1_per_call(cfg, rows=False):
@@ -1011,23 +1029,47 @@ def with_u1(per_request, cfg, forwards=1, rows=False):
     return dict(per_request, **{"upsample2x_cuda": forwards * u1_per_call(cfg, rows)})
 
 
+def e1_per_call(cfg):
+    """E1's in-place and exit passes (bias_relu_cuda) in one forward of
+    ``cfg``'s model, of a request or a batch: one a stacked conv of a float
+    DensePose head whose convs have a bias and no norm, at a half dtype on
+    the card (StackedHead.takes_bias_relu: V1ConvX, DeepLab with NORM "" or
+    "FrozenBN"); 0 for an int8 head, a GN DeepLab head, float32 and a model
+    without DensePose."""
+    h = cfg.MODEL.ROI_DENSEPOSE_HEAD
+    if (not cfg.MODEL.DENSEPOSE_ON or cfg.TPU.INT8_HEAD or cfg.TPU.COMPUTE_DTYPE not in HALF
+            or (h.NAME == "DensePoseDeepLabHead" and h.DEEPLAB.NORM == "GN")):
+        return 0
+    return h.NUM_STACKED_CONVS
+
+
+def with_e1(per_request, cfg, forwards=1):
+    """``per_request`` with E1's launches of ``forwards`` forwards a request:
+    e1_per_call's passes, and the channels-last copy of the head's input
+    (channels_last_cuda) once a forward that runs them."""
+    n = e1_per_call(cfg)
+    return dict(per_request, **{E1: forwards * n, "channels_last_cuda": forwards * (n > 0)})
+
+
 def count_launches(report, tag, dtype, launches, per_request, n_req, what="requests"):
     """Checks a run's launches against ``per_request`` for ``n_req`` requests
-    and adds them to the kernels line."""
+    and adds them to the kernels line (E1's entry sums its two wrappers')."""
     for k, n in per_request.items():
         check(launches[k] == n * n_req, f"{tag}: {launches[k]} {k} launches for {n_req} "
               f"{what}, expected {n} per request")
-        report[entry_name(k, dtype)]["launches"] += launches[k]
-        report[entry_name(k, dtype)]["launches_per_path"][tag] = launches[k]
+        entry = report[entry_name(k, dtype)]
+        entry["launches"] += launches[k]
+        entry["launches_per_path"][tag] = entry["launches_per_path"].get(tag, 0) + launches[k]
 
 
 class HeldAgainstPlain:
-    """Within the block, each K1, K2, K3, Q1 and U1 launch a path makes is
+    """Within the block, each K1, K2, K3, Q1, U1 and E1 launch a path makes is
     held against its plain version on the same inputs, as kernel_checks holds
     its sites: K1's keep flags exact, K2 bit-identical (ratio 0: within K2_TOL,
     or one unit in the last place of a half dtype), K3 within K3_TOL of the
     output's largest magnitude above 1 (one unit in the last place of a half
-    dtype), Q1 and U1 bit-identical; a batch's poolers
+    dtype), Q1 and U1 bit-identical, E1 bit for bit (signed zeros too; its
+    channels-last copy against the input's values); a batch's poolers
     with their frame index. The wrappers are swapped in the modules that
     dispatch to them and restored on exit; the launches in the block are
     counted on the held wrappers, apart, and not read. ``keep``: also keep
@@ -1037,16 +1079,21 @@ class HeldAgainstPlain:
         self.torch, self.what, self.keep = torch, what, keep
         # (P, K, classed); (M, first level (H, W), dtype, levels, frames) for K2
         # and K3; (M, K, N, (H, W), variant, transposed); (N, C, H, W, dtype)
+        # for U1, E1 (with its output's layout) and its channels-last copy
         self.k1, self.k2, self.k3, self.q1, self.u1 = [], [], [], [], []
+        self.e1, self.cl = [], []
         self.calls = {"k1": [], "k2": [], "k3": [], "q1": []}
 
     def __enter__(self):
-        from densepose_tpu_torch.ops import conv_int8, nms, resize, roi_align, roi_align_sparse
+        from densepose_tpu_torch.ops import (bias_relu, conv_int8, nms, resize, roi_align,
+                                             roi_align_sparse)
         torch, what = self.torch, self.what
-        self.mods = (nms, roi_align, roi_align_sparse, conv_int8, resize)
-        self.orig = k1, k2, k3, q1, u1 = (nms.nms_keep_cuda, roi_align.roi_align_cuda,
-                                          roi_align_sparse.roi_align_sparse_cuda,
-                                          conv_int8.conv_s8_cuda, resize.upsample2x_cuda)
+        self.mods = (nms, roi_align, roi_align_sparse, conv_int8, resize, bias_relu)
+        self.orig = k1, k2, k3, q1, u1, e1, cl = (
+            nms.nms_keep_cuda, roi_align.roi_align_cuda, roi_align_sparse.roi_align_sparse_cuda,
+            conv_int8.conv_s8_cuda, resize.upsample2x_cuda, bias_relu.bias_relu_cuda,
+            bias_relu.channels_last_cuda)
+        e1_plain = bias_relu.bias_relu_plain
 
         def kept(kind, *args, **kw):
             if self.keep:
@@ -1115,21 +1162,46 @@ class HeldAgainstPlain:
             self.u1.append(site)
             return out
 
+        def bits(t):
+            return t.view(torch.int16)
+
+        def held_e1(y, bias, out=None):
+            want = e1_plain(y, bias)  # before the pass, which may write y
+            got = e1(y, bias, out)
+            layout = "channels-last" if got.is_contiguous(
+                memory_format=torch.channels_last) else "NCHW"
+            site = (*y.shape, str(y.dtype).split(".")[-1], layout)
+            check(torch.equal(bits(got), bits(want)), f"{what}: E1 at {site}: differs from the "
+                  "plain version")
+            self.e1.append(site)
+            return got
+
+        def held_cl(x):
+            got = cl(x)
+            site = (*x.shape, str(x.dtype).split(".")[-1])
+            check(got.is_contiguous(memory_format=torch.channels_last)
+                  and torch.equal(bits(got), bits(x)), f"{what}: E1's channels-last copy at "
+                  f"{site}: not a channels-last copy of its input")
+            self.cl.append(site)
+            return got
+
         # a wrapper counts through its module's name, which is now the held
         # one's: the launches in the block land here and are not read
         held_k1.launches = held_k2.launches = held_k3.launches = held_q1.launches = 0
-        held_u1.launches = 0
+        held_u1.launches = held_e1.launches = held_cl.launches = 0
         held_q1.variant_launches = dict.fromkeys(conv_int8.Q1_VARIANTS, 0)
         nms.nms_keep_cuda, roi_align.roi_align_cuda = held_k1, held_k2
         roi_align_sparse.roi_align_sparse_cuda = held_k3
         conv_int8.conv_s8_cuda, resize.upsample2x_cuda = held_q1, held_u1
+        bias_relu.bias_relu_cuda, bias_relu.channels_last_cuda = held_e1, held_cl
         return self
 
     def __exit__(self, *exc):
-        (nms, roi_align, roi_align_sparse, conv_int8, resize), (k1, k2, k3, q1, u1) = \
-            self.mods, self.orig
+        (nms, roi_align, roi_align_sparse, conv_int8, resize, bias_relu), \
+            (k1, k2, k3, q1, u1, e1, cl) = self.mods, self.orig
         nms.nms_keep_cuda, roi_align.roi_align_cuda, conv_int8.conv_s8_cuda = k1, k2, q1
         roi_align_sparse.roi_align_sparse_cuda, resize.upsample2x_cuda = k3, u1
+        bias_relu.bias_relu_cuda, bias_relu.channels_last_cuda = e1, cl
         return False
 
     def summary(self):
@@ -1150,7 +1222,11 @@ class HeldAgainstPlain:
         u1 = (f", {len(self.u1)} U1 calls (planes "
               f"{sorted({tuple(k[2:4]) for k in self.u1})}, N x C up to "
               f"{max(n * c for n, c, *_ in self.u1)})") if self.u1 else ""
-        return f"{k1} and {k2}{q1}{u1} equal to their plain versions (K3 within its bound)"
+        e1 = (f", {len(self.e1)} E1 calls ({sum(k[-1] == 'NCHW' for k in self.e1)} into NCHW, "
+              f"M {sorted({k[0] for k in self.e1})}, planes "
+              f"{sorted({tuple(k[2:4]) for k in self.e1})}, {sorted({k[4] for k in self.e1})}) "
+              f"and {len(self.cl)} channels-last copies") if self.e1 or self.cl else ""
+        return f"{k1} and {k2}{q1}{u1}{e1} equal to their plain versions (K3 within its bound)"
 
 
 # (zoo name, config changes, DENSEPOSE_TPU_SPARSE_POOLER set, launches per request)
@@ -1222,7 +1298,8 @@ def drive_path(torch, report, dev, name, extra, sparse, per_request, prepare=Non
 
     n_req = len(timed)
     dtype = path_dtype(extra)
-    count_launches(report, tag, dtype, launches, with_u1(per_request, cfg), n_req)
+    count_launches(report, tag, dtype, launches, with_e1(with_u1(per_request, cfg), cfg),
+                   n_req)
     if per_request.get(Q1):
         check(sum(q1_variants.values()) == launches[Q1], f"{tag}: Q1's variant counts "
               f"{q1_variants} do not add up to its {launches[Q1]} launches")
@@ -1533,7 +1610,8 @@ def consumer(torch, report, pred, name, per_request, dtype="float32"):
     stream_ms = (time.perf_counter() - t0) * 1e3 / len(imgs)
     launches = {k: fn.launches for k, fn in counters().items()}
     count_launches(report, f"{name} {dtype} consumer", dtype, launches,
-                   with_u1(per_request, pred.cfg), len(imgs), "streamed frames")
+                   with_e1(with_u1(per_request, pred.cfg), pred.cfg), len(imgs),
+                   "streamed frames")
     check(len(overlays) == len(rec.outs) == len(imgs), f"consumer {name}: {len(overlays)} "
           f"overlays for {len(imgs)} frames")
 
@@ -1993,8 +2071,8 @@ def batch_run(torch, report, pred, tag, dtype, b, per_batch, seed):
             outs.append(out)
         launches = {k: fn.launches for k, fn in counters().items()}
     check(plain.calls == 0, f"batch {tag} B={b}: {plain.calls} plain-version calls")
-    count_launches(report, f"{tag} batch {b}", dtype, launches, with_u1(per_batch, pred.cfg),
-                   len(timed), "batches")
+    count_launches(report, f"{tag} batch {b}", dtype, launches,
+                   with_e1(with_u1(per_batch, pred.cfg), pred.cfg), len(timed), "batches")
     peak = torch.cuda.max_memory_allocated() / 2**20
     ms = float(np.median(lat))
     cfg = pred.cfg
@@ -2580,12 +2658,13 @@ def cse_phase(torch, report, dev):
     out = pred.numpy_outputs(pred(img), keys=keys)
     launches = {k: fn.launches for k, fn in counters().items()}
     count_launches(report, f"{CSE} CSE consumer, tamed weights", "float32", launches,
-                   with_u1(ON_K2, cfg), 1)
+                   with_e1(with_u1(ON_K2, cfg), cfg), 1)
     with HeldAgainstPlain(torch, "CSE") as held:
         pred(img)
         torch.cuda.synchronize()
-    check(len(held.k1) == 2 and len(held.k2) == 2 and len(held.u1) == u1_per_call(cfg),
-          f"cse: held {len(held.k1)} K1, {len(held.k2)} K2 and {len(held.u1)} U1 calls")
+    check(len(held.k1) == 2 and len(held.k2) == 2 and len(held.u1) == u1_per_call(cfg)
+          and len(held.e1) == e1_per_call(cfg), f"cse: held {len(held.k1)} K1, "
+          f"{len(held.k2)} K2, {len(held.u1)} U1 and {len(held.e1)} E1 calls")
     print(f"held: one {CSE} request on tamed weights, {held.summary()}")
     n = out["num_instances"]
     check(n >= 1, "cse: no detections")
@@ -2746,7 +2825,7 @@ def geometry_phase(torch, report, dev):
         if pred is geo:
             launches = {k: fn.launches for k, fn in counters().items()}
     count_launches(report, f"{FLAGSHIP} geometry-bucketed", "float32", launches,
-                   with_u1(ON_K2, geo.cfg), len(imgs) * GEOMETRY_REPEATS)
+                   with_e1(with_u1(ON_K2, geo.cfg), geo.cfg), len(imgs) * GEOMETRY_REPEATS)
     worst = [0, 0.0, 0.0]
     for i, img in enumerate(imgs):
         g, p = geo.numpy_outputs(outs[geo][i]), plain.numpy_outputs(outs[plain][i])
@@ -2855,8 +2934,8 @@ def detection_bucket_phase(torch, report, dev):
         check(out["pred_densepose_u"].shape[0] == pred.stage2_bucket(n),
               f"buckets: a request of {n} detections has {out['pred_densepose_u'].shape[0]} rows")
     count_launches(report, f"{FLAGSHIP} BUCKETED_DENSEPOSE", "float32",
-                   {k: fn.launches for k, fn in counters().items()}, with_u1(ON_K2, pred.cfg),
-                   n_req)
+                   {k: fn.launches for k, fn in counters().items()},
+                   with_e1(with_u1(ON_K2, pred.cfg), pred.cfg), n_req)
     print("buckets: forced counts on one fp32 request's features: "
           + "; ".join(f"count {c}: TPU.BUCKETED_DENSEPOSE bucket {b} stage 2 {t:.3f} device ms, "
                       f"switched bucket {sb} {st:.3f} device ms, rows within {e:.2e} of the "
@@ -2893,8 +2972,9 @@ def tta_phase(torch, report, dev, dtype):
     pred = tta_predictor(torch, dev, (("TPU.COMPUTE_DTYPE", dtype),))
     views = len(pred.min_sizes) * (2 if pred.flip else 1)
     stage2 = len(pred.min_sizes) * (2 if pred.flip and pred.flip_segm else 1)
-    per_request = with_u1({"nms_keep_cuda": 2 * views + 1, "roi_align_cuda": 2 * views,
-                           "roi_align_sparse_cuda": 0}, pred.base.cfg, stage2)
+    per_request = with_e1(with_u1({"nms_keep_cuda": 2 * views + 1, "roi_align_cuda": 2 * views,
+                                   "roi_align_sparse_cuda": 0}, pred.base.cfg, stage2),
+                          pred.base.cfg, stage2)
     warm, *timed = frames(3, 1 + TTA_TIMED)
     pred(warm)
     torch.cuda.synchronize()
@@ -3287,6 +3367,102 @@ def u1_checks(torch, report, dev):
     }
 
 
+E1 = "bias_relu_cuda"
+E1_SOURCE = "densepose_tpu_torch/csrc/bias_relu.cu"
+E1_REPLACES = ("none (port-only): the JAX package leaves a conv's bias and ReLU to XLA's "
+               "conv fusion; PyTorch's broadcast add and clamp, and cuDNN's layout "
+               "transposes, in the port before")
+# the DensePose head of a batch of 8 frames of 100 boxes: (cells, rows, the
+# pooled input's channels, the convs' width, resolution); a batch makes one
+# channels-last copy of the input (entry), 7 in-place E1 passes and one E1
+# into NCHW (exit)
+E1_HEADS = [("r50_fpn_s1x_f16.cams8, hrnet_w48_f16.cams8", 800, 256, 512, 28),
+            ("r101_fpn_legacy_f16.cams8", 800, 256, 512, 14)]
+
+
+def e1_checks(torch, report, dev):
+    """E1 at the DensePose head's shapes of the cells, at float16 (the cells'
+    dtype), each form: in place on a channels-last tensor, into NCHW (the
+    stack's exit) and, without a bias, the channels-last copy of the pooled
+    input (the entry). Each bit-identical to its plain version (the exit and
+    the in-place pass also to F.relu(y + b), the entry to PyTorch's copy),
+    two runs equal; its time (CUDA events, device events) beside its bound
+    (bytes: each element read once and written once, at 3.35 TB/s), the
+    plain version's, and what the port ran before (``library_ms``: the NCHW
+    add_ + F.relu of the head before; PyTorch's layout copy at the ends);
+    each head's sum a batch."""
+    import torch.nn.functional as F
+    from densepose_tpu_torch.ops import bias_relu
+    g = torch.Generator(device=dev).manual_seed(0)
+    cl = torch.channels_last
+    groups = []
+    for cells, rows, cin, width, res in E1_HEADS:
+        y = (torch.randn((rows, width, res, res), generator=g, device=dev) * 4).half()
+        b = (torch.randn(width, generator=g, device=dev) * 2).half()
+        y = y.contiguous(memory_format=cl)
+        x = torch.randn((rows, cin, res, res), generator=g, device=dev).half()
+        want = F.relu(y + b.view(1, -1, 1, 1))
+        nchw = lambda: torch.empty(y.shape, dtype=y.dtype, device=dev)
+        yt, yn = y.clone(), y.contiguous()  # the timed in-place passes' copies
+        forms = [  # (form, launch, its plain version, library yardstick, calls a batch)
+            ("in place", lambda: bias_relu.bias_relu_cuda(y.clone(), b),
+             lambda: bias_relu.bias_relu_plain(y, b), want, 7,
+             lambda: bias_relu.bias_relu_cuda(yt, b),
+             lambda: F.relu(yn.add_(b.view(1, -1, 1, 1)))),
+            ("into NCHW (exit)", lambda: bias_relu.bias_relu_cuda(y, b, out=nchw()),
+             lambda: bias_relu.bias_relu_plain(y, b).contiguous(), want.contiguous(), 1,
+             lambda: bias_relu.bias_relu_cuda(y, b, out=nchw()), lambda: y.contiguous()),
+            ("channels-last copy (entry)", lambda: bias_relu.channels_last_cuda(x),
+             lambda: x.contiguous(memory_format=cl), x.contiguous(memory_format=cl), 1,
+             lambda: bias_relu.channels_last_cuda(x),
+             lambda: x.contiguous(memory_format=cl))]
+        entries = []
+        for form, once, plain, library_out, calls, launch, library in forms:
+            got, again = once(), once()
+            torch.cuda.synchronize()
+            check(torch.equal(got.view(torch.int16), again.view(torch.int16)),
+                  f"E1 {cells} {form}: two runs differ")
+            check(got.is_contiguous(memory_format=torch.contiguous_format if "NCHW" in form
+                                    else cl), f"E1 {cells} {form}: output layout")
+            check(torch.equal(got.view(torch.int16), library_out.view(torch.int16)),
+                  f"E1 {cells} {form}: differs from PyTorch's")
+            check(torch.equal(got, plain()), f"E1 {cells} {form}: differs from the plain version")
+            del got, again
+            t = launch()
+            shape = tuple(t.shape)
+            ms, dev_ms = cuda_ms(launch, reps=50), device_ms(torch, launch)
+            plain_ms = cuda_ms(plain, reps=3, warmup=1)
+            lib_ms = cuda_ms(library, reps=5, warmup=1)
+            bound_ms, bound_by = bound(2 * t.numel() * t.element_size(), 0)
+            del t
+            entries.append({"site": f"{cells} head: {form}", "shape": list(shape),
+                            "calls": calls, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": lib_ms})
+            print(f"E1 {cells} head, {form}: {'x'.join(map(str, shape))} float16, "
+                  f"bit-identical to the plain version and PyTorch's, two runs equal: "
+                  f"{ms:.4f} ms [{dev_ms:.4f}], bound {bound_ms:.6f} ({bound_by}, "
+                  f"{100 * bound_ms / dev_ms:.1f}% of it), plain {plain_ms:.4f}, before "
+                  f"{lib_ms:.4f}; {calls} a batch")
+            torch.cuda.empty_cache()
+        del y, yt, yn, x, want
+        torch.cuda.empty_cache()
+        total = {k: sum(e[k] * e["calls"] for e in entries)
+                 for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+        print(f"E1 {cells} head, a batch: {total['ms']:.4f} ms [{total['device_ms']:.4f}], "
+              f"bound {total['bound_ms']:.6f} ({100 * total['bound_ms'] / total['device_ms']:.1f}"
+              f"% of it), plain {total['plain_ms']:.4f}, before {total['library_ms']:.4f}")
+        groups.append((entries, total))
+    report[entry_name(E1, "float16")] = {
+        "name": entry_name(E1, "float16"), "route": "cuda", "source": E1_SOURCE,
+        "replaces": E1_REPLACES,
+        "check": "bit-identical to the plain version and PyTorch's, two runs equal",
+        "launches": 0, "launches_per_path": {}, "max_abs_err": 0.0,
+        **groups[0][1], "bound_by": "bytes", "dtype": "float16",
+        "sites": [e for es, _ in groups for e in es],
+    }
+
+
 def q1_per_request(pred):
     """Q1 launches a request of a calibrated predictor: one a quantized conv,
     but the four chart deconvs share one launch and the RPN conv takes one a
@@ -3576,7 +3752,8 @@ class CountPlain:
     the card must make none."""
 
     NAMES = (("nms", "nms_keep_plain"), ("roi_align", "roi_align_plain"),
-             ("roi_align_sparse", "roi_align_sparse_plain"), ("conv_int8", "conv_s8_plain"))
+             ("roi_align_sparse", "roi_align_sparse_plain"), ("conv_int8", "conv_s8_plain"),
+             ("bias_relu", "bias_relu_plain"))
 
     def __enter__(self):
         import importlib
@@ -3725,8 +3902,9 @@ def aot_program(torch, report, dev, tmp, tag, pred, per_request, sparse=False):
               f"{eb:.3f} ms of {pw:.3f} / {ew:.3f} ms wall, {pn} / {en} device events; "
               "largest differences by kernel (ms): " + "; ".join(
                   f"{k} {pk.get(k, 0.0):.3f} / {ek.get(k, 0.0):.3f}" for k in delta[:4]))
-    count_launches(report, f"aot {tag}", path_dtype(()), launches, with_u1(per_request, pred.cfg),
-                   AOT_TIMED, "program requests")
+    count_launches(report, f"aot {tag}", path_dtype(()), launches,
+                   with_e1(with_u1(per_request, pred.cfg), pred.cfg), AOT_TIMED,
+                   "program requests")
     print(f"aot {tag}: aot_export_bytes {export_s:.2f} s, {os.path.getsize(path) / 2**20:.1f} "
           f"MiB .pt2 ({len(consts)} constants, {on_host} on the host), aot_load {load_s:.2f} s; "
           f"{AOT_TIMED} requests of the program "
@@ -3928,7 +4106,7 @@ def spatial_run(torch, report, pred, tag, dtype, kind, devices, per_request, bac
     stats = fwd.stats.as_dict()
     peaks = {f"cuda:{c}": torch.cuda.max_memory_allocated(c) / 2**20 for c in cards}
     check(plain.calls == 0, f"{what}: {plain.calls} plain-version calls")
-    expected = with_u1(per_request, pred.cfg, rows=True)
+    expected = with_e1(with_u1(per_request, pred.cfg, rows=True), pred.cfg)
     if kind == "int8":  # every shard owns rows at every level of a 480x640 frame
         expected[Q1] = q1_per_request(pred) + (n - 1) * backbone_q1
     count_launches(report, what, dtype, launches, expected, len(timed))
@@ -3948,8 +4126,10 @@ def spatial_run(torch, report, pred, tag, dtype, kind, devices, per_request, bac
         torch.cuda.synchronize()
     pooled = held.k3 if SPARSE_POOLER in os.environ else held.k2
     check(len(held.k1) == 2 and len(pooled) == 2 and len(held.q1) == expected[Q1]
-          and len(held.u1) == expected[U1], f"{what}: held {len(held.k1)} K1, {len(held.k2)} "
-          f"K2, {len(held.k3)} K3, {len(held.q1)} Q1 and {len(held.u1)} U1 calls")
+          and len(held.u1) == expected[U1] and len(held.e1) == expected[E1]
+          and len(held.cl) == expected["channels_last_cuda"], f"{what}: held "
+          f"{len(held.k1)} K1, {len(held.k2)} K2, {len(held.k3)} K3, {len(held.q1)} Q1, "
+          f"{len(held.u1)} U1, {len(held.e1)} E1 calls and {len(held.cl)} channels-last copies")
     print(f"held: one {what} request, {held.summary()}")
     if keep:
         qw = pred.model.backbone.fpn_output2.qweight
@@ -4079,7 +4259,8 @@ def new_backbone_path(torch, report, dev, tag, cfg, params, per_request, smi,
         launches = {k: fn.launches for k, fn in counters().items()}
         variants = dict(counters()[Q1].variant_launches)
     check(plain.calls == 0, f"{tag}: {plain.calls} plain-version calls")
-    count_launches(report, tag, dtype, launches, with_u1(per_request, cfg), len(timed))
+    count_launches(report, tag, dtype, launches, with_e1(with_u1(per_request, cfg), cfg),
+                   len(timed))
     if per_request[Q1]:
         report[Q1]["variant_launches_per_path"][tag] = variants
     peak = torch.cuda.max_memory_allocated() / 2**20
@@ -4338,7 +4519,7 @@ def unfolded_path(torch, report, dev, name, smi):
         busy[tag] = breakdown(torch, pred, imgs[0], float(np.median(ts)))
         if tag == "unfolded":
             count_launches(report, f"{name} unfolded FrozenBN", "float32", launches,
-                           with_u1(ON_K2, pred.cfg), len(imgs))
+                           with_e1(with_u1(ON_K2, pred.cfg), pred.cfg), len(imgs))
         lat[tag] = ts
         for out in got:
             check(int(out["num_instances"]) >= 1, f"unfolded {name} {tag}: no detections")
@@ -4440,8 +4621,9 @@ def heads_phase(torch, report, dev, flagship):
         with HeldAgainstPlain(torch, f"{tag} head", keep=True) as held, torch.inference_mode():
             out = head(*args)
             torch.cuda.synchronize()
-        check(len(held.k2) == 1 and not held.k1 and len(held.u1) == (tag == "keypoint"),
-              f"{tag} head: held {len(held.k2)} K2 and {len(held.u1)} U1 calls")
+        check(len(held.k2) == 1 and not held.k1 and len(held.u1) == (tag == "keypoint")
+              and not held.e1, f"{tag} head: held {len(held.k2)} K2, {len(held.u1)} U1 and "
+              f"{len(held.e1)} E1 calls")
         shape = (HEAD_BOXES, 28, 28) if tag == "mask" else (HEAD_BOXES, 17, 56, 56)
         check(tuple(out.shape) == shape and bool(torch.isfinite(out).all()),
               f"{tag} head: output {tuple(out.shape)}")
@@ -4587,7 +4769,10 @@ def main():
               f"build: {k['kernel']} has a stack frame or spills")
     check(len(ptxas["upsample2x"]) == 6, "build: U1 has 6 instantiations (float, __half, "
           f"__nv_bfloat16 x vector or scalar access), got {len(ptxas['upsample2x'])}")
-    for k in ptxas["upsample2x"]:
+    check(len(ptxas["bias_relu"]) == 8, "build: E1 has 8 instantiations (__half, "
+          "__nv_bfloat16 x in place with 16-byte or element access, transposing with or "
+          f"without a bias), got {len(ptxas['bias_relu'])}")
+    for k in ptxas["upsample2x"] + ptxas["bias_relu"]:
         check((k.get("stack"), k.get("spill_stores"), k.get("spill_loads")) == (0, 0, 0),
               f"build: {k['kernel']} has a stack frame or spills")
     check(len(ptxas["conv_s8"]) == 16, "build: Q1 has 16 instantiations (wgmma: tiles 64, 80, "
@@ -4605,6 +4790,7 @@ def main():
     kernel_checks(torch, cfg, report, dev)
     q1_checks(torch, report, dev, ptxas["conv_s8"])
     u1_checks(torch, report, dev)
+    e1_checks(torch, report, dev)
     lap("kernel checks")
     for entry in report.values():
         entry["ptxas"] = ptxas[SOURCES[entry["name"].split("[")[0]]]
@@ -4627,8 +4813,11 @@ def main():
                 torch.cuda.synchronize()
             check(len(held.k1) == 2 and len(held.k2) == 2
                   and sorted(k[3] for k in held.k2) == [1, 5]
-                  and len(held.u1) == u1_per_call(pred.cfg),
-                  f"{name} {dtype}: held {held.k1} K1, {held.k2} K2 and {held.u1} U1 calls")
+                  and len(held.u1) == u1_per_call(pred.cfg)
+                  and len(held.e1) == e1_per_call(pred.cfg)
+                  and len(held.cl) == (e1_per_call(pred.cfg) > 0),
+                  f"{name} {dtype}: held {held.k1} K1, {held.k2} K2, {held.u1} U1 and "
+                  f"{held.e1} E1 calls, {held.cl} channels-last copies")
             print(f"held: one {name} {dtype} request, {held.summary()}")
         del pred
         torch.cuda.empty_cache()

@@ -11,10 +11,12 @@ densepose_tpu/models/roi_heads.py), NCHW.
   for the legacy configs (``DECODER_ON=False``), multi-level ROIAlign over
   the FPN levels (K2, or K3 with ``DENSEPOSE_TPU_SPARSE_POOLER``).
 * DensePoseV1ConvXHead or DensePoseDeepLabHead (ASPP with GroupNorm, then
-  convs with GroupNorm, with a bias, or with FrozenBN folded in: DEEPLAB.NORM),
-  and the chart predictor's four separate deconv heads with a 2x
-  bilinear upsample; with ``TPU.EMIT_CONFIDENCES`` the WC predictors'
-  confidence heads too.
+  convs with GroupNorm, with a bias, or with FrozenBN folded in: DEEPLAB.NORM);
+  on the card at float16 or bfloat16 the stacked bias convs stay
+  channels-last, each conv's bias and ReLU one pass of kernel E1
+  (``stacked_bias_relu``, ``ops/bias_relu.py``); and the chart predictor's
+  four separate deconv heads with a 2x bilinear upsample; with
+  ``TPU.EMIT_CONFIDENCES`` the WC predictors' confidence heads too.
 * int8 serving (JAX roi_heads.py:350-416, 469-471, 510-560): with
   ``TPU.INT8_HEAD`` and calibrated scales installed, the stacked convs run as
   an s8 chain through kernel Q1 (``ops/conv_int8.py``; DeepLab: each GN link
@@ -43,6 +45,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..checkpoint.spec import Spec, conv_spec, conv_transpose_spec, gn_spec, linear_spec
+from ..ops.bias_relu import DTYPES as E1_DTYPES, bias_relu, to_channels_last
 from ..ops.boxes import apply_deltas
 from ..ops.conv_int8 import (act_stat, conv2d_int8, conv_s8, make_epilogue, link, quant_act_s8,
                              quantized, to_nchw, to_s8_nhwc)
@@ -306,10 +309,29 @@ def stacked_int8_chain(convs: List[nn.Module], x: torch.Tensor, norm: bool) -> t
     raise AssertionError("unreachable")
 
 
+def stacked_bias_relu(convs: List[nn.Module], x: torch.Tensor) -> torch.Tensor:
+    """The stacked bias convs, each followed by a ReLU, channels-last: x (M,
+    C, H, W) NCHW is copied channels-last once, each conv runs without its
+    bias (cuDNN's NHWC kernel, with no layout transpose in or out), and
+    kernel E1 adds the bias and takes the ReLU, in place, the last link's
+    into a new NCHW-contiguous output. E1 rounds as PyTorch's bias add and
+    ReLU do."""
+    x = to_channels_last(x.contiguous())
+    for i, conv in enumerate(convs):
+        y = F.conv2d(x, conv.weight, None, conv.stride, conv.padding, conv.dilation,
+                     conv.groups)
+        # cuDNN keeps the layout; PyTorch's own convolution (cuDNN off) gives NCHW
+        y = y.contiguous(memory_format=torch.channels_last)
+        x = bias_relu(y, conv.bias, nchw=i == len(convs) - 1)
+    return x
+
+
 class StackedHead(nn.Module):
-    """The stacked ``body_conv_fcn{i}`` convs of both heads, and their int8
-    routing (``TPU.INT8_HEAD``): the calibrated chain once ``body_conv_fcn1``
-    holds a quantized weight, dynamic quantization before."""
+    """The stacked ``body_conv_fcn{i}`` convs of both heads, and their routing:
+    int8 (``TPU.INT8_HEAD``) the calibrated chain once ``body_conv_fcn1``
+    holds a quantized weight, dynamic quantization before; the float convs
+    with a bias and no norm, on the card at a half dtype,
+    ``stacked_bias_relu``; everything else conv by conv, each then a ReLU."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -319,10 +341,25 @@ class StackedHead(nn.Module):
     def convs(self) -> List[nn.Module]:
         return [getattr(self, f"body_conv_fcn{i + 1}") for i in range(self.n)]
 
+    def takes_bias_relu(self, x: torch.Tensor, norm: bool) -> bool:
+        """Whether ``stack`` runs ``stacked_bias_relu``: float convs (not
+        int8), each a plain ``nn.Conv2d`` with a bias and no norm, on a CUDA
+        tensor of a half dtype. (A loop, not ``all`` over a list: torch.export
+        traces this inside ``torch.cond``, whose tracer refuses ``bool`` of a
+        list.)"""
+        if self.int8 or norm or self.n == 0:
+            return False
+        for conv in self.convs():
+            if type(conv) is not nn.Conv2d or conv.bias is None:
+                return False
+        return x.is_cuda and x.dtype in E1_DTYPES
+
     def stack(self, x: torch.Tensor, norm: bool = False) -> torch.Tensor:
         convs = self.convs()
         if self.int8 and quantized(convs[0]):
             return stacked_int8_chain(convs, x, norm)
+        if self.takes_bias_relu(x, norm):
+            return stacked_bias_relu(convs, x)
         for conv in convs:
             if self.int8:
                 x = conv2d_int8(x, conv.weight, conv.bias, padding=conv.padding)

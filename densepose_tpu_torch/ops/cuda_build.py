@@ -31,7 +31,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = {"nms": "nms.cu", "roi_align": "roi_align.cu",
            "roi_align_sparse": "roi_align_sparse.cu", "conv_s8": "conv_s8.cu",
-           "upsample2x": "upsample2x.cu"}
+           "upsample2x": "upsample2x.cu", "bias_relu": "bias_relu.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -5,6 +5,7 @@
     torch.ops.densepose_tpu_torch.roi_align_sparse  K3 (csrc/roi_align_sparse.cu)
     torch.ops.densepose_tpu_torch.conv_s8           Q1 (csrc/conv_s8.cu)
     torch.ops.densepose_tpu_torch.upsample2x        U1 (csrc/upsample2x.cu)
+    torch.ops.densepose_tpu_torch.bias_relu         E1 (csrc/bias_relu.cu)
 
 Each operator has a schema, a CUDA kernel (the op module's ``*_cuda``
 wrapper, which launches the hand-written kernel, counts the launch and raises
@@ -13,7 +14,7 @@ version) and a fake kernel that gives the output's shape and dtype without
 touching data. While ``torch.export`` traces, the routers the model calls
 (``nms.nms_keep``, ``roi_align.roi_align_multilevel`` / ``roi_align_single``,
 ``roi_align_sparse.roi_align_sparse``, ``conv_int8.conv_s8``,
-``resize.upsample2x``) call these
+``resize.upsample2x``, ``bias_relu.bias_relu``) call these
 operators, so each kernel call is one node of the exported program
 (``DensePosePredictor.aot_export_bytes``), and the dispatcher picks the
 kernel by the tensors' device when the program runs; loading a program needs
@@ -23,6 +24,9 @@ route ``resize_bilinear`` takes for CPU tensors, and not U1's plain version:
 on the CPU, PyTorch's float32 upsample rounds in one of two orders, chosen
 by the shape (tests/test_torch_upsample.py), so only ``F.interpolate`` itself
 makes a program on the CPU equal to the eager request at every shape.
+E1 works in place in the eager request; its operator returns a new tensor
+(its CUDA kernel writes E1's output into one), so a program holds no
+mutation.
 Eager calls go from the routers to the same wrappers directly: on an H100
 the dispatcher added more than 5 us of host time to a call of K2, K3 and Q1,
 whose arguments hold lists (PERF.md section 6; chip_smoke.py's
@@ -44,7 +48,7 @@ from typing import List, Optional
 
 import torch
 
-from . import conv_int8, nms, resize, roi_align, roi_align_sparse
+from . import bias_relu, conv_int8, nms, resize, roi_align, roi_align_sparse
 
 NAMESPACE = "densepose_tpu_torch"
 
@@ -168,3 +172,23 @@ def _upsample2x_fake(x):
 
 
 _register("upsample2x", _upsample2x_cpu, _upsample2x_cuda, _upsample2x_fake)
+
+
+# -- E1 ------------------------------------------------------------------------
+
+_LIB.define("bias_relu(Tensor y, Tensor bias) -> Tensor")
+
+
+def _bias_relu_cpu(y, bias):
+    return bias_relu.bias_relu_plain(y, bias)
+
+
+def _bias_relu_cuda(y, bias):
+    return bias_relu.bias_relu_cuda(y, bias, out=torch.empty_like(y))
+
+
+def _bias_relu_fake(y, bias):
+    return torch.empty_like(y)
+
+
+_register("bias_relu", _bias_relu_cpu, _bias_relu_cuda, _bias_relu_fake)

@@ -33,7 +33,7 @@ from densepose_tpu_torch import export, run  # noqa: E402
 from densepose_tpu_torch.checkpoint.transform import params_from_jax  # noqa: E402
 from densepose_tpu_torch.config import get_cfg  # noqa: E402
 from densepose_tpu_torch.models.rcnn import densepose_bucket  # noqa: E402
-from densepose_tpu_torch.ops import (conv_int8, nms, resize, roi_align,  # noqa: E402
+from densepose_tpu_torch.ops import (bias_relu, conv_int8, nms, resize, roi_align,  # noqa: E402
                                      roi_align_sparse)
 from densepose_tpu_torch.predictor import DensePosePredictor  # noqa: E402
 from tests.test_torch_pipeline import ATOL, RTOL, tiny_cfg  # noqa: E402
@@ -213,6 +213,7 @@ def test_opcheck(case):
              "conv_s8": lambda: conv_int8.conv_s8_plain(
                  *args[:4], stride=args[4], padding=args[5], dilation=args[6],
                  transposed=args[7], relu=args[8], out_kind=conv_int8.out_kind_of(args[9])),
-             "upsample2x": lambda: resize.upsample2x_plain(*args)}
+             "upsample2x": lambda: resize.upsample2x_plain(*args),
+             "bias_relu": lambda: bias_relu.bias_relu_plain(*args)}
     assert torch.equal(op(*args), plain[name]())
 

@@ -31,7 +31,18 @@ shapes, the flagship decoder's largest and edge shapes; on the int8 route's
 channel slices; refusing planes that are not contiguous; and its launches in
 a ``predict_batch`` of each benchmarked configuration.
 
-The five kernels as operators (``ops/library.py``): each through
+E1 (a conv's bias and ReLU in one pass, in place, channels-last) bit for
+bit against ``F.relu(y + b)`` and its plain version at float16 and bfloat16,
+at the two head shapes of the cells (800 x 512 at 28x28 and 14x14) and at
+ragged ones (C not a multiple of 8, misaligned, signed zeros, infinities
+and NaN), into another tensor too; its transposing form into NCHW, and
+without a bias as the channels-last copy, bit for bit; none launched for
+M = 0; refusing NCHW, strided, float32 and mismatched tensors; the float head on the card
+(``stacked_bias_relu``) against the conv-by-conv loop, NCHW-contiguous; and
+its launches in a ``predict_batch`` (8 on V1ConvX, 0 with ``TPU.INT8_HEAD``
+and on a GN DeepLab head).
+
+The six kernels as operators (``ops/library.py``): each through
 ``torch.ops.densepose_tpu_torch`` on CUDA tensors, one launch of its kernel a
 call, against its plain version as above, and ``torch.library.opcheck`` on
 the card; and a small flagship request exported as a program
@@ -98,7 +109,7 @@ import torch
 from densepose_tpu_torch.models.rcnn import image_tensor
 import torch.nn.functional as F
 
-from densepose_tpu_torch.ops import (conv_int8, cuda_build, nms, resize, roi_align,
+from densepose_tpu_torch.ops import (bias_relu, conv_int8, cuda_build, nms, resize, roi_align,
                                      roi_align_sparse)
 from torch_cases import (  # tests/ is on the path (rootdir insertion)
     BASIC_BLOCK, C4_DETECTION, C4_TAME, RETINANET, batched_pooler_cases, k1_edge_cases,
@@ -952,12 +963,209 @@ def test_u1_launches_a_predict_batch(cuda, name, launches):
     assert resize.upsample2x_cuda.launches - before == launches
 
 
+# the cells' head activations (800 rows: 8 frames of 100 boxes, 512 channels
+# at 28x28 and 14x14), then C not a multiple of 8, C of 8 and 16 (narrow
+# blocks), 1x1 planes, a single row
+E1_SHAPES = [(800, 512, 28, 28), (800, 512, 14, 14), (3, 13, 5, 7), (2, 8, 1, 1),
+             (4, 16, 9, 11), (1, 24, 1, 1), (5, 40, 3, 3)]
+E1_DTYPES = [torch.float16, torch.bfloat16]
+
+
+def e1_sample(shape, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed + sum(shape))
+    y = (torch.randn(shape, generator=g, device=device) * 4).to(dtype)
+    b = (torch.randn(shape[1], generator=g, device=device) * 2).to(dtype)
+    return y.contiguous(memory_format=torch.channels_last), b
+
+
+def same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", E1_DTYPES, ids=str)
+@pytest.mark.parametrize("shape", E1_SHAPES, ids=str)
+def test_e1_matches_relu_of_add(cuda, shape, dtype):
+    """E1 in place, one launch, bit for bit ``F.relu(y + b.view(1, -1, 1,
+    1))`` (PyTorch's bias add and ReLU) and its plain version, signed zeros,
+    infinities and NaN included; two runs the same bits."""
+    y, b = e1_sample(shape, dtype, cuda)
+    special = [-0.0, 0.0, float("inf"), float("-inf"), float("nan"), -1e-3]
+    torch.as_strided(y, (6,), (1,)).copy_(torch.tensor(special, dtype=dtype))
+    b[:1] = -0.0
+    want = torch.relu(y + b.view(1, -1, 1, 1))
+    plain = bias_relu.bias_relu_plain(y, b)
+    again = y.clone()
+    before = bias_relu.bias_relu_cuda.launches
+    got = bias_relu.bias_relu_cuda(y, b)
+    bias_relu.bias_relu_cuda(again, b)
+    torch.cuda.synchronize()
+    assert bias_relu.bias_relu_cuda.launches == before + 2
+    assert got.data_ptr() == y.data_ptr()
+    assert same_bits(got, want) and same_bits(got, plain) and same_bits(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", E1_DTYPES, ids=str)
+@pytest.mark.parametrize("shape", E1_SHAPES, ids=str)
+def test_e1_transposing_form(cuda, shape, dtype):
+    """E1 into an NCHW output (the stack's exit) is the in-place E1 made
+    NCHW-contiguous, bit for bit; without a bias (the stack's entry) it is
+    PyTorch's channels-last copy, bit for bit. One launch a call each."""
+    y, b = e1_sample(shape, dtype, cuda, seed=2)
+    want = bias_relu.bias_relu_plain(y, b).contiguous()
+    x = y.contiguous()
+    before = (bias_relu.bias_relu_cuda.launches, bias_relu.channels_last_cuda.launches)
+    out = bias_relu.bias_relu_cuda(y, b, out=torch.empty(shape, dtype=dtype, device=cuda))
+    copy = bias_relu.channels_last_cuda(x)
+    torch.cuda.synchronize()
+    assert (bias_relu.bias_relu_cuda.launches - before[0],
+            bias_relu.channels_last_cuda.launches - before[1]) == (1, 1)
+    assert out.is_contiguous() and same_bits(out, want)
+    assert copy.is_contiguous(memory_format=torch.channels_last) and same_bits(copy, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", E1_DTYPES, ids=str)
+def test_e1_writes_out_and_off_alignment(cuda, dtype):
+    """Into another tensor, leaving y as it is; and on a tensor whose storage
+    starts 2 bytes off a 16-byte boundary (the element-wise instantiation)."""
+    y, b = e1_sample((6, 64, 7, 5), dtype, cuda, seed=1)
+    keep = y.clone()
+    out = torch.empty_like(y)
+    assert bias_relu.bias_relu_cuda(y, b, out=out) is out
+    assert torch.equal(y, keep) and same_bits(out, bias_relu.bias_relu_plain(y, b))
+    flat = torch.empty(y.numel() + 1, dtype=dtype, device=cuda)[1:]
+    off = flat.view(6, 7, 5, 64).permute(0, 3, 1, 2)
+    off.copy_(y)
+    assert off.is_contiguous(memory_format=torch.channels_last) and off.data_ptr() % 16
+    assert same_bits(bias_relu.bias_relu_cuda(off, b), out)
+
+
+@pytest.mark.gpu
+def test_e1_no_rows(cuda):
+    """M = 0: each form returns its empty output without a launch."""
+    y, b = e1_sample((0, 512, 28, 28), torch.float16, cuda)
+    before = (bias_relu.bias_relu_cuda.launches, bias_relu.channels_last_cuda.launches)
+    assert bias_relu.bias_relu_cuda(y, b).shape == (0, 512, 28, 28)
+    assert bias_relu.bias_relu_cuda(y, b, out=torch.empty_like(y.contiguous())).shape == y.shape
+    assert bias_relu.channels_last_cuda(y.contiguous()).shape == y.shape
+    assert (bias_relu.bias_relu_cuda.launches, bias_relu.channels_last_cuda.launches) == before
+
+
+@pytest.mark.gpu
+def test_e1_refuses(cuda):
+    """NCHW, strided and float32 tensors, a bias of another size or dtype, an
+    output of another shape."""
+    y, b = e1_sample((2, 16, 4, 6), torch.float16, cuda)
+    for bad_y, bad_b, out in ((y.contiguous(), b, None), (y[:, :, :, ::2], b, None),
+                              (y.float(), b.float(), None), (y, b[:8], None),
+                              (y, b.bfloat16(), None), (y, b, torch.empty_like(y[:1])),
+                              (y, b, torch.empty_like(y).transpose(2, 3))):
+        with pytest.raises(ValueError):
+            bias_relu.bias_relu_cuda(bad_y, bad_b, out=out)
+    for bad in (y, y.contiguous()[:, :, ::2], y.float().contiguous()):
+        with pytest.raises(ValueError):
+            bias_relu.channels_last_cuda(bad)
+
+
+def full_width_head(name, dtype, device):
+    from densepose_tpu_torch.model_zoo import get_config
+    from densepose_tpu_torch.models.roi_heads import _HEADS
+    cfg = get_config(name)
+    torch.manual_seed(0)
+    h = _HEADS[cfg.MODEL.ROI_DENSEPOSE_HEAD.NAME](cfg).eval()
+    with torch.no_grad():
+        for conv in h.convs():
+            conv.weight.normal_(0, (2 / conv.weight[0].numel()) ** 0.5)
+            conv.bias.normal_(0, 0.5)
+    return h.to(device, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", E1_DTYPES, ids=str)
+@pytest.mark.parametrize("name,rows,res", [("densepose_rcnn_R_50_FPN_s1x", 800, 28),
+                                           ("densepose_rcnn_R_101_FPN_s1x_legacy", 800, 14)])
+def test_fp_head_on_card(cuda, name, rows, res, dtype):
+    """The float head at full width on the cells' rows: one channels-last
+    copy, then the eight convs with E1 (8 launches, the last into NCHW),
+    NCHW-contiguous out, equal to the conv-by-conv loop with ``F.relu`` bit
+    for bit: cuDNN runs the same fprop kernel on the channels-last input as
+    after its own transpose of an NCHW one, and E1 rounds as the bias add and
+    ReLU do."""
+    h = full_width_head(name, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(rows + res)
+    x = torch.randn((rows, 256, res, res), generator=g, device=cuda).to(dtype)
+    before = (bias_relu.bias_relu_cuda.launches, bias_relu.channels_last_cuda.launches)
+    with torch.no_grad():
+        got = h(x)
+        torch.cuda.synchronize()
+        launches = bias_relu.bias_relu_cuda.launches - before[0]
+        assert bias_relu.channels_last_cuda.launches - before[1] == 1
+        want = x
+        for conv in h.convs():
+            want = torch.relu(conv(want))
+    assert launches == len(h.convs()) == 8
+    assert got.dtype == dtype and got.shape == want.shape and got.is_contiguous()
+    assert same_bits(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,extra,launches", [
+    ("densepose_rcnn_R_50_FPN_s1x", (), 8),
+    ("densepose_rcnn_R_101_FPN_s1x_legacy", (), 8),
+    ("densepose_rcnn_R_50_FPN_s1x", (("TPU.INT8_HEAD", True),), 0),
+    ("densepose_rcnn_R_50_FPN_DL_s1x", (), 0),
+    ("densepose_rcnn_R_50_FPN_DL_s1x", (("MODEL.ROI_DENSEPOSE_HEAD.DEEPLAB.NORM", ""),), 8)])
+def test_e1_launches_a_predict_batch(cuda, name, extra, launches):
+    """``predict_batch`` at float16: one E1 launch a stacked conv of a float
+    bias head and one channels-last copy; none with ``TPU.INT8_HEAD`` (its
+    calibration walk included) or on DeepLab's GroupNorm convs."""
+    extra = ("TPU.COMPUTE_DTYPE", "float16", *[v for kv in extra for v in kv])
+    pred = small_zoo_predictor(cuda, name, extra)
+    frames = np.stack([(np.random.RandomState(s).rand(96, 128, 3) * 255).astype(np.uint8)
+                       for s in (42, 43)])
+    before = (bias_relu.bias_relu_cuda.launches, bias_relu.channels_last_cuda.launches)
+    pred.predict_batch(frames)
+    torch.cuda.synchronize()
+    assert (bias_relu.bias_relu_cuda.launches - before[0],
+            bias_relu.channels_last_cuda.launches - before[1]) == (launches, launches // 8)
+
+
+@pytest.mark.gpu
+def test_aot_program_runs_e1(cuda):
+    """A small float16 flagship request as an exported program: the head's
+    eight links are ``bias_relu`` operators (E1 into a new tensor, 8
+    launches a request), and the program computes the eager request's
+    detections exactly and its maps within 4 units in the last place of
+    float16 at their largest magnitude (cuDNN's transposed convolutions add
+    with atomics, and a float16 map rounds their sum)."""
+    from densepose_tpu_torch.predictor import DensePosePredictor
+    pred = small_flagship_predictor(cuda, "float16")
+    frame = (np.random.RandomState(21).rand(96, 136, 3) * 255).astype(np.uint8)
+    program = DensePosePredictor.aot_load(pred.aot_export_bytes(frame.shape[:2]))
+    want = pred(frame)
+    before = bias_relu.bias_relu_cuda.launches
+    got = program(frame)
+    torch.cuda.synchronize()
+    assert bias_relu.bias_relu_cuda.launches - before == 8
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        if k.startswith("pred_densepose_"):
+            tol = 4 * 2.0 ** -10 * float(v.float().abs().max())
+            np.testing.assert_allclose(got[k].float().cpu().numpy(), v.float().cpu().numpy(),
+                                       rtol=0, atol=tol, err_msg=k)
+        else:
+            assert torch.equal(got[k], v), k
+
+
 # -- the kernels as operators, and the exported program ------------------------
 
 OP_WRAPPERS = {"nms_keep": (nms, "nms_keep_cuda"), "roi_align": (roi_align, "roi_align_cuda"),
                "roi_align_sparse": (roi_align_sparse, "roi_align_sparse_cuda"),
                "conv_s8": (conv_int8, "conv_s8_cuda"),
-               "upsample2x": (resize, "upsample2x_cuda")}
+               "upsample2x": (resize, "upsample2x_cuda"),
+               "bias_relu": (bias_relu, "bias_relu_cuda")}
 
 
 @pytest.mark.gpu

@@ -154,7 +154,9 @@ def op_cases(seed=0):
     and at ratio 0 (adaptive); K3 at ratio 2; Q1 a 3x3 link to s8 with ReLU
     and a 4x4 stride-2 transposed convolution to float32; U1 on odd planes
     (at which PyTorch's float32 upsample rounds alike on the CPU and the
-    card)."""
+    card); E1 on a channels-last float16 tensor with C a multiple of 8 and
+    one that is not. A dict ``{"channels_last": array}`` stands for a
+    channels-last tensor."""
     rng = np.random.RandomState(seed)
     xy = rng.rand(2, 130, 2).astype(np.float32) * 40
     boxes = np.concatenate([xy, xy + 4 + rng.rand(2, 130, 2).astype(np.float32) * 20], -1)
@@ -171,6 +173,8 @@ def op_cases(seed=0):
     qb = rng.randint(-500, 500, (24,)).astype(np.int32)
     vec = (rng.rand(24) * 1e-3).astype(np.float32)
     maps = rng.randn(2, 5, 41, 37).astype(np.float32)
+    acts = [(rng.randn(3, c, 5, 7) * 4).astype(np.float16) for c in (24, 13)]
+    biases = [(rng.randn(c) * 2).astype(np.float16) for c in (24, 13)]
     return [("nms_keep", (boxes, valid, 0.5, None)),
             ("nms_keep", (boxes, valid, 0.5, classes)),
             ("roi_align", (feats, rois, levels, scales, [7, 7], 2, True)),
@@ -178,7 +182,9 @@ def op_cases(seed=0):
             ("roi_align_sparse", (feats, rois, levels, scales, [7, 7], 2, True)),
             ("conv_s8", (qx, qw, qb, vec, [1, 1], [1, 1], [1, 1], False, True, "int8")),
             ("conv_s8", (qx, qwt, None, vec, [2, 2], [1, 1], [1, 1], True, False, "float32")),
-            ("upsample2x", (maps,))]
+            ("upsample2x", (maps,)),
+            ("bias_relu", ({"channels_last": acts[0]}, biases[0])),
+            ("bias_relu", ({"channels_last": acts[1]}, biases[1]))]
 
 
 def op_args(args, device="cpu"):
@@ -187,6 +193,8 @@ def op_args(args, device="cpu"):
     import torch
 
     def conv(a):
+        if isinstance(a, dict):
+            return conv(a["channels_last"]).contiguous(memory_format=torch.channels_last)
         if isinstance(a, np.ndarray):
             return torch.from_numpy(a).to(device)
         if isinstance(a, list) and a and isinstance(a[0], np.ndarray):
